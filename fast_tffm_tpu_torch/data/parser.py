@@ -1,0 +1,226 @@
+"""libsvm-style line parsing — the ``fm_parser`` contract, host side.
+
+The reference's C++ ``fm_parser`` TF op turns a batch of text lines into a
+CSR batch: ``labels[B], sizes[B], feature_ids[nnz], feature_vals[nnz]``
+(SURVEY.md §2 and Appendix B). This module provides the same contract as a
+plain function over Python strings. A C++ implementation with the identical
+contract lives in ``_parser.cc`` (loaded via ctypes in ``cparser.py``);
+golden tests assert bit-identical outputs between the two.
+
+Line formats (SURVEY Appendix A data format):
+    FM :  <label> <fid>[:<fval>] ...
+    FFM:  <label> <field>:<fid>[:<fval>] ...
+``fval`` defaults to 1.0. ``fid`` is an integer < vocabulary_size unless
+``hash_feature_id``, in which case any string, MurmurHash64A'd mod
+``vocabulary_size`` (hashing.py).
+
+A copy of ``fast_tffm_tpu/data/parser.py`` (the pure-Python parser, which
+is what serving runs); tests/test_torch_data.py holds the two to the same
+arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from fast_tffm_tpu_torch.data.hashing import hash_feature
+
+# The libsvm separator set, pinned to the C++ parser's byte-level
+# ``is_ws`` (_parser.cc): space, tab, CR, VT, FF (+ newline, which never
+# appears inside a line). Python's bare str.split()/str.strip() would
+# additionally treat ASCII control separators (\x1c-\x1f) and Unicode
+# whitespace (\x85, \xa0, ...) as separators — inputs the C++ path
+# parses as token bytes — so the two paths would disagree on the same
+# line. Both sides use THIS set; tests/test_properties.py pins parity.
+WHITESPACE = " \t\r\n\v\f"
+_TOKEN_SPLIT = re.compile("[" + WHITESPACE + "]+")
+
+
+def split_tokens(line: str) -> List[str]:
+    """``line.split()`` restricted to the libsvm separator set."""
+    return [t for t in _TOKEN_SPLIT.split(line) if t]
+
+
+@dataclasses.dataclass
+class ParsedBlock:
+    """CSR batch: example e owns slice [poses[e], poses[e+1]) of the flat
+    arrays. Mirrors the reference op's outputs plus the cumsum the train
+    graph derives (SURVEY §3.1 ``poses = cumsum(sizes)``)."""
+    labels: np.ndarray        # f32 [B]
+    poses: np.ndarray         # i32 [B+1] row pointers
+    ids: np.ndarray           # i32 [nnz] row indices in [0, vocab)
+    vals: np.ndarray          # f32 [nnz]
+    fields: Optional[np.ndarray] = None   # i32 [nnz], FFM only
+
+    @property
+    def batch_size(self) -> int:
+        return len(self.labels)
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return np.diff(self.poses)
+
+
+class ParseError(ValueError):
+    pass
+
+
+def _strict_float(s: str) -> float:
+    """float(s) minus Python-only lexical extensions: PEP 515 underscore
+    separators ("1_0" == 10) and non-ASCII Unicode digits are not part
+    of the libsvm number format and the C++ parser (like the reference's
+    strtod) rejects them — golden parity requires the Python fallback to
+    reject them too."""
+    if "_" in s or not s.isascii():
+        raise ValueError(s)
+    return float(s)
+
+
+def _strict_int(s: str) -> int:
+    """int(s) minus PEP 515 underscores / Unicode digits (_strict_float)."""
+    if "_" in s or not s.isascii():
+        raise ValueError(s)
+    return int(s)
+
+
+def parse_lines(lines: Sequence[str], vocabulary_size: int,
+                hash_feature_id: bool = False,
+                field_aware: bool = False,
+                field_num: int = 0,
+                max_features_per_example: int = 0,
+                keep_empty: bool = False,
+                bad_lines: Optional[List[Tuple[int, str, str]]] = None
+                ) -> ParsedBlock:
+    """Parse a block of lines into a CSR batch.
+
+    ``max_features_per_example`` > 0 truncates overlong examples (static-
+    shape discipline; SURVEY §7 hard part #1). Blank lines are skipped,
+    unless ``keep_empty`` — then they become zero-feature examples with
+    label 0, preserving line alignment (predict owes one score per input
+    line, SURVEY §3.4).
+
+    ``bad_lines`` (not None) switches to TOLERANT mode — the per-line
+    failure surface of ``bad_line_policy = skip|quarantine``
+    (data/badlines.py): a line that would raise ``ParseError`` is
+    instead recorded as ``(lineno, raw_line, message)`` and produces no
+    example — except under ``keep_empty``, where it becomes a
+    zero-feature example so predict's one-score-per-input-line
+    alignment survives a bad line. The partial example the failing
+    line had accumulated is rolled back, so the CSR block holds only
+    whole, valid examples.
+    """
+    labels: List[float] = []
+    poses: List[int] = [0]
+    ids: List[int] = []
+    vals: List[float] = []
+    flds: List[int] = []
+
+    for lineno, line in enumerate(lines):
+        toks = split_tokens(line)
+        if not toks:
+            if keep_empty:
+                labels.append(0.0)
+                poses.append(len(ids))
+            continue
+        # Buffer marks for tolerant rollback: a ParseError can fire
+        # mid-line with a label and a prefix of the line's tokens
+        # already appended; the block must hold only whole examples.
+        n_labels, n_ids, n_flds = len(labels), len(ids), len(flds)
+        try:
+            _parse_one(toks, lineno, labels, ids, vals, flds,
+                       vocabulary_size, hash_feature_id, field_aware,
+                       field_num, max_features_per_example)
+        except ParseError as e:
+            if bad_lines is None:
+                raise
+            del labels[n_labels:], ids[n_ids:], vals[n_ids:]
+            del flds[n_flds:]
+            bad_lines.append((lineno, line, str(e)))
+            if keep_empty:
+                # Predict alignment: the bad line still owes a score —
+                # a zero-feature example scores as the model bias.
+                labels.append(0.0)
+                poses.append(len(ids))
+            continue
+        poses.append(len(ids))
+
+    return ParsedBlock(
+        labels=np.asarray(labels, dtype=np.float32),
+        poses=np.asarray(poses, dtype=np.int32),
+        ids=np.asarray(ids, dtype=np.int32),
+        vals=np.asarray(vals, dtype=np.float32),
+        fields=np.asarray(flds, dtype=np.int32) if field_aware else None,
+    )
+
+
+def _parse_one(toks: List[str], lineno: int, labels, ids, vals, flds,
+               vocabulary_size: int, hash_feature_id: bool,
+               field_aware: bool, field_num: int,
+               max_features_per_example: int) -> None:
+    """Parse one line's tokens, appending onto the CSR buffers (the
+    one per-line implementation both strict and tolerant modes run).
+    Raises ParseError mid-append on a bad token; parse_lines' tolerant
+    mode rolls the partial appends back."""
+    try:
+        label = _strict_float(toks[0])
+    except ValueError:
+        raise ParseError(f"line {lineno}: bad label {toks[0]!r}")
+    labels.append(label)
+    n = 0
+    for tok in toks[1:]:
+        if max_features_per_example and n >= max_features_per_example:
+            break
+        parts = tok.split(":")
+        if field_aware:
+            if len(parts) == 2:
+                fld_s, fid_s, val_s = parts[0], parts[1], None
+            elif len(parts) == 3:
+                fld_s, fid_s, val_s = parts
+            else:
+                raise ParseError(
+                    f"line {lineno}: bad ffm token {tok!r} "
+                    "(want field:fid[:val])")
+            try:
+                fld = _strict_int(fld_s)
+            except ValueError:
+                raise ParseError(f"line {lineno}: bad field {fld_s!r}")
+            if not 0 <= fld < field_num:
+                raise ParseError(
+                    f"line {lineno}: field {fld} out of range "
+                    f"[0, {field_num})")
+            flds.append(fld)
+        else:
+            if len(parts) == 1:
+                fid_s, val_s = parts[0], None
+            elif len(parts) == 2:
+                fid_s, val_s = parts
+            else:
+                raise ParseError(
+                    f"line {lineno}: bad token {tok!r} (want fid[:val])")
+        if hash_feature_id:
+            fid = hash_feature(fid_s, vocabulary_size)
+        else:
+            try:
+                fid = _strict_int(fid_s)
+            except ValueError:
+                raise ParseError(
+                    f"line {lineno}: non-integer feature id {fid_s!r} "
+                    "(set hash_feature_id = True for string ids)")
+            if not 0 <= fid < vocabulary_size:
+                raise ParseError(
+                    f"line {lineno}: feature id {fid} out of range "
+                    f"[0, {vocabulary_size})")
+        if val_s is None:
+            val = 1.0
+        else:
+            try:
+                val = _strict_float(val_s)
+            except ValueError:
+                raise ParseError(f"line {lineno}: bad value {val_s!r}")
+        ids.append(fid)
+        vals.append(val)
+        n += 1
