@@ -3,29 +3,40 @@
 
     python3 chip_smoke.py
 
-Needs one NVIDIA GPU (Hopper: the kernel is built for sm_90a) and the
+Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; exits non-zero, printing no result, without them.
-It drives the port's serving path at full width — BASELINE config #2's
-model: 2nd-order FM, factor_num = 16, hashed ids, vocabulary 2^24, a
-[2^24+1, 17] f32 table (1.14 GB) drawn N(0, 0.1^2) from a seeded
-torch.Generator — over Criteo-shaped lines it generates itself:
+It drives the port's serving and training paths at full width —
+BASELINE config #2's model: 2nd-order FM, factor_num = 16, hashed ids,
+vocabulary 2^24, a [2^24+1, 17] f32 table (1.14 GB) — over
+Criteo-shaped lines it generates itself:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: the fm_score kernel library, with nvcc's register report;
-3. kernel: the CUDA kernel against its plain PyTorch version at the
+2. build: both kernel libraries, one nvcc each, started together, with
+   nvcc's register report;
+3. kernel: each CUDA kernel against its plain PyTorch version at the
    main path's shapes, with errors, median times (CUDA events, L2 flushed
-   between launches), bytes moved and the memory-bound floor;
+   between launches), bytes moved and the memory-bound floor. Tables
+   are drawn N(0, 0.1^2) from a seeded torch.Generator;
 4. predict: 65,536 lines through ``python -m fast_tffm_tpu_torch
    predict`` (in process), checked line by line and against a float64
    reference on the first lines;
 5. serve: ScorerServer + HTTP front end on a free port, concurrent
    requests of 1-256 lines whose bodies must equal the predict file's
    lines byte for byte, one malformed request (400), /healthz;
-6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. train: ``python -m fast_tffm_tpu_torch train`` (in process) for 2
+   epochs over 131,072 lines whose labels come from a planted logistic
+   model, validating on 16,384 more; both kernels must launch, the mean
+   loss must fall, the validation AUC must clear a floor derived from the
+   planted model, and predict of the export must reach the same AUC.
+   Then fm_score_bwd against its plain version on one of the stream's
+   Zipf-skewed batches, the median time of one step on batches already
+   on the card, its kernels' device time from a profiler trace, and the
+   card's idle share computed from them;
+7. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero. Scratch files
-(the 1.14 GB .npz) live in ``.smoke/`` at the repo root and are removed
-at the end. ``--out DIR`` also writes a JSON summary of every phase to
+(1.14 GB .npz exports) live in ``.smoke/`` at the repo root and are
+removed at the end. ``--out DIR`` also writes a JSON summary of every phase to
 ``DIR/chip_smoke.json``.
 """
 
@@ -50,10 +61,23 @@ KERNEL_SHAPES = ((256, 64, 16), (8192, 64, 16), (8192, 256, 16),
                  (1024, 64, 8))
 HEADLINE_SHAPE = (8192, 64, 16)   # the predict batch of the main path
 RTOL, ATOL = 1e-5, 1e-6
+# fm_score_bwd: float atomics sum in a varying order, so each element is
+# held to BWD_RTOL of its sum of absolute contributions, plus BWD_ATOL.
+BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+TRAIN_LINES = 131072
+VAL_LINES = 16384
+TRAIN_BATCH = 8192
+TRAIN_EPOCHS = 2
+TRAIN_LR = 0.1
+RESIDENT_BATCHES = 4
+RESIDENT_STEPS = 20
+PROFILED_STEPS = 8
+AUC_GAP = 2e-3               # |exact AUC of predict - binned AUC|
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12          # H100 SXM, non-tensor-core f32
 L2_FLUSH_BYTES = 64 << 20         # > the 50 MB L2
 TIMED_LAUNCHES = 30
+PROFILED_LAUNCHES = 10
 
 # Criteo line format (the JAX package's data/synth.py:generate): 13
 # numeric "I<j>:<log1p count>" tokens, ~8% dropped, then 26 hashed
@@ -63,6 +87,11 @@ CAT_VOCABS = (40, 500, 90000, 30000, 200, 15, 10000, 400, 3, 25000,
               50000, 12, 14, 30000, 60, 20000)
 NUM_FIELDS = 13
 ZIPF_A = 1.35
+# Train phase labels: a logistic model over the categorical fields with
+# at most 25 values (C5, C8, C13, C16, C19, C21, C22).
+PLANTED_FIELDS = tuple(f for f, v in enumerate(CAT_VOCABS) if v <= 25)
+PLANTED_SCALE = 0.8
+PLANTED_BIAS = -1.2
 
 
 class SmokeFailure(RuntimeError):
@@ -78,7 +107,10 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def criteo_lines(n, seed):
+def criteo_lines(n, seed, planted=None):
+    """``n`` Criteo-shaped lines. Labels are Bernoulli(0.25), or, with
+    ``planted`` (a PLANTED_* model), Bernoulli(sigmoid(planted logit));
+    returns (lines, planted logits or None)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     cat = np.stack([(rng.zipf(ZIPF_A, size=n) - 1) % v for v in CAT_VOCABS],
@@ -86,7 +118,13 @@ def criteo_lines(n, seed):
     num = np.round(np.log1p(rng.lognormal(1.0, 1.2, size=(n, NUM_FIELDS))),
                    3)
     miss = rng.random((n, NUM_FIELDS)) < 0.08
-    labels = (rng.random(n) < 0.25).astype(np.int32)
+    logits = None
+    if planted is None:
+        labels = (rng.random(n) < 0.25).astype(np.int32)
+    else:
+        logits = planted_logits(planted, cat)
+        labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-logits))
+                  ).astype(np.int32)
     lines = []
     for i in range(n):
         parts = [str(labels[i])]
@@ -94,7 +132,25 @@ def criteo_lines(n, seed):
                   if not miss[i, j]]
         parts += [f"C{f}=v{cat[i, f]}" for f in range(len(CAT_VOCABS))]
         lines.append(" ".join(parts))
-    return lines
+    return lines, logits
+
+
+def planted_model(seed):
+    """The planted logistic model of the train phase: an intercept and
+    one N(0, PLANTED_SCALE^2) weight per value of each field in
+    PLANTED_FIELDS (the low-cardinality categorical fields)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {f: rng.normal(0.0, PLANTED_SCALE, size=CAT_VOCABS[f])
+            for f in PLANTED_FIELDS}
+
+
+def planted_logits(model, cat):
+    import numpy as np
+    logits = np.full(cat.shape[0], PLANTED_BIAS)
+    for f, beta in model.items():
+        logits += beta[cat[:, f]]
+    return logits
 
 
 def write_cfg(path):
@@ -156,6 +212,29 @@ def median_ms(torch, fn, flush):
     return times[len(times) // 2]
 
 
+def kernel_device_ms(torch, fn, flush, kernel_name):
+    """Mean device time of the kernel named ``kernel_name`` over
+    PROFILED_LAUNCHES calls of ``fn`` under torch.profiler, L2 flushed
+    before each: the kernel alone, without the wrapper's host work or
+    allocations, which the CUDA-event time of a single call includes
+    wherever they outlast the flush in front of it. None if the
+    profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_LAUNCHES):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                kernel_name in e.key:
+            us += e.self_device_time_total
+            n += e.count
+    return us / 1e3 / n if n else None
+
+
 def kernel_phase(torch, tables, device):
     from fast_tffm_tpu_torch.ops import fm_kernel, interaction
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -177,14 +256,21 @@ def kernel_phase(torch, tables, device):
             table, idx, vals), flush)
         plain_ms = median_ms(torch, lambda: interaction.fm_batch_scores(
             table, idx, vals), flush)
-        nbytes = B * L * D * 4 + B * L * 8 + B * 4
+        device_ms = kernel_device_ms(
+            torch, lambda: fm_kernel.fm_batch_scores(table, idx, vals),
+            flush, "fm_score_kernel")
+        # Each input read once: the U distinct rows the batch references
+        # (all pad cells share one), idx and vals; the scores written.
+        U = int(torch.unique(idx).numel())
+        nbytes = U * D * 4 + B * L * 8 + B * 4
         flops = B * (L * (4 * K + 2) + 3 * K + 2)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / FP32_FLOPS_PER_S * 1e3
         row = {"phase": "kernel", "name": "fm_score", "B": B, "L": L,
-               "K": K, "max_abs_err": max_abs, "max_rel_err": max_rel,
+               "K": K, "U": U, "max_abs_err": max_abs, "max_rel_err": max_rel,
                "within_tol": ok, "rtol": RTOL, "atol": ATOL,
-               "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+               "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+               "bytes": nbytes,
                "flops": flops, "bound_ms": max(bytes_ms, flops_ms),
                "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
                "bound_share": max(bytes_ms, flops_ms) / ms}
@@ -195,6 +281,116 @@ def kernel_phase(torch, tables, device):
               f"K={K}: max abs err {max_abs}")
     del flush
     return rows
+
+
+def bwd_kernel_rows(torch, params, local, vals, g, flush, **tags):
+    """fm_score_bwd against its plain version on one input, ``need_dx``
+    off and on: two rows (emitted, tagged with ``tags``), or a raised
+    SmokeFailure."""
+    from fast_tffm_tpu_torch.ops import fm_kernel, interaction
+    B, L = local.shape
+    U, D = params.shape
+    K = D - 1
+    dp, dv, dp_abs, dv_abs = interaction.fm_batch_scores_bwd(
+        params, local, vals, g, need_dx=True, magnitudes=True)
+    rows = []
+    for need_dx in (False, True):
+        kdp, kdv = fm_kernel.fm_batch_scores_bwd(params, local, vals, g,
+                                                 need_dx)
+        torch.cuda.synchronize()
+        err = (kdp - dp).abs()
+        bound = BWD_ATOL + BWD_RTOL * dp_abs
+        ok = bool((err <= bound).all()) and bool(torch.isfinite(kdp).all())
+        max_abs = float(err.max())
+        excess = float((err - bound).max())
+        if need_dx:
+            derr = (kdv - dv).abs()
+            dbound = BWD_ATOL + BWD_RTOL * dv_abs
+            ok = ok and bool((derr <= dbound).all()) and bool(
+                torch.isfinite(kdv).all())
+            max_abs = max(max_abs, float(derr.max()))
+            excess = max(excess, float((derr - dbound).max()))
+        ms = median_ms(torch, lambda: fm_kernel.fm_batch_scores_bwd(
+            params, local, vals, g, need_dx), flush)
+        plain_ms = median_ms(
+            torch, lambda: interaction.fm_batch_scores_bwd(
+                params, local, vals, g, need_dx), flush)
+        device_ms = kernel_device_ms(
+            torch, lambda: fm_kernel.fm_batch_scores_bwd(
+                params, local, vals, g, need_dx), flush,
+            "fm_score_bwd_kernel")
+        # Each input read once (the U gathered rows, idx, vals, g),
+        # each output written once (dparams, and dvals if asked).
+        nbytes = (2 * U * D * 4 + B * L * 8 + B * 4
+                  + (B * L * 4 if need_dx else 0))
+        nnz = int((vals != 0).sum())
+        # The most atomics on one row: its nonzero slots in the batch.
+        hottest = int(torch.bincount(local[vals != 0].long(),
+                                     minlength=U).max()) if nnz else 0
+        # pass 1: 2K per nonzero slot; pass 2: 3K + 1 per nonzero slot
+        # plus its K + 1 atomic adds; dvals: 2K + 2 per slot.
+        flops = nnz * (6 * K + 2) + (B * L * (2 * K + 2) if need_dx else 0)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        row = {"phase": "kernel", "name": "fm_score_bwd", **tags, "B": B,
+               "L": L, "K": K, "U": U, "nnz": nnz,
+               "hottest_row_slots": hottest, "need_dx": need_dx,
+               "max_abs_err": max_abs, "max_excess_over_bound": excess,
+               "within_tol": ok, "rtol_of_abs_sum": BWD_RTOL,
+               "atol": BWD_ATOL, "ms": ms, "plain_ms": plain_ms,
+               "device_ms": device_ms, "bytes": nbytes, "flops": flops,
+               "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+               "bound_share": max(bytes_ms, flops_ms) / ms}
+        emit(row)
+        rows.append(row)
+        check(ok, f"fm_score_bwd disagrees with its plain version on "
+                  f"{tags} at B={B} L={L} K={K} need_dx={need_dx}: max abs "
+                  f"err {max_abs}, worst excess over the bound {excess}")
+    return rows
+
+
+def bwd_kernel_phase(torch, tables, device):
+    """fm_score_bwd against its plain version at the kernel shapes, on
+    the rows a train step hands it: the batch's unique rows, gathered,
+    and each cell's index into them. Ids are uniform random, so few
+    atomics meet on one row; train_phase adds a Zipf-skewed batch."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    rows = []
+    for B, L, K in KERNEL_SHAPES:
+        raw, vals = random_batch(torch, gen, B, L, VOCAB, device)
+        uniq, inv = torch.unique(raw.reshape(-1), sorted=True,
+                                 return_inverse=True)
+        params = tables[K].index_select(0, uniq)
+        local = inv.reshape(B, L).to(torch.int32)
+        g = torch.randn(B, generator=gen, device=device)
+        rows += bwd_kernel_rows(torch, params, local, vals, g, flush,
+                                batch="uniform")
+    del flush
+    return rows
+
+
+def bwd_train_batch_rows(torch, spec, table, args, device):
+    """fm_score_bwd against its plain version on one batch of the train
+    phase's stream, deduped and gathered as train_step_body does, with
+    g = dloss/dscore of that batch: Criteo's low-cardinality fields put
+    thousands of atomics on a few rows there."""
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.ops.interaction import gather_rows
+    uniq, local = port_fm._device_dedup(spec, args["local_idx"])
+    rows = gather_rows(table, uniq).requires_grad_(True)
+    loss, scores = port_fm.loss_and_scores(
+        spec, rows, args["labels"], args["weights"], uniq, local,
+        args["vals"])
+    (g,) = torch.autograd.grad(loss, scores)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    out = bwd_kernel_rows(torch, rows.detach(), local, args["vals"],
+                          g.detach(), flush, batch="train")
+    del flush
+    return out
 
 
 def reference_scores(table_cpu, cfg, lines):
@@ -341,6 +537,211 @@ def serve_phase(torch, cfg, lines, score_lines, device):
     return row
 
 
+def write_train_cfg(wd):
+    path = os.path.join(wd, "train.cfg")
+    with open(path, "w") as fh:
+        fh.write(f"""[General]
+vocabulary_size = {VOCAB}
+hash_feature_id = True
+factor_num = {FACTORS}
+model_file = {os.path.join(wd, 'model', 'fm_model')}
+log_file = {os.path.join(wd, 'train.log')}
+
+[Train]
+train_files = {os.path.join(wd, 'train.txt')}
+validation_files = {os.path.join(wd, 'val.txt')}
+epoch_num = {TRAIN_EPOCHS}
+batch_size = {TRAIN_BATCH}
+learning_rate = {TRAIN_LR}
+loss_type = logistic
+log_steps = 1
+
+[Predict]
+predict_files = {os.path.join(wd, 'val.txt')}
+score_path = {os.path.join(wd, 'score')}
+""")
+    return path
+
+
+def read_train_log(path):
+    """(per-epoch step losses, per-step examples/s, validation AUCs, the
+    'training done' line's examples/s) from the train log."""
+    import re
+    with open(path) as fh:
+        text = fh.read()
+    losses, rates = {}, []
+    for ep, loss, eps in re.findall(
+            r"step \d+ epoch (\d+) loss ([0-9.]+) examples/sec ([0-9.]+)",
+            text):
+        losses.setdefault(int(ep), []).append(float(loss))
+        rates.append(float(eps))
+    aucs = [float(a) for a in re.findall(
+        r"epoch \d+ validation AUC ([0-9.]+) over", text)]
+    done = re.findall(r"training done: \d+ steps, final loss [0-9.]+, "
+                      r"([0-9.]+) examples/sec", text)
+    return losses, rates, aucs, float(done[-1]) if done else None
+
+
+def resident_step_ms(torch, cfg, device):
+    """One train step (dedup -> gather -> forward -> backward -> Adagrad)
+    on batches of the train stream already on the card: the median
+    CUDA-event time of train_step_body and, from a torch.profiler trace
+    of PROFILED_STEPS more steps, the device time per step by kernel.
+    Event intervals include the gaps in which the card waits for the
+    host to launch the next kernel; the profiler's kernel times do not.
+    Also fm_score_bwd against its plain version on the first of these
+    batches (bwd_train_batch_rows); returns (timings, those rows)."""
+    from torch.profiler import ProfilerActivity, profile
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    spec = port_fm.ModelSpec.from_config(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    table = port_fm.init_table(cfg, device, gen)
+    acc = port_fm.init_accumulator(cfg, device)
+    batches = []
+    for b in batch_iterator(cfg, cfg.train_files, training=True, epochs=1):
+        batches.append(port_fm.batch_args(b, device))
+        if len(batches) == RESIDENT_BATCHES:
+            break
+    bwd_rows = bwd_train_batch_rows(torch, spec, table, batches[0], device)
+
+    whole = []
+    for i in range(RESIDENT_STEPS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        port_fm.train_step_body(spec, table, acc,
+                                **batches[i % len(batches)])
+        end.record()
+        end.synchronize()
+        if i >= 2:  # the first two are warmup
+            whole.append(start.elapsed_time(end))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILED_STEPS):
+            port_fm.train_step_body(spec, table, acc,
+                                    **batches[i % len(batches)])
+        torch.cuda.synchronize()
+    kernel_ms = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            kernel_ms[e.key] = us / 1e3 / PROFILED_STEPS
+    top = dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:10])
+    device_ms = sum(kernel_ms.values()) if kernel_ms else None
+    del table, acc, batches
+    torch.cuda.empty_cache()
+    return {"resident_step_ms_median": sorted(whole)[len(whole) // 2],
+            "profiled_device_ms_per_step": device_ms,
+            "profiled_kernels_ms_per_step": top,
+            "profiled_kernel_count": len(kernel_ms)}, bwd_rows
+
+
+def train_phase(torch, device):
+    """``python -m fast_tffm_tpu_torch train`` (in process) at config
+    #2's width on Criteo-shaped lines with planted labels, then predict
+    of the export over the validation lines."""
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.metrics import exact_auc
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    wd = os.path.join(WORK, "train")
+    os.makedirs(wd)
+    t0 = time.perf_counter()
+    model = planted_model(SEED + 4)
+    train_lines, _ = criteo_lines(TRAIN_LINES, SEED + 5, model)
+    val_lines, val_logits = criteo_lines(VAL_LINES, SEED + 6, model)
+    for name, lines in (("train.txt", train_lines), ("val.txt", val_lines)):
+        with open(os.path.join(wd, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    gen_s = time.perf_counter() - t0
+    val_labels = np.array([int(ln.split(" ", 1)[0]) for ln in val_lines])
+    # The planted model's own AUC on the validation lines is the best any
+    # model can reach; the trained model must recover at least half of
+    # its margin over chance.
+    bayes_auc = exact_auc(val_logits, val_labels)
+    auc_floor = 0.5 + 0.5 * (bayes_auc - 0.5)
+    cfg_path = write_train_cfg(wd)
+    cfg = load_config(cfg_path)
+    del train_lines
+
+    fm_kernel.launches = 0
+    fm_kernel.bwd_launches = 0
+    t0 = time.perf_counter()
+    rc = cli(["train", cfg_path])
+    train_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches = fm_kernel.launches, fm_kernel.bwd_launches
+    check(rc == 0, f"train entry point returned {rc}")
+    losses, rates, aucs, done_eps = read_train_log(cfg.log_file)
+    steps = TRAIN_EPOCHS * -(-TRAIN_LINES // TRAIN_BATCH)
+    val_batches = TRAIN_EPOCHS * -(-VAL_LINES // TRAIN_BATCH)
+    check(bwd_launches == steps and fwd_launches == steps + val_batches,
+          f"train launched fm_score {fwd_launches} and fm_score_bwd "
+          f"{bwd_launches} times for {steps} steps and {val_batches} "
+          "validation batches")
+    check(sorted(losses) == list(range(TRAIN_EPOCHS)) and len(rates) == steps
+          and all(np.isfinite(v).all() for v in losses.values()),
+          f"train log losses: {losses}, {len(rates)} rates")
+    mean_loss = [float(np.mean(losses[e])) for e in range(TRAIN_EPOCHS)]
+    check(mean_loss[-1] < mean_loss[0],
+          f"mean loss did not fall: {mean_loss}")
+    check(len(aucs) == TRAIN_EPOCHS and aucs[-1] > auc_floor,
+          f"validation AUC {aucs} not above {auc_floor} (planted model's "
+          f"AUC {bayes_auc})")
+
+    fm_kernel.launches = 0
+    rc = cli(["predict", cfg_path])
+    predict_launches = fm_kernel.launches
+    check(rc == 0, f"predict of the trained model returned {rc}")
+    with open(os.path.join(cfg.score_path, "val.txt.score")) as fh:
+        scores = np.array([float(x) for x in fh.read().split()])
+    check(scores.shape == (VAL_LINES,) and np.isfinite(scores).all(),
+          f"{scores.shape} predict scores for {VAL_LINES} lines")
+    predict_auc = exact_auc(scores, val_labels)
+    check(abs(predict_auc - aucs[-1]) <= AUC_GAP,
+          f"predict's exact AUC {predict_auc} vs train's binned AUC "
+          f"{aucs[-1]}")
+
+    resident, bwd_rows = resident_step_ms(torch, cfg, device)
+    step_ms = resident["resident_step_ms_median"]
+    busy_ms = resident["profiled_device_ms_per_step"]
+    # log_steps = 1: each logged rate covers one step's window, so the
+    # loop's rate is the examples over the sum of the windows (epoch
+    # 0's validation falls inside epoch 1's first window).
+    loop_eps = steps * TRAIN_BATCH / sum(TRAIN_BATCH / r for r in rates)
+    examples = TRAIN_EPOCHS * TRAIN_LINES
+    row = {"phase": "train", "lines": TRAIN_LINES,
+           "validation_lines": VAL_LINES, "batch_size": TRAIN_BATCH,
+           "epochs": TRAIN_EPOCHS, "steps": steps,
+           "learning_rate": TRAIN_LR, "generate_seconds": gen_s,
+           "entry_seconds": train_s,
+           "examples_per_s_end_to_end": examples / train_s,
+           "examples_per_s_train_log": done_eps,
+           "examples_per_s_loop": loop_eps,
+           "epoch_mean_loss": mean_loss, "validation_auc": aucs,
+           "planted_auc": bayes_auc, "auc_floor": auc_floor,
+           "predict_exact_auc": predict_auc,
+           "fm_score_launches": fwd_launches,
+           "fm_score_bwd_launches": bwd_launches,
+           "predict_launches": predict_launches,
+           **resident,
+           # Idle share of the card while the loop runs, from the
+           # resident step time and the loop's rate, and over the whole
+           # train command (validation and export included); then the
+           # same from the profiler's kernel time per step.
+           "device_idle_share_loop":
+               1.0 - step_ms / 1e3 * loop_eps / TRAIN_BATCH,
+           "device_idle_share_end_to_end":
+               1.0 - steps * step_ms / 1e3 / train_s,
+           "device_idle_share_loop_profiled":
+               (None if busy_ms is None
+                else 1.0 - busy_ms / 1e3 * loop_eps / TRAIN_BATCH)}
+    emit(row)
+    return row, bwd_rows
+
+
 def main(argv) -> int:
     out_dir = None
     if argv[:1] == ["--out"] and len(argv) == 2:
@@ -371,8 +772,9 @@ def main(argv) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build(log=lambda text: print(text, end="", flush=True))
+    build.build_all(log=lambda text: print(text, end="", flush=True))
     build.load_fm_score()
+    build.load_fm_score_bwd()
     print(f"build+load seconds {time.perf_counter() - t0:.2f}", flush=True)
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -397,12 +799,13 @@ def main(argv) -> int:
 
         # 3. kernel vs plain version
         kernel_rows = kernel_phase(torch, tables, device)
+        bwd_rows = bwd_kernel_phase(torch, tables, device)
         table_cpu = table.cpu().numpy()
         del tables, table
         torch.cuda.empty_cache()
 
         # 4. predict
-        lines = criteo_lines(PREDICT_LINES, SEED + 3)
+        lines, _ = criteo_lines(PREDICT_LINES, SEED + 3)
         with open(os.path.join(WORK, "criteo.txt"), "w") as fh:
             fh.write("\n".join(lines) + "\n")
         predict_row, score_lines = predict_phase(torch, cfg, cfg_path,
@@ -410,27 +813,52 @@ def main(argv) -> int:
 
         # 5. serve
         serve_row = serve_phase(torch, cfg, lines, score_lines, device)
+        del lines, score_lines, table_cpu
+
+        # 6. train
+        train_row, bwd_train_rows = train_phase(torch, device)
+        bwd_rows += bwd_train_rows
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     head = next(r for r in kernel_rows
                 if (r["B"], r["L"], r["K"]) == HEADLINE_SHAPE)
+    # The backward's headline row is the train batch, need_dx off: the
+    # input the train step gives it (the step never asks for dvals).
+    bwd_head = next(r for r in bwd_train_rows if not r["need_dx"])
     kernels = {"kernels": [{
         "name": "fm_score", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:63",
-        "launches": predict_row["launches"] + serve_row["launches"],
+        "launches": (predict_row["launches"] + serve_row["launches"]
+                     + train_row["fm_score_launches"]
+                     + train_row["predict_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shape_BLK": list(HEADLINE_SHAPE),
+        "device_ms": head["device_ms"],
         "predict_launches": predict_row["launches"],
-        "serve_launches": serve_row["launches"]}]}
+        "serve_launches": serve_row["launches"],
+        "train_launches": train_row["fm_score_launches"],
+        "train_predict_launches": train_row["predict_launches"]}, {
+        "name": "fm_score_bwd", "route": "cuda",
+        "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
+        "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
+        "launches": train_row["fm_score_bwd_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
+        "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
+        "library_ms": None,
+        "shape_BLK": [bwd_head["B"], bwd_head["L"], bwd_head["K"]],
+        "device_ms": bwd_head["device_ms"], "need_dx": False,
+        "batch": "train"}]}
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
             json.dump({"nvidia_smi": smi, "kernel": kernel_rows,
-                       "predict": predict_row, "serve": serve_row,
+                       "kernel_bwd": bwd_rows, "predict": predict_row,
+                       "serve": serve_row, "train": train_row,
                        **kernels}, fh, indent=1)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,13 @@
 """fast_tffm_tpu_torch — the PyTorch/CUDA port of fast_tffm_tpu.
 
-A second package beside the JAX one, which stays the reference. This
-slice serves and predicts a 2nd-order FM with logistic loss from the
-dense ``<model_file>.npz`` export; every score runs through the
-hand-written CUDA kernel in ``csrc/fm_score.cu`` on the card:
+A second package beside the JAX one, which stays the reference. It
+trains a 2nd-order FM (logistic or mse loss, sparse Adagrad, one device)
+and predicts and serves it from the dense ``<model_file>.npz`` export.
+On the card every score runs through the hand-written CUDA kernel in
+``csrc/fm_score.cu`` and every training gradient through
+``csrc/fm_score_bwd.cu``:
 
+    python -m fast_tffm_tpu_torch train   <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch predict <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch serve   <cfg> [--device cuda|cpu]
 

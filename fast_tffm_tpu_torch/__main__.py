@@ -1,13 +1,15 @@
-"""Command line of the PyTorch/CUDA port — the predict and serve surface
-of ``run_tffm.py``:
+"""Command line of the PyTorch/CUDA port — the train, predict and serve
+surface of ``run_tffm.py``:
 
+    python -m fast_tffm_tpu_torch train   <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch predict <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch serve   <cfg> [--device cuda|cpu]
 
-Both read the same INI configs as ``run_tffm.py`` and load the dense
-table export ``<model_file>.npz`` that a JAX train writes. They run on
-the CUDA card unless ``--device cpu`` asks for the CPU; without a card
-they raise. ``train``, ``dist_train`` roles and ``serve --replicas``
+All read the same INI configs as ``run_tffm.py``. ``train`` writes the
+dense table export ``<model_file>.npz``; predict and serve load it (a
+JAX train writes the same file). They run on the CUDA card unless
+``--device cpu`` asks for the CPU; without a card they raise.
+``dist_train`` roles, checkpoints and resume, and ``serve --replicas``
 are not ported yet (ROADMAP.md, queue A).
 """
 
@@ -25,7 +27,7 @@ def _usage() -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if len(argv) < 2 or argv[0] not in ("predict", "serve"):
+    if len(argv) < 2 or argv[0] not in ("train", "predict", "serve"):
         return _usage()
     mode, cfg_path, rest = argv[0], argv[1], argv[2:]
     device = None
@@ -45,6 +47,10 @@ def main(argv=None) -> int:
     if rest:
         return _usage()
     cfg = apply_env_overrides(load_config(cfg_path))
+    if mode == "train":
+        from fast_tffm_tpu_torch.train import train
+        train(cfg, device=device)
+        return 0
     if mode == "predict":
         from fast_tffm_tpu_torch.predict import predict
         predict(cfg, device=device)

@@ -1,26 +1,33 @@
-"""Model assembly for the port: spec, table init and the score path.
+"""Model assembly for the port: spec, table init, the score path and the
+train step.
 
-The serving slice of ``fast_tffm_tpu/models/fm.py``: ``ModelSpec``,
-``init_table``, ``resolved_kernel``, ``_scores``, ``rows_score_body``
-and the raw-gather branch of ``score_body``. Training (loss, the sparse
-Adagrad step, the on-device unique) comes with the training slice
-(ROADMAP.md A2).
+The single-device subset of ``fast_tffm_tpu/models/fm.py``:
+``ModelSpec``, ``init_table``, ``init_accumulator``, ``resolved_kernel``,
+``_scores``, ``rows_score_body``, the raw-gather branch of
+``score_body``, and the ``dedup = device`` train step:
+``_device_dedup`` → gather → ``grad_body`` (``loss_and_scores`` and its
+gradient with respect to the gathered rows) → ``sparse_adagrad_apply``.
 
 A 2nd-order FM scores through ``ops/fm_kernel.fm_batch_scores``: the
-CUDA kernel for tensors on the card, its plain version for tensors on
-the CPU. The ``kernel`` and ``dedup`` config keys are accepted and
-ignored: on the card an order-2 FM always runs the kernel, on the raw
-gather path, as serving does in the JAX package.
+CUDA kernels for tensors on the card (forward, and in training the
+hand-written backward), their plain versions for tensors on the CPU.
+The ``kernel`` and ``dedup`` config keys are accepted and ignored: on
+the card an order-2 FM always runs the kernels; the score path gathers
+raw rows and the train step dedups on the device, as the JAX package
+does on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.data.pipeline import DeviceBatch
 from fast_tffm_tpu_torch.ops.fm_kernel import fm_batch_scores
+from fast_tffm_tpu_torch.ops.interaction import batch_reg, gather_rows
 
 
 def check_supported(cfg: FmConfig) -> None:
@@ -84,6 +91,12 @@ def init_table(cfg: FmConfig, device: torch.device,
     return t
 
 
+def init_accumulator(cfg: FmConfig, device: torch.device) -> torch.Tensor:
+    """Adagrad accumulator, full table size, constant ``adagrad_init``."""
+    return torch.full((cfg.num_rows, cfg.row_dim), cfg.adagrad_init,
+                      dtype=torch.float32, device=device)
+
+
 def resolved_kernel(device: torch.device) -> str:
     """What scores an order-2 FM batch on ``device``: the CUDA kernel on
     the card, its plain PyTorch version on the CPU."""
@@ -109,3 +122,104 @@ def score_body(spec: ModelSpec, table: torch.Tensor, local_idx: torch.Tensor,
     and scores the gathered block; here the kernel reads the table rows
     itself, the same rows summed in the same slot order."""
     return rows_score_body(spec, table, local_idx, vals)
+
+
+def _per_example_loss(spec: ModelSpec, scores: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    if spec.loss_type == "logistic":
+        # Stable sigmoid cross-entropy with {0,1} labels. torch.maximum
+        # splits the gradient of a tie at 0 evenly, as jnp.maximum does.
+        return (torch.maximum(scores, torch.zeros_like(scores))
+                - scores * labels
+                + torch.log1p(torch.exp(-torch.abs(scores))))
+    return torch.square(scores - labels)
+
+
+def loss_and_scores(spec: ModelSpec, gathered: torch.Tensor,
+                    labels: torch.Tensor, weights: torch.Tensor,
+                    uniq_ids: torch.Tensor, local_idx: torch.Tensor,
+                    vals: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted-mean data loss + batch-active L2 reg. Zero-weight padding
+    examples drop out of both value and gradient."""
+    scores = _scores(spec, gathered, local_idx, vals)
+    per = _per_example_loss(spec, scores, labels)
+    # Double where for the all-padding filler batch (sum(w) = 0): the
+    # divisor is 1 there, so neither the value nor the gradient of the
+    # branch not taken divides 0 by 0.
+    wsum = weights.sum()
+    nonzero = wsum > 0.0
+    den = torch.where(nonzero, wsum, torch.ones_like(wsum))
+    data_loss = torch.where(nonzero, (per * weights).sum() / den,
+                            torch.zeros_like(wsum))
+    reg = batch_reg(gathered, uniq_ids, spec.vocabulary_size,
+                    spec.factor_lambda, spec.bias_lambda)
+    return data_loss + reg, scores
+
+
+def _device_dedup(spec: ModelSpec, raw_idx: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """On-device unique of a raw-ids batch [B, L] (pad cells = pad_id):
+    the sorted unique ids [U] and each cell's index into them [B, L],
+    both int32. pad_id is the largest value, so it sorts last, as in
+    the JAX package; the unpadded U needs no fill slots (the JAX
+    package pads to B*L+1 only because its shapes are static)."""
+    uniq, inv = torch.unique(raw_idx.reshape(-1), sorted=True,
+                             return_inverse=True)
+    return (uniq.to(torch.int32),
+            inv.reshape(raw_idx.shape).to(torch.int32))
+
+
+def sparse_adagrad_apply(table: torch.Tensor, acc: torch.Tensor,
+                         uniq_ids: torch.Tensor, grad_rows: torch.Tensor,
+                         lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """acc[rows] += g²; table[rows] -= lr * g / sqrt(acc[rows]), in place
+    (the JAX package returns new arrays; here the update writes the
+    touched rows of the resident table and accumulator). ``uniq_ids``
+    are unique and padding rows carry zero gradients."""
+    with torch.no_grad():
+        rows = uniq_ids.long()
+        acc.index_add_(0, rows, torch.square(grad_rows))
+        upd = (-lr * grad_rows) * torch.rsqrt(acc.index_select(0, rows))
+        table.index_add_(0, rows, upd)
+    return table, acc
+
+
+def grad_body(spec: ModelSpec, gathered: torch.Tensor,
+              labels: torch.Tensor, weights: torch.Tensor,
+              uniq_ids: torch.Tensor, local_idx: torch.Tensor,
+              vals: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Loss, scores and the gradient with respect to the gathered
+    ``[U, D]`` rows, padding rows masked to zero."""
+    with torch.enable_grad():
+        rows = gathered.detach().requires_grad_(True)
+        loss, scores = loss_and_scores(spec, rows, labels, weights,
+                                       uniq_ids, local_idx, vals)
+        (grad,) = torch.autograd.grad(loss, rows)
+    live = (uniq_ids < spec.vocabulary_size).to(grad.dtype)[:, None]
+    return loss.detach(), scores.detach(), grad * live
+
+
+def train_step_body(spec: ModelSpec, table: torch.Tensor,
+                    acc: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor, local_idx: torch.Tensor,
+                    vals: torch.Tensor):
+    """One training step on a raw-ids batch: on-device unique → gather →
+    loss and gradient → sparse Adagrad. Returns ``(table, acc, loss,
+    scores)``; ``table`` and ``acc`` are updated in place."""
+    uniq_ids, local = _device_dedup(spec, local_idx)
+    gathered = gather_rows(table, uniq_ids)
+    loss, scores, grad = grad_body(spec, gathered, labels, weights,
+                                   uniq_ids, local, vals)
+    table, acc = sparse_adagrad_apply(table, acc, uniq_ids, grad,
+                                      spec.learning_rate)
+    return table, acc, loss, scores
+
+
+def batch_args(batch: DeviceBatch,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """A raw-ids batch's arrays as tensors on ``device``, keyed as
+    ``train_step_body`` takes them."""
+    return {k: torch.from_numpy(getattr(batch, k)).to(device)
+            for k in ("labels", "weights", "local_idx", "vals")}

@@ -1,1 +1,1 @@
-"""FM interaction ops: the plain PyTorch version and the CUDA kernel wrapper."""
+"""FM interaction ops: plain PyTorch versions and CUDA kernel wrappers."""

@@ -19,17 +19,20 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Callable, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 FM_SCORE_SRC = os.path.join(_PKG, "csrc", "fm_score.cu")
+FM_SCORE_BWD_SRC = os.path.join(_PKG, "csrc", "fm_score_bwd.cu")
+SOURCES = (FM_SCORE_SRC, FM_SCORE_BWD_SRC)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
-_fm_score_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}  # source path -> loaded library
 
 
 def find_nvcc() -> str:
@@ -91,21 +94,43 @@ def build(src: str = FM_SCORE_SRC,
     return out
 
 
-def load_fm_score() -> ctypes.CDLL:
-    """The fm_score library, built if needed, with every C signature
-    declared (pointers and the stream as ``c_void_p``, so ctypes never
-    cuts a 64-bit address to an int)."""
-    global _fm_score_lib
+def build_all(sources: Sequence[str] = SOURCES,
+              log: Optional[Callable[[str], None]] = None) -> List[str]:
+    """Build every source at once, one nvcc process each; returns the
+    library paths in ``sources`` order."""
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        return list(pool.map(lambda src: build(src, log), sources))
+
+
+def _load(src: str, signatures) -> ctypes.CDLL:
+    """The library built from ``src`` (built if needed), loaded once
+    per process, with every C signature in ``signatures`` (name ->
+    (argtypes, restype)) declared: pointers and the stream as
+    ``c_void_p``, so ctypes never cuts a 64-bit address to an int."""
     with _lock:
-        lib = _fm_score_lib
+        lib = _libs.get(src)
         if lib is None:
-            lib = ctypes.CDLL(build(FM_SCORE_SRC))
-            lib.fm_score_forward.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.fm_score_forward.restype = ctypes.c_int
-            lib.fm_score_error_string.argtypes = [ctypes.c_int]
-            lib.fm_score_error_string.restype = ctypes.c_char_p
-            _fm_score_lib = lib
+            lib = ctypes.CDLL(build(src))
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _libs[src] = lib
         return lib
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def load_fm_score() -> ctypes.CDLL:
+    """The fm_score (forward) library."""
+    return _load(FM_SCORE_SRC, {
+        "fm_score_forward": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
+        "fm_score_error_string": ([_I], ctypes.c_char_p)})
+
+
+def load_fm_score_bwd() -> ctypes.CDLL:
+    """The fm_score_bwd (backward) library."""
+    return _load(FM_SCORE_BWD_SRC, {
+        "fm_score_bwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+                         _I),
+        "fm_score_bwd_error_string": ([_I], ctypes.c_char_p)})

@@ -38,8 +38,12 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
+from fast_tffm_tpu_torch.ops.fm_kernel import FmScores
+from fast_tffm_tpu_torch.train import train
 print(json.dumps({"imported": names,
                   "has_main": hasattr(smoke, "main"),
+                  "has_fm_scores": callable(FmScores.apply)
+                  and callable(train),
                   "leaked": sorted(m for m in sys.modules if blocked(m))}))
 '''
 
@@ -51,9 +55,11 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
-    assert out["has_main"]
+    assert out["has_main"] and out["has_fm_scores"]
     for name in ("fast_tffm_tpu_torch.__main__", "fast_tffm_tpu_torch.config",
                  "fast_tffm_tpu_torch.ops.fm_kernel",
+                 "fast_tffm_tpu_torch.train",
+                 "fast_tffm_tpu_torch.utils.timing",
                  "fast_tffm_tpu_torch.ops.build",
                  "fast_tffm_tpu_torch.serve.frontend",
                  "fast_tffm_tpu_torch.models.convert"):

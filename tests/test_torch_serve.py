@@ -182,7 +182,8 @@ def test_server_refuses_oversized_and_scores_empty(slice_run):
         server.close()
 
 
-@pytest.mark.parametrize("argv", [[], ["predict"], ["train", "x.cfg"],
+@pytest.mark.parametrize("argv", [[], ["predict"],
+                                  ["train", "x.cfg", "--device"],
                                   ["serve", "x.cfg", "--device"],
                                   ["serve", "x.cfg", "--device", "tpu"],
                                   ["predict", "x.cfg", "extra"]])
