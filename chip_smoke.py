@@ -14,9 +14,12 @@ Criteo-shaped lines it generates itself:
 2. build: both kernel libraries, one nvcc each, started together, with
    nvcc's register report;
 3. kernel: each CUDA kernel against its plain PyTorch version at the
-   main path's shapes, with errors, median times (CUDA events, L2 flushed
-   between launches), bytes moved and the memory-bound floor. Tables
-   are drawn N(0, 0.1^2) from a seeded torch.Generator;
+   main path's shapes (fm_score bit for bit, also on the first predict
+   batch's Zipf-skewed raw ids), with errors, median times (CUDA events,
+   L2 flushed between launches), the kernel's device time alone (a
+   profiler trace of bare launches, or CUDA events around them where
+   the trace misses the kernel), bytes moved and the bound. Tables are
+   drawn N(0, 0.1^2) from a seeded torch.Generator;
 4. predict: 65,536 lines through ``python -m fast_tffm_tpu_torch
    predict`` (in process), checked line by line and against a float64
    reference on the first lines;
@@ -28,10 +31,12 @@ Criteo-shaped lines it generates itself:
    model, validating on 16,384 more; both kernels must launch, the mean
    loss must fall, the validation AUC must clear a floor derived from the
    planted model, and predict of the export must reach the same AUC.
-   Then fm_score_bwd against its plain version on one of the stream's
-   Zipf-skewed batches, the median time of one step on batches already
-   on the card, its kernels' device time from a profiler trace, and the
-   card's idle share computed from them;
+   Then both kernels against their plain versions on one of the
+   stream's Zipf-skewed batches (fm_score with L2 warm, as in the step;
+   fm_score_bwd also with the numeric fields' slots zeroed, which takes
+   its hottest rows away), the median time of one step on batches
+   already on the card, its kernels' device time from a profiler trace,
+   and the card's idle share computed from them;
 7. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero. Scratch files
@@ -60,7 +65,9 @@ SERVE_MAX_BATCH = 256
 KERNEL_SHAPES = ((256, 64, 16), (8192, 64, 16), (8192, 256, 16),
                  (1024, 64, 8))
 HEADLINE_SHAPE = (8192, 64, 16)   # the predict batch of the main path
-RTOL, ATOL = 1e-5, 1e-6
+# fm_score must equal its plain version bit for bit; ATOL floors |plain|
+# in the relative error its rows report.
+ATOL = 1e-6
 # fm_score_bwd: float atomics sum in a varying order, so each element is
 # held to BWD_RTOL of its sum of absolute contributions, plus BWD_ATOL.
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
@@ -78,6 +85,8 @@ FP32_FLOPS_PER_S = 67e12          # H100 SXM, non-tensor-core f32
 L2_FLUSH_BYTES = 64 << 20         # > the 50 MB L2
 TIMED_LAUNCHES = 30
 PROFILED_LAUNCHES = 10
+PROFILE_ATTEMPTS = 5
+SPIN_CYCLES = 2_000_000           # ~1 ms of the card's clock
 
 # Criteo line format (the JAX package's data/synth.py:generate): 13
 # numeric "I<j>:<log1p count>" tokens, ~8% dropped, then 26 hashed
@@ -195,12 +204,15 @@ def random_batch(torch, gen, B, L, pad_id, device):
 def median_ms(torch, fn, flush):
     """Median of TIMED_LAUNCHES single-call CUDA-event times, after a
     warmup, with the L2 cache flushed (outside the timed span) before
-    each call: a serving flush finds the table's rows cold."""
+    each call: a serving flush finds the table's rows cold. ``flush``
+    None leaves L2 warm, as a train step finds the rows it just
+    gathered."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMED_LAUNCHES):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -212,81 +224,184 @@ def median_ms(torch, fn, flush):
     return times[len(times) // 2]
 
 
-def kernel_device_ms(torch, fn, flush, kernel_name):
+def profiled_ms(torch, launch, flush, kernel_name):
     """Mean device time of the kernel named ``kernel_name`` over
-    PROFILED_LAUNCHES calls of ``fn`` under torch.profiler, L2 flushed
-    before each: the kernel alone, without the wrapper's host work or
-    allocations, which the CUDA-event time of a single call includes
-    wherever they outlast the flush in front of it. None if the
-    profiler recorded no such kernel."""
+    PROFILED_LAUNCHES calls of ``launch.run`` under torch.profiler, L2
+    flushed (unless ``flush`` is None) and the outputs reset
+    (``launch.reset``) before each: the kernel alone. The profiler now
+    and then returns a trace without the records of a kernel launched
+    through ctypes; such a trace is taken again, up to PROFILE_ATTEMPTS
+    times in all, and then None."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_LAUNCHES):
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_LAUNCHES):
+                if flush is not None:
+                    flush.zero_()
+                launch.reset()
+                launch.run()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    kernel_name in e.key:
+                us += e.self_device_time_total
+                n += e.count
+        if n == PROFILED_LAUNCHES:
+            return us / 1e3 / n
+    return None
+
+
+def event_ms(torch, launch, flush):
+    """Median device time of ``launch.run`` by CUDA events around the
+    launch alone, recorded behind a spin of the card long enough that the
+    host has queued the launch and the end event before the card reaches
+    the start event, so no host work falls inside; they do add the
+    card's few microseconds from event to kernel and back."""
+    pairs = []
+    for _ in range(PROFILED_LAUNCHES):
+        if flush is not None:
             flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                kernel_name in e.key:
-            us += e.self_device_time_total
-            n += e.count
-    return us / 1e3 / n if n else None
+        launch.reset()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch.run()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
 
 
-def kernel_phase(torch, tables, device):
+def kernel_ms(torch, launch, flush, kernel_name):
+    """(device ms of the kernel alone, "profiler" or "events"): by
+    profiled_ms, or by event_ms where the profiler keeps missing it."""
+    launch.reset()
+    launch.run()  # warm up
+    ms = profiled_ms(torch, launch, flush, kernel_name)
+    if ms is not None:
+        return ms, "profiler"
+    return event_ms(torch, launch, flush), "events"
+
+
+class Launch:
+    """A bare kernel launch on outputs allocated beforehand (``run``),
+    and what puts those outputs back as a fresh call would find them
+    (``reset``: dparams zeroed, which also leaves it in L2 as the
+    wrapper's torch.zeros_like does)."""
+
+    def __init__(self, run, reset=lambda: None):
+        self.run, self.reset = run, reset
+
+
+def fwd_launch(torch, params, idx, vals):
+    """A bare launch of this tree's fm_score (what the wrapper launches,
+    without its checks and allocation), on an output allocated here."""
+    from fast_tffm_tpu_torch.ops import build
+    lib = build.load_fm_score()
+    (N, D), (B, L) = params.shape, idx.shape
+    out = torch.empty(B, dtype=torch.float32, device=params.device)
+
+    def run():
+        rc = lib.fm_score_forward(
+            params.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+            out.data_ptr(), N, D, B, L, params.device.index,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"fm_score launch failed: {rc}")
+    return Launch(run)
+
+
+def bwd_launch(torch, params, idx, vals, g, need_dx):
+    """A bare launch of this tree's fm_score_bwd on outputs allocated
+    here."""
+    from fast_tffm_tpu_torch.ops import build
+    lib = build.load_fm_score_bwd()
+    (N, D), (B, L) = params.shape, idx.shape
+    dparams = torch.zeros_like(params)
+    dvals = torch.empty((B, L), dtype=torch.float32, device=vals.device)
+
+    def run():
+        rc = lib.fm_score_bwd(
+            params.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+            g.data_ptr(), dparams.data_ptr(), dvals.data_ptr(), N, D, B, L,
+            int(need_dx), params.device.index,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"fm_score_bwd launch failed: {rc}")
+    return Launch(run, dparams.zero_)
+
+
+def fwd_kernel_row(torch, table, idx, vals, flush, **tags):
+    """fm_score against its plain version on one input: bit-equal, or a
+    raised SmokeFailure; times, bytes and bound in one row (emitted,
+    tagged with ``tags``). ``flush`` None times it with L2 warm."""
     from fast_tffm_tpu_torch.ops import fm_kernel, interaction
+    B, L = idx.shape
+    D = table.shape[1]
+    K = D - 1
+    plain = interaction.fm_batch_scores(table, idx, vals)
+    kern = fm_kernel.fm_batch_scores(table, idx, vals)
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / plain.abs().clamp_min(ATOL)).max())
+    bit_equal = bool(torch.equal(kern, plain))
+    check(bit_equal and bool(torch.isfinite(kern).all()),
+          f"fm_score differs from its plain version on {tags} at B={B} "
+          f"L={L} K={K}: max abs err {max_abs}")
+    ms = median_ms(torch, lambda: fm_kernel.fm_batch_scores(
+        table, idx, vals), flush)
+    plain_ms = median_ms(torch, lambda: interaction.fm_batch_scores(
+        table, idx, vals), flush)
+    new = fwd_launch(torch, table, idx, vals)
+    device_ms, timing = kernel_ms(torch, new, flush, "fm_score_kernel")
+    # Each input read once: the U distinct rows the batch references
+    # (all pad cells share one), idx and vals; the scores written.
+    U = int(torch.unique(idx).numel())
+    nbytes = U * D * 4 + B * L * 8 + B * 4
+    flops = B * (L * (4 * K + 2) + 3 * K + 2)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    row = {"phase": "kernel", "name": "fm_score", **tags, "B": B, "L": L,
+           "K": K, "U": U, "l2": "cold" if flush is not None else "warm",
+           "bit_equal": bit_equal, "max_abs_err": max_abs,
+           "max_rel_err": max_rel, "ms": ms, "plain_ms": plain_ms,
+           "device_ms": device_ms, "device_timing": timing,
+           "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+           "bound_share": bound_ms / ms,
+           "bound_share_device": bound_ms / device_ms}
+    emit(row)
+    return row
+
+
+def kernel_phase(torch, tables, predict_batch, device):
+    """fm_score at the kernel shapes on uniform rows, then on the first
+    predict batch (raw, Zipf-skewed ids into the 2^24 table)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
     rows = []
     for B, L, K in KERNEL_SHAPES:
-        table = tables[K]
-        D = table.shape[1]
         idx, vals = random_batch(torch, gen, B, L, VOCAB, device)
-        plain = interaction.fm_batch_scores(table, idx, vals)
-        kern = fm_kernel.fm_batch_scores(table, idx, vals)
-        torch.cuda.synchronize()
-        diff = (kern - plain).abs()
-        max_abs = float(diff.max())
-        max_rel = float((diff / plain.abs().clamp_min(ATOL)).max())
-        ok = bool((diff <= ATOL + RTOL * plain.abs()).all())
-        ms = median_ms(torch, lambda: fm_kernel.fm_batch_scores(
-            table, idx, vals), flush)
-        plain_ms = median_ms(torch, lambda: interaction.fm_batch_scores(
-            table, idx, vals), flush)
-        device_ms = kernel_device_ms(
-            torch, lambda: fm_kernel.fm_batch_scores(table, idx, vals),
-            flush, "fm_score_kernel")
-        # Each input read once: the U distinct rows the batch references
-        # (all pad cells share one), idx and vals; the scores written.
-        U = int(torch.unique(idx).numel())
-        nbytes = U * D * 4 + B * L * 8 + B * 4
-        flops = B * (L * (4 * K + 2) + 3 * K + 2)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops / FP32_FLOPS_PER_S * 1e3
-        row = {"phase": "kernel", "name": "fm_score", "B": B, "L": L,
-               "K": K, "U": U, "max_abs_err": max_abs, "max_rel_err": max_rel,
-               "within_tol": ok, "rtol": RTOL, "atol": ATOL,
-               "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-               "bytes": nbytes,
-               "flops": flops, "bound_ms": max(bytes_ms, flops_ms),
-               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-               "bound_share": max(bytes_ms, flops_ms) / ms}
-        emit(row)
-        rows.append(row)
-        check(ok and bool(torch.isfinite(kern).all()),
-              f"kernel disagrees with its plain version at B={B} L={L} "
-              f"K={K}: max abs err {max_abs}")
+        rows.append(fwd_kernel_row(torch, tables[K], idx, vals, flush,
+                                   batch="uniform"))
+    idx, vals = predict_batch
+    rows.append(fwd_kernel_row(torch, tables[FACTORS], idx, vals, flush,
+                               batch="predict"))
     del flush
     return rows
 
 
-def bwd_kernel_rows(torch, params, local, vals, g, flush, **tags):
-    """fm_score_bwd against its plain version on one input, ``need_dx``
-    off and on: two rows (emitted, tagged with ``tags``), or a raised
-    SmokeFailure."""
+def bwd_kernel_rows(torch, params, local, vals, g, flush,
+                    need_dx_cases=(False, True), **tags):
+    """fm_score_bwd against its plain version on one input, for each
+    ``need_dx`` in ``need_dx_cases``: a row each (emitted, tagged with
+    ``tags``), or a raised SmokeFailure. ``flush`` None times it with L2
+    warm."""
     from fast_tffm_tpu_torch.ops import fm_kernel, interaction
     B, L = local.shape
     U, D = params.shape
@@ -294,7 +409,7 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush, **tags):
     dp, dv, dp_abs, dv_abs = interaction.fm_batch_scores_bwd(
         params, local, vals, g, need_dx=True, magnitudes=True)
     rows = []
-    for need_dx in (False, True):
+    for need_dx in need_dx_cases:
         kdp, kdv = fm_kernel.fm_batch_scores_bwd(params, local, vals, g,
                                                  need_dx)
         torch.cuda.synchronize()
@@ -315,10 +430,9 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush, **tags):
         plain_ms = median_ms(
             torch, lambda: interaction.fm_batch_scores_bwd(
                 params, local, vals, g, need_dx), flush)
-        device_ms = kernel_device_ms(
-            torch, lambda: fm_kernel.fm_batch_scores_bwd(
-                params, local, vals, g, need_dx), flush,
-            "fm_score_bwd_kernel")
+        new = bwd_launch(torch, params, local, vals, g, need_dx)
+        device_ms, timing = kernel_ms(torch, new, flush,
+                                      "fm_score_bwd_kernel")
         # Each input read once (the U gathered rows, idx, vals, g),
         # each output written once (dparams, and dvals if asked).
         nbytes = (2 * U * D * 4 + B * L * 8 + B * 4
@@ -333,15 +447,18 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush, **tags):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / FP32_FLOPS_PER_S * 1e3
         row = {"phase": "kernel", "name": "fm_score_bwd", **tags, "B": B,
-               "L": L, "K": K, "U": U, "nnz": nnz,
+               "L": L, "K": K, "U": U,
+               "l2": "cold" if flush is not None else "warm", "nnz": nnz,
                "hottest_row_slots": hottest, "need_dx": need_dx,
                "max_abs_err": max_abs, "max_excess_over_bound": excess,
                "within_tol": ok, "rtol_of_abs_sum": BWD_RTOL,
                "atol": BWD_ATOL, "ms": ms, "plain_ms": plain_ms,
-               "device_ms": device_ms, "bytes": nbytes, "flops": flops,
+               "device_ms": device_ms, "device_timing": timing,
+               "bytes": nbytes, "flops": flops,
                "bound_ms": max(bytes_ms, flops_ms),
                "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-               "bound_share": max(bytes_ms, flops_ms) / ms}
+               "bound_share": max(bytes_ms, flops_ms) / ms,
+               "bound_share_device": max(bytes_ms, flops_ms) / device_ms}
         emit(row)
         rows.append(row)
         check(ok, f"fm_score_bwd disagrees with its plain version on "
@@ -354,7 +471,7 @@ def bwd_kernel_phase(torch, tables, device):
     """fm_score_bwd against its plain version at the kernel shapes, on
     the rows a train step hands it: the batch's unique rows, gathered,
     and each cell's index into them. Ids are uniform random, so few
-    atomics meet on one row; train_phase adds a Zipf-skewed batch."""
+    atomics meet on one row; train_phase adds Zipf-skewed batches."""
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
@@ -372,11 +489,23 @@ def bwd_kernel_phase(torch, tables, device):
     return rows
 
 
-def bwd_train_batch_rows(torch, spec, table, args, device):
-    """fm_score_bwd against its plain version on one batch of the train
-    phase's stream, deduped and gathered as train_step_body does, with
-    g = dloss/dscore of that batch: Criteo's low-cardinality fields put
-    thousands of atomics on a few rows there."""
+def numeric_ids(vocab):
+    """The hashed row ids of the NUM_FIELDS numeric features I0, I1,
+    ... (one row each, whatever the value)."""
+    from fast_tffm_tpu_torch.data.hashing import hash_feature
+    return [hash_feature(f"I{j}", vocab) for j in range(NUM_FIELDS)]
+
+
+def train_batch_kernel_rows(torch, spec, table, args, device):
+    """Both kernels against their plain versions on one batch of the
+    train phase's stream, deduped and gathered as train_step_body does,
+    with g = dloss/dscore of that batch: Criteo's low-cardinality fields
+    put thousands of atomics on a few rows there. fm_score runs with L2
+    warm, as in the step; fm_score_bwd with L2 flushed and, need_dx off,
+    warm (as in the step), then flushed once more on the same batch with
+    the numeric fields' slots at x = 0 ("train_no_numeric"), which
+    leaves the Zipf-spread categorical rows and takes the hottest rows
+    away. Returns (forward rows, backward rows)."""
     from fast_tffm_tpu_torch.models import fm as port_fm
     from fast_tffm_tpu_torch.ops.interaction import gather_rows
     uniq, local = port_fm._device_dedup(spec, args["local_idx"])
@@ -385,12 +514,24 @@ def bwd_train_batch_rows(torch, spec, table, args, device):
         spec, rows, args["labels"], args["weights"], uniq, local,
         args["vals"])
     (g,) = torch.autograd.grad(loss, scores)
+    rows, g = rows.detach(), g.detach()
+    fwd = [fwd_kernel_row(torch, rows, local, args["vals"], None,
+                          batch="train")]
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
-    out = bwd_kernel_rows(torch, rows.detach(), local, args["vals"],
-                          g.detach(), flush, batch="train")
+    bwd = bwd_kernel_rows(torch, rows, local, args["vals"], g, flush,
+                          batch="train")
+    bwd += bwd_kernel_rows(torch, rows, local, args["vals"], g, None,
+                           need_dx_cases=(False,), batch="train")
+    numeric = torch.isin(args["local_idx"], torch.tensor(
+        numeric_ids(spec.vocabulary_size), dtype=args["local_idx"].dtype,
+        device=device))
+    check(bool(numeric.any()), "the train batch has no numeric slot")
+    no_numeric = args["vals"].masked_fill(numeric, 0.0)
+    bwd += bwd_kernel_rows(torch, rows, local, no_numeric, g, flush,
+                           need_dx_cases=(False,), batch="train_no_numeric")
     del flush
-    return out
+    return fwd, bwd
 
 
 def reference_scores(table_cpu, cfg, lines):
@@ -582,16 +723,44 @@ def read_train_log(path):
     return losses, rates, aucs, float(done[-1]) if done else None
 
 
+def step_kernel_ms(torch, step):
+    """Device ms per step of each kernel, from a torch.profiler trace of
+    ``step(i)`` for i < PROFILED_STEPS. The profiler now and then returns
+    a trace without the records of kernels launched through ctypes; such
+    a trace is taken again, up to PROFILE_ATTEMPTS times in all, and None
+    means not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(PROFILED_STEPS):
+                step(i)
+            torch.cuda.synchronize()
+        kernel_ms, counts = {}, {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0)
+            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                kernel_ms[e.key] = us / 1e3 / PROFILED_STEPS
+                for name in ("fm_score_kernel", "fm_score_bwd_kernel"):
+                    if name in e.key:
+                        counts[name] = counts.get(name, 0) + e.count
+        if counts == {"fm_score_kernel": PROFILED_STEPS,
+                      "fm_score_bwd_kernel": PROFILED_STEPS}:
+            return kernel_ms
+    return None
+
+
 def resident_step_ms(torch, cfg, device):
     """One train step (dedup -> gather -> forward -> backward -> Adagrad)
     on batches of the train stream already on the card: the median
     CUDA-event time of train_step_body and, from a torch.profiler trace
-    of PROFILED_STEPS more steps, the device time per step by kernel.
+    of PROFILED_STEPS more steps, the device time per step by kernel
+    (step_kernel_ms).
     Event intervals include the gaps in which the card waits for the
     host to launch the next kernel; the profiler's kernel times do not.
-    Also fm_score_bwd against its plain version on the first of these
-    batches (bwd_train_batch_rows); returns (timings, those rows)."""
-    from torch.profiler import ProfilerActivity, profile
+    Also both kernels against their plain versions on the first of these
+    batches (train_batch_kernel_rows); returns (timings, forward rows,
+    backward rows)."""
     from fast_tffm_tpu_torch.data.pipeline import batch_iterator
     from fast_tffm_tpu_torch.models import fm as port_fm
     spec = port_fm.ModelSpec.from_config(cfg)
@@ -603,7 +772,8 @@ def resident_step_ms(torch, cfg, device):
         batches.append(port_fm.batch_args(b, device))
         if len(batches) == RESIDENT_BATCHES:
             break
-    bwd_rows = bwd_train_batch_rows(torch, spec, table, batches[0], device)
+    fwd_rows, bwd_rows = train_batch_kernel_rows(torch, spec, table,
+                                                 batches[0], device)
 
     whole = []
     for i in range(RESIDENT_STEPS + 2):
@@ -617,25 +787,19 @@ def resident_step_ms(torch, cfg, device):
         if i >= 2:  # the first two are warmup
             whole.append(start.elapsed_time(end))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(PROFILED_STEPS):
-            port_fm.train_step_body(spec, table, acc,
-                                    **batches[i % len(batches)])
-        torch.cuda.synchronize()
-    kernel_ms = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            kernel_ms[e.key] = us / 1e3 / PROFILED_STEPS
-    top = dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:10])
-    device_ms = sum(kernel_ms.values()) if kernel_ms else None
+    per_kernel = step_kernel_ms(torch, lambda i: port_fm.train_step_body(
+        spec, table, acc, **batches[i % len(batches)]))
+    top = (None if per_kernel is None else
+           dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))
+    device_ms = None if per_kernel is None else sum(per_kernel.values())
     del table, acc, batches
     torch.cuda.empty_cache()
     return {"resident_step_ms_median": sorted(whole)[len(whole) // 2],
             "profiled_device_ms_per_step": device_ms,
             "profiled_kernels_ms_per_step": top,
-            "profiled_kernel_count": len(kernel_ms)}, bwd_rows
+            "profiled_kernel_count":
+                None if per_kernel is None else len(per_kernel)}, \
+        fwd_rows, bwd_rows
 
 
 def train_phase(torch, device):
@@ -704,7 +868,7 @@ def train_phase(torch, device):
           f"predict's exact AUC {predict_auc} vs train's binned AUC "
           f"{aucs[-1]}")
 
-    resident, bwd_rows = resident_step_ms(torch, cfg, device)
+    resident, fwd_rows, bwd_rows = resident_step_ms(torch, cfg, device)
     step_ms = resident["resident_step_ms_median"]
     busy_ms = resident["profiled_device_ms_per_step"]
     # log_steps = 1: each logged rate covers one step's window, so the
@@ -739,16 +903,18 @@ def train_phase(torch, device):
                (None if busy_ms is None
                 else 1.0 - busy_ms / 1e3 * loop_eps / TRAIN_BATCH)}
     emit(row)
-    return row, bwd_rows
+    return row, fwd_rows, bwd_rows
 
 
 def main(argv) -> int:
-    out_dir = None
-    if argv[:1] == ["--out"] and len(argv) == 2:
-        out_dir = argv[1]
-    elif argv:
-        print("usage: python3 chip_smoke.py [--out DIR]", file=sys.stderr)
-        return 2
+    import argparse
+    parser = argparse.ArgumentParser(
+        prog="chip_smoke.py", description="On-card smoke run of the port.")
+    parser.add_argument("--out", metavar="DIR",
+                        help="also write a JSON summary of every phase to "
+                             "DIR/chip_smoke.json")
+    args = parser.parse_args(argv)
+    out_dir = args.out
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -756,6 +922,8 @@ def main(argv) -> int:
         return 1
     import numpy as np
     from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.parser import parse_lines
+    from fast_tffm_tpu_torch.data.pipeline import make_device_batch
     from fast_tffm_tpu_torch.models.convert import save_npz
     from fast_tffm_tpu_torch.ops import build
 
@@ -772,7 +940,8 @@ def main(argv) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build_all(log=lambda text: print(text, end="", flush=True))
+    build.build_all(build.SOURCES,
+                    log=lambda text: print(text, end="", flush=True))
     build.load_fm_score()
     build.load_fm_score_bwd()
     print(f"build+load seconds {time.perf_counter() - t0:.2f}", flush=True)
@@ -797,17 +966,24 @@ def main(argv) -> int:
               f"({os.path.getsize(cfg.model_file + '.npz') / 1e9:.2f} GB) "
               f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
-        # 3. kernel vs plain version
-        kernel_rows = kernel_phase(torch, tables, device)
-        bwd_rows = bwd_kernel_phase(torch, tables, device)
-        table_cpu = table.cpu().numpy()
-        del tables, table
-        torch.cuda.empty_cache()
-
-        # 4. predict
         lines, _ = criteo_lines(PREDICT_LINES, SEED + 3)
         with open(os.path.join(WORK, "criteo.txt"), "w") as fh:
             fh.write("\n".join(lines) + "\n")
+        first = make_device_batch(parse_lines(
+            lines[:PREDICT_BATCH], cfg.vocabulary_size, hash_feature_id=True,
+            max_features_per_example=cfg.max_features_per_example,
+            keep_empty=True), cfg)
+        predict_batch = tuple(torch.from_numpy(a).to(device)
+                              for a in (first.local_idx, first.vals))
+
+        # 3. kernel vs plain version
+        kernel_rows = kernel_phase(torch, tables, predict_batch, device)
+        bwd_rows = bwd_kernel_phase(torch, tables, device)
+        table_cpu = table.cpu().numpy()
+        del tables, table, predict_batch
+        torch.cuda.empty_cache()
+
+        # 4. predict
         predict_row, score_lines = predict_phase(torch, cfg, cfg_path,
                                                  table_cpu, lines, device)
 
@@ -816,16 +992,19 @@ def main(argv) -> int:
         del lines, score_lines, table_cpu
 
         # 6. train
-        train_row, bwd_train_rows = train_phase(torch, device)
+        train_row, fwd_train_rows, bwd_train_rows = train_phase(torch,
+                                                                device)
+        kernel_rows += fwd_train_rows
         bwd_rows += bwd_train_rows
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    head = next(r for r in kernel_rows
-                if (r["B"], r["L"], r["K"]) == HEADLINE_SHAPE)
+    head = next(r for r in kernel_rows if r["batch"] == "uniform" and
+                (r["B"], r["L"], r["K"]) == HEADLINE_SHAPE)
     # The backward's headline row is the train batch, need_dx off: the
     # input the train step gives it (the step never asks for dvals).
-    bwd_head = next(r for r in bwd_train_rows if not r["need_dx"])
+    bwd_head = next(r for r in bwd_train_rows if r["batch"] == "train"
+                    and not r["need_dx"] and r["l2"] == "cold")
     kernels = {"kernels": [{
         "name": "fm_score", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score.cu",
@@ -838,6 +1017,7 @@ def main(argv) -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shape_BLK": list(HEADLINE_SHAPE),
         "device_ms": head["device_ms"],
+        "device_timing": head["device_timing"],
         "predict_launches": predict_row["launches"],
         "serve_launches": serve_row["launches"],
         "train_launches": train_row["fm_score_launches"],
@@ -851,7 +1031,8 @@ def main(argv) -> int:
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
         "library_ms": None,
         "shape_BLK": [bwd_head["B"], bwd_head["L"], bwd_head["K"]],
-        "device_ms": bwd_head["device_ms"], "need_dx": False,
+        "device_ms": bwd_head["device_ms"],
+        "device_timing": bwd_head["device_timing"], "need_dx": False,
         "batch": "train"}]}
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)

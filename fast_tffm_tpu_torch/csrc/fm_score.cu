@@ -9,21 +9,31 @@
 // with r = idx[b,l], x = vals[b,l], v[r,:] = params[r, 0:K], w[r] = params[r, K].
 // Pad slots carry x = 0 and add exactly zero.
 //
-// What bounds it: device memory. Per example it reads L rows of (K+1)*4 bytes
-// from random places in the table plus L*8 bytes of idx and vals, and does
-// about 4 flops per byte-pair of a row, far under the card's compute rate.
-// The floor is therefore bytes / 3.35 TB/s with
-//   bytes = B*L*(K+1)*4 (gathered rows) + B*L*8 (idx, vals) + B*4 (scores).
-// A random row of 68 B (K = 16) touches about three 32-B sectors, so the
-// true floor is somewhat higher than that count.
+// What bounds it: device memory. Per example it reads L rows of (K+1)*4
+// bytes from random places in the table plus L*8 bytes of idx and vals,
+// and does about 4 flops per row element, far under the card's compute
+// rate. Counting each distinct row once, the floor is
+//   bytes = U*(K+1)*4 (the U distinct rows) + B*L*8 (idx, vals) + B*4
+// over 3.35 TB/s. A 68-byte row (K = 16) at a 4-byte offset always spans
+// three 32-byte sectors, so the card moves 96 bytes for each.
 //
 // What the design does about it: the kernel reads each row of `params`
 // itself, so the [B, L, K+1] gathered block the JAX package builds never
-// reaches device memory; nothing but `scores` is written. One warp scores one
-// example: lane c holds factor columns c, c+32, ... (and the lane that owns
-// column K accumulates the linear term), loops over l, and keeps
-// s_f = sum x*v and q_f = sum (x*v)^2 in registers. The warp loads 32 slots
-// of idx and vals at a time, coalesced, and broadcasts them by shuffle.
+// reaches device memory; nothing but `scores` is written. One warp scores
+// one example; lane c holds factor columns c, c+32, ... and the lane that
+// owns column K sums the linear term. The first version loaded one slot's
+// row at a time and waited for it before the next: about one memory
+// latency per slot, whatever B was. Now a lane loads its columns of up to
+// 32 slots' rows into registers back to back (rows.cuh), so a chunk of
+// slots costs about one latency, and the loads of the next chunk's ids are
+// in flight while this chunk is summed. (Staging the rows into shared
+// memory with cp.async, tried first, executed three shuffle, copy and
+// shared-load instructions per slot where this executes one load, and was
+// slower once the rows sat in L2: PERF.md.) Every slot with an in-range
+// row loads it, pad cells (x == 0) too, as the plain version multiplies
+// them: a finite row adds exactly +-0 there, and a row holding inf or NaN
+// makes the score NaN in both. Pad cells share one row, so their loads
+// hit L1.
 //
 // Sum order, fixed per example and independent of B and of trailing padding:
 // s, q and the linear term accumulate in ascending l; the pair term adds
@@ -35,20 +45,23 @@
 //
 // A row index outside [0, n_rows) makes that example's score NaN.
 //
-// Entry point: fm_score_forward, plain C, returns cudaGetLastError() after
-// the launch (0 = launched). The launch runs on the caller's stream and does
-// not synchronise.
+// Entry point fm_score_forward, plain C, returns cudaGetLastError() after
+// the launch (0 = launched). The launch runs on the caller's stream, on
+// device `device`, and does not synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
+using fm::kFullMask;
+
 constexpr int kThreads = 128;  // 4 warps = 4 examples per block
 constexpr int kWarpsPerBlock = kThreads / 32;
-constexpr int kMaxChunks = 4;  // K + 1 <= 128 columns
+constexpr int kMaxRowDim = 128;  // K + 1 <= 4 warp-wide column chunks
 
 template <int J>
 __global__ void __launch_bounds__(kThreads)
@@ -57,11 +70,14 @@ fm_score_kernel(const float* __restrict__ params,
                 const float* __restrict__ vals,
                 float* __restrict__ out,
                 int64_t n_rows, int D, int B, int L) {
+  constexpr int T = fm::RowsInFlight<J>::value;
   const int lane = threadIdx.x & 31;
   const int64_t b =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp leaves together
   const int K = D - 1;
+  int col[J];
+  fm::lane_columns(lane, K, col);
 
   float s[J], q[J];
 #pragma unroll
@@ -74,35 +90,41 @@ fm_score_kernel(const float* __restrict__ params,
 
   const int32_t* idx_b = idx + b * L;
   const float* val_b = vals + b * L;
+  int32_t r_next;
+  float x_next;
+  fm::load_slots(idx_b, val_b, L, 0, lane, r_next, x_next);
   for (int l0 = 0; l0 < L; l0 += 32) {
     const int n = min(32, L - l0);
-    int32_t my_r = 0;
-    float my_x = 0.0f;
-    if (lane < n) {
-      my_r = idx_b[l0 + lane];
-      my_x = val_b[l0 + lane];
+    const int32_t r = r_next;
+    const float x = x_next;
+    if (l0 + 32 < L) {
+      fm::load_slots(idx_b, val_b, L, l0 + 32, lane, r_next, x_next);
     }
-#pragma unroll 4
-    for (int t = 0; t < n; ++t) {
-      const int32_t r = __shfl_sync(kFullMask, my_r, t);
-      const float x = __shfl_sync(kFullMask, my_x, t);
-      const bool ok = r >= 0 && static_cast<int64_t>(r) < n_rows;
-      bad |= !ok;
-      // 64-bit row offset: r * D overflows int32 past ~1.2e8 rows at D=17.
-      const float* row = params + (ok ? static_cast<int64_t>(r) : 0) * D;
+    const bool ok = fm::row_ok(r, n_rows);
+    bad |= lane < n && !ok;
+    const bool live = lane < n && ok;
+    for (int t0 = 0; t0 < n; t0 += T) {
+      float v[T][J];
+      fm::load_rows(params, D, col, r, live, t0, v);
+      // Slots past n carry x = 0 and v = 0: they add exactly +0.
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int c = lane + 32 * j;
-        if (c < K) {
-          const float z = __fmul_rn(__ldg(row + c), x);
-          s[j] = __fadd_rn(s[j], z);
-          q[j] = __fadd_rn(q[j], __fmul_rn(z, z));
-        } else if (c == K) {
-          lin = __fadd_rn(lin, __fmul_rn(__ldg(row + c), x));
+      for (int u = 0; u < T; ++u) {
+        const float xt = __shfl_sync(kFullMask, x, t0 + u);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int c = lane + 32 * j;
+          if (c < K) {
+            const float z = __fmul_rn(v[u][j], xt);
+            s[j] = __fadd_rn(s[j], z);
+            q[j] = __fadd_rn(q[j], __fmul_rn(z, z));
+          } else if (c == K) {
+            lin = __fadd_rn(lin, __fmul_rn(v[u][j], xt));
+          }
         }
       }
     }
   }
+  bad = __any_sync(kFullMask, bad);
 
   // Pair term in ascending f: every lane walks the same shuffles, so the
   // sum is identical in all of them; lane 0 writes it.
@@ -126,11 +148,15 @@ fm_score_kernel(const float* __restrict__ params,
 extern "C" int fm_score_forward(const void* params, const void* idx,
                                 const void* vals, void* out,
                                 long long n_rows, int D, int B, int L,
-                                void* stream) {
-  if (D < 2 || D > 32 * kMaxChunks || B <= 0 || L <= 0 || n_rows <= 0) {
+                                int device, void* stream) {
+  if (D < 2 || D > kMaxRowDim || B <= 0 || L <= 0 || n_rows <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  int prev = 0;
+  cudaError_t rc = cudaGetDevice(&prev);
+  if (rc == cudaSuccess && prev != device) rc = cudaSetDevice(device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(params);
   const int32_t* i = static_cast<const int32_t*>(idx);
@@ -138,19 +164,21 @@ extern "C" int fm_score_forward(const void* params, const void* idx,
   float* o = static_cast<float*>(out);
   switch ((D + 31) / 32) {
     case 1:
-      fm_score_kernel<1><<<blocks, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
+      fm_score_kernel<1><<<grid, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
       break;
     case 2:
-      fm_score_kernel<2><<<blocks, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
+      fm_score_kernel<2><<<grid, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
       break;
     case 3:
-      fm_score_kernel<3><<<blocks, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
+      fm_score_kernel<3><<<grid, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
       break;
     default:
-      fm_score_kernel<4><<<blocks, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
+      fm_score_kernel<4><<<grid, kThreads, 0, st>>>(p, i, v, o, n_rows, D, B, L);
       break;
   }
-  return static_cast<int>(cudaGetLastError());
+  rc = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(rc);
 }
 
 extern "C" const char* fm_score_error_string(int code) {

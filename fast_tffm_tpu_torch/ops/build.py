@@ -3,8 +3,9 @@
 ``nvcc`` compiles each source into a shared library with a plain C
 interface at first use; ``ctypes`` loads it. The library lands in
 ``fast_tffm_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
-keyed by a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is reused by later processes.
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel is rebuilt and an unchanged one is reused
+by later processes.
 
 Importing this module needs no CUDA toolkit: ``nvcc`` runs only when a
 kernel is first launched, or when ``build()`` is called directly.
@@ -24,8 +25,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-FM_SCORE_SRC = os.path.join(_PKG, "csrc", "fm_score.cu")
-FM_SCORE_BWD_SRC = os.path.join(_PKG, "csrc", "fm_score_bwd.cu")
+CSRC = os.path.join(_PKG, "csrc")
+FM_SCORE_SRC = os.path.join(CSRC, "fm_score.cu")
+FM_SCORE_BWD_SRC = os.path.join(CSRC, "fm_score_bwd.cu")
 SOURCES = (FM_SCORE_SRC, FM_SCORE_BWD_SRC)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,10 +56,13 @@ def find_nvcc() -> str:
 
 def library_path(src: str) -> str:
     """Where the library built from ``src`` lives: keyed by a hash of
-    the source bytes and the compiler flags."""
+    the source bytes, the headers in ``csrc/`` and the compiler flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
+    for path in (src, *headers):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
@@ -122,15 +127,17 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def load_fm_score() -> ctypes.CDLL:
-    """The fm_score (forward) library."""
+    """The fm_score (forward) library: fm_score_forward(params, idx,
+    vals, out, n_rows, D, B, L, device, stream)."""
     return _load(FM_SCORE_SRC, {
-        "fm_score_forward": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
+        "fm_score_forward": ([_P] * 4 + [_LL] + [_I] * 4 + [_P], _I),
         "fm_score_error_string": ([_I], ctypes.c_char_p)})
 
 
 def load_fm_score_bwd() -> ctypes.CDLL:
-    """The fm_score_bwd (backward) library."""
+    """The fm_score_bwd (backward) library: fm_score_bwd(params, idx,
+    vals, g, dparams, dvals, n_rows, D, B, L, need_dx, device,
+    stream)."""
     return _load(FM_SCORE_BWD_SRC, {
-        "fm_score_bwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-                         _I),
+        "fm_score_bwd": ([_P] * 6 + [_LL] + [_I] * 5 + [_P], _I),
         "fm_score_bwd_error_string": ([_I], ctypes.c_char_p)})

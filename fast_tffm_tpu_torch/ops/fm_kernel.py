@@ -24,18 +24,30 @@ the kernels.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
 from typing import Optional, Tuple
 
 import torch
 
-from fast_tffm_tpu_torch.ops import interaction
+from fast_tffm_tpu_torch.ops import build, interaction
 
-MAX_ROW_DIM = 128  # K + 1 columns the kernels take (4 warp-wide chunks)
+MAX_ROW_DIM = 128   # K + 1 columns the kernels take: 4 warp-wide chunks
 
 launches = 0
 bwd_launches = 0
 _count_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_library() -> ctypes.CDLL:
+    return build.load_fm_score()
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_library() -> ctypes.CDLL:
+    return build.load_fm_score_bwd()
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -51,6 +63,20 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def check_kernel_shape(B: int, L: int, D: int) -> None:
+    """Raise ValueError for a [B, L] batch of D-column rows that the
+    kernels cannot take (the C entry points refuse the same)."""
+    if not 2 <= D <= MAX_ROW_DIM:
+        raise ValueError(f"the kernels take 2 <= K+1 <= {MAX_ROW_DIM} "
+                         f"columns, got {D}")
+    if B < 1 or L < 1:
+        raise ValueError(f"the kernels take B >= 1 and L >= 1, got "
+                         f"B={B}, L={L}")
+    if B * L >= 1 << 31:
+        raise ValueError(f"B*L = {B * L} slots: the kernels index fewer "
+                         "than 2^31")
+
+
 def _check_kernel_inputs(params: torch.Tensor, local_idx: torch.Tensor,
                          vals: torch.Tensor) -> None:
     if params.dtype != torch.float32 or vals.dtype != torch.float32:
@@ -64,10 +90,6 @@ def _check_kernel_inputs(params: torch.Tensor, local_idx: torch.Tensor,
             f"want params [N, K+1], local_idx [B, L], vals [B, L]; got "
             f"{tuple(params.shape)}, {tuple(local_idx.shape)}, "
             f"{tuple(vals.shape)}")
-    D = params.shape[1]
-    if not 2 <= D <= MAX_ROW_DIM:
-        raise ValueError(f"the kernels take 2 <= K+1 <= {MAX_ROW_DIM} "
-                         f"columns, got {D}")
     if not (params.is_contiguous() and local_idx.is_contiguous()
             and vals.is_contiguous()):
         raise ValueError("params, local_idx and vals must be contiguous")
@@ -84,13 +106,13 @@ def _scores(params: torch.Tensor, local_idx: torch.Tensor,
     out = torch.empty(B, dtype=torch.float32, device=params.device)
     if B == 0 or L == 0:
         return out.zero_()
-    from fast_tffm_tpu_torch.ops.build import load_fm_score
-    lib = load_fm_score()
-    with torch.cuda.device(params.device):
-        stream = torch.cuda.current_stream(params.device).cuda_stream
-        rc = lib.fm_score_forward(params.data_ptr(), local_idx.data_ptr(),
-                                  vals.data_ptr(), out.data_ptr(), N, D, B,
-                                  L, stream)
+    check_kernel_shape(B, L, D)
+    lib = _forward_library()
+    dev = params.device.index
+    rc = lib.fm_score_forward(
+        params.data_ptr(), local_idx.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), N, D, B, L, dev,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"fm_score kernel launch failed (B={B}, L={L}, K+1={D}): "
@@ -122,15 +144,14 @@ def fm_batch_scores_bwd(params: torch.Tensor, local_idx: torch.Tensor,
              if need_dx else None)
     if B == 0 or L == 0:
         return dparams, dvals
-    from fast_tffm_tpu_torch.ops.build import load_fm_score_bwd
-    lib = load_fm_score_bwd()
-    with torch.cuda.device(params.device):
-        stream = torch.cuda.current_stream(params.device).cuda_stream
-        rc = lib.fm_score_bwd(params.data_ptr(), local_idx.data_ptr(),
-                              vals.data_ptr(), g.data_ptr(),
-                              dparams.data_ptr(),
-                              dvals.data_ptr() if need_dx else None,
-                              N, D, B, L, int(need_dx), stream)
+    check_kernel_shape(B, L, D)
+    lib = _backward_library()
+    dev = params.device.index
+    rc = lib.fm_score_bwd(
+        params.data_ptr(), local_idx.data_ptr(), vals.data_ptr(),
+        g.data_ptr(), dparams.data_ptr(),
+        dvals.data_ptr() if need_dx else None, N, D, B, L, int(need_dx),
+        dev, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"fm_score_bwd kernel launch failed (B={B}, L={L}, K+1={D}): "

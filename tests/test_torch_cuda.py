@@ -11,14 +11,15 @@ Tolerances:
 - forward (csrc/fm_score.cu): rtol 1e-5 / atol 1e-6, the bound the CPU
   tests hold the plain version to against the JAX package. The kernel
   sums in the plain version's order with explicitly rounded operations,
-  so the two are expected to agree to the bit; the tolerance covers a
-  compiler that rounds otherwise.
+  so the two are expected to agree to the bit, and the edges of its
+  register-batched row loads (the 32-slot chunk, the column chunks a
+  lane holds) are held to exact equality.
 - backward (csrc/fm_score_bwd.cu): float atomics add the rows'
   contributions in an order that changes from run to run, so each
   element of ``dparams`` is held to rtol 1e-5 of its sum of absolute
   contributions (which the plain version computes alongside), plus atol
-  1e-6; ``dvals``, summed by a warp butterfly, likewise against
-  ``|g|·(|w| + Σ_f |v_f·(s_f − z_f)|)``.
+  1e-6; ``dvals``, summed in another order than the plain version's,
+  likewise against ``|g|·(|w| + Σ_f |v_f·(s_f − z_f)|)``.
 - one train step on the card against the same step on the CPU: rtol
   1e-4 / atol 1e-6, the bound the CPU tests hold the step to against the
   JAX package.
@@ -91,6 +92,21 @@ def test_out_of_range_row_scores_nan(card):
     assert torch.isnan(got[2]) and torch.isfinite(got[[0, 1, 3]]).all()
 
 
+def test_kernel_multiplies_pad_rows_like_the_plain_version(card):
+    """A row holding inf or NaN at a slot with x == 0: the plain version
+    multiplies it (inf * 0 = NaN), and so does the kernel."""
+    params, idx, vals = _case(15, 8, 16, 64, 16)
+    params[5, 2] = float("inf")
+    params[6, 16] = float("nan")
+    idx[1, 3], vals[1, 3] = 5, 0.0
+    idx[4, 0], vals[4, 0] = 6, 0.0
+    plain = interaction.fm_batch_scores(params, idx, vals)
+    got = fm_kernel.fm_batch_scores(
+        *(t.to(card) for t in (params, idx, vals))).cpu()
+    assert torch.isnan(plain[1]) and torch.isnan(plain[4])
+    torch.testing.assert_close(got, plain, rtol=0, atol=0, equal_nan=True)
+
+
 def test_wrapper_checks_dtype_and_contiguity(card):
     params, idx, vals = (t.to(card) for t in _case(7, 4, 8, 32, 8))
     with pytest.raises(TypeError):
@@ -130,6 +146,66 @@ def test_bwd_kernel_matches_plain_version(card, B, L, U, K, need_dx):
     else:
         assert got_dv is None
     assert not got_dp[-1].any().item()  # only pad cells point at it
+
+
+# The batched row loads' edges: L around the 32-slot chunk, D = K+1 at
+# each change of the column chunks a lane holds (and of the rows it keeps
+# in flight, csrc/rows.cuh), up to D = 128, B that no block size divides
+# and B below one block.
+EDGES = [(64, 1, 256, 16), (64, 31, 256, 16), (64, 33, 256, 16),
+         (40, 257, 4096, 16), (64, 40, 512, 1), (64, 40, 512, 31),
+         (64, 40, 512, 32), (64, 40, 512, 63), (64, 40, 512, 64),
+         (64, 40, 512, 127), (3, 64, 512, 16), (4099, 64, 1 << 16, 16),
+         (4099, 300, 1 << 16, 16), (33, 129, 1024, 127), (64, 7, 512, 127),
+         (64, 62, 512, 32), (64, 256, 4096, 7), (100, 64, 8192, 1)]
+
+
+@pytest.mark.parametrize("B,L,U,K", EDGES)
+def test_kernel_edges_bit_equal(card, B, L, U, K):
+    cpu = _case(B * 7 + L + K, B, L, U, K)
+    plain = interaction.fm_batch_scores(*cpu)
+    got = fm_kernel.fm_batch_scores(*(t.to(card) for t in cpu)).cpu()
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("B,L,U,K", EDGES)
+def test_bwd_kernel_edges(card, B, L, U, K, need_dx):
+    cpu = _case(B * 5 + L + K, B, L, U, K)
+    g = torch.from_numpy(np.random.default_rng(L).normal(size=B)
+                         .astype(np.float32))
+    dp, dv, dp_abs, dv_abs = interaction.fm_batch_scores_bwd(
+        *cpu, g, need_dx=True, magnitudes=True)
+    got_dp, got_dv = fm_kernel.fm_batch_scores_bwd(
+        *(t.to(card) for t in cpu), g.to(card), need_dx=need_dx)
+    torch.cuda.synchronize()
+    _assert_within(got_dp, dp, dp_abs, "dparams")
+    if need_dx:
+        _assert_within(got_dv, dv, dv_abs, "dvals")
+
+
+@pytest.mark.parametrize("B,L,pool", [(256, 128, 2048), (64, 256, 4096)])
+def test_bwd_kernel_many_repeated_rows(card, B, L, pool):
+    """Every slot real and each row repeated across examples many times
+    over, in thousands of distinct rows: many atomics meet on each."""
+    K = 16
+    rng = np.random.default_rng(B + L)
+    params = torch.from_numpy(
+        (rng.normal(size=(pool, K + 1)) * 0.1).astype(np.float32))
+    # Each example's rows distinct, drawn from the pool.
+    idx = torch.from_numpy(
+        rng.random((B, pool)).argsort(axis=1)[:, :L].astype(np.int32))
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, (B, L)).astype(np.float32))
+    counts = torch.bincount(idx.reshape(-1).long())
+    assert int((counts > 1).sum()) > pool // 2
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32))
+    dp, _, dp_abs, _ = interaction.fm_batch_scores_bwd(
+        params, idx, vals, g, need_dx=True, magnitudes=True)
+    got_dp, _ = fm_kernel.fm_batch_scores_bwd(
+        params.to(card), idx.to(card), vals.to(card), g.to(card),
+        need_dx=False)
+    torch.cuda.synchronize()
+    _assert_within(got_dp, dp, dp_abs, "dparams")
 
 
 def test_bwd_kernel_hot_row(card):

@@ -11,6 +11,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -115,6 +116,37 @@ def test_build_module_imports_without_nvcc():
     assert build.library_path(build.FM_SCORE_SRC) != build.library_path(
         build.FM_SCORE_BWD_SRC)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("D", [2, 17, 32, 33, 64, 65, 128])
+def test_kernel_shape_check_accepts_every_row_width(D):
+    """Every K + 1 from 2 to 128 columns, at the main path's batch and at
+    the widest batch the kernels index."""
+    fm_kernel.check_kernel_shape(8192, 64, D)
+    fm_kernel.check_kernel_shape(1, (1 << 31) - 1, D)
+
+
+@pytest.mark.parametrize("B,L,D", [(8, 8, 1), (8, 8, 129), (0, 8, 17),
+                                   (8, 0, 17), (1 << 16, 1 << 15, 17)])
+def test_kernel_shape_check_refuses_what_the_kernels_cannot_take(B, L, D):
+    with pytest.raises(ValueError):
+        fm_kernel.check_kernel_shape(B, L, D)
+
+
+def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh changes every library's name, so a stale
+    build is never loaded."""
+    build = importlib.import_module("fast_tffm_tpu_torch.ops.build")
+    before = build.library_path(build.FM_SCORE_SRC)
+    for name in os.listdir(build.CSRC):
+        src = os.path.join(build.CSRC, name)
+        (tmp_path / name).write_bytes(open(src, "rb").read())
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    src = str(tmp_path / "fm_score.cu")
+    assert build.library_path(src) == before
+    with open(tmp_path / "rows.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert build.library_path(src) != before
 
 
 def _port_grads(params, idx, vals, g):
