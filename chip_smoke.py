@@ -19,30 +19,54 @@ Criteo-shaped lines it generates itself:
    L2 flushed between launches), the kernel's device time alone (a
    profiler trace of bare launches, or CUDA events around them where
    the trace misses the kernel), bytes moved and the bound. Tables are
-   drawn N(0, 0.1^2) from a seeded torch.Generator;
+   drawn N(0, 0.1^2) from a seeded torch.Generator.
+   The random table of phases 4-5 is written as a checkpoint step with
+   ``models/convert.save_checkpoint_from_numpy`` and published with
+   ``python -m fast_tffm_tpu_torch.tools.fmckpt publish`` (in process);
 4. predict: 65,536 lines through ``python -m fast_tffm_tpu_torch
-   predict`` (in process), checked line by line and against a float64
-   reference on the first lines;
+   predict`` (in process), which reads that step, checked line by line
+   and against a float64 reference on the first lines;
 5. serve: ScorerServer + HTTP front end on a free port, concurrent
    requests of 1-256 lines whose bodies must equal the predict file's
-   lines byte for byte, one malformed request (400), /healthz;
-6. train: ``python -m fast_tffm_tpu_torch train`` (in process) for 2
-   epochs over 131,072 lines whose labels come from a planted logistic
-   model, validating on 16,384 more; both kernels must launch, the mean
-   loss must fall, the validation AUC must clear a floor derived from the
-   planted model, and predict of the export must reach the same AUC.
-   Then both kernels against their plain versions on one of the
-   stream's Zipf-skewed batches (fm_score with L2 warm, as in the step;
-   fm_score_bwd also with the numeric fields' slots zeroed, which takes
-   its hottest rows away), the median time of one step on batches
-   already on the card, its kernels' device time from a profiler trace,
-   and the card's idle share computed from them;
-7. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   lines byte for byte and carry the published step in ``X-FM-Step``,
+   one malformed request (400), /healthz;
+6. train: ``python -m fast_tffm_tpu_torch train`` (in process) as two
+   commands on one model directory with ``save_steps = 8``, over 131,072
+   lines whose labels come from a planted logistic model, validating on
+   16,384 more: run A (``epoch_num = 1``) saves at steps 8 and 16 and
+   its final save at 16 writes the epoch override; run B (``epoch_num
+   = 2``) must restore step 16, resume at epoch 1/2 and end at step 32,
+   saving at 24 and 32. ``fmckpt`` must then list exactly steps 16, 24
+   and 32, all verifying in full. Both kernels must launch, the mean
+   loss must fall, the validation AUC must clear a floor derived from
+   the planted model, and predict of the trained model (step 32) must
+   reach the same AUC. Then both kernels against their plain versions
+   on one of the stream's Zipf-skewed batches (fm_score with L2 warm, as
+   in the step; fm_score_bwd also with the numeric fields' slots zeroed,
+   which takes its hottest rows away), the median time of one step on
+   batches already on the card, its kernels' device time from a
+   profiler trace, and the card's idle share computed from them;
+7. hot reload: step 16 published and served while client threads post
+   blocks of validation lines; step 32 is published under that load,
+   and every response must be a 200 whose body equals the predict lines
+   of the step its ``X-FM-Step`` names, byte for byte; /healthz must
+   count one reload and no failure;
+8. quarantine: the newest step (32) is torn with ``truncate_checkpoint``;
+   a restore must walk back to step 24 and leave ``corrupt-32/`` holding
+   ``QUARANTINE`` and ``manifest-32.json``, and publishing step 32 must
+   fail with the pointer untouched;
+9. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+
+The phases time the checkpoint plane: each periodic save's pause in the
+train loop (the snapshot), the final save with ``wait``, the background
+write and manifest hash, the restore at train start, predict's table
+load, and the reload from the pointer flip to the swap. Every phase line
+carries the card's name and power limit.
 
 Any failed check raises, and the script exits non-zero. Scratch files
-(1.14 GB .npz exports) live in ``.smoke/`` at the repo root and are
-removed at the end. ``--out DIR`` also writes a JSON summary of every phase to
-``DIR/chip_smoke.json``.
+(checkpoint steps of 2.28 GB, 1.14 GB .npz exports) live in ``.smoke/``
+at the repo root and are removed at the end. ``--out DIR`` also writes a
+JSON summary of every phase to ``DIR/chip_smoke.json``.
 """
 
 import json
@@ -74,8 +98,14 @@ BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
 TRAIN_LINES = 131072
 VAL_LINES = 16384
 TRAIN_BATCH = 8192
-TRAIN_EPOCHS = 2
+TRAIN_EPOCHS = 2                  # run A takes the first, run B the second
 TRAIN_LR = 0.1
+SAVE_STEPS = 8                    # half an epoch of TRAIN_LINES
+SERVE_STEP = 1                    # the step the random table is written at
+RELOAD_POLL_SECONDS = 0.2
+RELOAD_CLIENTS = 8
+RELOAD_ROUNDS = 6                 # each client's requests after the swap
+MIN_FREE_BYTES = 16 << 30         # 4 checkpoint steps, an export, data
 RESIDENT_BATCHES = 4
 RESIDENT_STEPS = 20
 PROFILED_STEPS = 8
@@ -114,6 +144,55 @@ def check(cond, what):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class CheckpointTimes:
+    """While active, times each ``CheckpointState.save`` call (a periodic
+    save's time is the train loop's pause for the snapshot; a
+    ``wait=True`` save's includes the write and the manifest) and each
+    ``restore``."""
+
+    def __enter__(self):
+        from fast_tffm_tpu_torch.checkpoint import CheckpointState
+        self.saves, self.restores = [], []
+        self._cls = CheckpointState
+        self._orig = save, restore = (CheckpointState.save,
+                                      CheckpointState.restore)
+
+        def timed_save(ckpt, step, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return save(ckpt, step, *args, **kwargs)
+            finally:
+                self.saves.append({"step": int(step),
+                                   "wait": bool(kwargs.get("wait")),
+                                   "seconds": time.perf_counter() - t0})
+
+        def timed_restore(ckpt, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = restore(ckpt, *args, **kwargs)
+            self.restores.append({"step": None if out is None
+                                  else out["step"],
+                                  "seconds": time.perf_counter() - t0})
+            return out
+        CheckpointState.save = timed_save
+        CheckpointState.restore = timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save, self._cls.restore = self._orig
+
+
+def committed_steps_in_log(path):
+    """The checkpoint writer's commit lines in a log: per step, the MB
+    written, the seconds to commit and the manifest hash's seconds."""
+    import re
+    with open(path) as fh:
+        text = fh.read()
+    return [{"step": int(s), "mb": float(mb), "write_seconds": float(w),
+             "manifest_seconds": float(m)} for s, mb, w, m in re.findall(
+                 r"checkpoint step (\d+) committed \(([0-9.]+) MB\) in "
+                 r"([0-9.]+)s; manifest hashed in ([0-9.]+)s", text)]
 
 
 def criteo_lines(n, seed, planted=None):
@@ -553,14 +632,18 @@ def reference_scores(table_cpu, cfg, lines):
     return np.asarray(out)
 
 
-def predict_phase(torch, cfg, cfg_path, table_cpu, lines, device):
+def predict_phase(torch, cfg, cfg_path, table_cpu, lines, device, card):
     import numpy as np
     from fast_tffm_tpu_torch.__main__ import main as cli
     from fast_tffm_tpu_torch.ops import fm_kernel
     from fast_tffm_tpu_torch.predict import load_table
     t0 = time.perf_counter()
-    load_table(cfg, device).sum().item()
+    table, step = load_table(cfg, device, with_step=True)
     load_s = time.perf_counter() - t0
+    check(step == SERVE_STEP and torch.equal(
+        table[:512].cpu(), torch.from_numpy(table_cpu[:512])),
+          f"predict loaded step {step}, not step {SERVE_STEP}'s table")
+    del table
     fm_kernel.launches = 0
     t0 = time.perf_counter()
     rc = cli(["predict", cfg_path, "--device", device.type])
@@ -580,9 +663,9 @@ def predict_phase(torch, cfg, cfg_path, table_cpu, lines, device):
     check(ref_err <= 2e-6, f"predict vs float64 reference: {ref_err}")
     check(launches == -(-len(lines) // PREDICT_BATCH),
           f"predict launched the kernel {launches} times")
-    row = {"phase": "predict", "lines": len(lines),
+    row = {"phase": "predict", "card": card, "lines": len(lines),
            "batch_size": PREDICT_BATCH, "entry_seconds": total_s,
-           "npz_load_seconds": load_s,
+           "table_load_seconds": load_s, "checkpoint_step": step,
            "examples_per_s_end_to_end": len(lines) / total_s,
            "examples_per_s_after_load": len(lines) / (total_s - load_s),
            "launches": launches, "max_err_vs_float64_reference": ref_err,
@@ -592,20 +675,27 @@ def predict_phase(torch, cfg, cfg_path, table_cpu, lines, device):
 
 
 def post(port, body, timeout=120):
+    """(status, body, X-FM-Step) of one POST /score."""
     import urllib.error
     import urllib.request
     req = urllib.request.Request(f"http://127.0.0.1:{port}/score",
                                  data=body.encode(), method="POST")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, resp.read()
+            return resp.status, resp.read(), resp.headers["X-FM-Step"]
     except urllib.error.HTTPError as e:
-        return e.code, e.read()
+        return e.code, e.read(), None
 
 
-def serve_phase(torch, cfg, lines, score_lines, device):
-    import numpy as np
+def healthz(port):
     import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def serve_phase(torch, cfg, lines, score_lines, device, card):
+    import numpy as np
     from fast_tffm_tpu_torch.ops import fm_kernel
     from fast_tffm_tpu_torch.serve.frontend import make_http_server
     from fast_tffm_tpu_torch.serve.server import ScorerServer
@@ -639,21 +729,23 @@ def serve_phase(torch, cfg, lines, score_lines, device):
                    for k in range(n_clients)]
         for th in threads:
             th.start()
-        bad_status, bad_body = post(port, lines[0] + "\n1 I1:x:y:z\n")
+        bad_status, bad_body, _ = post(port,
+                                       lines[0] + "\n1 I1:x:y:z\n")
         for th in threads:
             th.join(timeout=300)
             check(not th.is_alive(), "a serve client hung")
-        for (lo, n), (status, body) in zip(spans, results):
+        for (lo, n), (status, body, step) in zip(spans, results):
             check(status == 200, f"serve answered {status}: {body[:200]}")
             check(body == "".join(score_lines[lo:lo + n]).encode(),
                   f"serve body for lines [{lo}, {lo + n}) differs from "
                   "the predict file")
+            check(step == str(SERVE_STEP),
+                  f"X-FM-Step {step}, not the published {SERVE_STEP}")
         check(bad_status == 400, f"malformed request answered {bad_status}")
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
-                                    timeout=60) as resp:
-            health = json.loads(resp.read())
+        health = healthz(port)
         check(health["alive"] and health["ready"]
               and health["requests"] == len(spans)
+              and health["served_step"] == SERVE_STEP
               and health["flush_errors"] == 0, f"/healthz: {health}")
     finally:
         httpd.shutdown()
@@ -665,7 +757,8 @@ def serve_phase(torch, cfg, lines, score_lines, device):
           f"serve launches: {warm_launches} at warmup, {launches} after "
           "the requests")
     lat = sorted(latencies)
-    row = {"phase": "serve", "requests": len(spans), "clients": n_clients,
+    row = {"phase": "serve", "card": card, "requests": len(spans),
+           "clients": n_clients, "served_step": health["served_step"],
            "lines": sum(sizes), "startup_seconds": startup_s,
            "warmup_launches": warm_launches,
            "request_launches": launches - warm_launches,
@@ -678,8 +771,8 @@ def serve_phase(torch, cfg, lines, score_lines, device):
     return row
 
 
-def write_train_cfg(wd):
-    path = os.path.join(wd, "train.cfg")
+def write_train_cfg(wd, epochs):
+    path = os.path.join(wd, f"train{epochs}.cfg")
     with open(path, "w") as fh:
         fh.write(f"""[General]
 vocabulary_size = {VOCAB}
@@ -691,22 +784,29 @@ log_file = {os.path.join(wd, 'train.log')}
 [Train]
 train_files = {os.path.join(wd, 'train.txt')}
 validation_files = {os.path.join(wd, 'val.txt')}
-epoch_num = {TRAIN_EPOCHS}
+epoch_num = {epochs}
 batch_size = {TRAIN_BATCH}
 learning_rate = {TRAIN_LR}
 loss_type = logistic
 log_steps = 1
+save_steps = {SAVE_STEPS}
 
 [Predict]
 predict_files = {os.path.join(wd, 'val.txt')}
 score_path = {os.path.join(wd, 'score')}
+
+[Serve]
+serve_port = 0
+serve_max_batch = {SERVE_MAX_BATCH}
+serve_max_wait_ms = 2
+serve_poll_seconds = {RELOAD_POLL_SECONDS}
 """)
     return path
 
 
 def read_train_log(path):
-    """(per-epoch step losses, per-step examples/s, validation AUCs, the
-    'training done' line's examples/s) from the train log."""
+    """(per-epoch step losses, per-step examples/s, validation AUCs, each
+    run's 'training done' (steps, examples/s)) from the train log."""
     import re
     with open(path) as fh:
         text = fh.read()
@@ -718,9 +818,9 @@ def read_train_log(path):
         rates.append(float(eps))
     aucs = [float(a) for a in re.findall(
         r"epoch \d+ validation AUC ([0-9.]+) over", text)]
-    done = re.findall(r"training done: \d+ steps, final loss [0-9.]+, "
+    done = re.findall(r"training done: (\d+) steps, final loss [0-9.]+, "
                       r"([0-9.]+) examples/sec", text)
-    return losses, rates, aucs, float(done[-1]) if done else None
+    return losses, rates, aucs, [(int(n), float(e)) for n, e in done]
 
 
 def step_kernel_ms(torch, step):
@@ -802,15 +902,19 @@ def resident_step_ms(torch, cfg, device):
         fwd_rows, bwd_rows
 
 
-def train_phase(torch, device):
+def train_phase(torch, device, card):
     """``python -m fast_tffm_tpu_torch train`` (in process) at config
-    #2's width on Criteo-shaped lines with planted labels, then predict
-    of the export over the validation lines."""
+    #2's width on Criteo-shaped lines with planted labels, as run A (one
+    epoch) and run B (resumed to two) on one model directory; then
+    ``fmckpt`` over it, and predict of the newest step over the
+    validation lines."""
+    import io
     import numpy as np
     from fast_tffm_tpu_torch.__main__ import main as cli
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.metrics import exact_auc
     from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.tools import fmckpt
     wd = os.path.join(WORK, "train")
     os.makedirs(wd)
     t0 = time.perf_counter()
@@ -827,19 +931,30 @@ def train_phase(torch, device):
     # its margin over chance.
     bayes_auc = exact_auc(val_logits, val_labels)
     auc_floor = 0.5 + 0.5 * (bayes_auc - 0.5)
-    cfg_path = write_train_cfg(wd)
-    cfg = load_config(cfg_path)
+    cfg_paths = [write_train_cfg(wd, 1), write_train_cfg(wd, TRAIN_EPOCHS)]
+    cfg = load_config(cfg_paths[-1])
     del train_lines
 
     fm_kernel.launches = 0
     fm_kernel.bwd_launches = 0
-    t0 = time.perf_counter()
-    rc = cli(["train", cfg_path])
-    train_s = time.perf_counter() - t0
+    run_s = []
+    with CheckpointTimes() as times:
+        for path in cfg_paths:
+            t0 = time.perf_counter()
+            rc = cli(["train", path])
+            run_s.append(time.perf_counter() - t0)
+            check(rc == 0, f"train entry point ({path}) returned {rc}")
+    train_s = sum(run_s)
     fwd_launches, bwd_launches = fm_kernel.launches, fm_kernel.bwd_launches
-    check(rc == 0, f"train entry point returned {rc}")
-    losses, rates, aucs, done_eps = read_train_log(cfg.log_file)
+    with open(cfg.log_file) as fh:
+        log = fh.read()
+    check("restored checkpoint at step 16" in log and
+          "resuming interrupted epoch schedule at epoch 1/2" in log,
+          "run B did not restore step 16 and resume at epoch 1/2")
+    losses, rates, aucs, done = read_train_log(cfg.log_file)
     steps = TRAIN_EPOCHS * -(-TRAIN_LINES // TRAIN_BATCH)
+    check([n for n, _ in done] == [steps // 2, steps],
+          f"the runs ended at steps {done}, not {steps // 2} and {steps}")
     val_batches = TRAIN_EPOCHS * -(-VAL_LINES // TRAIN_BATCH)
     check(bwd_launches == steps and fwd_launches == steps + val_batches,
           f"train launched fm_score {fwd_launches} and fm_score_bwd "
@@ -855,8 +970,29 @@ def train_phase(torch, device):
           f"validation AUC {aucs} not above {auc_floor} (planted model's "
           f"AUC {bayes_auc})")
 
+    # The checkpoint directory as the operator's tool shows it.
+    directory = cfg.model_file + ".ckpt"
+    state = fmckpt.scan(directory)
+    check([s["step"] for s in state["steps"]] == [16, 24, 32]
+          and [s["epoch"] for s in state["steps"]] == [1, 1, 2]
+          and not state["orphans"] and not state["quarantined"],
+          f"fmckpt ls: {state}")
+    ls_out, verify_out = io.StringIO(), io.StringIO()
+    fmckpt.cmd_ls(directory, out=ls_out)
+    t0 = time.perf_counter()
+    rc = fmckpt.cmd_verify(directory, mode="full", out=verify_out)
+    verify_s = time.perf_counter() - t0
+    print(ls_out.getvalue() + verify_out.getvalue(), end="", flush=True)
+    check(rc == 0 and verify_out.getvalue().count(": OK (full check") == 3,
+          f"fmckpt verify --mode full: {verify_out.getvalue()}")
+    commits = committed_steps_in_log(cfg.log_file)
+    check([c["step"] for c in commits] == [8, 16, 24, 32],
+          f"committed steps in the log: {commits}")
+
     fm_kernel.launches = 0
-    rc = cli(["predict", cfg_path])
+    t0 = time.perf_counter()
+    rc = cli(["predict", cfg_paths[-1]])
+    predict_s = time.perf_counter() - t0
     predict_launches = fm_kernel.launches
     check(rc == 0, f"predict of the trained model returned {rc}")
     with open(os.path.join(cfg.score_path, "val.txt.score")) as fh:
@@ -872,29 +1008,42 @@ def train_phase(torch, device):
     step_ms = resident["resident_step_ms_median"]
     busy_ms = resident["profiled_device_ms_per_step"]
     # log_steps = 1: each logged rate covers one step's window, so the
-    # loop's rate is the examples over the sum of the windows (epoch
-    # 0's validation falls inside epoch 1's first window).
+    # loop's rate is the examples over the sum of the windows (the
+    # periodic saves' pauses fall inside them).
     loop_eps = steps * TRAIN_BATCH / sum(TRAIN_BATCH / r for r in rates)
     examples = TRAIN_EPOCHS * TRAIN_LINES
-    row = {"phase": "train", "lines": TRAIN_LINES,
+    periodic = [t for t in times.saves if not t["wait"]]
+    final = [t for t in times.saves if t["wait"]]
+    row = {"phase": "train", "card": card, "lines": TRAIN_LINES,
            "validation_lines": VAL_LINES, "batch_size": TRAIN_BATCH,
            "epochs": TRAIN_EPOCHS, "steps": steps,
-           "learning_rate": TRAIN_LR, "generate_seconds": gen_s,
-           "entry_seconds": train_s,
+           "learning_rate": TRAIN_LR, "save_steps": SAVE_STEPS,
+           "generate_seconds": gen_s,
+           "entry_seconds": train_s, "run_seconds": run_s,
            "examples_per_s_end_to_end": examples / train_s,
-           "examples_per_s_train_log": done_eps,
+           "examples_per_s_train_log": [e for _, e in done],
            "examples_per_s_loop": loop_eps,
            "epoch_mean_loss": mean_loss, "validation_auc": aucs,
            "planted_auc": bayes_auc, "auc_floor": auc_floor,
            "predict_exact_auc": predict_auc,
+           "predict_entry_seconds": predict_s,
            "fm_score_launches": fwd_launches,
            "fm_score_bwd_launches": bwd_launches,
            "predict_launches": predict_launches,
+           "checkpoint_steps": [s["step"] for s in state["steps"]],
+           "periodic_save_pause_seconds": [t["seconds"] for t in periodic],
+           "periodic_save_steps": [t["step"] for t in periodic],
+           "final_save_seconds": [t["seconds"] for t in final],
+           "final_save_steps": [t["step"] for t in final],
+           "restore_seconds": [t["seconds"] for t in times.restores],
+           "restored_steps": [t["step"] for t in times.restores],
+           "checkpoint_commits": commits,
+           "fmckpt_verify_full_seconds": verify_s,
            **resident,
            # Idle share of the card while the loop runs, from the
-           # resident step time and the loop's rate, and over the whole
-           # train command (validation and export included); then the
-           # same from the profiler's kernel time per step.
+           # resident step time and the loop's rate, and over both train
+           # commands (validation, saves and exports included); then
+           # the same from the profiler's kernel time per step.
            "device_idle_share_loop":
                1.0 - step_ms / 1e3 * loop_eps / TRAIN_BATCH,
            "device_idle_share_end_to_end":
@@ -903,7 +1052,154 @@ def train_phase(torch, device):
                (None if busy_ms is None
                 else 1.0 - busy_ms / 1e3 * loop_eps / TRAIN_BATCH)}
     emit(row)
-    return row, fwd_rows, bwd_rows
+    return row, fwd_rows, bwd_rows, cfg, val_lines
+
+
+def reload_phase(torch, cfg, lines, device, card):
+    """Hot reload at full width: serve step 16, publish step 32 while
+    client threads post, and hold every response to the predict lines of
+    the step it names."""
+    import dataclasses
+    import numpy as np
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.predict import load_table, predict
+    from fast_tffm_tpu_torch.serve.frontend import make_http_server
+    from fast_tffm_tpu_torch.serve.server import ScorerServer
+    from fast_tffm_tpu_torch.tools import fmckpt
+    fm_kernel.launches = 0
+    expected, load_s = {}, {}
+    for step in (16, 32):
+        step_cfg = dataclasses.replace(
+            cfg, score_path=os.path.join(WORK, f"reload{step}"))
+        t0 = time.perf_counter()
+        table = load_table(cfg, device, step=step)
+        load_s[step] = time.perf_counter() - t0
+        predict(step_cfg, table=table, device=device)
+        del table
+        with open(os.path.join(step_cfg.score_path, "val.txt.score")) as fh:
+            expected[step] = fh.read().splitlines(keepends=True)
+    torch.cuda.empty_cache()
+    check(fmckpt.main(["publish", cfg.model_file, "16"]) == 0,
+          "fmckpt publish of step 16 failed")
+    server = ScorerServer(cfg, device=device)
+    httpd = make_http_server(server, 0)
+    http_thread = threading.Thread(target=httpd.serve_forever,
+                                   name="smoke-http", daemon=True)
+    http_thread.start()
+    port = httpd.server_address[1]
+    results, lock = [], threading.Lock()
+    swapped = threading.Event()
+    failures = []
+
+    def client(k):
+        rng = np.random.default_rng(SEED + 10 + k)
+        after_rounds = 0
+        try:
+            while after_rounds < RELOAD_ROUNDS:
+                n = int(rng.integers(1, min(SERVE_MAX_BATCH,
+                                            len(lines)) + 1))
+                lo = int(rng.integers(0, len(lines) - n + 1))
+                after = swapped.is_set()
+                status, body, step = post(
+                    port, "\n".join(lines[lo:lo + n]) + "\n")
+                with lock:
+                    results.append((lo, n, status, body, step, after))
+                after_rounds += after
+        except Exception as e:  # noqa: BLE001 - reported by the check
+            failures.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(RELOAD_CLIENTS)]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 120
+        while len(results) < 4 * RELOAD_CLIENTS and \
+                time.monotonic() < deadline and not failures:
+            time.sleep(0.01)
+        t_flip = time.perf_counter()
+        check(fmckpt.main(["publish", cfg.model_file, "32"]) == 0,
+              "fmckpt publish of step 32 failed")
+        while server.served_step != 32 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        flip_to_swap_s = time.perf_counter() - t_flip
+        swapped.set()
+        for th in threads:
+            th.join(timeout=300)
+            check(not th.is_alive(), "a reload client hung")
+        health = healthz(port)
+    finally:
+        httpd.shutdown()
+        http_thread.join(timeout=60)
+        httpd.server_close()
+        server.close()
+    launches = fm_kernel.launches
+    check(launches > 0, "the reload leg never launched fm_score")
+    check(not failures, f"reload clients failed: {failures[:3]}")
+    check(server.served_step == 32, "the server never swapped to step 32")
+    seen = {}
+    for lo, n, status, body, step, after in results:
+        check(status == 200, f"reload answered {status}: {body[:200]}")
+        check(step in ("16", "32") and (step == "32" or not after),
+              f"X-FM-Step {step} (sent after the swap: {after})")
+        check(body == "".join(expected[int(step)][lo:lo + n]).encode(),
+              f"body for lines [{lo}, {lo + n}) differs from step {step}'s "
+              "predict lines")
+        seen[step] = seen.get(step, 0) + 1
+    check(set(seen) == {"16", "32"}, f"responses by step: {seen}")
+    check(health["reloads"] == 1 and health["reload_failures"] == 0
+          and health["served_step"] == health["published_step"] == 32
+          and health["flush_errors"] == 0, f"/healthz: {health}")
+    row = {"phase": "reload", "card": card, "requests": len(results),
+           "responses_by_step": seen, "clients": RELOAD_CLIENTS,
+           "poll_seconds": RELOAD_POLL_SECONDS,
+           "flip_to_swap_seconds": flip_to_swap_s,
+           "table_load_seconds_by_step": load_s, "launches": launches,
+           "reloads": health["reloads"],
+           "reload_failures": health["reload_failures"],
+           "server_p50_ms": health["latency_p50_ms"],
+           "server_p99_ms": health["latency_p99_ms"]}
+    emit(row)
+    return row
+
+
+def quarantine_phase(cfg, card):
+    """Tear the newest step; restore must walk back to 24 and quarantine
+    32; publishing 32 must then fail and leave the pointer as it was."""
+    from fast_tffm_tpu_torch.checkpoint import (CheckpointState,
+                                                read_published)
+    from fast_tffm_tpu_torch.testing.faults import truncate_checkpoint
+    from fast_tffm_tpu_torch.tools import fmckpt
+    from fast_tffm_tpu_torch.train import checkpoint_template
+    directory = cfg.model_file + ".ckpt"
+    before = read_published(directory)
+    victim = truncate_checkpoint(cfg.model_file)
+    check(victim is not None and os.path.dirname(victim).endswith(
+        os.sep + "32"), f"truncate_checkpoint tore {victim}")
+    ckpt = CheckpointState(cfg.model_file, verify=cfg.ckpt_verify,
+                           adagrad_init=cfg.adagrad_init)
+    t0 = time.perf_counter()
+    try:
+        restored = ckpt.restore(template=checkpoint_template(cfg))
+    finally:
+        ckpt.close()
+    restore_s = time.perf_counter() - t0
+    qdir = os.path.join(directory, "corrupt-32")
+    check(restored is not None and restored["step"] == 24,
+          f"restore walked back to {restored and restored['step']}")
+    check(os.path.isfile(os.path.join(qdir, "QUARANTINE")) and
+          os.path.isfile(os.path.join(qdir, "manifest-32.json")),
+          f"corrupt-32/ holds {os.listdir(qdir)}")
+    del restored
+    rc = fmckpt.main(["publish", cfg.model_file, "32"])
+    after = read_published(directory)
+    check(rc == 1 and after == before,
+          f"publish of the torn step: rc {rc}, pointer {before} -> {after}")
+    row = {"phase": "quarantine", "card": card, "torn_file": victim,
+           "restored_step": 24, "walk_back_restore_seconds": restore_s,
+           "publish_rc": rc, "pointer": after}
+    emit(row)
+    return row
 
 
 def main(argv) -> int:
@@ -924,8 +1220,9 @@ def main(argv) -> int:
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.data.parser import parse_lines
     from fast_tffm_tpu_torch.data.pipeline import make_device_batch
-    from fast_tffm_tpu_torch.models.convert import save_npz
+    from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
     from fast_tffm_tpu_torch.ops import build
+    from fast_tffm_tpu_torch.tools import fmckpt
 
     device = torch.device("cuda")
     # 1. environment
@@ -948,6 +1245,10 @@ def main(argv) -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    free = shutil.disk_usage(WORK).free
+    print(f"free bytes under {WORK}: {free}", flush=True)
+    check(free >= MIN_FREE_BYTES, f"{free} bytes free under {WORK}; the "
+          f"checkpoint phases need {MIN_FREE_BYTES}")
     try:
         cfg_path = os.path.join(WORK, "smoke.cfg")
         write_cfg(cfg_path)
@@ -960,11 +1261,17 @@ def main(argv) -> int:
             t[-1] = 0.0
             tables[K] = t
         table = tables[FACTORS]
+        table_cpu = table.cpu().numpy()
         t0 = time.perf_counter()
-        save_npz(table, cfg.model_file + ".npz", cfg)
-        print(f"saved {cfg.model_file}.npz "
-              f"({os.path.getsize(cfg.model_file + '.npz') / 1e9:.2f} GB) "
-              f"in {time.perf_counter() - t0:.1f}s", flush=True)
+        step_dir = save_checkpoint_from_numpy(cfg, table_cpu, None,
+                                              SERVE_STEP)
+        save_s = time.perf_counter() - t0
+        check(fmckpt.main(["publish", cfg.model_file,
+                           str(SERVE_STEP)]) == 0, "fmckpt publish failed")
+        step_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        emit({"phase": "checkpoint", "card": smi, "step": SERVE_STEP,
+              "bytes": step_bytes, "save_and_verify_seconds": save_s})
 
         lines, _ = criteo_lines(PREDICT_LINES, SEED + 3)
         with open(os.path.join(WORK, "criteo.txt"), "w") as fh:
@@ -979,23 +1286,27 @@ def main(argv) -> int:
         # 3. kernel vs plain version
         kernel_rows = kernel_phase(torch, tables, predict_batch, device)
         bwd_rows = bwd_kernel_phase(torch, tables, device)
-        table_cpu = table.cpu().numpy()
         del tables, table, predict_batch
         torch.cuda.empty_cache()
 
         # 4. predict
-        predict_row, score_lines = predict_phase(torch, cfg, cfg_path,
-                                                 table_cpu, lines, device)
+        predict_row, score_lines = predict_phase(
+            torch, cfg, cfg_path, table_cpu, lines, device, smi)
 
         # 5. serve
-        serve_row = serve_phase(torch, cfg, lines, score_lines, device)
+        serve_row = serve_phase(torch, cfg, lines, score_lines, device, smi)
         del lines, score_lines, table_cpu
+        shutil.rmtree(os.path.dirname(cfg.model_file))  # disk for phase 6
 
         # 6. train
-        train_row, fwd_train_rows, bwd_train_rows = train_phase(torch,
-                                                                device)
+        train_row, fwd_train_rows, bwd_train_rows, train_cfg, val_lines = \
+            train_phase(torch, device, smi)
         kernel_rows += fwd_train_rows
         bwd_rows += bwd_train_rows
+
+        # 7. hot reload, 8. quarantine
+        reload_row = reload_phase(torch, train_cfg, val_lines, device, smi)
+        quarantine_row = quarantine_phase(train_cfg, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1011,7 +1322,8 @@ def main(argv) -> int:
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:63",
         "launches": (predict_row["launches"] + serve_row["launches"]
                      + train_row["fm_score_launches"]
-                     + train_row["predict_launches"]),
+                     + train_row["predict_launches"]
+                     + reload_row["launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1021,7 +1333,8 @@ def main(argv) -> int:
         "predict_launches": predict_row["launches"],
         "serve_launches": serve_row["launches"],
         "train_launches": train_row["fm_score_launches"],
-        "train_predict_launches": train_row["predict_launches"]}, {
+        "train_predict_launches": train_row["predict_launches"],
+        "reload_launches": reload_row["launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
@@ -1040,6 +1353,7 @@ def main(argv) -> int:
             json.dump({"nvidia_smi": smi, "kernel": kernel_rows,
                        "kernel_bwd": bwd_rows, "predict": predict_row,
                        "serve": serve_row, "train": train_row,
+                       "reload": reload_row, "quarantine": quarantine_row,
                        **kernels}, fh, indent=1)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

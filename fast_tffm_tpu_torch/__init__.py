@@ -2,7 +2,9 @@
 
 A second package beside the JAX one, which stays the reference. It
 trains a 2nd-order FM (logistic or mse loss, sparse Adagrad, one device)
-and predicts and serves it from the dense ``<model_file>.npz`` export.
+with checkpoints and resume under ``<model_file>.ckpt/``, predicts from
+the newest checkpoint step and serves the published one, hot-reloading
+each newly published step.
 On the card every score runs through the hand-written CUDA kernel in
 ``csrc/fm_score.cu`` and every training gradient through
 ``csrc/fm_score_bwd.cu``:

@@ -5,12 +5,19 @@ surface of ``run_tffm.py``:
     python -m fast_tffm_tpu_torch predict <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch serve   <cfg> [--device cuda|cpu]
 
-All read the same INI configs as ``run_tffm.py``. ``train`` writes the
-dense table export ``<model_file>.npz``; predict and serve load it (a
-JAX train writes the same file). They run on the CUDA card unless
-``--device cpu`` asks for the CPU; without a card they raise.
-``dist_train`` roles, checkpoints and resume, and ``serve --replicas``
-are not ported yet (ROADMAP.md, queue A).
+All read the same INI configs as ``run_tffm.py``. ``train`` resumes
+from and saves to the checkpoint directory ``<model_file>.ckpt/``
+(every ``save_steps`` steps, at the end, and on SIGTERM/SIGINT) and
+exports ``<model_file>.npz``; ``predict`` reads the newest intact
+checkpoint step; ``serve`` loads the step the ``published`` pointer
+names and hot-reloads each newly published one (publish a step with
+``python -m fast_tffm_tpu_torch.tools.fmckpt publish <model_file>
+<step>``). The port's checkpoints are in torch's format, not the JAX
+package's: give the two packages different model_files
+(``models/convert.save_checkpoint_from_numpy`` carries a JAX model
+across). They run on the CUDA card unless ``--device cpu`` asks for the
+CPU; without a card they raise. ``dist_train`` roles and ``serve
+--replicas`` are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations

@@ -1,23 +1,30 @@
 """Weight carry-across between the JAX package and the port.
 
-The JAX package's checkpoints are orbax, which the port cannot read (the
-card's machine has no jax, orbax or tensorstore). Every single-process
-JAX train also writes a dense export, ``<model_file>.npz``
-(``fast_tffm_tpu/checkpoint.py:export_npz``): one key ``table``,
-``[vocabulary_size, D]`` f32, the dead pad row dropped. That file is the
-port's weight format; ``save_npz`` writes the same layout, so a table
-moves both ways. ``state_from_numpy`` starts a port train from the JAX
-package's ``(table, acc)`` arrays.
+The port keeps its weights in its own checkpoints (checkpoint.py,
+torch's format): the JAX package's checkpoints are orbax, which the
+port cannot read (the card's machine has no jax, orbax or tensorstore),
+and the two packages' step directories are not interchangeable.
+``save_checkpoint_from_numpy`` writes a committed, manifest-verified
+port step from the JAX package's arrays — its ``init_table`` /
+``init_accumulator`` output, a restored orbax checkpoint's
+``[ckpt_rows, D]`` arrays, or the ``table`` of its dense ``.npz``
+export (``fast_tffm_tpu/checkpoint.py:export_npz``: ``[vocabulary_size,
+D]`` f32, the dead pad row dropped) — so that the port's predict and
+serve can load a JAX-trained model. The port's train writes the same
+``.npz`` export (``save_npz``), which ``load_npz`` reads back;
+``state_from_numpy`` starts a port train from the JAX package's
+``(table, acc)`` arrays.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from fast_tffm_tpu_torch.checkpoint import CheckpointState, list_step_dirs
 from fast_tffm_tpu_torch.config import FmConfig
 
 
@@ -87,3 +94,37 @@ def save_npz(table: torch.Tensor, path: str, cfg: FmConfig) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
                 exist_ok=True)
     np.savez_compressed(path, table=arr.numpy())
+
+
+def save_checkpoint_from_numpy(cfg: FmConfig, table: np.ndarray,
+                               acc: Optional[np.ndarray], step: int,
+                               epoch: int = 0) -> str:
+    """Write ``(table, acc)`` — in any layout ``state_from_numpy``
+    takes — as a committed, manifest-verified port checkpoint step of
+    ``cfg.model_file`` with ``epoch`` completed epochs; returns the step
+    directory. ``acc=None`` (an ``.npz`` export's table, or a model
+    that will only be served) writes an ``adagrad_init`` accumulator.
+    Refuses a step that exists already: a save there would keep the
+    old arrays."""
+    cpu = torch.device("cpu")
+    if acc is None:
+        t = table_from_numpy(table, cfg, cpu)
+        a = torch.full_like(t, cfg.adagrad_init)
+    else:
+        t, a = state_from_numpy(table, acc, cfg, cpu)
+    ckpt = CheckpointState(cfg.model_file, verify=cfg.ckpt_verify,
+                           adagrad_init=cfg.adagrad_init)
+    try:
+        if int(step) in list_step_dirs(ckpt.directory):
+            raise FileExistsError(
+                f"checkpoint step {step} exists at {ckpt.directory}; "
+                "pick another step (or model_file)")
+        ckpt.save(step, t, a, vocabulary_size=cfg.vocabulary_size,
+                  force=True, wait=True, epoch=epoch)
+        reason = ckpt.verify_step(step, "full")
+    finally:
+        ckpt.close()
+    if reason is not None:
+        raise OSError(f"checkpoint step {step} at {ckpt.directory} "
+                      f"failed verification after the save: {reason}")
+    return os.path.join(ckpt.directory, str(int(step)))

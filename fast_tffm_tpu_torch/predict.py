@@ -1,12 +1,13 @@
 """Batch predict — the port's counterpart of ``fast_tffm_tpu/predict.py``
 (single device).
 
-Loads the dense table export ``<model_file>.npz``, reads each predict
-file in ``batch_size`` chunks of lines, and writes one score per input
-line, order-preserving, to ``<score_path>/<basename(f)>.score`` —
-sigmoid for logistic loss, raw for mse, ``%.6f`` per line. Blank lines
-score as the model bias (``keep_empty``), so score files stay
-line-aligned with their inputs.
+Restores the table of the newest intact checkpoint step under
+``<model_file>.ckpt/`` (checkpoint.py; the accumulator is not read),
+reads each predict file in ``batch_size`` chunks of lines, and writes
+one score per input line, order-preserving, to
+``<score_path>/<basename(f)>.score`` — sigmoid for logistic loss, raw
+for mse, ``%.6f`` per line. Blank lines score as the model bias
+(``keep_empty``), so score files stay line-aligned with their inputs.
 
 Not ported yet: the mesh and multi-process sweeps, offload, admit, the
 C++ ``BatchBuilder`` and the cross-file overlapped sweep (ROADMAP.md).
@@ -20,24 +21,44 @@ from typing import Iterator, List, Optional
 
 import torch
 
+from fast_tffm_tpu_torch.checkpoint import CheckpointState
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.parser import parse_lines
 from fast_tffm_tpu_torch.data.pipeline import expand_files, make_device_batch
-from fast_tffm_tpu_torch.models.convert import load_npz
 from fast_tffm_tpu_torch.scoring import CompiledScorer, format_scores
+from fast_tffm_tpu_torch.train import check_restored_vocab, checkpoint_template
 from fast_tffm_tpu_torch.utils.device import resolve_device
 from fast_tffm_tpu_torch.utils.logging import get_logger
+from fast_tffm_tpu_torch.utils.retry import RetryPolicy
 
 
-def load_table(cfg: FmConfig, device: torch.device) -> torch.Tensor:
-    """The dense export every single-process JAX train writes."""
-    path = cfg.model_file + ".npz"
-    if not os.path.isfile(path):
+def load_table(cfg: FmConfig, device: torch.device,
+               step: Optional[int] = None, with_step: bool = False):
+    """Restore the table from the newest intact checkpoint step — or,
+    with an explicit ``step``, those exact verified bytes (the serving
+    process's hot reload; restore verifies an explicit step and raises
+    instead of walking past it) — onto ``device``, as ``[num_rows, D]``.
+    The copy to the card is complete when this returns.
+    ``with_step=True`` returns ``(table, step)``."""
+    ckpt = CheckpointState(cfg.model_file,
+                           retry=RetryPolicy.from_config(cfg),
+                           verify=cfg.ckpt_verify,
+                           adagrad_init=cfg.adagrad_init)
+    try:
+        restored = ckpt.restore(step=step,
+                                template=checkpoint_template(cfg,
+                                                             acc=False))
+    finally:
+        ckpt.close()
+    if restored is None:
         raise FileNotFoundError(
-            f"no dense table export at {path}: train with the JAX "
-            "package (it writes <model_file>.npz) or write one with "
-            "fast_tffm_tpu_torch.models.convert.save_npz")
-    return load_npz(path, cfg, device)
+            f"no checkpoint found under {cfg.model_file}.ckpt "
+            "(run training first)")
+    check_restored_vocab(cfg, restored)
+    table = restored["table"].to(device)
+    if table.is_cuda:
+        torch.cuda.synchronize(table.device)
+    return (table, int(restored["step"])) if with_step else table
 
 
 def _line_chunks(path: str, n: int) -> Iterator[List[str]]:
@@ -65,7 +86,7 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
             device=None) -> List[str]:
     """Run batch prediction; returns the score files written. ``device``
     defaults to the card (utils/device.py); ``table`` defaults to the
-    ``.npz`` export."""
+    newest intact checkpoint step's (``load_table``)."""
     device = resolve_device(device)
     scorer = CompiledScorer(cfg, device)  # refuses unported config values
     logger = get_logger(log_file=cfg.log_file or None)

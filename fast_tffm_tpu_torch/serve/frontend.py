@@ -5,12 +5,19 @@ port's counterpart of ``fast_tffm_tpu/serve/frontend.py``.
                      accepted and ignored, blank lines score as the
                      model bias). Response: one ``%.6f`` score per line
                      — byte-identical to a ``.score`` file of the same
-                     lines — with the serving step in ``X-FM-Step``
-                     (-1: the .npz export carries no step). Malformed
-                     lines are 400 with the parse error; a chunked body
-                     is 411; a closed or wedged server is 503.
-    GET  /healthz    JSON: alive/ready, queue depth, request counters,
-                     latency p50/p99, uptime.
+                     lines scored by batch predict against the same
+                     checkpoint step — with that step in ``X-FM-Step``.
+                     Malformed lines are 400 with the parse error; a
+                     chunked body is 411; a closed or wedged server is
+                     503.
+    GET  /healthz    JSON: alive/ready, the served and published steps,
+                     reloads and reload failures, queue depth, request
+                     counters, latency p50/p99, uptime.
+
+The served step follows the ``published`` pointer (``fmckpt publish``):
+the ScorerServer's reload thread hot-swaps each newly published step.
+``POST /reload`` (the fleet's reload token) is not ported (ROADMAP.md
+A9).
 
 Each connection gets a thread (ThreadingHTTPServer); all of them funnel
 into the ScorerServer's admission queue, which is the batching point.
@@ -105,9 +112,10 @@ def make_http_server(fm_server, port: int,
 
 
 def run_serve(cfg, device=None) -> int:
-    """The ``serve <cfg>`` entry point: load the table, warm the shape
-    ladder, bind the HTTP front end, serve until SIGTERM/SIGINT, then
-    drain and close. Returns a process exit code."""
+    """The ``serve <cfg>`` entry point: load the published checkpoint
+    step, warm the shape ladder, bind the HTTP front end, serve (and
+    hot-reload newly published steps) until SIGTERM/SIGINT, then drain
+    and close. Returns a process exit code."""
     import signal
     import threading
     from fast_tffm_tpu_torch.serve.server import ScorerServer

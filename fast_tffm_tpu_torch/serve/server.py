@@ -13,18 +13,30 @@ scores it through ``scoring.CompiledScorer``: one kernel launch per
 flush on the card. Scores are byte-identical to batch predict of the
 same lines: the kernel's sum order does not depend on the padding.
 
-Startup loads ``<model_file>.npz`` and scores one batch at every
-[B rung x L rung] shape (``_warmup``), so the kernel library is built
-and loaded, and the allocator warm, before the first request.
+Startup loads the checkpoint step the ``published`` pointer names (or
+``published-canary``, per ``serve_pointer``; ``fmckpt publish`` moves
+them) and scores one batch at every [B rung x L rung] shape
+(``_warmup``), so the kernel library is built and loaded, and the
+allocator warm, before the first request.
 
-Not ported yet: hot reload of a ``published`` checkpoint (the .npz holds
-no step, so responses carry step -1), telemetry, SLO gauges, capacity
-pre-flight, admit mode, background warmup (ROADMAP.md).
+Hot reload (serve/reload.py drives it): ``reload_step`` restores the
+named step through the verified-restore path (an explicit step is
+verified, never walked past), copies it to the device completely, then
+swaps the (table, step) pair under one lock. Each flush captures the
+pair once, so requests in flight across a swap drain on the old step
+and say so: every response carries the step that scored it. The old
+table is freed when its last flush drains. A failed reload counts
+``serve/reload_failures`` and the old table keeps serving.
+
+Not ported yet: telemetry, SLO gauges, capacity pre-flight, admit mode,
+background warmup (ROADMAP.md), and ``serve_reload_mode = external``
+with ``POST /reload`` (A9, the fleet).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -32,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from fast_tffm_tpu_torch.checkpoint import read_pointer
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.parser import ParsedBlock, parse_lines
 from fast_tffm_tpu_torch.data.pipeline import (_ladder_fit, make_device_batch,
@@ -39,6 +52,7 @@ from fast_tffm_tpu_torch.data.pipeline import (_ladder_fit, make_device_batch,
 from fast_tffm_tpu_torch.models.fm import resolved_kernel
 from fast_tffm_tpu_torch.obs.registry import MetricsRegistry
 from fast_tffm_tpu_torch.scoring import CompiledScorer
+from fast_tffm_tpu_torch.serve.reload import ReloadWatcher
 from fast_tffm_tpu_torch.utils.device import resolve_device
 from fast_tffm_tpu_torch.utils.logging import get_logger
 
@@ -48,9 +62,6 @@ LATENCY_BUCKETS_MS = (0.25, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0,
 # Admission-queue depth histogram bounds.
 DEPTH_BUCKETS = tuple(2 ** i for i in range(11))
 
-# The step a response reports: the .npz export carries none.
-NPZ_STEP = -1
-
 _STOP = object()
 
 
@@ -58,7 +69,8 @@ _STOP = object()
 class ScoreResult:
     """One request's response: transformed scores (sigmoid for logistic
     loss, raw for mse — what predict writes to .score files) plus the
-    step that scored them (-1: the .npz export carries no step)."""
+    checkpoint step that scored them (these scores equal batch predict
+    against that step byte for byte)."""
     scores: np.ndarray
     step: int
 
@@ -135,15 +147,22 @@ def _concat_blocks(blocks: Sequence[ParsedBlock]) -> ParsedBlock:
 class ScorerServer:
     """The long-lived scorer. Lifecycle:
 
-        server = ScorerServer(cfg)        # loads the .npz table, scores
-                                          # the shape ladder, starts the
-                                          # dispatcher
+        server = ScorerServer(cfg)        # loads the published step,
+                                          # scores the shape ladder,
+                                          # starts dispatch + reload
         res = server.score_lines(lines)   # or submit() for async
         server.close()                    # drains and stops
 
-    ``device`` defaults to the card."""
+    ``device`` defaults to the card. ``watch=False`` skips the reload
+    thread (tests drive ``reload_step`` directly)."""
 
-    def __init__(self, cfg: FmConfig, logger=None, device=None):
+    def __init__(self, cfg: FmConfig, logger=None, device=None,
+                 watch: bool = True):
+        if cfg.serve_reload_mode != "poll":
+            raise NotImplementedError(
+                f"serve_reload_mode = {cfg.serve_reload_mode} (POST "
+                "/reload) is not ported to fast_tffm_tpu_torch yet "
+                "(ROADMAP.md, queue A, item A9)")
         # Every parsed example must fit the width ladder.
         require_bounded_examples(cfg, "online serving")
         self.cfg = cfg
@@ -156,8 +175,25 @@ class ScorerServer:
             b for b in cfg.bucket_ladder
             if b <= _ladder_fit(max(1, cfg.max_features_per_example),
                                 cfg.bucket_ladder))
-        from fast_tffm_tpu_torch.predict import load_table
-        self._table = load_table(cfg, self.device)
+        self.directory = os.path.abspath(cfg.model_file) + ".ckpt"
+        # Guards the (table, served_step) pair: a flush captures both
+        # from the same swap.
+        self._table_lock = threading.Lock()
+        self._table = None
+        self._served_step = -1
+        self._published_step = -1
+        self._reloading = threading.Event()
+        # The published pointer IS the serving contract: an unpublished
+        # directory is an operator error, not a wait.
+        step = read_pointer(self.directory, cfg.serve_pointer)
+        if step is None:
+            raise FileNotFoundError(
+                f"no published checkpoint pointer in {self.directory} — "
+                "publish one with `python -m "
+                "fast_tffm_tpu_torch.tools.fmckpt publish <model_file> "
+                "<step>`")
+        self._load_step(step)
+        self.note_published(step)
         self._q: "queue.Queue" = queue.Queue()
         # Serializes enqueue against shutdown: a submit that passed the
         # closed gate always lands BEFORE the stop sentinel (the
@@ -172,11 +208,66 @@ class ScorerServer:
                                             name="fm-serve-dispatch",
                                             daemon=True)
         self._dispatcher.start()
+        self._watcher = None
+        if watch:
+            self._watcher = ReloadWatcher(
+                self, poll_seconds=cfg.serve_poll_seconds,
+                jitter=cfg.serve_poll_jitter, seed=cfg.serve_port).start()
         self._logger.info(
-            "serving %s on %s (%d batch x %d width rungs warmed, "
-            "max_batch=%d, max_wait=%.1fms)",
-            cfg.model_file + ".npz", self.device, len(self._b_ladder),
-            len(self._l_rungs), cfg.serve_max_batch, cfg.serve_max_wait_ms)
+            "serving checkpoint step %d from %s on %s (%d batch x %d "
+            "width rungs warmed, max_batch=%d, max_wait=%.1fms)",
+            self._served_step, self.directory, self.device,
+            len(self._b_ladder), len(self._l_rungs), cfg.serve_max_batch,
+            cfg.serve_max_wait_ms)
+
+    # -- model load / hot reload ------------------------------------------
+
+    @property
+    def served_step(self) -> int:
+        with self._table_lock:
+            return self._served_step
+
+    @property
+    def published_step(self) -> int:
+        """Last pointer value observed (startup or a reload poll)."""
+        return self._published_step
+
+    def _load_step(self, step: int) -> None:
+        """Verified restore of an explicit step (raises on integrity
+        failure — never silently serves other bytes), copied to the
+        device completely, then swapped in. In-flight flushes keep the
+        pair they captured, so the old table lives until they drain."""
+        from fast_tffm_tpu_torch.predict import load_table
+        table = load_table(self.cfg, self.device, step=step)
+        with self._table_lock:
+            self._table = table
+            self._served_step = int(step)
+
+    def note_published(self, step: int) -> None:
+        """The pointer value last seen (``/healthz`` published_step)."""
+        self._published_step = int(step)
+
+    def reload_step(self, step: int) -> bool:
+        """Hot-swap to a newly published step; False (and a counted
+        failure) when the step fails verification or restore — the
+        previous table keeps serving and the next poll retries. The
+        server reports ``ready: false`` while it loads."""
+        self._reloading.set()
+        try:
+            self._load_step(step)
+        except Exception as e:  # noqa: BLE001 - keep serving old state
+            self._reg.count("serve/reload_failures")
+            self._logger.warning(
+                "hot reload of published step %d failed (%s: %s); "
+                "continuing to serve step %d", step, type(e).__name__,
+                e, self.served_step)
+            return False
+        finally:
+            self._reloading.clear()
+        self._reg.count("serve/reloads")
+        self._logger.info("hot-reloaded published checkpoint step %d",
+                          step)
+        return True
 
     # -- request path ----------------------------------------------------
 
@@ -208,7 +299,8 @@ class ScorerServer:
         if pending.n == 0:
             # Nothing to score: complete inline so an empty request
             # can't wedge an admission window open.
-            pending._complete(np.zeros(0, dtype=np.float64), NPZ_STEP)
+            pending._complete(np.zeros(0, dtype=np.float64),
+                              self.served_step)
             return pending
         self._reg.observe("serve/queue_depth", self._q.qsize(),
                           bounds=DEPTH_BUCKETS)
@@ -277,7 +369,10 @@ class ScorerServer:
             t_dev = time.perf_counter()
             reg.observe("serve/pad_ms", (t_dev - t0) * 1000.0,
                         bounds=LATENCY_BUCKETS_MS)
-            raw = self._scorer.score_batch(self._table, batch)[:n]
+            with self._table_lock:
+                table = self._table
+                step = self._served_step
+            raw = self._scorer.score_batch(table, batch)[:n]
             raw = raw.cpu().numpy()
             reg.observe("serve/device_ms",
                         (time.perf_counter() - t_dev) * 1000.0,
@@ -289,7 +384,7 @@ class ScorerServer:
             pos = 0
             done = time.perf_counter()
             for p in window:
-                p._complete(vals[pos:pos + p.n], NPZ_STEP)
+                p._complete(vals[pos:pos + p.n], step)
                 pos += p.n
                 reg.count("serve/requests")
                 reg.observe("serve/request_latency_ms",
@@ -330,9 +425,10 @@ class ScorerServer:
             list(self._l_rungs), time.monotonic() - t0)
 
     def is_ready(self) -> bool:
-        """Not shutting down, admission queue below the shed depth (the
-        constructor returns only after warmup)."""
-        return not self._closed and self._q.qsize() < self._shed_depth
+        """Not mid-reload, not shutting down, admission queue below the
+        shed depth (the constructor returns only after warmup)."""
+        return (not self._reloading.is_set() and not self._closed
+                and self._q.qsize() < self._shed_depth)
 
     def stats(self) -> dict:
         """The /healthz payload: live counters + latency quantiles."""
@@ -345,12 +441,16 @@ class ScorerServer:
             "ready": self.is_ready(),
             "device": str(self.device),
             "kernel": resolved_kernel(self.device),
-            "served_step": NPZ_STEP,
+            "reloading": self._reloading.is_set(),
+            "served_step": self.served_step,
+            "published_step": self._published_step,
             "queue_depth": self._q.qsize(),
             "requests": int(c.get("serve/requests", 0)),
             "examples": int(c.get("serve/examples", 0)),
             "flushes": int(c.get("serve/flushes", 0)),
             "flush_errors": int(c.get("serve/flush_errors", 0)),
+            "reloads": int(c.get("serve/reloads", 0)),
+            "reload_failures": int(c.get("serve/reload_failures", 0)),
             "latency_p50_ms": lat.quantile(0.5),
             "latency_p99_ms": lat.quantile(0.99),
             "uptime_seconds": time.time() - self._start_time,
@@ -358,7 +458,8 @@ class ScorerServer:
 
     def close(self) -> None:
         """Drain and stop: no new submissions, every queued request
-        flushed, the dispatcher joined. Idempotent."""
+        flushed, the dispatcher and reload threads joined.
+        Idempotent."""
         with self._submit_lock:
             if self._closed:
                 return
@@ -366,6 +467,8 @@ class ScorerServer:
             # Under the lock: every pending already enqueued precedes
             # this sentinel, and no submit can enqueue after it.
             self._q.put(_STOP)
+        if self._watcher is not None:
+            self._watcher.stop()
         self._dispatcher.join()
         self._logger.info("scorer server closed after %d flushes",
                           self._flushes)

@@ -23,6 +23,10 @@ Tolerances:
 - one train step on the card against the same step on the CPU: rtol
   1e-4 / atol 1e-6, the bound the CPU tests hold the step to against the
   JAX package.
+- checkpoints: a card table saved (asynchronously, then updated in place
+  at once) and restored is equal to the bit; under concurrent flushes on
+  the card a hot reload tags each response with a step, and its scores
+  equal, to the bit, that step's table scored alone.
 """
 
 import numpy as np
@@ -289,3 +293,99 @@ def test_train_step_on_card_matches_cpu(card):
             assert fm_kernel.bwd_launches == b0 + 3
     for got, want in zip(out[str(card)], out["cpu"]):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_checkpoint_round_trip_of_a_card_table_is_exact(card, tmp_path):
+    from fast_tffm_tpu_torch.checkpoint import CheckpointState
+    from fast_tffm_tpu_torch.predict import load_table
+    from fast_tffm_tpu_torch.train import checkpoint_template
+    cfg = FmConfig(vocabulary_size=300_000, factor_num=16,
+                   model_file=str(tmp_path / "fm"))
+    gen = torch.Generator(device=card).manual_seed(5)
+    table = torch.randn((cfg.num_rows, cfg.row_dim), generator=gen,
+                        device=card)
+    acc = torch.rand((cfg.num_rows, cfg.row_dim), generator=gen,
+                     device=card) + 0.1
+    want_t, want_a = table.cpu().clone(), acc.cpu().clone()
+    ckpt = CheckpointState(cfg.model_file)
+    ckpt.save(1, table, acc, vocabulary_size=cfg.vocabulary_size)
+    table.mul_(2.0)  # the next train step's in-place update
+    acc.zero_()
+    ckpt.save(2, table, acc, vocabulary_size=cfg.vocabulary_size, wait=True)
+    r1 = ckpt.restore(step=1, template=checkpoint_template(cfg))
+    r2 = ckpt.restore(template=checkpoint_template(cfg))
+    ckpt.close()
+    assert torch.equal(r1["table"], want_t) and torch.equal(r1["acc"], want_a)
+    assert r2["step"] == 2 and torch.equal(r2["table"], want_t * 2.0)
+    assert not r2["acc"].any()
+    on_card = load_table(cfg, card, step=1)
+    assert on_card.is_cuda and torch.equal(on_card.cpu(), want_t)
+
+
+def test_hot_reload_under_concurrent_flushes_on_the_card(card, tmp_path):
+    import threading
+    import time
+    from fast_tffm_tpu_torch.checkpoint import write_published
+    from fast_tffm_tpu_torch.data.parser import parse_lines
+    from fast_tffm_tpu_torch.data.pipeline import make_device_batch
+    from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
+    from fast_tffm_tpu_torch.predict import load_table
+    from fast_tffm_tpu_torch.scoring import CompiledScorer
+    from fast_tffm_tpu_torch.serve.server import ScorerServer
+    cfg = FmConfig(vocabulary_size=50_000, factor_num=16,
+                   model_file=str(tmp_path / "fm"), serve_max_batch=64,
+                   serve_max_wait_ms=1.0, serve_poll_seconds=0.02)
+    rng = np.random.default_rng(21)
+    for step in (10, 20):
+        table = (rng.normal(size=(cfg.num_rows, cfg.row_dim)) * 0.1
+                 ).astype(np.float32)
+        save_checkpoint_from_numpy(cfg, table, None, step)
+    lines = []
+    for _ in range(400):
+        n = int(rng.integers(0, 40))
+        ids = rng.integers(0, cfg.vocabulary_size, n)
+        lines.append("1 " + " ".join(f"{i}:{rng.random():.3f}"
+                                     for i in ids))
+    scorer = CompiledScorer(cfg, card)
+    tables = {s: load_table(cfg, card, step=s) for s in (10, 20)}
+
+    def alone(step, chunk):
+        batch = make_device_batch(parse_lines(
+            chunk, cfg.vocabulary_size, keep_empty=True), cfg)
+        raw = scorer.score_batch(tables[step], batch)[:len(chunk)]
+        return scorer.transform(raw.cpu().numpy())
+
+    write_published(cfg.model_file + ".ckpt", 10)
+    server = ScorerServer(cfg, device=card)
+    results, errors = [], []
+
+    def client(k):
+        r = np.random.default_rng(k)
+        try:
+            for _ in range(60):
+                n = int(r.integers(1, 33))
+                lo = int(r.integers(0, len(lines) - n + 1))
+                res = server.score_lines(lines[lo:lo + n], timeout=60)
+                results.append((lo, n, res))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        for th in threads:
+            th.start()
+        time.sleep(0.2)
+        write_published(cfg.model_file + ".ckpt", 20)
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive()
+        stats = server.stats()
+    finally:
+        server.close()
+    assert not errors, errors[:3]
+    assert stats["reloads"] == 1 and stats["reload_failures"] == 0
+    assert {res.step for _, _, res in results} == {10, 20}
+    for lo, n, res in results:
+        want = alone(res.step, lines[lo:lo + n])
+        assert np.array_equal(res.scores, want), (lo, n, res.step)

@@ -1,12 +1,14 @@
 """The port's serving slice as a whole, on the CPU: ``sample.cfg``'s
-model (vocabulary 200, k = 8) from one ``.npz`` export.
+model (vocabulary 200, k = 8) from one checkpoint step, written by
+``save_checkpoint_from_numpy`` and published with the port's ``fmckpt``.
 
 - JAX ``predict_scores`` (kernel = pallas in interpret mode, dedup =
   device — conftest's 8 CPU devices would otherwise resolve dedup = auto
   to host) through sigmoid matches the port's predict score file at
   atol 1e-6 (the file's own %.6f rounding is 5e-7 of that);
 - the port's ScorerServer, answering over HTTP on an ephemeral port,
-  returns bodies byte-identical to the port's score file;
+  returns bodies byte-identical to the port's score file, each tagged
+  with the published step in ``X-FM-Step``;
 - a malformed line gets a 400; bad argv exits 2; without a card and
   without ``--device cpu`` the entry points raise.
 """
@@ -25,17 +27,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fast_tffm_tpu.checkpoint import export_npz
 from fast_tffm_tpu.config import load_config as jax_load_config
 from fast_tffm_tpu.metrics import sigmoid as jax_sigmoid
 from fast_tffm_tpu.predict import predict_scores as jax_predict_scores
 from fast_tffm_tpu_torch.__main__ import main
 from fast_tffm_tpu_torch.config import load_config
+from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
 from fast_tffm_tpu_torch.predict import predict
 from fast_tffm_tpu_torch.serve.frontend import make_http_server
 from fast_tffm_tpu_torch.serve.server import ScorerServer
+from fast_tffm_tpu_torch.tools import fmckpt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The checkpoint step the slice's model is written and published at.
+STEP = 7
 
 
 def _write_cfg(wd, extra=""):
@@ -71,8 +76,8 @@ def slice_run(tmp_path_factory):
     table = (rng.normal(size=(cfg.num_rows, cfg.row_dim)) * 0.1
              ).astype(np.float32)
     table[-1] = 0.0
-    export_npz(jnp.asarray(table), cfg.model_file + ".npz",
-               vocabulary_size=cfg.vocabulary_size)
+    save_checkpoint_from_numpy(cfg, table, None, STEP)
+    assert fmckpt.main(["publish", cfg.model_file, str(STEP)]) == 0
     assert main(["predict", cfg_path, "--device", "cpu"]) == 0
     with open(os.path.join(cfg.score_path, "in.txt.score")) as fh:
         score_lines = fh.read().splitlines(keepends=True)
@@ -142,7 +147,7 @@ def test_serve_bodies_byte_identical_to_predict(slice_run):
         for i, (lo, n) in enumerate(spans):
             status, body, headers = results[i]
             assert status == 200
-            assert headers["X-FM-Step"] == "-1"
+            assert headers["X-FM-Step"] == str(STEP)
             assert body == "".join(score_lines[lo:lo + n]).encode()
         assert bad_status == 400 and b"non-integer feature id" in bad_body
         assert _post(port, "", path="/nope")[0] == 404
@@ -176,7 +181,7 @@ def test_server_refuses_oversized_and_scores_empty(slice_run):
             server.score_lines(slice_run["lines"][:65])
         assert server.score_lines([], timeout=30).scores.shape == (0,)
         res = server.score_lines(slice_run["lines"][:3], timeout=30)
-        assert res.scores.dtype == np.float64 and res.step == -1
+        assert res.scores.dtype == np.float64 and res.step == STEP
         assert server.stats()["requests"] == 1
     finally:
         server.close()

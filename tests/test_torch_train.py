@@ -18,8 +18,11 @@ runs) against the JAX package, on the CPU.
   single-device path) from one shared table: per-epoch validation AUC
   within 1e-3, final loss at rtol 1e-4, exported tables at rtol 1e-4 /
   atol 1e-6, and the two predicts on their own exports at atol 1e-5.
-- Refusals: an existing checkpoint and every unported key raise
-  ``NotImplementedError`` naming a ROADMAP item.
+- Refusals: an existing checkpoint in the JAX package's format (orbax)
+  raises naming ``save_checkpoint_from_numpy`` and is left in place;
+  every unported key raises ``NotImplementedError`` naming a ROADMAP
+  item. (Resume from the port's own checkpoints is held to the JAX
+  package in tests/test_torch_checkpoint.py.)
 """
 
 import dataclasses
@@ -360,7 +363,7 @@ def test_train_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     ("[Train]\nweight_files = w.txt\n", "A4"),
     ("[Train]\nbad_line_policy = skip\n", "A4"),
-    ("[Train]\nsave_steps = 10\n", "A3"),
+    ("[Train]\npublish_interval_seconds = 5\n", "A13"),
     ("[Train]\nmax_features_per_example = 0\n", "A4"),
 ])
 def test_unported_keys_raise(tmp_path, extra, item):
@@ -378,7 +381,7 @@ def test_unported_keys_raise(tmp_path, extra, item):
 
 @pytest.mark.parametrize("changes,item", [
     (dict(run_mode="stream", stream_dir="x", train_files=()), "A13"),
-    (dict(publish_interval_seconds=5.0), "A3"),
+    (dict(publish_interval_seconds=5.0), "A13"),
     (dict(validation_weight_files=("w",), validation_files=("v",)), "A4"),
     (dict(lookup="host"), "A7"),
     (dict(elastic="shrink"), "A10"),
@@ -391,10 +394,19 @@ def test_unported_values_raise(tmp_path, changes, item):
 
 
 def test_existing_checkpoint_raises(tmp_path):
-    cfg = load_config(_write_cfg(str(tmp_path)))
-    os.makedirs(cfg.model_file + ".ckpt")
-    with pytest.raises(NotImplementedError, match="item A3"):
+    from fast_tffm_tpu.checkpoint import CheckpointState as JaxCkpt
+    from fast_tffm_tpu.train import ckpt_state
+    path = _write_cfg(str(tmp_path))
+    cfg, jcfg = load_config(path), jax_load_config(path)
+    jckpt = JaxCkpt(jcfg.model_file)
+    jckpt.save(80, *ckpt_state(jcfg, jax_fm.init_table(jcfg),
+                               jax_fm.init_accumulator(jcfg)),
+               vocabulary_size=jcfg.vocabulary_size, wait=True)
+    jckpt.close()
+    with pytest.raises(ValueError, match="save_checkpoint_from_numpy"):
         train(cfg, device="cpu")
+    assert sorted(os.listdir(cfg.model_file + ".ckpt")) == [
+        "80", "manifest-80.json"]
     assert not os.path.exists(cfg.model_file + ".npz")
 
 
