@@ -11,8 +11,16 @@ vocabulary 2^24, a [2^24+1, 17] f32 table (1.14 GB) — over
 Criteo-shaped lines it generates itself:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: both kernel libraries, one nvcc each, started together, with
-   nvcc's register report;
+2. build: both kernel libraries, one nvcc each, and the C++ parser
+   library (g++), all started together, with nvcc's register report and
+   the parser's build seconds;
+   pipeline: the train phase's 131,072 lines (written here) through
+   three streams — the C++ fast path with ``host_threads = 1``, the same
+   path with ``host_threads`` = auto (its worker count printed), and the
+   plain pure-Python stream — which must be equal array for array, each
+   with its lines/s and the host's CPU count; then the generic path (a
+   weight sidecar, ``bad_line_policy = skip`` with planted bad lines)
+   against its plain expectation;
 3. kernel: each CUDA kernel against its plain PyTorch version at the
    main path's shapes (fm_score bit for bit, also on the first predict
    batch's Zipf-skewed raw ids), with errors, median times (CUDA events,
@@ -45,7 +53,9 @@ Criteo-shaped lines it generates itself:
    in the step; fm_score_bwd also with the numeric fields' slots zeroed,
    which takes its hottest rows away), the median time of one step on
    batches already on the card, its kernels' device time from a
-   profiler trace, and the card's idle share computed from them;
+   profiler trace, and the card's idle share computed from them. The
+   train and predict commands stream their batches through the C++
+   builder (the parallel data plane);
 7. hot reload: step 16 published and served while client threads post
    blocks of validation lines; step 32 is published under that load,
    and every response must be a 200 whose body equals the predict lines
@@ -55,7 +65,12 @@ Criteo-shaped lines it generates itself:
    a restore must walk back to step 24 and leave ``corrupt-32/`` holding
    ``QUARANTINE`` and ``manifest-32.json``, and publishing step 32 must
    fail with the pointer untouched;
-9. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+9. train with ``dedup = host``: one epoch (reduced depth) through ``python
+   -m fast_tffm_tpu_torch train`` on host-deduped batches, which must
+   launch both kernels and clear the same AUC floor; both kernels against
+   their plain versions on one of its batches, and its resident step
+   time beside the ``dedup = device`` step's;
+10. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
 train loop (the snapshot), the final save with ``wait``, the background
@@ -96,6 +111,8 @@ ATOL = 1e-6
 # held to BWD_RTOL of its sum of absolute contributions, plus BWD_ATOL.
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
 TRAIN_LINES = 131072
+GENERIC_LINES = 32768             # the generic path's check: a prefix
+GENERIC_BAD = (101, 5000, 17777, 25000, 32000)   # planted bad lines
 VAL_LINES = 16384
 TRAIN_BATCH = 8192
 TRAIN_EPOCHS = 2                  # run A takes the first, run B the second
@@ -575,19 +592,25 @@ def numeric_ids(vocab):
     return [hash_feature(f"I{j}", vocab) for j in range(NUM_FIELDS)]
 
 
-def train_batch_kernel_rows(torch, spec, table, args, device):
+def train_batch_kernel_rows(torch, spec, table, args, device, tag="train"):
     """Both kernels against their plain versions on one batch of the
-    train phase's stream, deduped and gathered as train_step_body does,
-    with g = dloss/dscore of that batch: Criteo's low-cardinality fields
-    put thousands of atomics on a few rows there. fm_score runs with L2
+    train phase's stream, deduped (on the card for a raw-ids batch, by
+    the host for a ``dedup = host`` one) and gathered as train_step_body
+    does, with g = dloss/dscore of that batch: Criteo's low-cardinality
+    fields put thousands of atomics on a few rows there. fm_score runs with L2
     warm, as in the step; fm_score_bwd with L2 flushed and, need_dx off,
     warm (as in the step), then flushed once more on the same batch with
     the numeric fields' slots at x = 0 ("train_no_numeric"), which
     leaves the Zipf-spread categorical rows and takes the hottest rows
-    away. Returns (forward rows, backward rows)."""
+    away. Rows are tagged ``tag`` (and ``tag + "_no_numeric"``). Returns
+    (forward rows, backward rows)."""
     from fast_tffm_tpu_torch.models import fm as port_fm
     from fast_tffm_tpu_torch.ops.interaction import gather_rows
-    uniq, local = port_fm._device_dedup(spec, args["local_idx"])
+    if "uniq_ids" in args:
+        uniq, local = args["uniq_ids"], args["local_idx"]
+    else:
+        uniq, local = port_fm._device_dedup(spec, args["local_idx"])
+    raw_idx = uniq[local.long()]
     rows = gather_rows(table, uniq).requires_grad_(True)
     loss, scores = port_fm.loss_and_scores(
         spec, rows, args["labels"], args["weights"], uniq, local,
@@ -595,20 +618,21 @@ def train_batch_kernel_rows(torch, spec, table, args, device):
     (g,) = torch.autograd.grad(loss, scores)
     rows, g = rows.detach(), g.detach()
     fwd = [fwd_kernel_row(torch, rows, local, args["vals"], None,
-                          batch="train")]
+                          batch=tag)]
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
     bwd = bwd_kernel_rows(torch, rows, local, args["vals"], g, flush,
-                          batch="train")
+                          batch=tag)
     bwd += bwd_kernel_rows(torch, rows, local, args["vals"], g, None,
-                           need_dx_cases=(False,), batch="train")
-    numeric = torch.isin(args["local_idx"], torch.tensor(
-        numeric_ids(spec.vocabulary_size), dtype=args["local_idx"].dtype,
+                           need_dx_cases=(False,), batch=tag)
+    numeric = torch.isin(raw_idx, torch.tensor(
+        numeric_ids(spec.vocabulary_size), dtype=raw_idx.dtype,
         device=device))
     check(bool(numeric.any()), "the train batch has no numeric slot")
     no_numeric = args["vals"].masked_fill(numeric, 0.0)
     bwd += bwd_kernel_rows(torch, rows, local, no_numeric, g, flush,
-                           need_dx_cases=(False,), batch="train_no_numeric")
+                           need_dx_cases=(False,),
+                           batch=tag + "_no_numeric")
     del flush
     return fwd, bwd
 
@@ -771,15 +795,19 @@ def serve_phase(torch, cfg, lines, score_lines, device, card):
     return row
 
 
-def write_train_cfg(wd, epochs):
-    path = os.path.join(wd, f"train{epochs}.cfg")
+def write_train_cfg(wd, epochs, dedup="auto", save_steps=SAVE_STEPS):
+    """A train config over ``wd``'s train.txt and val.txt; ``dedup =
+    host`` gets a model directory and log of its own."""
+    tag = "" if dedup == "auto" else f"_{dedup}"
+    path = os.path.join(wd, f"train{epochs}{tag}.cfg")
     with open(path, "w") as fh:
         fh.write(f"""[General]
 vocabulary_size = {VOCAB}
 hash_feature_id = True
 factor_num = {FACTORS}
-model_file = {os.path.join(wd, 'model', 'fm_model')}
-log_file = {os.path.join(wd, 'train.log')}
+model_file = {os.path.join(wd, 'model' + tag, 'fm_model')}
+log_file = {os.path.join(wd, f'train{tag}.log')}
+dedup = {dedup}
 
 [Train]
 train_files = {os.path.join(wd, 'train.txt')}
@@ -789,11 +817,11 @@ batch_size = {TRAIN_BATCH}
 learning_rate = {TRAIN_LR}
 loss_type = logistic
 log_steps = 1
-save_steps = {SAVE_STEPS}
+save_steps = {save_steps}
 
 [Predict]
 predict_files = {os.path.join(wd, 'val.txt')}
-score_path = {os.path.join(wd, 'score')}
+score_path = {os.path.join(wd, 'score' + tag)}
 
 [Serve]
 serve_port = 0
@@ -826,41 +854,47 @@ def read_train_log(path):
 def step_kernel_ms(torch, step):
     """Device ms per step of each kernel, from a torch.profiler trace of
     ``step(i)`` for i < PROFILED_STEPS. The profiler now and then returns
-    a trace without the records of kernels launched through ctypes; such
-    a trace is taken again, up to PROFILE_ATTEMPTS times in all, and None
-    means not measured."""
+    a trace without some records of the kernels launched through ctypes
+    (one launch each step): their time per step is then the mean of the
+    records it holds, and a trace holding fewer than half of them is
+    taken again, up to PROFILE_ATTEMPTS times in all; None means not
+    measured. Returns (kernel ms or None, the launches of each of the two
+    kernels the trace held)."""
     from torch.profiler import ProfilerActivity, profile
+    names = ("fm_score_kernel", "fm_score_bwd_kernel")
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(PROFILED_STEPS):
                 step(i)
             torch.cuda.synchronize()
-        kernel_ms, counts = {}, {}
+        kernel_ms, counts = {}, dict.fromkeys(names, 0)
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0.0)
             if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-                kernel_ms[e.key] = us / 1e3 / PROFILED_STEPS
-                for name in ("fm_score_kernel", "fm_score_bwd_kernel"):
-                    if name in e.key:
-                        counts[name] = counts.get(name, 0) + e.count
-        if counts == {"fm_score_kernel": PROFILED_STEPS,
-                      "fm_score_bwd_kernel": PROFILED_STEPS}:
-            return kernel_ms
-    return None
+                ours = [n for n in names if n in e.key]
+                kernel_ms[e.key] = us / 1e3 / (
+                    e.count if ours else PROFILED_STEPS)
+                for name in ours:
+                    counts[name] += e.count
+        if all(PROFILED_STEPS // 2 <= counts[n] <= PROFILED_STEPS
+               for n in names):
+            return kernel_ms, counts
+    return None, counts
 
 
-def resident_step_ms(torch, cfg, device):
-    """One train step (dedup -> gather -> forward -> backward -> Adagrad)
-    on batches of the train stream already on the card: the median
+def resident_step_ms(torch, cfg, device, tag="train"):
+    """One train step (dedup -> gather -> forward -> backward -> Adagrad;
+    with ``dedup = host`` the batches come deduped) on batches of the
+    train stream already on the card: the median
     CUDA-event time of train_step_body and, from a torch.profiler trace
     of PROFILED_STEPS more steps, the device time per step by kernel
     (step_kernel_ms).
     Event intervals include the gaps in which the card waits for the
     host to launch the next kernel; the profiler's kernel times do not.
     Also both kernels against their plain versions on the first of these
-    batches (train_batch_kernel_rows); returns (timings, forward rows,
-    backward rows)."""
+    batches (train_batch_kernel_rows, rows tagged ``tag``); returns
+    (timings, forward rows, backward rows)."""
     from fast_tffm_tpu_torch.data.pipeline import batch_iterator
     from fast_tffm_tpu_torch.models import fm as port_fm
     spec = port_fm.ModelSpec.from_config(cfg)
@@ -868,12 +902,17 @@ def resident_step_ms(torch, cfg, device):
     table = port_fm.init_table(cfg, device, gen)
     acc = port_fm.init_accumulator(cfg, device)
     batches = []
-    for b in batch_iterator(cfg, cfg.train_files, training=True, epochs=1):
-        batches.append(port_fm.batch_args(b, device))
-        if len(batches) == RESIDENT_BATCHES:
-            break
+    it = batch_iterator(cfg, cfg.train_files, training=True, epochs=1,
+                        raw_ids=spec.dedup == "device")
+    try:
+        for b in it:
+            batches.append(port_fm.batch_args(b, device))
+            if len(batches) == RESIDENT_BATCHES:
+                break
+    finally:
+        it.close()
     fwd_rows, bwd_rows = train_batch_kernel_rows(torch, spec, table,
-                                                 batches[0], device)
+                                                 batches[0], device, tag)
 
     whole = []
     for i in range(RESIDENT_STEPS + 2):
@@ -887,8 +926,9 @@ def resident_step_ms(torch, cfg, device):
         if i >= 2:  # the first two are warmup
             whole.append(start.elapsed_time(end))
 
-    per_kernel = step_kernel_ms(torch, lambda i: port_fm.train_step_body(
-        spec, table, acc, **batches[i % len(batches)]))
+    per_kernel, counts = step_kernel_ms(
+        torch, lambda i: port_fm.train_step_body(
+            spec, table, acc, **batches[i % len(batches)]))
     top = (None if per_kernel is None else
            dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))
     device_ms = None if per_kernel is None else sum(per_kernel.values())
@@ -898,23 +938,16 @@ def resident_step_ms(torch, cfg, device):
             "profiled_device_ms_per_step": device_ms,
             "profiled_kernels_ms_per_step": top,
             "profiled_kernel_count":
-                None if per_kernel is None else len(per_kernel)}, \
+                None if per_kernel is None else len(per_kernel),
+            "profiled_kernel_launches_seen": counts}, \
         fwd_rows, bwd_rows
 
 
-def train_phase(torch, device, card):
-    """``python -m fast_tffm_tpu_torch train`` (in process) at config
-    #2's width on Criteo-shaped lines with planted labels, as run A (one
-    epoch) and run B (resumed to two) on one model directory; then
-    ``fmckpt`` over it, and predict of the newest step over the
-    validation lines."""
-    import io
-    import numpy as np
-    from fast_tffm_tpu_torch.__main__ import main as cli
-    from fast_tffm_tpu_torch.config import load_config
-    from fast_tffm_tpu_torch.metrics import exact_auc
-    from fast_tffm_tpu_torch.ops import fm_kernel
-    from fast_tffm_tpu_torch.tools import fmckpt
+def write_train_data():
+    """The train phase's Criteo-shaped lines with planted labels, written
+    to ``WORK/train``: TRAIN_LINES to train.txt, VAL_LINES to val.txt.
+    Returns (directory, validation lines, their planted logits, the
+    seconds it took)."""
     wd = os.path.join(WORK, "train")
     os.makedirs(wd)
     t0 = time.perf_counter()
@@ -924,7 +957,24 @@ def train_phase(torch, device, card):
     for name, lines in (("train.txt", train_lines), ("val.txt", val_lines)):
         with open(os.path.join(wd, name), "w") as fh:
             fh.write("\n".join(lines) + "\n")
-    gen_s = time.perf_counter() - t0
+    return wd, val_lines, val_logits, time.perf_counter() - t0
+
+
+def train_phase(torch, device, card, data):
+    """``python -m fast_tffm_tpu_torch train`` (in process) at config
+    #2's width on Criteo-shaped lines with planted labels (``data``, from
+    write_train_data), as run A (one epoch) and run B (resumed to two)
+    on one model directory; then ``fmckpt`` over it, and predict of the
+    newest step over the validation lines."""
+    import io
+    import re
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.metrics import exact_auc
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.tools import fmckpt
+    wd, val_lines, val_logits, gen_s = data
     val_labels = np.array([int(ln.split(" ", 1)[0]) for ln in val_lines])
     # The planted model's own AUC on the validation lines is the best any
     # model can reach; the trained model must recover at least half of
@@ -933,7 +983,6 @@ def train_phase(torch, device, card):
     auc_floor = 0.5 + 0.5 * (bayes_auc - 0.5)
     cfg_paths = [write_train_cfg(wd, 1), write_train_cfg(wd, TRAIN_EPOCHS)]
     cfg = load_config(cfg_paths[-1])
-    del train_lines
 
     fm_kernel.launches = 0
     fm_kernel.bwd_launches = 0
@@ -951,6 +1000,8 @@ def train_phase(torch, device, card):
     check("restored checkpoint at step 16" in log and
           "resuming interrupted epoch schedule at epoch 1/2" in log,
           "run B did not restore step 16 and resume at epoch 1/2")
+    plane = [int(n) for n in re.findall(
+        r"host data plane: (\d+) parallel batch-build workers", log)]
     losses, rates, aucs, done = read_train_log(cfg.log_file)
     steps = TRAIN_EPOCHS * -(-TRAIN_LINES // TRAIN_BATCH)
     check([n for n, _ in done] == [steps // 2, steps],
@@ -1039,6 +1090,7 @@ def train_phase(torch, device, card):
            "restored_steps": [t["step"] for t in times.restores],
            "checkpoint_commits": commits,
            "fmckpt_verify_full_seconds": verify_s,
+           "host_data_plane_workers": plane,
            **resident,
            # Idle share of the card while the loop runs, from the
            # resident step time and the loop's rate, and over both train
@@ -1202,6 +1254,180 @@ def quarantine_phase(cfg, card):
     return row
 
 
+def timed_list(make_iter):
+    """(every item of ``make_iter()``, the seconds it took)."""
+    t0 = time.perf_counter()
+    items = list(make_iter())
+    return items, time.perf_counter() - t0
+
+
+def check_same_stream(want, got, what):
+    """Two batch streams equal array for array and dtype for dtype."""
+    import numpy as np
+    check(len(got) == len(want) > 0,
+          f"{what}: {len(got)} batches against {len(want)}")
+    for i, (w, g) in enumerate(zip(want, got)):
+        check(g.num_real == w.num_real,
+              f"{what}: batch {i} has {g.num_real} examples, not "
+              f"{w.num_real}")
+        for key in ("labels", "weights", "uniq_ids", "local_idx", "vals"):
+            a, b = getattr(w, key), getattr(g, key)
+            check((a is None) == (b is None) and (
+                a is None or (a.dtype == b.dtype and a.shape == b.shape
+                              and np.array_equal(a, b))),
+                  f"{what}: batch {i} differs in {key}")
+
+
+def host_cpus():
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def pipeline_phase(cfg, parser_build_s, card):
+    """The train stream three ways — the C++ fast path serially and over
+    the parallel data plane, and the plain pure-Python stream — equal
+    array for array, each with its lines/s; then the generic path (a
+    weight sidecar and planted bad lines under ``bad_line_policy =
+    skip``) against the plain expectation built from the pure-Python
+    parser and make_device_batch."""
+    import dataclasses
+    import numpy as np
+    from fast_tffm_tpu_torch.data import pipeline as pl
+    from fast_tffm_tpu_torch.data.badlines import BadLineTracker
+    from fast_tffm_tpu_torch.data.parser import parse_lines
+    files = list(cfg.train_files)
+    kw = dict(training=True, epochs=1, seed=cfg.seed)
+    serial_cfg = dataclasses.replace(cfg, host_threads=1)
+    auto_cfg = dataclasses.replace(cfg, host_threads=0)
+    workers = pl.host_parallel_workers(auto_cfg)
+    serial, serial_s = timed_list(
+        lambda: pl.batch_iterator(serial_cfg, files, **kw))
+    parallel, parallel_s = timed_list(
+        lambda: pl.batch_iterator(auto_cfg, files, **kw))
+    plain, plain_s = timed_list(
+        lambda: pl.plain_batch_iterator(cfg, files, **kw))
+    check(sum(b.num_real for b in plain) == TRAIN_LINES,
+          "the plain stream lost lines")
+    check_same_stream(plain, serial, "C++ fast path (host_threads = 1)")
+    check_same_stream(plain, parallel,
+                      f"C++ fast path (host_threads = {workers})")
+    n_batches = len(plain)
+    del serial, parallel, plain
+
+    # The generic path: a prefix of the train lines with planted bad
+    # lines and a weight sidecar, not shuffled.
+    with open(files[0]) as fh:
+        lines = fh.read().splitlines()[:GENERIC_LINES]
+    for i in GENERIC_BAD:
+        lines[i] = "1 I1:x C3=v1"
+    rng = np.random.default_rng(SEED + 9)
+    weights = [f"{w:.3f}" for w in rng.uniform(0.2, 3.0, len(lines))]
+    gdir = os.path.join(WORK, "pipeline")
+    os.makedirs(gdir)
+    data, wpath = os.path.join(gdir, "g.txt"), os.path.join(gdir, "g.w")
+    with open(data, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(wpath, "w") as fh:
+        fh.write("\n".join(weights) + "\n")
+    gcfg = dataclasses.replace(cfg, bad_line_policy="skip",
+                               max_bad_fraction=0.01, host_threads=0)
+    tracker = BadLineTracker.from_config(gcfg)
+    got, generic_s = timed_list(lambda: pl.batch_iterator(
+        gcfg, [data], training=False, weight_files=[wpath],
+        bad_lines=tracker))
+    check(tracker.bad == len(GENERIC_BAD) and
+          tracker.total == GENERIC_LINES,
+          f"generic path: {tracker.describe()}")
+    t0 = time.perf_counter()
+    want, bad, B = [], set(GENERIC_BAD), cfg.batch_size
+    for lo in range(0, len(lines), B):
+        kept = [i for i in range(lo, min(lo + B, len(lines)))
+                if i not in bad]
+        block = parse_lines(
+            [lines[i] for i in kept], cfg.vocabulary_size,
+            hash_feature_id=cfg.hash_feature_id,
+            max_features_per_example=cfg.max_features_per_example)
+        want.append(pl.make_device_batch(
+            block, gcfg, B,
+            weights=np.array([float(weights[i]) for i in kept],
+                             dtype=np.float32)))
+    generic_plain_s = time.perf_counter() - t0
+    check_same_stream(want, got, "generic path (weights, skip)")
+    row = {"phase": "pipeline", "card": card, "host_cpus": host_cpus(),
+           "os_cpu_count": os.cpu_count(), "lines": TRAIN_LINES,
+           "batch_size": cfg.batch_size, "batches": n_batches,
+           "parser_build_seconds": parser_build_s,
+           "streams_equal": True,
+           "serial_lines_per_s": TRAIN_LINES / serial_s,
+           "parallel_workers": workers,
+           "parallel_lines_per_s": TRAIN_LINES / parallel_s,
+           "plain_lines_per_s": TRAIN_LINES / plain_s,
+           "serial_over_plain": plain_s / serial_s,
+           "parallel_over_serial": serial_s / parallel_s,
+           "generic_lines": GENERIC_LINES,
+           "generic_bad_lines_skipped": tracker.bad,
+           "generic_lines_per_s": GENERIC_LINES / generic_s,
+           "generic_plain_lines_per_s": GENERIC_LINES / generic_plain_s}
+    emit(row)
+    return row
+
+
+def host_dedup_phase(torch, device, card, wd, train_row):
+    """One epoch of ``python -m fast_tffm_tpu_torch train`` with ``dedup
+    = host`` (periodic saves off; the final save and the export stay):
+    both kernels launch on host-deduped batches, the validation AUC
+    clears the train phase's floor; then its resident step, beside the
+    ``dedup = device`` step's."""
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    path = write_train_cfg(wd, 1, dedup="host", save_steps=0)
+    cfg = load_config(path)
+    fm_kernel.launches = 0
+    fm_kernel.bwd_launches = 0
+    t0 = time.perf_counter()
+    rc = cli(["train", path])
+    entry_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches = fm_kernel.launches, fm_kernel.bwd_launches
+    check(rc == 0, f"dedup = host train returned {rc}")
+    losses, rates, aucs, done = read_train_log(cfg.log_file)
+    steps = -(-TRAIN_LINES // TRAIN_BATCH)
+    val_batches = -(-VAL_LINES // TRAIN_BATCH)
+    check([n for n, _ in done] == [steps], f"dedup = host ran {done}")
+    check(bwd_launches == steps and fwd_launches == steps + val_batches,
+          f"dedup = host launched fm_score {fwd_launches} and "
+          f"fm_score_bwd {bwd_launches} times for {steps} steps")
+    check(len(aucs) == 1 and aucs[0] > train_row["auc_floor"],
+          f"dedup = host validation AUC {aucs} not above "
+          f"{train_row['auc_floor']}")
+    loop_eps = steps * TRAIN_BATCH / sum(TRAIN_BATCH / r for r in rates)
+    resident, fwd_rows, bwd_rows = resident_step_ms(torch, cfg, device,
+                                                    tag="train_host")
+    row = {"phase": "train_host", "card": card, "dedup": "host",
+           "epochs": 1, "steps": steps, "entry_seconds": entry_s,
+           "examples_per_s_loop": loop_eps,
+           "epoch_mean_loss": float(np.mean(losses[0])),
+           "validation_auc": aucs, "auc_floor": train_row["auc_floor"],
+           "fm_score_launches": fwd_launches,
+           "fm_score_bwd_launches": bwd_launches,
+           "resident_step_ms_median": resident["resident_step_ms_median"],
+           "device_dedup_resident_step_ms_median":
+               train_row["resident_step_ms_median"],
+           "profiled_device_ms_per_step":
+               resident["profiled_device_ms_per_step"],
+           "device_dedup_profiled_device_ms_per_step":
+               train_row["profiled_device_ms_per_step"],
+           "profiled_kernels_ms_per_step":
+               resident["profiled_kernels_ms_per_step"],
+           "profiled_kernel_launches_seen":
+               resident["profiled_kernel_launches_seen"]}
+    emit(row)
+    return row, fwd_rows, bwd_rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -1216,8 +1442,9 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
     from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data import cparser
     from fast_tffm_tpu_torch.data.parser import parse_lines
     from fast_tffm_tpu_torch.data.pipeline import make_device_batch
     from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
@@ -1235,12 +1462,24 @@ def main(argv) -> int:
           f" count {torch.cuda.device_count()}")
     print(smi, flush=True)
 
-    # 2. build
+    # 2. build: the parser (g++) beside the kernels (one nvcc each)
     t0 = time.perf_counter()
-    build.build_all(build.SOURCES,
-                    log=lambda text: print(text, end="", flush=True))
+
+    def build_parser():
+        built = not os.path.isfile(cparser.library_path())
+        t = time.perf_counter()
+        cparser._load()
+        return built, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        parser_build = pool.submit(build_parser)
+        build.build_all(build.SOURCES,
+                        log=lambda text: print(text, end="", flush=True))
+        parser_built, parser_s = parser_build.result()
     build.load_fm_score()
     build.load_fm_score_bwd()
+    print(f"parser library {'built' if parser_built else 'found'} and "
+          f"loaded in {parser_s:.2f}s: {cparser.library_path()}")
     print(f"build+load seconds {time.perf_counter() - t0:.2f}", flush=True)
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1250,6 +1489,12 @@ def main(argv) -> int:
     check(free >= MIN_FREE_BYTES, f"{free} bytes free under {WORK}; the "
           f"checkpoint phases need {MIN_FREE_BYTES}")
     try:
+        # pipeline: the train phase's lines through the three streams
+        train_data = write_train_data()
+        pipeline_row = pipeline_phase(
+            load_config(write_train_cfg(train_data[0], TRAIN_EPOCHS)),
+            parser_s, smi)
+
         cfg_path = os.path.join(WORK, "smoke.cfg")
         write_cfg(cfg_path)
         cfg = load_config(cfg_path)
@@ -1300,13 +1545,20 @@ def main(argv) -> int:
 
         # 6. train
         train_row, fwd_train_rows, bwd_train_rows, train_cfg, val_lines = \
-            train_phase(torch, device, smi)
+            train_phase(torch, device, smi, train_data)
         kernel_rows += fwd_train_rows
         bwd_rows += bwd_train_rows
 
         # 7. hot reload, 8. quarantine
         reload_row = reload_phase(torch, train_cfg, val_lines, device, smi)
         quarantine_row = quarantine_phase(train_cfg, smi)
+        shutil.rmtree(os.path.dirname(train_cfg.model_file))  # disk for 9
+
+        # 9. train with dedup = host
+        host_row, fwd_host_rows, bwd_host_rows = host_dedup_phase(
+            torch, device, smi, train_data[0], train_row)
+        kernel_rows += fwd_host_rows
+        bwd_rows += bwd_host_rows
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1323,7 +1575,8 @@ def main(argv) -> int:
         "launches": (predict_row["launches"] + serve_row["launches"]
                      + train_row["fm_score_launches"]
                      + train_row["predict_launches"]
-                     + reload_row["launches"]),
+                     + reload_row["launches"]
+                     + host_row["fm_score_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1334,11 +1587,15 @@ def main(argv) -> int:
         "serve_launches": serve_row["launches"],
         "train_launches": train_row["fm_score_launches"],
         "train_predict_launches": train_row["predict_launches"],
-        "reload_launches": reload_row["launches"]}, {
+        "reload_launches": reload_row["launches"],
+        "train_host_launches": host_row["fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
-        "launches": train_row["fm_score_bwd_launches"],
+        "launches": (train_row["fm_score_bwd_launches"]
+                     + host_row["fm_score_bwd_launches"]),
+        "train_launches": train_row["fm_score_bwd_launches"],
+        "train_host_launches": host_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -1350,11 +1607,12 @@ def main(argv) -> int:
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
-            json.dump({"nvidia_smi": smi, "kernel": kernel_rows,
+            json.dump({"nvidia_smi": smi, "pipeline": pipeline_row,
+                       "kernel": kernel_rows,
                        "kernel_bwd": bwd_rows, "predict": predict_row,
                        "serve": serve_row, "train": train_row,
                        "reload": reload_row, "quarantine": quarantine_row,
-                       **kernels}, fh, indent=1)
+                       "train_host": host_row, **kernels}, fh, indent=1)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,24 +3,26 @@ train step.
 
 The single-device subset of ``fast_tffm_tpu/models/fm.py``:
 ``ModelSpec``, ``init_table``, ``init_accumulator``, ``resolved_kernel``,
-``_scores``, ``rows_score_body``, the raw-gather branch of
-``score_body``, and the ``dedup = device`` train step:
-``_device_dedup`` → gather → ``grad_body`` (``loss_and_scores`` and its
-gradient with respect to the gathered rows) → ``sparse_adagrad_apply``.
+``_scores``, ``rows_score_body``, ``score_body`` and ``train_step_body``:
+(``_device_dedup`` for a raw-ids batch, none for a host-deduped one) →
+gather → ``grad_body`` (``loss_and_scores`` and its gradient with respect
+to the gathered rows) → ``sparse_adagrad_apply``.
 
 A 2nd-order FM scores through ``ops/fm_kernel.fm_batch_scores``: the
 CUDA kernels for tensors on the card (forward, and in training the
 hand-written backward), their plain versions for tensors on the CPU.
-The ``kernel`` and ``dedup`` config keys are accepted and ignored: on
-the card an order-2 FM always runs the kernels; the score path gathers
-raw rows and the train step dedups on the device, as the JAX package
-does on one device.
+The ``kernel`` key is accepted and ignored: on the card an order-2 FM
+always runs the kernels. ``dedup`` resolves as the JAX package resolves
+it on one device (``auto`` → ``device``): ``device`` steps take raw-ids
+batches and run the unique on the card, ``host`` steps take the
+pipeline's host-deduped batches (``uniq_ids`` set), whose U is a ladder
+rung the host picked, so the step never waits for the card to learn it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -61,6 +63,7 @@ class ModelSpec:
     factor_lambda: float
     bias_lambda: float
     learning_rate: float
+    dedup: str = "device"    # "device" or "host"; never "auto"
 
     @classmethod
     def from_config(cls, cfg: FmConfig) -> "ModelSpec":
@@ -70,7 +73,8 @@ class ModelSpec:
                    vocabulary_size=cfg.vocabulary_size,
                    loss_type=cfg.loss_type, factor_lambda=cfg.factor_lambda,
                    bias_lambda=cfg.bias_lambda,
-                   learning_rate=cfg.learning_rate)
+                   learning_rate=cfg.learning_rate,
+                   dedup="host" if cfg.dedup == "host" else "device")
 
     @property
     def row_dim(self) -> int:
@@ -116,11 +120,17 @@ def rows_score_body(spec: ModelSpec, gathered: torch.Tensor,
 
 
 def score_body(spec: ModelSpec, table: torch.Tensor, local_idx: torch.Tensor,
-               vals: torch.Tensor) -> torch.Tensor:
-    """Raw-gather inference forward: ``local_idx`` holds raw table rows
-    (pad cells = pad_id). The JAX package gathers ``table[local_idx]``
-    and scores the gathered block; here the kernel reads the table rows
-    itself, the same rows summed in the same slot order."""
+               vals: torch.Tensor,
+               uniq_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inference forward. Raw-ids batch (``uniq_ids`` None): ``local_idx``
+    holds raw table rows (pad cells = pad_id); the JAX package gathers
+    ``table[local_idx]`` and scores the gathered block, here the kernel
+    reads the table rows itself. Host-deduped batch: the rows
+    ``table[uniq_ids]`` are gathered and ``local_idx`` indexes them. Both
+    sum the same rows in the same slot order: the scores are equal to
+    the bit."""
+    if uniq_ids is not None:
+        table = gather_rows(table, uniq_ids)
     return rows_score_body(spec, table, local_idx, vals)
 
 
@@ -204,14 +214,26 @@ def grad_body(spec: ModelSpec, gathered: torch.Tensor,
 def train_step_body(spec: ModelSpec, table: torch.Tensor,
                     acc: torch.Tensor, labels: torch.Tensor,
                     weights: torch.Tensor, local_idx: torch.Tensor,
-                    vals: torch.Tensor):
-    """One training step on a raw-ids batch: on-device unique → gather →
-    loss and gradient → sparse Adagrad. Returns ``(table, acc, loss,
-    scores)``; ``table`` and ``acc`` are updated in place."""
-    uniq_ids, local = _device_dedup(spec, local_idx)
+                    vals: torch.Tensor,
+                    uniq_ids: Optional[torch.Tensor] = None):
+    """One training step: gather → loss and gradient → sparse Adagrad.
+    ``dedup = device``: a raw-ids batch (``uniq_ids`` None), uniqued on
+    the device first. ``dedup = host``: the batch's ``uniq_ids`` (pad_id
+    padding, whose rows get zero gradient) and ``local_idx`` into them.
+    Returns ``(table, acc, loss, scores)``; ``table`` and ``acc`` are
+    updated in place."""
+    if (uniq_ids is None) != (spec.dedup == "device"):
+        # Slot indices read as feature ids (or the reverse) would
+        # silently train the wrong rows.
+        raise ValueError(
+            f"dedup = {spec.dedup} step got a "
+            f"{'raw-ids' if uniq_ids is None else 'host-deduped'} batch; "
+            f"build batches with raw_ids={spec.dedup == 'device'}")
+    if uniq_ids is None:
+        uniq_ids, local_idx = _device_dedup(spec, local_idx)
     gathered = gather_rows(table, uniq_ids)
     loss, scores, grad = grad_body(spec, gathered, labels, weights,
-                                   uniq_ids, local, vals)
+                                   uniq_ids, local_idx, vals)
     table, acc = sparse_adagrad_apply(table, acc, uniq_ids, grad,
                                       spec.learning_rate)
     return table, acc, loss, scores
@@ -219,7 +241,10 @@ def train_step_body(spec: ModelSpec, table: torch.Tensor,
 
 def batch_args(batch: DeviceBatch,
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """A raw-ids batch's arrays as tensors on ``device``, keyed as
-    ``train_step_body`` takes them."""
+    """A batch's arrays as tensors on ``device``, keyed as
+    ``train_step_body`` takes them (``uniq_ids`` only when the batch is
+    host-deduped)."""
+    keys = ("labels", "weights", "local_idx", "vals") + (
+        () if batch.uniq_ids is None else ("uniq_ids",))
     return {k: torch.from_numpy(getattr(batch, k)).to(device)
-            for k in ("labels", "weights", "local_idx", "vals")}
+            for k in keys}

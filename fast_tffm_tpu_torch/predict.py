@@ -3,29 +3,33 @@
 
 Restores the table of the newest intact checkpoint step under
 ``<model_file>.ckpt/`` (checkpoint.py; the accumulator is not read),
-reads each predict file in ``batch_size`` chunks of lines, and writes
-one score per input line, order-preserving, to
-``<score_path>/<basename(f)>.score`` — sigmoid for logistic loss, raw
-for mse, ``%.6f`` per line. Blank lines score as the model bias
-(``keep_empty``), so score files stay line-aligned with their inputs.
+scores every predict file in one cross-file sweep through the C++
+``BatchBuilder`` (``scoring.score_sweep``: batches cross file
+boundaries, the copy of scores to the host and the score-file writes
+overlap the scoring), and writes one score per input line,
+order-preserving, to ``<score_path>/<basename(f)>.score`` — sigmoid for
+logistic loss, raw for mse, ``%.6f`` per line. Blank lines score as the
+model bias (``keep_empty``), so score files stay line-aligned with their
+inputs.
 
-Not ported yet: the mesh and multi-process sweeps, offload, admit, the
-C++ ``BatchBuilder`` and the cross-file overlapped sweep (ROADMAP.md).
+Not ported yet: the mesh and multi-process sweeps with their part
+files (ROADMAP.md A10), offload (A7), admit mode's slot map (A8).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterator, List, Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.checkpoint import CheckpointState
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.data.parser import parse_lines
-from fast_tffm_tpu_torch.data.pipeline import expand_files, make_device_batch
-from fast_tffm_tpu_torch.scoring import CompiledScorer, format_scores
+from fast_tffm_tpu_torch.data.pipeline import expand_files
+from fast_tffm_tpu_torch.scoring import (CompiledScorer, ScoreWriter,
+                                         score_sweep)
 from fast_tffm_tpu_torch.train import check_restored_vocab, checkpoint_template
 from fast_tffm_tpu_torch.utils.device import resolve_device
 from fast_tffm_tpu_torch.utils.logging import get_logger
@@ -61,23 +65,6 @@ def load_table(cfg: FmConfig, device: torch.device,
     return (table, int(restored["step"])) if with_step else table
 
 
-def _line_chunks(path: str, n: int) -> Iterator[List[str]]:
-    """Lines of ``path`` in chunks of ``n``. Lines split on b"\\n" only,
-    as the JAX pipeline splits them; a final line without its newline
-    still counts."""
-    chunk: List[str] = []
-    with open(path, "rb") as fh:
-        for raw in fh:
-            if raw.endswith(b"\n"):
-                raw = raw[:-1]
-            chunk.append(raw.decode("utf-8"))
-            if len(chunk) == n:
-                yield chunk
-                chunk = []
-    if chunk:
-        yield chunk
-
-
 def _score_out_path(cfg: FmConfig, path: str) -> str:
     return os.path.join(cfg.score_path, os.path.basename(path) + ".score")
 
@@ -99,25 +86,26 @@ def _predict_body(cfg: FmConfig, table: torch.Tensor,
                   scorer: CompiledScorer, logger) -> List[str]:
     os.makedirs(cfg.score_path, exist_ok=True)
     written: List[str] = []
-    n_examples = 0
+    # The inner close() raises a deferred write error on the clean path;
+    # the finally's close flushes without masking an error in flight.
+    writer = ScoreWriter(logger)
     t0 = time.perf_counter()
-    for path in expand_files(cfg.predict_files):
+
+    def on_file(path: str, raw: np.ndarray) -> None:
+        # On the fetch worker mid-sweep: a vectorized transform and a
+        # bounded queue put.
         out_path = _score_out_path(cfg, path)
-        with open(out_path, "w") as out:
-            for lines in _line_chunks(path, cfg.batch_size):
-                block = parse_lines(
-                    lines, cfg.vocabulary_size,
-                    hash_feature_id=cfg.hash_feature_id,
-                    max_features_per_example=cfg.max_features_per_example,
-                    keep_empty=True)
-                batch = make_device_batch(block, cfg)
-                raw = scorer.score_batch(table, batch)[:batch.num_real]
-                out.write(format_scores(scorer.transform(raw.cpu().numpy())))
-                n_examples += batch.num_real
+        writer.submit(out_path, scorer.transform(raw))
         written.append(out_path)
-        logger.info("wrote scores to %s", out_path)
+
+    try:
+        n_examples = score_sweep(cfg, table, expand_files(cfg.predict_files),
+                                 on_file, scorer)
+        writer.close()
+    finally:
+        writer.close(raise_error=False)
     seconds = time.perf_counter() - t0
-    logger.info("predict: %d files, %d examples, %.0f examples/s",
+    logger.info("predict sweep: %d files, %d examples, %.0f examples/s",
                 len(written), n_examples,
                 n_examples / seconds if seconds > 0 else 0.0)
     return written

@@ -1,43 +1,67 @@
-"""The scorer handle both inference surfaces share, and the score-line
-format — the port's counterpart of ``fast_tffm_tpu/scoring.py``.
+"""The scorer handle both inference surfaces share, the score-line
+format, and the cross-file scoring sweep — the port's counterpart of
+``fast_tffm_tpu/scoring.py`` (single process).
 
 ``CompiledScorer`` keeps the JAX name: batch predict (predict.py) and
 the serving process (serve/server.py) score every batch through it, so
-the two cannot pair a batch with another score path. This slice has one
-path, the raw gather (``dedup = device`` in the JAX package): a batch's
-``local_idx`` holds raw table rows and the kernel reads them itself.
+the two cannot pair a batch with another score path. A raw-ids batch
+(``dedup = device``, and always in serving) has raw table rows in
+``local_idx`` and the kernel reads them itself; a host-deduped batch
+(``dedup = host``) has its rows gathered first. ``raw`` says which
+batches the pipeline builds for this scorer.
 
 ``format_scores`` is the one ``%.6f``-per-line formatter: predict writes
 it to ``.score`` files and serving returns it as the response body, so
 the same float64 scores give the same bytes on both surfaces.
+
+``score_sweep`` is predict's continuous sweep: one ``batch_iterator``
+over all files (``keep_empty``, batches cross file boundaries), tagged
+by a ``FileMarks`` ledger; one ``ChunkedFetcher`` for the whole sweep,
+so the copy of file N's scores to the host overlaps the scoring of
+file N+1; ``ScoreDemux`` cuts the ordered scores back into per-file
+arrays as each file's last example lands; the caller hands those to a
+``ScoreWriter`` thread, so the disk write overlaps the rest. The
+multi-process sweep (``scrub_stale_parts``, ``PartMerger``) waits for
+ROADMAP.md A10.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import collections
+import queue
+import threading
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.data.pipeline import DeviceBatch
+from fast_tffm_tpu_torch.data.pipeline import (DeviceBatch, FileMarks,
+                                               batch_iterator,
+                                               gil_bound_iteration,
+                                               prefetch)
 from fast_tffm_tpu_torch.metrics import sigmoid
 from fast_tffm_tpu_torch.models.fm import ModelSpec, score_body
+from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
 
 
 class CompiledScorer:
-    """Scores padded raw-ids batches against a table on ``device``."""
+    """Scores padded batches against a table on ``device``."""
 
     def __init__(self, cfg: FmConfig, device: torch.device):
         self.spec = ModelSpec.from_config(cfg)
         self.device = torch.device(device)
+        # Whether the pipeline builds raw-ids batches for this scorer.
+        self.raw = self.spec.dedup == "device"
 
     def score_batch(self, table: torch.Tensor,
                     batch: DeviceBatch) -> torch.Tensor:
         """Raw [B] scores, left on the device (callers fetch them)."""
         idx = torch.from_numpy(batch.local_idx).to(self.device)
         vals = torch.from_numpy(batch.vals).to(self.device)
-        return score_body(self.spec, table, idx, vals)
+        uniq = (None if batch.uniq_ids is None
+                else torch.from_numpy(batch.uniq_ids).to(self.device))
+        return score_body(self.spec, table, idx, vals, uniq)
 
     def transform(self, raw: np.ndarray) -> np.ndarray:
         """What the score lines hold: sigmoid for logistic loss, the raw
@@ -50,3 +74,164 @@ class CompiledScorer:
 def format_scores(vals: Iterable[float]) -> str:
     """One ``%.6f`` line per score (the ``.score`` file format)."""
     return "".join(f"{v:.6f}\n" for v in vals)
+
+
+class ScoreWriter:
+    """Ordered score-file writer on a background thread
+    (``fmt-score-writer``), so the next file's parse, score and fetch
+    overlap the previous file's disk write. Submission order is write
+    order, the queue holds at most 2 files' scores (the sweep's
+    back-pressure), and ``close()`` writes everything and raises the
+    first deferred write error: a return from predict means every score
+    file is on disk."""
+
+    def __init__(self, logger):
+        self._logger = logger
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._sentinel = object()
+        self._lock = threading.Lock()  # guards _error
+        self._error: Optional[BaseException] = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._run,
+                                        name="fmt-score-writer",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            job = self._q.get()
+            if job is self._sentinel:
+                return
+            with self._lock:
+                dead = self._error is not None
+            if dead:
+                continue  # keep unblocking producers; write no more
+            out_path, vals = job
+            try:
+                with open(out_path, "w") as fh:
+                    fh.write(format_scores(vals))
+                self._logger.info("wrote %d scores to %s", len(vals),
+                                  out_path)
+            except BaseException as e:  # raised by submit() / close()
+                with self._lock:
+                    if self._error is None:  # keep the first failure
+                        self._error = e
+
+    def submit(self, out_path: str, vals: np.ndarray) -> None:
+        with self._lock:
+            err = self._error
+        if err is not None:
+            raise err
+        self._q.put((out_path, vals))
+
+    def close(self, raise_error: bool = True) -> None:
+        if not self._closed:
+            self._closed = True
+            self._q.put(self._sentinel)
+            self._thread.join()
+        if raise_error:
+            with self._lock:
+                err = self._error
+            if err is not None:
+                raise err
+
+
+class ScoreDemux:
+    """Cut an ordered score stream into per-file arrays by the
+    pipeline's ``FileMarks`` ledger.
+
+    ``consume(scores)`` appends the next in-order slice of the sweep's
+    examples; whenever the ledger shows that file i+1 has started and
+    the consumed count has reached its start, file i is complete and
+    ``on_file(path, vals)`` gets its span. One batch can complete
+    several small files. ``finalize()``, after every score has landed,
+    cuts the rest: the last file ends at the consumed total, and empty
+    files get zero-length arrays (a zero-line input owes a zero-line
+    ``.score``). ``consume`` runs on the fetch worker and ``finalize``
+    on the caller after the worker was joined: one writer at a time."""
+
+    def __init__(self, marks: FileMarks,
+                 on_file: Callable[[str, np.ndarray], None]):
+        self._marks = marks
+        self._on_file = on_file
+        self._bufs: "collections.deque" = collections.deque()
+        self._buf_start = 0   # sweep offset of the first buffered score
+        self._consumed = 0    # total scores consumed so far
+        self._next = 0        # index of the next file to cut
+
+    def consume(self, scores: np.ndarray) -> None:
+        if len(scores):
+            self._bufs.append(scores)
+            self._consumed += len(scores)
+        self._cut_ready(self._marks.snapshot())
+
+    def _cut_ready(self, starts) -> None:
+        while (self._next + 1 < len(starts)
+               and self._consumed >= starts[self._next + 1][1]):
+            self._emit(starts[self._next][0], starts[self._next + 1][1])
+            self._next += 1
+
+    def _emit(self, path: str, end: int) -> None:
+        n = end - self._buf_start
+        take: List[np.ndarray] = []
+        while n > 0:
+            head = self._bufs[0]
+            if len(head) <= n:
+                take.append(self._bufs.popleft())
+                n -= len(head)
+            else:
+                take.append(head[:n])
+                self._bufs[0] = head[n:]
+                n = 0
+        self._buf_start = end
+        vals = (np.concatenate(take) if take
+                else np.zeros(0, dtype=np.float32))
+        self._on_file(path, vals)
+
+    def finalize(self) -> None:
+        """Cut everything still open; call once every score has been
+        consumed."""
+        starts = self._marks.snapshot()
+        self._cut_ready(starts)
+        for i in range(self._next, len(starts)):
+            end = (starts[i + 1][1] if i + 1 < len(starts)
+                   else self._consumed)
+            self._emit(starts[i][0], end)
+        self._next = len(starts)
+        if self._buf_start != self._consumed:
+            raise AssertionError(
+                f"score demux leak: {self._consumed - self._buf_start} "
+                f"scores consumed but never assigned to a file (ledger "
+                f"has {len(starts)} entries)")
+
+
+def score_sweep(cfg: FmConfig, table: torch.Tensor, files: Sequence[str],
+                on_file: Callable[[str, np.ndarray], None],
+                scorer: Optional[CompiledScorer] = None) -> int:
+    """One continuous scoring sweep over all ``files`` (keep_empty: one
+    score per input line): per-file raw score arrays go to ``on_file``
+    in file order as each file's last batch lands. Returns the number of
+    examples scored. ``on_file`` runs on the fetch worker mid-sweep (on
+    the caller's thread for the files cut at the end)."""
+    scorer = scorer or CompiledScorer(cfg, table.device)
+    marks = FileMarks()
+    demux = ScoreDemux(marks, on_file)
+    fetcher = ChunkedFetcher(lambda s, num_real: demux.consume(s[:num_real]))
+    n_examples = 0
+    try:
+        it = batch_iterator(cfg, list(files), training=False, epochs=1,
+                            keep_empty=True, raw_ids=scorer.raw,
+                            file_marks=marks)
+        with torch.no_grad():
+            for batch in prefetch(it, depth=cfg.prefetch_depth,
+                                  gil_bound=gil_bound_iteration(
+                                      cfg, keep_empty=True)):
+                fetcher.add(scorer.score_batch(table, batch),
+                            batch.num_real)
+                n_examples += batch.num_real
+        fetcher.flush()
+        # Every score is on the host and consumed: cut the tail files.
+        demux.finalize()
+    finally:
+        fetcher.close()
+    return n_examples

@@ -14,7 +14,13 @@ runs a fresh ``epoch_num``-epoch schedule on top (the JAX package's
 (``batch_iterator`` with ``seed = cfg.seed + epoch``, under
 ``prefetch``) through ``train_step_body``, an asynchronous checkpoint
 save every ``save_steps`` steps, then ``evaluate`` over the validation
-files. SIGTERM/SIGINT stop the loop at the next step boundary; the cut
+files. Weight files (``weight_files``, ``validation_weight_files``)
+weight each example's loss and its validation AUC; a tolerant
+``bad_line_policy`` skips or quarantines bad lines through one
+run-scoped ``BadLineTracker`` that every epoch's streams share, so its
+breaker and quarantine dedupe see the whole run. ``dedup = host``
+trains on the pipeline's host-deduped batches. SIGTERM/SIGINT stop the
+loop at the next step boundary; the cut
 epoch does not count as completed. The final save (also the preemption
 save) waits until the step is durable; then the table is exported to
 ``<model_file>.npz`` in ``export_npz``'s layout, unless it is over 2 GiB.
@@ -23,9 +29,9 @@ fetched together at the epoch barrier, so the loop never waits for the
 device to log.
 
 Not ported yet, each refused with the ROADMAP.md item that brings it:
-weight files, tolerant bad-line policies (A4); multi-process and
-elastic training (A10); the stream run mode and its publishing (A13).
-The observability knobs are accepted and ignored (A11).
+multi-process and elastic training and the fixed unique bucket (A10);
+the stream run mode and its publishing (A13). The observability knobs
+are accepted and ignored (A11).
 """
 
 from __future__ import annotations
@@ -37,8 +43,11 @@ import torch
 
 from fast_tffm_tpu_torch.checkpoint import CheckpointState
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.data.badlines import BadLineTracker
 from fast_tffm_tpu_torch.data.pipeline import (batch_iterator,
                                                check_stream_supported,
+                                               gil_bound_iteration,
+                                               host_parallel_workers,
                                                prefetch)
 from fast_tffm_tpu_torch.metrics import StreamingAUC
 from fast_tffm_tpu_torch.models.convert import save_npz
@@ -46,6 +55,7 @@ from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
                                            init_accumulator, init_table,
                                            score_body, train_step_body)
 from fast_tffm_tpu_torch.utils.device import resolve_device
+from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy
 from fast_tffm_tpu_torch.utils.timing import StepTimer
@@ -56,9 +66,6 @@ EXPORT_NPZ_MAX_BYTES = 2 << 30
 # Buffered loss scalars between fetches: a long epoch with a short
 # log_steps syncs once per this many log lines instead of never.
 LOG_BUFFER_MAX = 1024
-
-# Validation scores fetched from the device this many batches at a time.
-FETCH_CHUNK_BATCHES = 16
 
 # Accepted and ignored until observability is ported (ROADMAP.md A11).
 _IGNORED_KNOBS = ("metrics_file", "trace_spans", "save_summaries_steps",
@@ -124,41 +131,45 @@ def check_restored_vocab(cfg: FmConfig, restored) -> None:
 
 
 def evaluate(cfg: FmConfig, table: torch.Tensor, files,
-             max_batches: Optional[int] = None) -> Tuple[float, int]:
-    """Streamed AUC over ``files``: (auc, n_examples). Scores stay on
-    the device and are fetched FETCH_CHUNK_BATCHES batches at a time."""
+             max_batches: Optional[int] = None, weight_files=(),
+             bad_lines: Optional[BadLineTracker] = None
+             ) -> Tuple[float, int]:
+    """Streamed AUC over ``files``: (auc, n_examples). ``weight_files``
+    (sidecars parallel to ``files``) weight each example's AUC
+    contribution as training weights its loss. ``bad_lines``: the run's
+    tracker, so a bad line met every epoch is quarantined once. Scores
+    stay on the device and are fetched in chunks, behind the scoring
+    (utils/fetch.py)."""
     spec = ModelSpec.from_config(cfg)
     auc = StreamingAUC()
     n = 0
     n_batches = 0
-    pending = []
 
-    def flush():
-        if not pending:
-            return
-        scores = torch.cat([s for s, _ in pending]).cpu().numpy()
-        off = 0
-        for s, batch in pending:
-            B, m = len(s), batch.num_real
-            auc.update(scores[off:off + m], batch.labels[:m],
-                       batch.weights[:m])
-            off += B
-        pending.clear()
+    def consume(scores, meta):
+        labels, m, weights = meta
+        auc.update(scores[:m], labels[:m], weights[:m])
 
-    with torch.no_grad():
-        for batch in prefetch(batch_iterator(cfg, files, training=False,
-                                             epochs=1),
-                              depth=cfg.prefetch_depth):
-            idx = torch.from_numpy(batch.local_idx).to(table.device)
-            vals = torch.from_numpy(batch.vals).to(table.device)
-            pending.append((score_body(spec, table, idx, vals), batch))
-            n += batch.num_real
-            n_batches += 1
-            if len(pending) >= FETCH_CHUNK_BATCHES:
-                flush()
-            if max_batches and n_batches >= max_batches:
-                break
-    flush()
+    fetcher = ChunkedFetcher(consume)
+    try:
+        with torch.no_grad():
+            for batch in prefetch(
+                    batch_iterator(cfg, files, training=False, epochs=1,
+                                   weight_files=weight_files,
+                                   raw_ids=spec.dedup == "device",
+                                   bad_lines=bad_lines),
+                    depth=cfg.prefetch_depth,
+                    gil_bound=gil_bound_iteration(cfg, weight_files)):
+                args = batch_args(batch, table.device)
+                fetcher.add(score_body(spec, table, args["local_idx"],
+                                       args["vals"], args.get("uniq_ids")),
+                            (batch.labels, batch.num_real, batch.weights))
+                n += batch.num_real
+                n_batches += 1
+                if max_batches and n_batches >= max_batches:
+                    break
+        fetcher.flush()
+    finally:
+        fetcher.close()
     return auc.result(), n
 
 
@@ -183,10 +194,19 @@ def train(cfg: FmConfig, device=None,
                 "%s = %r is accepted and ignored: observability is not "
                 "ported to fast_tffm_tpu_torch yet (ROADMAP.md, queue A, "
                 "item A11)", knob, getattr(cfg, knob))
+    host_workers = host_parallel_workers(cfg, cfg.weight_files)
+    if host_workers > 1:
+        logger.info(
+            "host data plane: %d parallel batch-build workers "
+            "(host_threads = %s; bounded ordered ring)",
+            host_workers, cfg.host_threads)
     ckpt = CheckpointState(cfg.model_file,
                            retry=RetryPolicy.from_config(cfg),
                            verify=cfg.ckpt_verify,
                            adagrad_init=cfg.adagrad_init)
+    # One run-scoped tracker (None under bad_line_policy = error): the
+    # breaker and the quarantine dedupe see every epoch's streams.
+    bad_tracker = BadLineTracker.from_config(cfg)
     prev_handlers = {}
     try:
         restored = ckpt.restore(template=checkpoint_template(cfg))
@@ -238,9 +258,14 @@ def train(cfg: FmConfig, device=None,
         stopping = False
         for epoch in range(start_epoch, cfg.epoch_num):
             it = prefetch(batch_iterator(cfg, cfg.train_files,
-                                         training=True, epochs=1,
-                                         seed=cfg.seed + epoch),
-                          depth=cfg.prefetch_depth)
+                                         training=True,
+                                         weight_files=cfg.weight_files,
+                                         epochs=1, seed=cfg.seed + epoch,
+                                         raw_ids=spec.dedup == "device",
+                                         bad_lines=bad_tracker),
+                          depth=cfg.prefetch_depth,
+                          gil_bound=gil_bound_iteration(cfg,
+                                                        cfg.weight_files))
             try:
                 for batch in it:
                     if preempted:
@@ -270,13 +295,18 @@ def train(cfg: FmConfig, device=None,
             finally:
                 it.close()
             flush_log()  # the epoch barrier: one fetch for its lines
+            if bad_tracker is not None and bad_tracker.bad:
+                logger.info("bad-line policy through epoch %d: %s",
+                            epoch, bad_tracker.describe())
             if stopping:  # a preemption-cut epoch is NOT completed
                 break
             completed_epochs = epoch + 1
             if cfg.validation_files:
                 auc, n = evaluate(cfg, table, cfg.validation_files,
                                   max_batches=cfg.validation_max_batches
-                                  or None)
+                                  or None,
+                                  weight_files=cfg.validation_weight_files,
+                                  bad_lines=bad_tracker)
                 logger.info("epoch %d validation AUC %.6f over %d "
                             "examples", epoch, auc, n)
         loss_val = float(loss) if loss is not None else loss_val
@@ -313,6 +343,8 @@ def train(cfg: FmConfig, device=None,
         # Every exit path settles the in-flight save: an exception
         # between saves must not leave a write half done.
         ckpt.close()
+        if bad_tracker is not None:
+            bad_tracker.close()
 
 
 def _initial_state(cfg: FmConfig, device: torch.device, restored,

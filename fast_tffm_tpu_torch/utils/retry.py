@@ -1,8 +1,10 @@
 """Transient-IO retry with exponential backoff — a copy of
-``RetryPolicy`` and ``retry_io`` from ``fast_tffm_tpu/utils/retry.py``
+``RetryPolicy``, ``retry_io`` and ``open_with_retry`` from
+``fast_tffm_tpu/utils/retry.py``
 (its telemetry counters and trace span wait for ROADMAP.md A11).
 
-The checkpoint restore path wraps its file reads in ``retry_io``:
+The checkpoint restore path and the input pipeline wrap their file
+reads in ``retry_io`` (``open_with_retry`` for opens):
 ``OSError``/``TimeoutError`` retry, except the definitely-fatal family
 (a missing or forbidden path), which fails on the first raise, as does
 everything that is not IO. Backoff before retry k is
@@ -72,3 +74,12 @@ def retry_io(fn: Callable[..., T], *args,
             if delay > 0:
                 sleep(delay)
             attempt += 1
+
+
+def open_with_retry(path: str, mode: str = "r",
+                    policy: Optional[RetryPolicy] = None,
+                    op: str = "open", **kwargs):
+    """``open()`` with transient-failure retry, for the pipeline's file
+    opens. A missing file still raises ``FileNotFoundError`` on the
+    first attempt (fatal class)."""
+    return retry_io(open, path, mode, policy=policy, op=op, **kwargs)

@@ -124,10 +124,16 @@ def test_init_table_distribution_and_pad_row():
 
 
 def test_spec_matches_the_jax_spec_fields():
-    cfg = FmConfig(**_kw(200, 8, False))
-    got = dataclasses.asdict(port_fm.ModelSpec.from_config(cfg))
-    want = dataclasses.asdict(jax_fm.ModelSpec.from_config(
-        JaxConfig(**_kw(200, 8, False))))
-    assert got == {k: want[k] for k in got}
+    # dedup explicit: under tests/conftest.py's 8 CPU devices the JAX
+    # package resolves auto to host; on one device it resolves it to
+    # device, as the single-device port does.
+    for dedup in ("device", "host"):
+        cfg = FmConfig(dedup=dedup, **_kw(200, 8, False))
+        got = dataclasses.asdict(port_fm.ModelSpec.from_config(cfg))
+        want = dataclasses.asdict(jax_fm.ModelSpec.from_config(
+            JaxConfig(dedup=dedup, **_kw(200, 8, False))))
+        assert got == {k: want[k] for k in got}
+    assert port_fm.ModelSpec.from_config(
+        FmConfig(**_kw(200, 8, False))).dedup == "device"
     assert port_fm.resolved_kernel(torch.device("cpu")) == "plain"
     assert port_fm.resolved_kernel(torch.device("cuda")) == "cuda"

@@ -23,6 +23,9 @@ Tolerances:
 - one train step on the card against the same step on the CPU: rtol
   1e-4 / atol 1e-6, the bound the CPU tests hold the step to against the
   JAX package.
+- the input path's card legs (the chunked fetcher's pinned copies; a
+  host-deduped train step against the CPU at rtol 1e-4 / atol 1e-6;
+  the predict sweep's score files, equal byte for byte to the CPU's).
 - checkpoints: a card table saved (asynchronously, then updated in place
   at once) and restored is equal to the bit; under concurrent flushes on
   the card a hot reload tags each response with a step, and its scores
@@ -389,3 +392,82 @@ def test_hot_reload_under_concurrent_flushes_on_the_card(card, tmp_path):
     for lo, n, res in results:
         want = alone(res.step, lines[lo:lo + n])
         assert np.array_equal(res.scores, want), (lo, n, res.step)
+
+
+def test_chunked_fetcher_copies_card_scores_in_order(card):
+    from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
+    want = [torch.randn(8192, device=card) * i for i in range(37)]
+    seen = []
+    fetcher = ChunkedFetcher(lambda a, m: seen.append((a.copy(), m)),
+                             chunk=8)
+    try:
+        for i, t in enumerate(want):
+            fetcher.add(t, i)
+        fetcher.flush()
+    finally:
+        fetcher.close()
+    assert [m for _, m in seen] == list(range(37))
+    for (got, _), t in zip(seen, want):
+        assert np.array_equal(got, t.cpu().numpy())
+
+
+def test_host_dedup_train_step_on_card_matches_cpu(card):
+    from fast_tffm_tpu_torch.data.parser import ParsedBlock
+    from fast_tffm_tpu_torch.data.pipeline import make_device_batch
+    cfg = FmConfig(vocabulary_size=5000, factor_num=16, batch_size=512,
+                   learning_rate=0.1, dedup="host",
+                   bucket_ladder=(8, 16, 32))
+    spec = port_fm.ModelSpec.from_config(cfg)
+    rng = np.random.default_rng(15)
+    table = rng.uniform(-0.1, 0.1, (cfg.num_rows, cfg.row_dim)
+                        ).astype(np.float32)
+    table[-1] = 0.0
+    acc = np.full_like(table, cfg.adagrad_init)
+    sizes = rng.integers(1, 30, size=500)
+    ids = (rng.zipf(1.3, size=int(sizes.sum())) % 5000).astype(np.int32)
+    block = ParsedBlock(
+        labels=(rng.random(500) < 0.3).astype(np.float32),
+        poses=np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
+        ids=ids, vals=rng.random(len(ids)).astype(np.float32))
+    batch = make_device_batch(block, cfg, raw_ids=False)
+    out = {}
+    for dev in ("cpu", card):
+        t = torch.from_numpy(table.copy()).to(dev)
+        a = torch.from_numpy(acc.copy()).to(dev)
+        args = port_fm.batch_args(batch, torch.device(dev))
+        assert "uniq_ids" in args
+        for _ in range(3):
+            t, a, loss, scores = port_fm.train_step_body(spec, t, a, **args)
+        out[str(dev)] = [x.cpu().numpy() for x in (t, a, loss, scores)]
+    for got, want in zip(out[str(card)], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_predict_sweep_on_card_equals_cpu(card, tmp_path):
+    import pathlib
+    from fast_tffm_tpu_torch.predict import predict
+    rng = np.random.default_rng(16)
+    files = []
+    for i, n in enumerate((300, 0, 257)):
+        path = tmp_path / f"p{i}.txt"
+        path.write_text("".join(
+            " ".join([str(int(rng.random() < 0.3))] + [
+                f"C{f}=v{int(rng.zipf(1.3)) % 99}" for f in range(26)])
+            + "\n" if j % 7 else "\n" for j in range(n)))
+        files.append(str(path))
+    table = torch.from_numpy(rng.normal(0, 0.1, (4097, 17)).astype(
+        np.float32))
+    table[-1] = 0.0
+    out = {}
+    for dev in ("cpu", card):
+        cfg = FmConfig(vocabulary_size=4096, factor_num=16,
+                       hash_feature_id=True, batch_size=128,
+                       predict_files=tuple(files),
+                       score_path=str(tmp_path / str(dev)))
+        before = fm_kernel.launches
+        written = predict(cfg, table=table.to(dev), device=dev)
+        if dev == card:
+            assert fm_kernel.launches == before + 5
+        out[str(dev)] = [pathlib.Path(p).read_text() for p in written]
+    assert out[str(card)] == out["cpu"]
+    assert out["cpu"][1] == "" and len(out["cpu"][2].splitlines()) == 257

@@ -62,7 +62,13 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.utils.timing",
                  "fast_tffm_tpu_torch.ops.build",
                  "fast_tffm_tpu_torch.serve.frontend",
-                 "fast_tffm_tpu_torch.models.convert"):
+                 "fast_tffm_tpu_torch.models.convert",
+                 "fast_tffm_tpu_torch.data.cparser",
+                 "fast_tffm_tpu_torch.data.badlines",
+                 "fast_tffm_tpu_torch.data.pipeline",
+                 "fast_tffm_tpu_torch.utils.fetch",
+                 "fast_tffm_tpu_torch.scoring",
+                 "fast_tffm_tpu_torch.predict"):
         assert name in out["imported"]
 
 

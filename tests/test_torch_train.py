@@ -21,7 +21,9 @@ runs) against the JAX package, on the CPU.
 - Refusals: an existing checkpoint in the JAX package's format (orbax)
   raises naming ``save_checkpoint_from_numpy`` and is left in place;
   every unported key raises ``NotImplementedError`` naming a ROADMAP
-  item. (Resume from the port's own checkpoints is held to the JAX
+  item (weight files, tolerant bad-line policies and
+  ``max_features_per_example = 0`` are ported now:
+  tests/test_torch_fast_pipeline.py). (Resume from the port's own checkpoints is held to the JAX
   package in tests/test_torch_checkpoint.py.)
 """
 
@@ -153,13 +155,14 @@ def test_stream_parse_error_names_file_and_line(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(bad_line_policy="skip"), dict(bad_line_policy="quarantine"),
-    dict(max_features_per_example=0)])
+    (dict(uniq_bucket=1024), {}), ({}, dict(num_shards=2)),
+    ({}, dict(fixed_shape=True))])
 def test_stream_refuses_unported_modes(kwargs):
+    changes, it_kwargs = kwargs
     cfg = dataclasses.replace(load_config(os.path.join(REPO, "sample.cfg")),
-                              **kwargs)
-    with pytest.raises(NotImplementedError, match="item A4"):
-        next(batch_iterator(cfg, cfg.train_files))
+                              **changes)
+    with pytest.raises(NotImplementedError, match="item A10"):
+        next(batch_iterator(cfg, cfg.train_files, **it_kwargs))
 
 
 def _filler(cfg):
@@ -361,10 +364,10 @@ def test_train_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("[Train]\nweight_files = w.txt\n", "A4"),
-    ("[Train]\nbad_line_policy = skip\n", "A4"),
+    ("[Train]\nuniq_bucket = 1024\n", "A10"),
+    ("[General]\nlookup = host\n", "A7"),
     ("[Train]\npublish_interval_seconds = 5\n", "A13"),
-    ("[Train]\nmax_features_per_example = 0\n", "A4"),
+    ("[Train]\nwire_format = packed\n", "A5"),
 ])
 def test_unported_keys_raise(tmp_path, extra, item):
     path = os.path.join(str(tmp_path), "sample.cfg")
@@ -382,7 +385,7 @@ def test_unported_keys_raise(tmp_path, extra, item):
 @pytest.mark.parametrize("changes,item", [
     (dict(run_mode="stream", stream_dir="x", train_files=()), "A13"),
     (dict(publish_interval_seconds=5.0), "A13"),
-    (dict(validation_weight_files=("w",), validation_files=("v",)), "A4"),
+    (dict(uniq_bucket=1024), "A10"),
     (dict(lookup="host"), "A7"),
     (dict(elastic="shrink"), "A10"),
 ])
