@@ -8,7 +8,9 @@ CUDA toolkit's nvcc; exits non-zero, printing no result, without them.
 It drives the port's serving and training paths at full width —
 BASELINE config #2's model: 2nd-order FM, factor_num = 16, hashed ids,
 vocabulary 2^24, a [2^24+1, 17] f32 table (1.14 GB) — over
-Criteo-shaped lines it generates itself:
+Criteo-shaped lines it generates itself; then, on the same lines,
+config #3's FFM and config #4's order-3 FM, and config #2's model again
+on the packed wire:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: both kernel libraries, one nvcc each, and the C++ parser
@@ -70,7 +72,28 @@ Criteo-shaped lines it generates itself:
    launch both kernels and clear the same AUC floor; both kernels against
    their plain versions on one of its batches, and its resident step
    time beside the ``dedup = device`` step's;
-10. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+10. the packed wire (config #2's model): after phase 5, predict with
+   ``wire_format = packed`` — wide, whose score file must equal the
+   padded one byte for byte, and narrow, within 2e-3 of it — and a
+   packed-wide server whose bodies equal the predict lines byte for byte;
+   after phase 9, one epoch of train on packed-wide (periodic saves off),
+   whose mean loss and validation AUC must match run A's first epoch at
+   the training tolerance (rtol 1e-4, AUC within 1e-3) with fewer bytes
+   shipped; then bytes per batch (wire against the padded layout) and
+   H2D ms per batch for padded, packed-wide and packed-narrow;
+11. FFM and order 3 (reduced depth: one epoch, periodic saves off): the
+   train lines again with each token tagged by its field (39 fields, 13
+   numeric + 26 categorical), FFM at libffm's Criteo setting (k = 4,
+   hashed vocabulary 2^20, a [2^20+1, 157] f32 table, 0.66 GB; config
+   #3), and the plain train lines through an order-3 FM (k = 8,
+   vocabulary 2^24, a [2^24+1, 9] table, 0.60 GB; config #4): each
+   through ``train`` then ``predict``; the loss must fall, the validation
+   AUC clear the train phase's floor and predict reach it, a validation
+   batch's scores on the card agree with float64 on the CPU within
+   1e-4, and neither launches a hand-written kernel (torch ops, as XLA
+   ran them in the JAX package); each with its resident step time and
+   device ms by op;
+12. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
 train loop (the snapshot), the final save with ``wait``, the background
@@ -212,10 +235,12 @@ def committed_steps_in_log(path):
                  r"([0-9.]+)s; manifest hashed in ([0-9.]+)s", text)]
 
 
-def criteo_lines(n, seed, planted=None):
+def criteo_lines(n, seed, planted=None, ffm=False):
     """``n`` Criteo-shaped lines. Labels are Bernoulli(0.25), or, with
     ``planted`` (a PLANTED_* model), Bernoulli(sigmoid(planted logit));
-    returns (lines, planted logits or None)."""
+    returns (lines, planted logits or None). ``ffm``: the same tokens
+    tagged with their field, one field per column (13 numeric, then 26
+    categorical), as libffm's Criteo files are."""
     import numpy as np
     rng = np.random.default_rng(seed)
     cat = np.stack([(rng.zipf(ZIPF_A, size=n) - 1) % v for v in CAT_VOCABS],
@@ -233,9 +258,15 @@ def criteo_lines(n, seed, planted=None):
     lines = []
     for i in range(n):
         parts = [str(labels[i])]
-        parts += [f"I{j}:{num[i, j]}" for j in range(NUM_FIELDS)
-                  if not miss[i, j]]
-        parts += [f"C{f}=v{cat[i, f]}" for f in range(len(CAT_VOCABS))]
+        if ffm:
+            parts += [f"{j}:I{j}:{num[i, j]}" for j in range(NUM_FIELDS)
+                      if not miss[i, j]]
+            parts += [f"{NUM_FIELDS + f}:C{f}=v{cat[i, f]}"
+                      for f in range(len(CAT_VOCABS))]
+        else:
+            parts += [f"I{j}:{num[i, j]}" for j in range(NUM_FIELDS)
+                      if not miss[i, j]]
+            parts += [f"C{f}=v{cat[i, f]}" for f in range(len(CAT_VOCABS))]
         lines.append(" ".join(parts))
     return lines, logits
 
@@ -258,8 +289,12 @@ def planted_logits(model, cat):
     return logits
 
 
-def write_cfg(path):
+def write_cfg(path, wire="padded-wide"):
+    """The predict and serve config of phases 4-5; ``wire`` another
+    ``wire_format``-``wire_dtypes`` pair writes its own score files."""
     model = os.path.join(WORK, "model", "fm_model")
+    fmt, dtypes = wire.split("-")
+    score = "score" if wire == "padded-wide" else f"score_{wire}"
     with open(path, "w") as fh:
         fh.write(f"""[General]
 vocabulary_size = {VOCAB}
@@ -271,10 +306,12 @@ log_file = {os.path.join(WORK, 'fm.log')}
 [Train]
 batch_size = {PREDICT_BATCH}
 loss_type = logistic
+wire_format = {fmt}
+wire_dtypes = {dtypes}
 
 [Predict]
 predict_files = {os.path.join(WORK, 'criteo.txt')}
-score_path = {os.path.join(WORK, 'score')}
+score_path = {os.path.join(WORK, score)}
 
 [Serve]
 serve_port = 0
@@ -795,32 +832,37 @@ def serve_phase(torch, cfg, lines, score_lines, device, card):
     return row
 
 
-def write_train_cfg(wd, epochs, dedup="auto", save_steps=SAVE_STEPS):
-    """A train config over ``wd``'s train.txt and val.txt; ``dedup =
-    host`` gets a model directory and log of its own."""
-    tag = "" if dedup == "auto" else f"_{dedup}"
+def write_train_cfg(wd, epochs, dedup="auto", save_steps=SAVE_STEPS,
+                    leg=None, model="", train="", files="",
+                    vocab=VOCAB, factors=FACTORS):
+    """A train config over ``wd``'s ``{files}train.txt`` and
+    ``{files}val.txt``; ``dedup = host`` or a ``leg`` name gets a model
+    directory and log of its own; ``model`` and ``train`` are extra
+    [General] and [Train] lines."""
+    tag = (f"_{leg}" if leg else "") + (
+        "" if dedup == "auto" else f"_{dedup}")
     path = os.path.join(wd, f"train{epochs}{tag}.cfg")
     with open(path, "w") as fh:
         fh.write(f"""[General]
-vocabulary_size = {VOCAB}
+vocabulary_size = {vocab}
 hash_feature_id = True
-factor_num = {FACTORS}
+factor_num = {factors}
 model_file = {os.path.join(wd, 'model' + tag, 'fm_model')}
 log_file = {os.path.join(wd, f'train{tag}.log')}
 dedup = {dedup}
-
+{model}
 [Train]
-train_files = {os.path.join(wd, 'train.txt')}
-validation_files = {os.path.join(wd, 'val.txt')}
+train_files = {os.path.join(wd, files + 'train.txt')}
+validation_files = {os.path.join(wd, files + 'val.txt')}
 epoch_num = {epochs}
 batch_size = {TRAIN_BATCH}
 learning_rate = {TRAIN_LR}
 loss_type = logistic
 log_steps = 1
 save_steps = {save_steps}
-
+{train}
 [Predict]
-predict_files = {os.path.join(wd, 'val.txt')}
+predict_files = {os.path.join(wd, files + 'val.txt')}
 score_path = {os.path.join(wd, 'score' + tag)}
 
 [Serve]
@@ -851,17 +893,20 @@ def read_train_log(path):
     return losses, rates, aucs, [(int(n), float(e)) for n, e in done]
 
 
-def step_kernel_ms(torch, step):
+KERNEL_NAMES = ("fm_score_kernel", "fm_score_bwd_kernel")
+
+
+def step_kernel_ms(torch, step, names=KERNEL_NAMES):
     """Device ms per step of each kernel, from a torch.profiler trace of
     ``step(i)`` for i < PROFILED_STEPS. The profiler now and then returns
     a trace without some records of the kernels launched through ctypes
     (one launch each step): their time per step is then the mean of the
     records it holds, and a trace holding fewer than half of them is
     taken again, up to PROFILE_ATTEMPTS times in all; None means not
-    measured. Returns (kernel ms or None, the launches of each of the two
-    kernels the trace held)."""
+    measured. Returns (kernel ms or None, the launches of each of
+    ``names`` — the hand-written kernels the step runs, none for FFM and
+    order 3 — the trace held)."""
     from torch.profiler import ProfilerActivity, profile
-    names = ("fm_score_kernel", "fm_score_bwd_kernel")
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -883,7 +928,7 @@ def step_kernel_ms(torch, step):
     return None, counts
 
 
-def resident_step_ms(torch, cfg, device, tag="train"):
+def resident_step_ms(torch, cfg, device, tag="train", kernel_rows=True):
     """One train step (dedup -> gather -> forward -> backward -> Adagrad;
     with ``dedup = host`` the batches come deduped) on batches of the
     train stream already on the card: the median
@@ -893,8 +938,9 @@ def resident_step_ms(torch, cfg, device, tag="train"):
     Event intervals include the gaps in which the card waits for the
     host to launch the next kernel; the profiler's kernel times do not.
     Also both kernels against their plain versions on the first of these
-    batches (train_batch_kernel_rows, rows tagged ``tag``); returns
-    (timings, forward rows, backward rows)."""
+    batches (train_batch_kernel_rows, rows tagged ``tag``), unless
+    ``kernel_rows`` is off (FFM and order 3 run no hand-written kernel);
+    returns (timings, forward rows, backward rows)."""
     from fast_tffm_tpu_torch.data.pipeline import batch_iterator
     from fast_tffm_tpu_torch.models import fm as port_fm
     spec = port_fm.ModelSpec.from_config(cfg)
@@ -911,8 +957,8 @@ def resident_step_ms(torch, cfg, device, tag="train"):
                 break
     finally:
         it.close()
-    fwd_rows, bwd_rows = train_batch_kernel_rows(torch, spec, table,
-                                                 batches[0], device, tag)
+    fwd_rows, bwd_rows = ([], []) if not kernel_rows else \
+        train_batch_kernel_rows(torch, spec, table, batches[0], device, tag)
 
     whole = []
     for i in range(RESIDENT_STEPS + 2):
@@ -928,7 +974,8 @@ def resident_step_ms(torch, cfg, device, tag="train"):
 
     per_kernel, counts = step_kernel_ms(
         torch, lambda i: port_fm.train_step_body(
-            spec, table, acc, **batches[i % len(batches)]))
+            spec, table, acc, **batches[i % len(batches)]),
+        names=KERNEL_NAMES if kernel_rows else ())
     top = (None if per_kernel is None else
            dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))
     device_ms = None if per_kernel is None else sum(per_kernel.values())
@@ -1428,6 +1475,334 @@ def host_dedup_phase(torch, device, card, wd, train_row):
     return row, fwd_rows, bwd_rows
 
 
+FFM_FIELDS = NUM_FIELDS + len(CAT_VOCABS)   # 39: a field per column
+FFM_FACTORS = 4                   # libffm's Criteo setting; config #3
+FFM_VOCAB = 1 << 20
+ORDER3_FACTORS = 8                # config #4's protocol
+F64_ATOL = 1e-4                   # raw score, f32 on the card vs f64
+NARROW_TOL = 2e-3                 # packed-narrow vs wide scores
+LOSS_RTOL, AUC_ATOL = 1e-4, 1e-3  # the training tolerance
+WIRE_BATCHES = 8
+
+
+def write_ffm_data(wd):
+    """The train phase's lines again (same seeds, same planted labels),
+    each token tagged with its field: ffm_train.txt and ffm_val.txt."""
+    t0 = time.perf_counter()
+    model = planted_model(SEED + 4)
+    for name, n, seed in (("ffm_train.txt", TRAIN_LINES, SEED + 5),
+                          ("ffm_val.txt", VAL_LINES, SEED + 6)):
+        lines, _ = criteo_lines(n, seed, model, ffm=True)
+        with open(os.path.join(wd, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    return time.perf_counter() - t0
+
+
+def float64_check(torch, cfg, device, val_path):
+    """One validation batch scored on the card (the scorer predict runs)
+    against the same function in float64 on the CPU, over the rows the
+    batch touches; returns the largest raw-score difference."""
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.predict import load_table
+    from fast_tffm_tpu_torch.scoring import CompiledScorer
+    table = load_table(cfg, device)
+    scorer = CompiledScorer(cfg, device)
+    it = batch_iterator(cfg, [val_path], training=False)
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    got = scorer.score_batch(table, batch).cpu().double()
+    local = torch.from_numpy(batch.local_idx).long()
+    uniq, inv = torch.unique(local.reshape(-1), return_inverse=True)
+    rows = table[uniq.to(device)].cpu().double()
+    want = port_fm.score_body(
+        scorer.spec, rows, inv.reshape(local.shape),
+        torch.from_numpy(batch.vals).double(),
+        fields=(None if batch.fields is None
+                else torch.from_numpy(batch.fields)))
+    n = batch.num_real
+    del table
+    return float((got[:n] - want[:n]).abs().max())
+
+
+def model_leg(torch, device, card, wd, kind, train_row):
+    """``python -m fast_tffm_tpu_torch train`` (one epoch, periodic saves
+    off) then ``predict`` for FFM (``kind = "ffm"``, config #3's model
+    at libffm's Criteo setting) or an order-3 FM (config #4's): the loss
+    falls, the validation AUC clears the train phase's floor, predict
+    reaches it, a batch's scores on the card agree with float64 on the
+    CPU; then the resident step and its device ms by op. Neither model
+    runs a hand-written kernel (torch ops, as XLA ran them)."""
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.metrics import exact_auc
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    if kind == "ffm":
+        path = write_train_cfg(
+            wd, 1, save_steps=0, leg=kind, files="ffm_", vocab=FFM_VOCAB,
+            factors=FFM_FACTORS,
+            model=f"model_type = ffm\nfield_num = {FFM_FIELDS}\n")
+    else:
+        path = write_train_cfg(wd, 1, save_steps=0, leg=kind,
+                               factors=ORDER3_FACTORS, model="order = 3\n")
+    cfg = load_config(path)
+    val_path = cfg.validation_files[0]
+    fm_kernel.launches = 0
+    fm_kernel.bwd_launches = 0
+    t0 = time.perf_counter()
+    rc = cli(["train", path])
+    entry_s = time.perf_counter() - t0
+    check(rc == 0, f"{kind} train returned {rc}")
+    losses, rates, aucs, done = read_train_log(cfg.log_file)
+    steps = -(-TRAIN_LINES // TRAIN_BATCH)
+    check([n for n, _ in done] == [steps], f"{kind} train ran {done}")
+    loss = losses[0]
+    check(np.isfinite(loss).all() and len(loss) == steps
+          and np.mean(loss[-4:]) < np.mean(loss[:4]),
+          f"{kind} loss did not fall: {loss}")
+    check(len(aucs) == 1 and aucs[0] > train_row["auc_floor"],
+          f"{kind} validation AUC {aucs} not above {train_row['auc_floor']}")
+    t0 = time.perf_counter()
+    rc = cli(["predict", path])
+    predict_s = time.perf_counter() - t0
+    check(rc == 0, f"{kind} predict returned {rc}")
+    check(fm_kernel.launches == 0 and fm_kernel.bwd_launches == 0,
+          f"{kind} launched the order-2 kernels")
+    with open(os.path.join(cfg.score_path,
+                           os.path.basename(val_path) + ".score")) as fh:
+        scores = np.array([float(x) for x in fh.read().split()])
+    with open(val_path) as fh:
+        labels = np.array([int(ln.split(" ", 1)[0]) for ln in fh])
+    check(scores.shape == (VAL_LINES,) and np.isfinite(scores).all(),
+          f"{kind}: {scores.shape} predict scores for {VAL_LINES} lines")
+    predict_auc = exact_auc(scores, labels)
+    check(abs(predict_auc - aucs[0]) <= AUC_GAP,
+          f"{kind} predict's exact AUC {predict_auc} vs train's {aucs[0]}")
+    f64_err = float64_check(torch, cfg, device, val_path)
+    check(f64_err <= F64_ATOL,
+          f"{kind} scores on the card vs float64 on the CPU: {f64_err}")
+    loop_eps = steps * TRAIN_BATCH / sum(TRAIN_BATCH / r for r in rates)
+    resident, _, _ = resident_step_ms(torch, cfg, device, tag=kind,
+                                      kernel_rows=False)
+    shutil.rmtree(os.path.dirname(cfg.model_file))
+    row = {"phase": f"train_{kind}", "card": card,
+           "model": ("ffm" if kind == "ffm" else "fm order 3"),
+           "vocabulary_size": cfg.vocabulary_size,
+           "factor_num": cfg.factor_num, "field_num": cfg.field_num,
+           "row_dim": cfg.row_dim,
+           "table_bytes": cfg.num_rows * cfg.row_dim * 4,
+           "reduced": f"{TRAIN_LINES} train + {VAL_LINES} validation "
+                      "Criteo-shaped lines, one epoch, periodic saves off",
+           "epochs": 1, "steps": steps, "entry_seconds": entry_s,
+           "predict_entry_seconds": predict_s,
+           "examples_per_s_loop": loop_eps,
+           "step_losses_first_last": [loss[0], loss[-1]],
+           "validation_auc": aucs, "auc_floor": train_row["auc_floor"],
+           "planted_auc": train_row["planted_auc"],
+           "predict_exact_auc": predict_auc,
+           "max_err_vs_float64": f64_err,
+           "fm_score_launches": fm_kernel.launches,
+           "fm_score_bwd_launches": fm_kernel.bwd_launches, **resident}
+    emit(row)
+    return row
+
+
+def packed_serving_phase(torch, cfg, lines, score_lines, device, card):
+    """Phases 4-5 again on the packed wire, against the padded run's
+    predict file: predict with ``wire_format = packed`` (wide: the score
+    file equal byte for byte; narrow: within NARROW_TOL), then a server
+    on packed-wide whose bodies equal the predict lines byte for
+    byte."""
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.serve.frontend import make_http_server
+    from fast_tffm_tpu_torch.serve.server import ScorerServer
+    row = {"phase": "packed_serving", "card": card,
+           "reduced": "16 sequential serve requests (phase 5: 48 from 8 "
+                      "clients)"}
+    want = np.array([float(x) for x in score_lines])
+    cfgs = {}
+    for wire in ("packed-wide", "packed-narrow"):
+        path = os.path.join(WORK, f"smoke_{wire}.cfg")
+        write_cfg(path, wire)
+        cfgs[wire] = load_config(path)
+        fm_kernel.launches = 0
+        t0 = time.perf_counter()
+        rc = cli(["predict", path, "--device", device.type])
+        row[f"predict_{wire}_entry_seconds"] = time.perf_counter() - t0
+        row[f"predict_{wire}_launches"] = fm_kernel.launches
+        check(rc == 0, f"{wire} predict returned {rc}")
+        check(fm_kernel.launches == -(-len(lines) // PREDICT_BATCH),
+              f"{wire} predict launched fm_score {fm_kernel.launches} "
+              "times")
+        with open(os.path.join(cfgs[wire].score_path,
+                               "criteo.txt.score")) as fh:
+            got = fh.read().splitlines(keepends=True)
+        if wire == "packed-wide":
+            check(got == score_lines, "packed-wide predict's score file "
+                  "differs from the padded one")
+        else:
+            err = float(np.abs(np.array([float(x) for x in got])
+                               - want).max())
+            row["narrow_max_abs_diff"] = err
+            check(len(got) == len(score_lines) and err <= NARROW_TOL,
+                  f"packed-narrow scores differ from wide by {err}")
+    fm_kernel.launches = 0
+    server = ScorerServer(cfgs["packed-wide"], device=device)
+    warm = fm_kernel.launches
+    httpd = make_http_server(server, 0)
+    th = threading.Thread(target=httpd.serve_forever, name="smoke-http",
+                          daemon=True)
+    th.start()
+    rng = np.random.default_rng(SEED + 8)
+    try:
+        for n in [1, SERVE_MAX_BATCH] + [int(n) for n in
+                                         rng.integers(1, SERVE_MAX_BATCH,
+                                                      14)]:
+            lo = int(rng.integers(0, len(lines) - n + 1))
+            status, body, step = post(port=httpd.server_address[1],
+                                      body="\n".join(lines[lo:lo + n])
+                                      + "\n")
+            check(status == 200 and step == str(SERVE_STEP)
+                  and body == "".join(score_lines[lo:lo + n]).encode(),
+                  f"packed serve of lines [{lo}, {lo + n}) answered "
+                  f"{status}, differing from the predict file")
+        health = healthz(httpd.server_address[1])
+        check(health["wire"] == "packed-wide" and health["requests"] == 16
+              and health["flush_errors"] == 0, f"/healthz: {health}")
+    finally:
+        httpd.shutdown()
+        th.join(timeout=60)
+        httpd.server_close()
+        server.close()
+    row.update(serve_warmup_launches=warm,
+               serve_launches=fm_kernel.launches,
+               serve_requests=health["requests"],
+               serve_p50_ms=health["latency_p50_ms"],
+               serve_p99_ms=health["latency_p99_ms"])
+    check(fm_kernel.launches > warm > 0, "packed serve launched no kernel")
+    emit(row)
+    return row
+
+
+def packed_train_phase(torch, device, card, wd, train_row):
+    """One epoch of ``train`` on ``wire_format = packed`` (wide; periodic
+    saves off) at config #2's width: the same steps as run A's first
+    epoch, so its loss and validation AUC match run A's at the training
+    tolerance (the backward's atomics keep them from the bit), with fewer
+    bytes shipped; then bytes per batch and H2D ms per batch for the
+    padded, packed-wide and packed-narrow wires (wire_bytes_rows)."""
+    import re
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    path = write_train_cfg(wd, 1, save_steps=0, leg="packed",
+                           train="wire_format = packed\n")
+    cfg = load_config(path)
+    fm_kernel.launches = 0
+    fm_kernel.bwd_launches = 0
+    t0 = time.perf_counter()
+    rc = cli(["train", path])
+    entry_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches = fm_kernel.launches, fm_kernel.bwd_launches
+    check(rc == 0, f"packed train returned {rc}")
+    losses, rates, aucs, done = read_train_log(cfg.log_file)
+    steps = -(-TRAIN_LINES // TRAIN_BATCH)
+    val_batches = -(-VAL_LINES // TRAIN_BATCH)
+    check([n for n, _ in done] == [steps], f"packed train ran {done}")
+    check(bwd_launches == steps and fwd_launches == steps + val_batches,
+          f"packed train launched fm_score {fwd_launches} and "
+          f"fm_score_bwd {bwd_launches} times")
+    mean_loss = float(np.mean(losses[0]))
+    padded_loss = train_row["epoch_mean_loss"][0]
+    check(abs(mean_loss - padded_loss) <= LOSS_RTOL * abs(padded_loss)
+          and abs(aucs[0] - train_row["validation_auc"][0]) <= AUC_ATOL,
+          f"packed train: loss {mean_loss}, AUC {aucs} against the padded "
+          f"run's {padded_loss}, {train_row['validation_auc'][0]}")
+    with open(cfg.log_file) as fh:
+        log = fh.read()
+    sent = re.findall(r"wire packed-wide: h2d_bytes = (\d+) over \d+ "
+                      r"steps, against (\d+)", log)
+    check("wire format: packed-wide" in log and len(sent) == 1
+          and int(sent[0][0]) < int(sent[0][1]),
+          f"packed train's wire lines: {sent}")
+    loop_eps = steps * TRAIN_BATCH / sum(TRAIN_BATCH / r for r in rates)
+    shutil.rmtree(os.path.dirname(cfg.model_file))
+    row = {"phase": "train_packed", "card": card,
+           "wire_format": "packed-wide",
+           "reduced": "one epoch of the train phase's lines, periodic "
+                      "saves off",
+           "epochs": 1, "steps": steps, "entry_seconds": entry_s,
+           "examples_per_s_loop": loop_eps, "epoch_mean_loss": mean_loss,
+           "padded_epoch_mean_loss": padded_loss, "validation_auc": aucs,
+           "padded_validation_auc": train_row["validation_auc"][0],
+           "h2d_bytes": int(sent[0][0]),
+           "h2d_bytes_padded_layout": int(sent[0][1]),
+           "fm_score_launches": fwd_launches,
+           "fm_score_bwd_launches": bwd_launches,
+           "wire": wire_bytes_rows(torch, cfg, device)}
+    emit(row)
+    return row
+
+
+def wire_bytes_rows(torch, cfg, device):
+    """Per wire: bytes a batch ships against the padded layout's, the
+    host's encode ms and the H2D ms (``device_put`` until the card has
+    the arrays) per batch, medians over the train stream's first
+    WIRE_BATCHES batches after one warmup pass; and, as the same-call
+    baseline, "padded-direct": the padded arrays copied by
+    ``batch_args(batch, device)``, each a blocking ``.to(device)`` from
+    pageable memory, as the train loop shipped them before the wire."""
+    import statistics
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.models.fm import batch_args
+    from fast_tffm_tpu_torch.wire import WireEncoder, WireSpec
+    it = batch_iterator(cfg, cfg.train_files, training=True, epochs=1)
+    try:
+        batches = [b for _, b in zip(range(WIRE_BATCHES), it)]
+    finally:
+        it.close()
+    out = {}
+    for fmt, dtypes in (("padded", "wide"), ("packed", "wide"),
+                        ("packed", "narrow")):
+        enc = WireEncoder(WireSpec(fmt, dtypes), cfg.pad_id)
+        enc_ms, h2d_ms, sent, logical = [], [], [], []
+        for rep in range(2):
+            for b in batches:
+                t0 = time.perf_counter()
+                wb = enc.encode_train(b)
+                t1 = time.perf_counter()
+                enc.device_put(wb, device)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if rep:
+                    enc_ms.append((t1 - t0) * 1e3)
+                    h2d_ms.append((t2 - t1) * 1e3)
+                    sent.append(wb.wire_bytes)
+                    logical.append(wb.logical_bytes)
+        out[f"{fmt}-{dtypes}"] = {
+            "bytes_per_batch": statistics.mean(sent),
+            "logical_bytes_per_batch": statistics.mean(logical),
+            "encode_ms_median": statistics.median(enc_ms),
+            "h2d_ms_median": statistics.median(h2d_ms)}
+    direct = []
+    for rep in range(2):
+        for b in batches:
+            t0 = time.perf_counter()
+            batch_args(b, device)
+            torch.cuda.synchronize()
+            if rep:
+                direct.append((time.perf_counter() - t0) * 1e3)
+    out["padded-direct"] = {"h2d_ms_median": statistics.median(direct)}
+    return out
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -1540,6 +1915,9 @@ def main(argv) -> int:
 
         # 5. serve
         serve_row = serve_phase(torch, cfg, lines, score_lines, device, smi)
+        # 5b. predict and serve on the packed wire
+        packed_serving_row = packed_serving_phase(torch, cfg, lines,
+                                                  score_lines, device, smi)
         del lines, score_lines, table_cpu
         shutil.rmtree(os.path.dirname(cfg.model_file))  # disk for phase 6
 
@@ -1559,6 +1937,17 @@ def main(argv) -> int:
             torch, device, smi, train_data[0], train_row)
         kernel_rows += fwd_host_rows
         bwd_rows += bwd_host_rows
+
+        # 10. train on the packed wire; bytes and H2D per batch
+        packed_train_row = packed_train_phase(torch, device, smi,
+                                              train_data[0], train_row)
+        # 11. FFM and order 3
+        ffm_data_s = write_ffm_data(train_data[0])
+        ffm_row = model_leg(torch, device, smi, train_data[0], "ffm",
+                            train_row)
+        ffm_row["generate_seconds"] = ffm_data_s
+        order3_row = model_leg(torch, device, smi, train_data[0], "order3",
+                               train_row)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1576,7 +1965,11 @@ def main(argv) -> int:
                      + train_row["fm_score_launches"]
                      + train_row["predict_launches"]
                      + reload_row["launches"]
-                     + host_row["fm_score_launches"]),
+                     + host_row["fm_score_launches"]
+                     + packed_serving_row["predict_packed-wide_launches"]
+                     + packed_serving_row["predict_packed-narrow_launches"]
+                     + packed_serving_row["serve_launches"]
+                     + packed_train_row["fm_score_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1588,14 +1981,21 @@ def main(argv) -> int:
         "train_launches": train_row["fm_score_launches"],
         "train_predict_launches": train_row["predict_launches"],
         "reload_launches": reload_row["launches"],
-        "train_host_launches": host_row["fm_score_launches"]}, {
+        "train_host_launches": host_row["fm_score_launches"],
+        "packed_predict_launches":
+            packed_serving_row["predict_packed-wide_launches"]
+            + packed_serving_row["predict_packed-narrow_launches"],
+        "packed_serve_launches": packed_serving_row["serve_launches"],
+        "train_packed_launches": packed_train_row["fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
         "launches": (train_row["fm_score_bwd_launches"]
-                     + host_row["fm_score_bwd_launches"]),
+                     + host_row["fm_score_bwd_launches"]
+                     + packed_train_row["fm_score_bwd_launches"]),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
+        "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -1612,7 +2012,11 @@ def main(argv) -> int:
                        "kernel_bwd": bwd_rows, "predict": predict_row,
                        "serve": serve_row, "train": train_row,
                        "reload": reload_row, "quarantine": quarantine_row,
-                       "train_host": host_row, **kernels}, fh, indent=1)
+                       "train_host": host_row,
+                       "packed_serving": packed_serving_row,
+                       "train_packed": packed_train_row,
+                       "train_ffm": ffm_row, "train_order3": order3_row,
+                       **kernels}, fh, indent=1)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -849,7 +849,9 @@ class CheckpointState:
             f"checkpoint at {self.directory} step {s} could not be "
             "restored against this config's layout. Most likely the "
             "checkpoint was written under a different config "
-            "(vocabulary_size / factor_num / model_type) or an older "
+            "(vocabulary_size / factor_num / model_type / field_num: a "
+            "row holds factor_num + 1 values, factor_num * field_num + 1 "
+            "for FFM) or an older "
             "storage layout — fix the config or point model_file at "
             "the matching checkpoint. If the config is right, this "
             "step directory may be corrupt/partially written (killed "

@@ -33,7 +33,10 @@ Padding invariants, as in the JAX package: pad cells of ``vals`` hold
 vocabulary_size`` (the table's dead zero row); in host-deduped batches
 ``uniq_ids`` pads with pad_id and ``local_idx``'s pad cells point at a
 pad_id slot, so a pad slot adds exactly zero to a score and a gradient;
-pad examples have weight 0.0 and no features.
+pad examples have weight 0.0 and no features. Field-aware (FFM)
+batches carry ``fields``, 0 on pad cells, and every route (the serial
+and parallel fast paths, the generic path, the plain stream, raw ids
+and host dedup) slices and shuffles them with the rest of the batch.
 """
 
 from __future__ import annotations
@@ -90,13 +93,15 @@ class DeviceBatch:
     Raw-ids mode (``dedup = device``): ``uniq_ids`` is None and
     ``local_idx`` holds raw table rows (pad cells = pad_id). Host-dedup
     mode: ``uniq_ids`` [U] holds the batch's unique rows (pad_id
-    padding) and ``local_idx`` indexes it."""
+    padding) and ``local_idx`` indexes it. ``fields`` only for a
+    field-aware model (FFM)."""
     labels: np.ndarray       # f32 [B]
     weights: np.ndarray      # f32 [B]; 0.0 marks padded dummy examples
     local_idx: np.ndarray    # i32 [B, L]; raw row ids, or into uniq_ids
     vals: np.ndarray         # f32 [B, L]; 0.0 padding
     num_real: int = 0        # examples that are not padding
     uniq_ids: Optional[np.ndarray] = None  # i32 [U]; None = raw ids
+    fields: Optional[np.ndarray] = None    # i32 [B, L]; 0 padding (FFM)
 
 
 class FileMarks:
@@ -235,6 +240,8 @@ def make_device_batch(block: ParsedBlock, cfg: FmConfig,
 
     local_idx = np.full((B, L), pad_slot, dtype=np.int32)
     vals = np.zeros((B, L), dtype=np.float32)
+    fields = (np.zeros((B, L), dtype=np.int32)
+              if block.fields is not None else None)
     if n_real:
         # Vectorized CSR -> padded scatter.
         ex_sizes = np.diff(block.poses[:n_real + 1])
@@ -243,6 +250,8 @@ def make_device_batch(block: ParsedBlock, cfg: FmConfig,
                                                 ex_sizes)
         local_idx[rows, cols] = inverse
         vals[rows, cols] = block.vals
+        if fields is not None:
+            fields[rows, cols] = block.fields
 
     labels = np.zeros(B, dtype=np.float32)
     labels[:n_real] = block.labels
@@ -252,7 +261,8 @@ def make_device_batch(block: ParsedBlock, cfg: FmConfig,
     else:
         w[:n_real] = 1.0
     return DeviceBatch(labels=labels, weights=w, local_idx=local_idx,
-                       vals=vals, num_real=n_real, uniq_ids=uniq_ids)
+                       vals=vals, num_real=n_real, uniq_ids=uniq_ids,
+                       fields=fields)
 
 
 def epoch_file_order(files: List[str], shuffle: bool, seed: int,
@@ -501,6 +511,8 @@ class _BatchEmitter:
         if L < li.shape[1]:
             li = np.ascontiguousarray(li[:, :L])
             vals = np.ascontiguousarray(vals[:, :L])
+            if fields is not None:
+                fields = np.ascontiguousarray(fields[:, :L])
         if uniq is None:  # raw-ids mode: li holds raw ids
             uniq_ids = None
         else:
@@ -518,8 +530,11 @@ class _BatchEmitter:
                                    np.arange(n, B)])
             labels, weights = labels[perm], weights[perm]
             li, vals = li[perm], vals[perm]
+            if fields is not None:
+                fields = fields[perm]
         return DeviceBatch(labels=labels, weights=weights, local_idx=li,
-                           vals=vals, num_real=n, uniq_ids=uniq_ids)
+                           vals=vals, num_real=n, uniq_ids=uniq_ids,
+                           fields=fields)
 
 
 class _BuildRing:
@@ -1116,13 +1131,15 @@ def plain_batch_iterator(cfg: FmConfig, files: Sequence[str],
             block = parse_lines(
                 lines, cfg.vocabulary_size,
                 hash_feature_id=cfg.hash_feature_id,
+                field_aware=cfg.model_type == "ffm",
+                field_num=cfg.field_num,
                 max_features_per_example=cfg.max_features_per_example,
                 keep_empty=keep_empty)
         except ParseError as e:
             raise _attach_block_source(e, sources) from None
         b = make_device_batch(block, cfg, B)
         max_nnz = int(block.sizes.max()) if block.batch_size else 0
-        return (b.num_real, b.labels, None, b.local_idx, b.vals, None,
+        return (b.num_real, b.labels, None, b.local_idx, b.vals, b.fields,
                 max_nnz)
 
     for epoch in range(n_epochs):

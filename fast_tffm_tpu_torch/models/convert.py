@@ -41,7 +41,8 @@ def _rows_from_numpy(arr: np.ndarray, cfg: FmConfig,
             f"{what} of shape {arr.shape} does not fit the config: want "
             f"[{cfg.vocabulary_size}, {D}] (.npz export), "
             f"[{cfg.num_rows}, {D}] or [{cfg.ckpt_rows}, {D}] "
-            "(vocabulary_size and factor_num must match the model)")
+            "(vocabulary_size, factor_num and, for FFM, field_num must "
+            "match the model)")
     rows = torch.zeros((cfg.num_rows, D), dtype=torch.float32,
                        device=device)
     n = min(arr.shape[0], cfg.num_rows)

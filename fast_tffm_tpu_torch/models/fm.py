@@ -6,17 +6,25 @@ The single-device subset of ``fast_tffm_tpu/models/fm.py``:
 ``_scores``, ``rows_score_body``, ``score_body`` and ``train_step_body``:
 (``_device_dedup`` for a raw-ids batch, none for a host-deduped one) →
 gather → ``grad_body`` (``loss_and_scores`` and its gradient with respect
-to the gathered rows) → ``sparse_adagrad_apply``.
+to the gathered rows) → ``sparse_adagrad_apply``; and the packed wire's
+``packed_train_step_body`` and ``packed_score_body``, which rebuild the
+padded rectangles on the device (``wire.unpack_rectangles``) and run the
+same bodies.
 
-A 2nd-order FM scores through ``ops/fm_kernel.fm_batch_scores``: the
-CUDA kernels for tensors on the card (forward, and in training the
-hand-written backward), their plain versions for tensors on the CPU.
-The ``kernel`` key is accepted and ignored: on the card an order-2 FM
-always runs the kernels. ``dedup`` resolves as the JAX package resolves
-it on one device (``auto`` → ``device``): ``device`` steps take raw-ids
-batches and run the unique on the card, ``host`` steps take the
-pipeline's host-deduped batches (``uniq_ids`` set), whose U is a ladder
-rung the host picked, so the step never waits for the card to learn it.
+``_scores`` dispatches as the JAX package's: FFM
+(``model_type = ffm``) scores through ``ops/interaction.ffm_batch_scores``
+and a higher-order FM (``order`` > 2) through ``anova_batch_scores``,
+torch ops on the CPU and on the card alike (XLA ran them in the JAX
+package; no Pallas kernel was involved). A 2nd-order FM scores through
+``ops/fm_kernel.fm_batch_scores``: the CUDA kernels for tensors on the
+card (forward, and in training the hand-written backward), their plain
+versions for tensors on the CPU. The ``kernel`` key is accepted and
+ignored: on the card an order-2 FM always runs the kernels. ``dedup``
+resolves as the JAX package resolves it on one device (``auto`` →
+``device``): ``device`` steps take raw-ids batches and run the unique on
+the card, ``host`` steps take the pipeline's host-deduped batches
+(``uniq_ids`` set), whose U is a ladder rung the host picked, so the
+step never waits for the card to learn it.
 """
 
 from __future__ import annotations
@@ -29,18 +37,18 @@ import torch
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.pipeline import DeviceBatch
 from fast_tffm_tpu_torch.ops.fm_kernel import fm_batch_scores
-from fast_tffm_tpu_torch.ops.interaction import batch_reg, gather_rows
+from fast_tffm_tpu_torch.ops.interaction import (anova_batch_scores,
+                                                 batch_reg,
+                                                 ffm_batch_scores,
+                                                 gather_rows)
 
 
 def check_supported(cfg: FmConfig) -> None:
     """Refuse config values this slice does not serve, naming the
     ROADMAP.md item that brings each."""
     refusals = (
-        (cfg.model_type == "ffm", "model_type = ffm", "A6"),
-        (cfg.order > 2, f"order = {cfg.order}", "A6"),
         (cfg.vocab_mode == "admit", "vocab_mode = admit", "A8"),
         (cfg.lookup == "host", "lookup = host", "A7"),
-        (cfg.wire_format == "packed", "wire_format = packed", "A5"),
         (cfg.serve_replicas > 1,
          f"serve_replicas = {cfg.serve_replicas}", "A9"),
     )
@@ -78,6 +86,8 @@ class ModelSpec:
 
     @property
     def row_dim(self) -> int:
+        if self.model_type == "ffm":
+            return self.factor_num * self.field_num + 1
         return self.factor_num + 1
 
 
@@ -101,37 +111,48 @@ def init_accumulator(cfg: FmConfig, device: torch.device) -> torch.Tensor:
                       dtype=torch.float32, device=device)
 
 
-def resolved_kernel(device: torch.device) -> str:
-    """What scores an order-2 FM batch on ``device``: the CUDA kernel on
-    the card, its plain PyTorch version on the CPU."""
+def resolved_kernel(device: torch.device, spec: Optional[ModelSpec] = None
+                    ) -> str:
+    """What scores a batch on ``device``: for a 2nd-order FM the CUDA
+    kernel on the card and its plain PyTorch version on the CPU; for FFM
+    and a higher-order FM (``spec``) the torch ops everywhere."""
+    if spec is not None and (spec.model_type == "ffm" or spec.order > 2):
+        return "torch"
     return "cuda" if torch.device(device).type == "cuda" else "plain"
 
 
 def _scores(spec: ModelSpec, params: torch.Tensor, local_idx: torch.Tensor,
-            vals: torch.Tensor) -> torch.Tensor:
+            vals: torch.Tensor,
+            fields: Optional[torch.Tensor]) -> torch.Tensor:
+    if spec.model_type == "ffm":
+        return ffm_batch_scores(params, spec.field_num, local_idx, fields,
+                                vals)
+    if spec.order > 2:
+        return anova_batch_scores(params, local_idx, vals, spec.order)
     return fm_batch_scores(params, local_idx, vals)
 
 
 def rows_score_body(spec: ModelSpec, gathered: torch.Tensor,
-                    local_idx: torch.Tensor,
-                    vals: torch.Tensor) -> torch.Tensor:
+                    local_idx: torch.Tensor, vals: torch.Tensor,
+                    fields: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inference forward from a row block ``local_idx`` addresses."""
-    return _scores(spec, gathered, local_idx, vals)
+    return _scores(spec, gathered, local_idx, vals, fields)
 
 
 def score_body(spec: ModelSpec, table: torch.Tensor, local_idx: torch.Tensor,
-               vals: torch.Tensor,
-               uniq_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               vals: torch.Tensor, uniq_ids: Optional[torch.Tensor] = None,
+               fields: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inference forward. Raw-ids batch (``uniq_ids`` None): ``local_idx``
     holds raw table rows (pad cells = pad_id); the JAX package gathers
-    ``table[local_idx]`` and scores the gathered block, here the kernel
-    reads the table rows itself. Host-deduped batch: the rows
-    ``table[uniq_ids]`` are gathered and ``local_idx`` indexes them. Both
-    sum the same rows in the same slot order: the scores are equal to
-    the bit."""
+    ``table[local_idx]`` and scores the gathered block. Here every scorer
+    reads ``table[local_idx]`` itself: the order-2 kernel in its row
+    loads, the FFM and ANOVA scorers by their first gather. Host-deduped
+    batch: the rows ``table[uniq_ids]`` are gathered and ``local_idx``
+    indexes them. Both sum the same rows in the same slot order: the
+    scores are equal to the bit."""
     if uniq_ids is not None:
         table = gather_rows(table, uniq_ids)
-    return rows_score_body(spec, table, local_idx, vals)
+    return rows_score_body(spec, table, local_idx, vals, fields)
 
 
 def _per_example_loss(spec: ModelSpec, scores: torch.Tensor,
@@ -148,11 +169,12 @@ def _per_example_loss(spec: ModelSpec, scores: torch.Tensor,
 def loss_and_scores(spec: ModelSpec, gathered: torch.Tensor,
                     labels: torch.Tensor, weights: torch.Tensor,
                     uniq_ids: torch.Tensor, local_idx: torch.Tensor,
-                    vals: torch.Tensor
+                    vals: torch.Tensor,
+                    fields: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted-mean data loss + batch-active L2 reg. Zero-weight padding
     examples drop out of both value and gradient."""
-    scores = _scores(spec, gathered, local_idx, vals)
+    scores = _scores(spec, gathered, local_idx, vals, fields)
     per = _per_example_loss(spec, scores, labels)
     # Double where for the all-padding filler batch (sum(w) = 0): the
     # divisor is 1 there, so neither the value nor the gradient of the
@@ -198,14 +220,14 @@ def sparse_adagrad_apply(table: torch.Tensor, acc: torch.Tensor,
 def grad_body(spec: ModelSpec, gathered: torch.Tensor,
               labels: torch.Tensor, weights: torch.Tensor,
               uniq_ids: torch.Tensor, local_idx: torch.Tensor,
-              vals: torch.Tensor
+              vals: torch.Tensor, fields: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Loss, scores and the gradient with respect to the gathered
     ``[U, D]`` rows, padding rows masked to zero."""
     with torch.enable_grad():
         rows = gathered.detach().requires_grad_(True)
         loss, scores = loss_and_scores(spec, rows, labels, weights,
-                                       uniq_ids, local_idx, vals)
+                                       uniq_ids, local_idx, vals, fields)
         (grad,) = torch.autograd.grad(loss, rows)
     live = (uniq_ids < spec.vocabulary_size).to(grad.dtype)[:, None]
     return loss.detach(), scores.detach(), grad * live
@@ -215,13 +237,14 @@ def train_step_body(spec: ModelSpec, table: torch.Tensor,
                     acc: torch.Tensor, labels: torch.Tensor,
                     weights: torch.Tensor, local_idx: torch.Tensor,
                     vals: torch.Tensor,
-                    uniq_ids: Optional[torch.Tensor] = None):
+                    uniq_ids: Optional[torch.Tensor] = None,
+                    fields: Optional[torch.Tensor] = None):
     """One training step: gather → loss and gradient → sparse Adagrad.
     ``dedup = device``: a raw-ids batch (``uniq_ids`` None), uniqued on
     the device first. ``dedup = host``: the batch's ``uniq_ids`` (pad_id
     padding, whose rows get zero gradient) and ``local_idx`` into them.
-    Returns ``(table, acc, loss, scores)``; ``table`` and ``acc`` are
-    updated in place."""
+    ``fields``: an FFM batch's. Returns ``(table, acc, loss, scores)``;
+    ``table`` and ``acc`` are updated in place."""
     if (uniq_ids is None) != (spec.dedup == "device"):
         # Slot indices read as feature ids (or the reverse) would
         # silently train the wrong rows.
@@ -233,18 +256,65 @@ def train_step_body(spec: ModelSpec, table: torch.Tensor,
         uniq_ids, local_idx = _device_dedup(spec, local_idx)
     gathered = gather_rows(table, uniq_ids)
     loss, scores, grad = grad_body(spec, gathered, labels, weights,
-                                   uniq_ids, local_idx, vals)
+                                   uniq_ids, local_idx, vals, fields)
     table, acc = sparse_adagrad_apply(table, acc, uniq_ids, grad,
                                       spec.learning_rate)
     return table, acc, loss, scores
+
+
+def _unpack_wire(spec: ModelSpec, L: int, uniq_ids, lengths, flat_idx,
+                 flat_vals, flat_fields):
+    """The packed bodies' shared unpack: the [B, L] rectangles rebuilt
+    on the batch's device with the padding this layout uses — the uniq
+    table's last slot in host-dedup mode, the model's pad id
+    (vocabulary_size) in raw-ids mode. Narrow-mode f16 values come back
+    as f32 here, before any model math."""
+    from fast_tffm_tpu_torch.wire import unpack_rectangles
+    pad = (spec.vocabulary_size if uniq_ids is None
+           else uniq_ids.shape[0] - 1)
+    return unpack_rectangles(L, pad, lengths, flat_idx, flat_vals,
+                             flat_fields)
+
+
+def packed_train_step_body(spec: ModelSpec, L: int, table: torch.Tensor,
+                           acc: torch.Tensor, labels: torch.Tensor,
+                           weights: torch.Tensor, lengths: torch.Tensor,
+                           flat_idx: torch.Tensor, flat_vals: torch.Tensor,
+                           uniq_ids: Optional[torch.Tensor] = None,
+                           flat_fields: Optional[torch.Tensor] = None):
+    """One training step from the packed wire (wire.py): unpack the flat
+    CSR into the padded rectangles, then the exact ``train_step_body``.
+    ``L`` is the rectangle width the encoder recorded."""
+    local_idx, vals, fields = _unpack_wire(spec, L, uniq_ids, lengths,
+                                           flat_idx, flat_vals, flat_fields)
+    return train_step_body(spec, table, acc, labels.float(),
+                           weights.float(), local_idx, vals,
+                           uniq_ids=uniq_ids, fields=fields)
+
+
+def packed_score_body(spec: ModelSpec, L: int, table: torch.Tensor,
+                      lengths: torch.Tensor, flat_idx: torch.Tensor,
+                      flat_vals: torch.Tensor,
+                      uniq_ids: Optional[torch.Tensor] = None,
+                      flat_fields: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Inference forward from the packed wire: unpack, then the exact
+    ``score_body``. In wide mode the rectangles are the padded wire's,
+    so the scores are equal to the bit."""
+    local_idx, vals, fields = _unpack_wire(spec, L, uniq_ids, lengths,
+                                           flat_idx, flat_vals, flat_fields)
+    return score_body(spec, table, local_idx, vals, uniq_ids=uniq_ids,
+                      fields=fields)
 
 
 def batch_args(batch: DeviceBatch,
                device: torch.device) -> Dict[str, torch.Tensor]:
     """A batch's arrays as tensors on ``device``, keyed as
     ``train_step_body`` takes them (``uniq_ids`` only when the batch is
-    host-deduped)."""
-    keys = ("labels", "weights", "local_idx", "vals") + (
-        () if batch.uniq_ids is None else ("uniq_ids",))
+    host-deduped, ``fields`` only for FFM): the one padded layout, which
+    the wire encoder (wire.py) delegates to. On the CPU the tensors
+    share the batch's arrays."""
+    keys = ("labels", "weights", "local_idx", "vals") + tuple(
+        k for k in ("uniq_ids", "fields") if getattr(batch, k) is not None)
     return {k: torch.from_numpy(getattr(batch, k)).to(device)
             for k in keys}

@@ -1,5 +1,5 @@
 """FM interaction math as plain PyTorch ops — the port's counterpart of
-``fast_tffm_tpu/ops/interaction.py`` (order 2).
+``fast_tffm_tpu/ops/interaction.py``.
 
 ``fm_batch_scores`` is the plain version of the CUDA kernel in
 ``csrc/fm_score.cu`` and ``fm_batch_scores_bwd`` that of
@@ -11,9 +11,15 @@ kernel's own sum order, so a score does not depend on the batch size or
 on how much padding follows the example: pad slots (``vals == 0`` on the
 zero pad row) add exactly zero.
 
-Shapes: ``params [N, K+1]`` (factor columns, then the linear weight);
-``local_idx [B, L]`` int32 rows of ``params``; ``vals [B, L]`` f32. All
-math is f32.
+``anova_batch_scores`` (order > 2) and ``ffm_batch_scores`` (field-aware
+FM) are the JAX package's XLA scorers, which no Pallas kernel replaced:
+they run as these torch ops on the CPU and on the card alike.
+
+Shapes: ``params [N, D]`` (factor columns, then the linear weight; D =
+K+1, or F·K+1 for FFM); ``local_idx [B, L]`` int32 rows of ``params``;
+``vals [B, L]`` f32; ``fields [B, L]`` int32 (FFM). All math is full
+f32: the JAX package asks for ``Precision.HIGHEST`` in every einsum, and
+FFM's bucketing matmul refuses to run with TF32 on.
 """
 
 from __future__ import annotations
@@ -93,6 +99,80 @@ def fm_batch_scores_bwd(params: torch.Tensor, local_idx: torch.Tensor,
     if magnitudes:
         return dparams, dvals, dparams_abs, dvals_abs
     return dparams, dvals
+
+
+def _gathered(params: torch.Tensor, local_idx: torch.Tensor) -> torch.Tensor:
+    """``params[local_idx]``: the ``[B, L, D]`` rows of a batch."""
+    B, L = local_idx.shape
+    return gather_rows(params, local_idx.reshape(-1)).reshape(B, L, -1)
+
+
+def anova_batch_scores(params: torch.Tensor, local_idx: torch.Tensor,
+                       vals: torch.Tensor, order: int) -> torch.Tensor:
+    """Per-example scores of a higher-order FM [B]: the linear term plus
+    the ANOVA kernels of degree 2..``order`` over all latent dims (the
+    JAX package's ``fm_batch_scores`` for order > 2)."""
+    rows = _gathered(params, local_idx)                 # [B, L, K+1]
+    v, w = rows[..., :-1], rows[..., -1]
+    linear = (w * vals).sum(dim=1)
+    return linear + _anova_terms(v * vals[..., None], order)
+
+
+def _anova_terms(z: torch.Tensor, order: int) -> torch.Tensor:
+    """Sum of the ANOVA kernels of degree 2..order of ``z [B, L, K]``.
+
+    The JAX package's ``lax.scan`` recurrence, slot by slot in ascending
+    order: ``a[t] += a[t-1] * z_l`` for t = 1..order, every degree from
+    the previous slot's state. Padded slots have z = 0 and leave the
+    state as it is. O(L · order · K); no closed form through Newton's
+    identities, whose power sums cancel badly in f32."""
+    B, _, k = z.shape
+    a = torch.cat([z.new_ones((B, 1, k)), z.new_zeros((B, order, k))], 1)
+    for l in range(z.shape[1]):
+        a = torch.cat([a[:, :1], a[:, 1:] + a[:, :-1] * z[:, l, None, :]],
+                      dim=1)
+    return a[:, 2:].sum(dim=(1, 2))
+
+
+def _require_ieee_f32(t: torch.Tensor) -> None:
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "TF32 matmuls are on (torch.backends.cuda.matmul.allow_tf32); "
+            "the FFM scorer needs full f32, as the JAX package's "
+            "Precision.HIGHEST: turn TF32 off")
+
+
+def ffm_batch_scores(params: torch.Tensor, field_num: int,
+                     local_idx: torch.Tensor, fields: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """Field-aware FM scores [B]; row layout ``[N, F·K+1]``, where
+    ``v[i, f]`` is the latent vector row i uses against field f:
+
+        score = Σ_j w_j x_j + Σ_{i<j} <v[i, f_j], v[j, f_i]> x_i x_j
+
+    Bucketed by field as the JAX package does, never forming the
+    ``[B, L, L, K]`` pair tensor: ``S[b, f, g, :] = Σ_{l: fields[b,l]=g}
+    x_l · v[b, l, f, :]`` (one batched matmul over the L slots against
+    the one-hot fields), the pair sum is ``Σ_{f,g} <S[f,g], S[g,f]>``,
+    minus the i = j diagonal ``Σ_l x_l² ||v_l[f_l]||²``, halved. Padded
+    slots (x = 0, field 0) add zero everywhere."""
+    _require_ieee_f32(params)
+    rows = _gathered(params, local_idx)                 # [B, L, F*K+1]
+    B, L = local_idx.shape
+    F = field_num
+    k = (rows.shape[-1] - 1) // F
+    w = rows[..., -1]
+    v = rows[..., :-1].reshape(B, L, F, k)
+    linear = (w * vals).sum(dim=1)
+    onehot = torch.nn.functional.one_hot(fields.long(), F).to(v.dtype)
+    vx = (v * vals[..., None, None]).reshape(B, L, F * k)
+    s = torch.bmm(vx.transpose(1, 2), onehot)          # [B, F*K, G]
+    s = s.reshape(B, F, k, F).permute(0, 1, 3, 2)      # [B, F, G, K]
+    cross = (s * s.transpose(1, 2)).sum(dim=(1, 2, 3))
+    v_self = torch.gather(
+        v, 2, fields.long()[:, :, None, None].expand(B, L, 1, k))[:, :, 0]
+    diag = (v_self * v_self).sum(dim=2) * (vals * vals)
+    return linear + 0.5 * (cross - diag.sum(dim=1))
 
 
 def batch_reg(params: torch.Tensor, uniq_ids: torch.Tensor,

@@ -10,7 +10,8 @@ overlap the scoring), and writes one score per input line,
 order-preserving, to ``<score_path>/<basename(f)>.score`` — sigmoid for
 logistic loss, raw for mse, ``%.6f`` per line. Blank lines score as the
 model bias (``keep_empty``), so score files stay line-aligned with their
-inputs.
+inputs. Batches ship through the scorer's wire encoder (wire.py), padded
+or packed as ``wire_format`` says.
 
 Not ported yet: the mesh and multi-process sweeps with their part
 files (ROADMAP.md A10), offload (A7), admit mode's slot map (A8).
@@ -32,6 +33,7 @@ from fast_tffm_tpu_torch.scoring import (CompiledScorer, ScoreWriter,
                                          score_sweep)
 from fast_tffm_tpu_torch.train import check_restored_vocab, checkpoint_template
 from fast_tffm_tpu_torch.utils.device import resolve_device
+from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy
 
@@ -77,6 +79,8 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
     device = resolve_device(device)
     scorer = CompiledScorer(cfg, device)  # refuses unported config values
     logger = get_logger(log_file=cfg.log_file or None)
+    log_ignored_keys(cfg, logger)
+    logger.info("wire format: %s", scorer.wire.describe())
     if table is None:
         table = load_table(cfg, device)
     return _predict_body(cfg, table, scorer, logger)

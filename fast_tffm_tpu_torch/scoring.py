@@ -8,7 +8,9 @@ the two cannot pair a batch with another score path. A raw-ids batch
 (``dedup = device``, and always in serving) has raw table rows in
 ``local_idx`` and the kernel reads them itself; a host-deduped batch
 (``dedup = host``) has its rows gathered first. ``raw`` says which
-batches the pipeline builds for this scorer.
+batches the pipeline builds for this scorer. The scorer owns the
+``WireEncoder`` (wire.py) every batch ships through: padded, or packed
+and rebuilt on the device by ``packed_score_body``.
 
 ``format_scores`` is the one ``%.6f``-per-line formatter: predict writes
 it to ``.score`` files and serving returns it as the response body, so
@@ -28,6 +30,7 @@ ROADMAP.md A10.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import queue
 import threading
 from typing import Callable, Iterable, List, Optional, Sequence
@@ -41,27 +44,59 @@ from fast_tffm_tpu_torch.data.pipeline import (DeviceBatch, FileMarks,
                                                gil_bound_iteration,
                                                prefetch)
 from fast_tffm_tpu_torch.metrics import sigmoid
-from fast_tffm_tpu_torch.models.fm import ModelSpec, score_body
+from fast_tffm_tpu_torch.models.fm import (ModelSpec, packed_score_body,
+                                           score_body)
 from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
+from fast_tffm_tpu_torch.wire import (NARROW_VALUE_DTYPE, WireEncoder,
+                                      resolve_wire)
 
 
 class CompiledScorer:
-    """Scores padded batches against a table on ``device``."""
+    """Scores batches against a table on ``device``. ``dedup``
+    overrides the config's resolution (the serving process forces
+    ``"device"``: raw-ids flushes); ``serve_ladder`` buckets packed flat
+    arrays to the serve ladder (``wire.rect_fraction_rungs``)."""
 
-    def __init__(self, cfg: FmConfig, device: torch.device):
-        self.spec = ModelSpec.from_config(cfg)
+    def __init__(self, cfg: FmConfig, device: torch.device,
+                 dedup: Optional[str] = None, serve_ladder: bool = False):
+        spec = ModelSpec.from_config(cfg)
+        if dedup is not None:
+            spec = dataclasses.replace(spec, dedup=dedup)
+        self.spec = spec
         self.device = torch.device(device)
         # Whether the pipeline builds raw-ids batches for this scorer.
         self.raw = self.spec.dedup == "device"
+        self.wire = resolve_wire(cfg)
+        self.encoder = WireEncoder(self.wire, pad_id=cfg.pad_id,
+                                   rect_fraction=serve_ladder)
 
     def score_batch(self, table: torch.Tensor,
                     batch: DeviceBatch) -> torch.Tensor:
         """Raw [B] scores, left on the device (callers fetch them)."""
-        idx = torch.from_numpy(batch.local_idx).to(self.device)
-        vals = torch.from_numpy(batch.vals).to(self.device)
-        uniq = (None if batch.uniq_ids is None
-                else torch.from_numpy(batch.uniq_ids).to(self.device))
-        return score_body(self.spec, table, idx, vals, uniq)
+        wb = self.encoder.encode_score(batch)
+        args = self.encoder.device_put(wb, self.device)
+        if wb.packed:
+            return packed_score_body(self.spec, wb.L, table, **args)
+        return score_body(self.spec, table, **args)
+
+    def score_packed_shape(self, table: torch.Tensor, B: int, L: int,
+                           P: int) -> torch.Tensor:
+        """Score an all-padding raw-ids batch at one (B, L, flat rung)
+        shape through the packed body: the serving warmup walks every
+        rung a flush can encode to (serve/server._warmup)."""
+        if not self.wire.packed or not self.raw:
+            raise ValueError("score_packed_shape warms the packed "
+                             "raw-ids scorer only")
+        vdt = NARROW_VALUE_DTYPE if self.wire.narrow else np.float32
+        arrays = {"lengths": np.zeros(B, dtype=np.int32),
+                  "flat_idx": np.full(P, self.spec.vocabulary_size,
+                                      dtype=np.int32),
+                  "flat_vals": np.zeros(P, dtype=vdt)}
+        if self.spec.model_type == "ffm":
+            arrays["flat_fields"] = np.zeros(P, dtype=np.int32)
+        args = {k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
+        return packed_score_body(self.spec, L, table, **args)
 
     def transform(self, raw: np.ndarray) -> np.ndarray:
         """What the score lines hold: sigmoid for logistic loss, the raw

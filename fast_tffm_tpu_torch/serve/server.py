@@ -16,8 +16,12 @@ same lines: the kernel's sum order does not depend on the padding.
 Startup loads the checkpoint step the ``published`` pointer names (or
 ``published-canary``, per ``serve_pointer``; ``fmckpt publish`` moves
 them) and scores one batch at every [B rung x L rung] shape
-(``_warmup``), so the kernel library is built and loaded, and the
-allocator warm, before the first request.
+(``_warmup``; with ``wire_format = packed`` also every flat rung of
+each shape, ``wire.flat_rungs``), so the kernel library is built and
+loaded, and the allocator warm, before the first request. A flush ships
+through the scorer's wire encoder with the serve ladder
+(``rect_fraction``): padded and packed-wide answers are equal to the
+bit. FFM requests carry their fields.
 
 Hot reload (serve/reload.py drives it): ``reload_step`` restores the
 named step through the verified-restore path (an explicit step is
@@ -54,7 +58,9 @@ from fast_tffm_tpu_torch.obs.registry import MetricsRegistry
 from fast_tffm_tpu_torch.scoring import CompiledScorer
 from fast_tffm_tpu_torch.serve.reload import ReloadWatcher
 from fast_tffm_tpu_torch.utils.device import resolve_device
+from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
+from fast_tffm_tpu_torch.wire import flat_rungs
 
 # Request-latency histogram bounds, in milliseconds (/healthz p50/p99).
 LATENCY_BUCKETS_MS = (0.25, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0,
@@ -137,11 +143,15 @@ def _concat_blocks(blocks: Sequence[ParsedBlock]) -> ParsedBlock:
     for b in blocks:
         poses.append(b.poses[1:] + base)
         base += int(b.poses[-1])
+    fields = None
+    if blocks[0].fields is not None:
+        fields = np.concatenate([b.fields for b in blocks])
     return ParsedBlock(
         labels=np.concatenate([b.labels for b in blocks]),
         poses=np.concatenate(poses).astype(np.int32),
         ids=np.concatenate([b.ids for b in blocks]),
-        vals=np.concatenate([b.vals for b in blocks]))
+        vals=np.concatenate([b.vals for b in blocks]),
+        fields=fields)
 
 
 class ScorerServer:
@@ -168,8 +178,11 @@ class ScorerServer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._logger = logger or get_logger(log_file=cfg.log_file or None)
+        log_ignored_keys(cfg, self._logger)
         self._reg = MetricsRegistry()
-        self._scorer = CompiledScorer(cfg, self.device)
+        # Raw-ids flushes (no U axis), flat arrays on the serve ladder.
+        self._scorer = CompiledScorer(cfg, self.device, dedup="device",
+                                      serve_ladder=True)
         self._b_ladder = batch_rung_ladder(cfg.serve_max_batch)
         self._l_rungs = tuple(
             b for b in cfg.bucket_ladder
@@ -215,10 +228,11 @@ class ScorerServer:
                 jitter=cfg.serve_poll_jitter, seed=cfg.serve_port).start()
         self._logger.info(
             "serving checkpoint step %d from %s on %s (%d batch x %d "
-            "width rungs warmed, max_batch=%d, max_wait=%.1fms)",
+            "width rungs warmed, max_batch=%d, max_wait=%.1fms, "
+            "wire=%s)",
             self._served_step, self.directory, self.device,
             len(self._b_ladder), len(self._l_rungs), cfg.serve_max_batch,
-            cfg.serve_max_wait_ms)
+            cfg.serve_max_wait_ms, self._scorer.wire.describe())
 
     # -- model load / hot reload ------------------------------------------
 
@@ -278,6 +292,8 @@ class ScorerServer:
         return parse_lines(
             lines, cfg.vocabulary_size,
             hash_feature_id=cfg.hash_feature_id,
+            field_aware=cfg.model_type == "ffm",
+            field_num=cfg.field_num,
             max_features_per_example=cfg.max_features_per_example,
             keep_empty=True)
 
@@ -406,7 +422,8 @@ class ScorerServer:
 
     def _warmup(self) -> None:
         """Score one all-real batch at every [B rung, L rung] shape a
-        flush can pad to, before the first request."""
+        flush can pad to, and, on the packed wire, every flat rung a
+        flush of that shape can encode to, before the first request."""
         cfg = self.cfg
         t0 = time.monotonic()
         for B in self._b_ladder:
@@ -416,13 +433,20 @@ class ScorerServer:
                     labels=np.zeros(1, dtype=np.float32),
                     poses=np.asarray([0, L], dtype=np.int32),
                     ids=ids.astype(np.int32),
-                    vals=np.ones(L, dtype=np.float32))
+                    vals=np.ones(L, dtype=np.float32),
+                    fields=(np.zeros(L, dtype=np.int32)
+                            if cfg.model_type == "ffm" else None))
                 batch = make_device_batch(block, cfg, batch_size=B)
                 self._scorer.score_batch(self._table, batch).cpu()
+                if self._scorer.wire.packed:
+                    for P in flat_rungs(B, L):
+                        self._scorer.score_packed_shape(
+                            self._table, B, L, P).cpu()
         self._logger.info(
-            "warmed %d serve shapes (B rungs %s x L rungs %s) in %.1fs",
-            len(self._b_ladder) * len(self._l_rungs), list(self._b_ladder),
-            list(self._l_rungs), time.monotonic() - t0)
+            "warmed %d serve shapes (B rungs %s x L rungs %s, wire %s) "
+            "in %.1fs", len(self._b_ladder) * len(self._l_rungs),
+            list(self._b_ladder), list(self._l_rungs),
+            self._scorer.wire.describe(), time.monotonic() - t0)
 
     def is_ready(self) -> bool:
         """Not mid-reload, not shutting down, admission queue below the
@@ -440,7 +464,8 @@ class ScorerServer:
             "alive": True,
             "ready": self.is_ready(),
             "device": str(self.device),
-            "kernel": resolved_kernel(self.device),
+            "kernel": resolved_kernel(self.device, self._scorer.spec),
+            "wire": self._scorer.wire.describe(),
             "reloading": self._reloading.is_set(),
             "served_step": self.served_step,
             "published_step": self._published_step,

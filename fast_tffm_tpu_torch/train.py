@@ -1,7 +1,7 @@
 """Training — the single-process, single-device subset of
 ``fast_tffm_tpu/train.py`` (``train`` → ``_train_session`` on one device,
-``lookup = device``, padded wire, ``vocab_mode = fixed``,
-``dedup = device``).
+``lookup = device``, ``vocab_mode = fixed``): FM of order 2 and higher,
+and field-aware FM.
 
     python -m fast_tffm_tpu_torch train <cfg> [--device cuda|cpu]
 
@@ -19,8 +19,12 @@ weight each example's loss and its validation AUC; a tolerant
 ``bad_line_policy`` skips or quarantines bad lines through one
 run-scoped ``BadLineTracker`` that every epoch's streams share, so its
 breaker and quarantine dedupe see the whole run. ``dedup = host``
-trains on the pipeline's host-deduped batches. SIGTERM/SIGINT stop the
-loop at the next step boundary; the cut
+trains on the pipeline's host-deduped batches. Every step's batch ships
+through one ``WireEncoder`` (wire.py; ``wire_format`` padded or packed,
+``wire_dtypes``), double-buffered on the card, and ``evaluate`` scores
+through a ``CompiledScorer``, which owns another; the run logs the wire
+mode and, at the end, the bytes shipped against the padded layout's.
+SIGTERM/SIGINT stop the loop at the next step boundary; the cut
 epoch does not count as completed. The final save (also the preemption
 save) waits until the step is durable; then the table is exported to
 ``<model_file>.npz`` in ``export_npz``'s layout, unless it is over 2 GiB.
@@ -30,8 +34,8 @@ device to log.
 
 Not ported yet, each refused with the ROADMAP.md item that brings it:
 multi-process and elastic training and the fixed unique bucket (A10);
-the stream run mode and its publishing (A13). The observability knobs
-are accepted and ignored (A11).
+the stream run mode and its publishing (A13). The observability keys
+are accepted, ignored and logged (utils/ignored.py: A11, A13).
 """
 
 from __future__ import annotations
@@ -51,14 +55,18 @@ from fast_tffm_tpu_torch.data.pipeline import (batch_iterator,
                                                prefetch)
 from fast_tffm_tpu_torch.metrics import StreamingAUC
 from fast_tffm_tpu_torch.models.convert import save_npz
-from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
-                                           init_accumulator, init_table,
-                                           score_body, train_step_body)
+from fast_tffm_tpu_torch.models.fm import (ModelSpec, init_accumulator,
+                                           init_table,
+                                           packed_train_step_body,
+                                           train_step_body)
+from fast_tffm_tpu_torch.scoring import CompiledScorer
 from fast_tffm_tpu_torch.utils.device import resolve_device
 from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
+from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy
 from fast_tffm_tpu_torch.utils.timing import StepTimer
+from fast_tffm_tpu_torch.wire import WireEncoder, resolve_wire
 
 # Above this, the dense .npz export is skipped (the JAX package's gate).
 EXPORT_NPZ_MAX_BYTES = 2 << 30
@@ -66,11 +74,6 @@ EXPORT_NPZ_MAX_BYTES = 2 << 30
 # Buffered loss scalars between fetches: a long epoch with a short
 # log_steps syncs once per this many log lines instead of never.
 LOG_BUFFER_MAX = 1024
-
-# Accepted and ignored until observability is ported (ROADMAP.md A11).
-_IGNORED_KNOBS = ("metrics_file", "trace_spans", "save_summaries_steps",
-                  "profile_dir", "watchdog_stall_seconds",
-                  "mem_pressure_fraction")
 
 
 def check_train_supported(cfg: FmConfig) -> None:
@@ -137,10 +140,11 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
     """Streamed AUC over ``files``: (auc, n_examples). ``weight_files``
     (sidecars parallel to ``files``) weight each example's AUC
     contribution as training weights its loss. ``bad_lines``: the run's
-    tracker, so a bad line met every epoch is quarantined once. Scores
-    stay on the device and are fetched in chunks, behind the scoring
-    (utils/fetch.py)."""
-    spec = ModelSpec.from_config(cfg)
+    tracker, so a bad line met every epoch is quarantined once. Batches
+    score through a ``CompiledScorer`` (its wire encoder, as predict's);
+    scores stay on the device and are fetched in chunks, behind the
+    scoring (utils/fetch.py)."""
+    scorer = CompiledScorer(cfg, table.device)
     auc = StreamingAUC()
     n = 0
     n_batches = 0
@@ -155,13 +159,11 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
             for batch in prefetch(
                     batch_iterator(cfg, files, training=False, epochs=1,
                                    weight_files=weight_files,
-                                   raw_ids=spec.dedup == "device",
+                                   raw_ids=scorer.raw,
                                    bad_lines=bad_lines),
                     depth=cfg.prefetch_depth,
                     gil_bound=gil_bound_iteration(cfg, weight_files)):
-                args = batch_args(batch, table.device)
-                fetcher.add(score_body(spec, table, args["local_idx"],
-                                       args["vals"], args.get("uniq_ids")),
+                fetcher.add(scorer.score_batch(table, batch),
                             (batch.labels, batch.num_real, batch.weights))
                 n += batch.num_real
                 n_batches += 1
@@ -187,13 +189,12 @@ def train(cfg: FmConfig, device=None,
     spec = ModelSpec.from_config(cfg)  # refuses unported model values
     check_train_supported(cfg)
     logger = get_logger(log_file=cfg.log_file or None)
-    defaults = FmConfig()
-    for knob in _IGNORED_KNOBS:
-        if getattr(cfg, knob) != getattr(defaults, knob):
-            logger.info(
-                "%s = %r is accepted and ignored: observability is not "
-                "ported to fast_tffm_tpu_torch yet (ROADMAP.md, queue A, "
-                "item A11)", knob, getattr(cfg, knob))
+    log_ignored_keys(cfg, logger)
+    wire = resolve_wire(cfg, train=True)
+    encoder = WireEncoder(wire, pad_id=cfg.pad_id)
+    logger.info("wire format: %s%s", wire.describe(),
+                " (flat CSR, unpacked on the device)" if wire.packed
+                else "")
     host_workers = host_parallel_workers(cfg, cfg.weight_files)
     if host_workers > 1:
         logger.info(
@@ -238,6 +239,7 @@ def train(cfg: FmConfig, device=None,
                 pass
 
         timer = StepTimer()
+        h2d_bytes = logical_bytes = 0
         loss = None
         loss_val = float("nan")
         log_buffer: list = []  # (step, epoch, loss on the device, ex/s)
@@ -273,8 +275,16 @@ def train(cfg: FmConfig, device=None,
                         logger.info(
                             "preemption signalled; saving and exiting")
                         break
-                    table, acc, loss, _ = train_step_body(
-                        spec, table, acc, **batch_args(batch, device))
+                    wb = encoder.encode_train(batch)
+                    args = encoder.device_put(wb, device)
+                    if wb.packed:
+                        table, acc, loss, _ = packed_train_step_body(
+                            spec, wb.L, table, acc, **args)
+                    else:
+                        table, acc, loss, _ = train_step_body(
+                            spec, table, acc, **args)
+                    h2d_bytes += wb.wire_bytes
+                    logical_bytes += wb.logical_bytes
                     global_step += 1
                     timer.tick(batch.num_real)
                     if cfg.log_steps and global_step % cfg.log_steps == 0:
@@ -333,6 +343,9 @@ def train(cfg: FmConfig, device=None,
                 cfg.model_file)
         else:
             save_npz(table, cfg.model_file + ".npz", cfg)
+        logger.info("wire %s: h2d_bytes = %d over %d steps, against %d "
+                    "in the padded layout", wire.describe(), h2d_bytes,
+                    global_step - restored_step, logical_bytes)
         logger.info("training done: %d steps, final loss %.6f, %.0f "
                     "examples/sec", global_step, loss_val,
                     timer.total_examples_per_sec)

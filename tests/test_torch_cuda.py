@@ -30,6 +30,15 @@ Tolerances:
   at once) and restored is equal to the bit; under concurrent flushes on
   the card a hot reload tags each response with a step, and its scores
   equal, to the bit, that step's table scored alone.
+- FFM and order-3 FM (torch ops on the card): scores at rtol 1e-5 /
+  atol 1e-6 and three train steps at rtol 1e-4 / atol 1e-6 against the
+  CPU, for both dedup modes.
+- the packed wire: packed-wide scores on the card equal to the padded
+  wire's to the bit (order 2 through the kernel, FFM, order 3); a
+  packed-wide train step against the padded step on the card at the
+  step's rtol 1e-4 / atol 1e-6 (the backward's atomics); the
+  double-buffered copy delivers every batch intact though the host
+  overwrites its arrays as soon as ``device_put`` returns.
 """
 
 import numpy as np
@@ -471,3 +480,118 @@ def test_predict_sweep_on_card_equals_cpu(card, tmp_path):
         out[str(dev)] = [pathlib.Path(p).read_text() for p in written]
     assert out[str(card)] == out["cpu"]
     assert out["cpu"][1] == "" and len(out["cpu"][2].splitlines()) == 257
+
+
+def _model_batch(model, dedup, seed=17, B=256):
+    """A config and a batch for ``model`` ("fm", "ffm" or "order3")."""
+    from fast_tffm_tpu_torch.data.parser import ParsedBlock
+    from fast_tffm_tpu_torch.data.pipeline import make_device_batch
+    kw = {"fm": dict(factor_num=16), "ffm": dict(model_type="ffm",
+                                                 field_num=8, factor_num=4),
+          "order3": dict(order=3, factor_num=8)}[model]
+    cfg = FmConfig(vocabulary_size=3000, batch_size=B, learning_rate=0.1,
+                   dedup=dedup, bucket_ladder=(8, 16, 32), **kw)
+    rng = np.random.default_rng(seed)
+    n = B - 7
+    sizes = rng.integers(1, 30, size=n)
+    nnz = int(sizes.sum())
+    block = ParsedBlock(
+        labels=(rng.random(n) < 0.3).astype(np.float32),
+        poses=np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
+        ids=(rng.zipf(1.3, size=nnz) % 3000).astype(np.int32),
+        vals=rng.random(nnz).astype(np.float32),
+        fields=(rng.integers(0, 8, nnz).astype(np.int32)
+                if model == "ffm" else None))
+    batch = make_device_batch(block, cfg, raw_ids=dedup == "device")
+    table = rng.uniform(-0.1, 0.1, (cfg.num_rows, cfg.row_dim)
+                        ).astype(np.float32)
+    table[-1] = 0.0
+    return cfg, batch, table
+
+
+@pytest.mark.parametrize("dedup", ["device", "host"])
+@pytest.mark.parametrize("model", ["ffm", "order3"])
+def test_ffm_and_order3_on_card_match_cpu(card, model, dedup):
+    cfg, batch, table = _model_batch(model, dedup)
+    spec = port_fm.ModelSpec.from_config(cfg)
+    out = {}
+    for dev in ("cpu", card):
+        t = torch.from_numpy(table.copy()).to(dev)
+        a = torch.full_like(t, cfg.adagrad_init)
+        args = port_fm.batch_args(batch, torch.device(dev))
+        sargs = {k: v for k, v in args.items()
+                 if k not in ("labels", "weights")}
+        before = fm_kernel.launches
+        scores0 = port_fm.score_body(spec, t, **sargs)
+        for _ in range(3):
+            t, a, loss, scores = port_fm.train_step_body(spec, t, a, **args)
+        assert fm_kernel.launches == before   # no order-2 kernel
+        out[str(dev)] = [x.cpu().numpy()
+                         for x in (scores0, t, a, loss, scores)]
+    got, want = out[str(card)], out["cpu"]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["fm", "ffm", "order3"])
+def test_packed_wide_scores_on_card_equal_padded(card, model):
+    import dataclasses
+    from fast_tffm_tpu_torch.scoring import CompiledScorer
+    cfg, batch, table = _model_batch(model, "device", seed=18)
+    t = torch.from_numpy(table).to(card)
+    got = {}
+    for fmt in ("padded", "packed"):
+        scorer = CompiledScorer(dataclasses.replace(cfg, wire_format=fmt),
+                                card)
+        assert scorer.wire.packed == (fmt == "packed")
+        before = fm_kernel.launches
+        got[fmt] = scorer.score_batch(t, batch).cpu()
+        assert fm_kernel.launches == before + (model == "fm")
+    assert torch.equal(got["padded"], got["packed"])
+
+
+@pytest.mark.parametrize("dedup", ["device", "host"])
+def test_packed_wide_train_step_on_card(card, dedup):
+    from fast_tffm_tpu_torch.wire import WireEncoder, WireSpec
+    cfg, batch, table = _model_batch("fm", dedup, seed=19)
+    spec = port_fm.ModelSpec.from_config(cfg)
+    enc = WireEncoder(WireSpec("packed", "wide"), cfg.pad_id)
+    out = []
+    for packed in (False, True):
+        t = torch.from_numpy(table.copy()).to(card)
+        a = torch.full_like(t, cfg.adagrad_init)
+        before = fm_kernel.bwd_launches
+        for _ in range(3):
+            if packed:
+                wb = enc.encode_train(batch)
+                t, a, loss, scores = port_fm.packed_train_step_body(
+                    spec, wb.L, t, a, **enc.device_put(wb, card))
+            else:
+                t, a, loss, scores = port_fm.train_step_body(
+                    spec, t, a, **port_fm.batch_args(batch, card))
+        assert fm_kernel.bwd_launches == before + 3
+        out.append([x.cpu().numpy() for x in (t, a, loss, scores)])
+    for g, w in zip(out[1], out[0]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+def test_double_buffered_copy_survives_host_reuse(card):
+    from fast_tffm_tpu_torch.wire import WireEncoder, WireSpec
+    cfg, batch, _ = _model_batch("ffm", "host", seed=20)
+    for spec in (WireSpec(), WireSpec("packed", "wide")):
+        enc = WireEncoder(spec, cfg.pad_id)
+        wb = enc.encode_train(batch)
+        want = {k: v.clone() for k, v in wb.args.items()}
+        placed = []
+        for _ in range(40):
+            placed.append(enc.device_put(wb, card))
+            for v in wb.args.values():   # the host writes its buffers
+                v.fill_(7)
+            for k, v in wb.args.items():
+                v.copy_(want[k])
+        torch.cuda.synchronize()
+        for got in placed:
+            assert sorted(got) == sorted(want)
+            for k, v in got.items():
+                assert v.is_cuda and torch.equal(v.cpu(), want[k]), k

@@ -1,0 +1,117 @@
+"""Config keys the port accepts and ignores (utils/ignored.py): each entry
+point — ``train``, ``predict``, ``serve`` — logs every such key set away
+from its default, naming the ROADMAP.md item that brings it, and the
+keys it refuses still raise."""
+
+import dataclasses
+import logging
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
+from fast_tffm_tpu_torch.predict import predict
+from fast_tffm_tpu_torch.serve.server import ScorerServer
+from fast_tffm_tpu_torch.tools import fmckpt
+from fast_tffm_tpu_torch.train import train
+from fast_tffm_tpu_torch.utils.ignored import (IGNORED_KEYS,
+                                               ignored_keys_set)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Set away from the default: one observability key (A11) and the
+# stream publish gate's SLO key (A13).
+SET = dict(anatomy=False, metrics_file="auto", slo_min_auc=0.6)
+
+
+@pytest.fixture
+def port_log(caplog):
+    """The port's logger does not propagate: hand caplog's handler to
+    it for the test."""
+    lg = logging.getLogger("fast_tffm_tpu_torch")
+    lg.addHandler(caplog.handler)
+    caplog.set_level(logging.INFO, logger="fast_tffm_tpu_torch")
+    try:
+        yield caplog
+    finally:
+        lg.removeHandler(caplog.handler)
+        for h in [h for h in lg.handlers
+                  if isinstance(h, logging.FileHandler)]:
+            lg.removeHandler(h)
+            h.close()
+
+
+def _assert_logged(caplog):
+    text = caplog.text
+    assert ("anatomy = False is accepted and ignored: observability is "
+            "not ported") in text
+    assert "metrics_file = 'auto' is accepted and ignored" in text
+    assert "slo_min_auc = 0.6 is accepted and ignored" in text
+    assert text.count("(ROADMAP.md, queue A, item A11)") == 2
+    assert text.count("(ROADMAP.md, queue A, item A13)") == 1
+
+
+def _cfg(wd, **kw):
+    return FmConfig(
+        vocabulary_size=200, factor_num=4, batch_size=32, epoch_num=1,
+        train_files=(os.path.join(REPO, "data", "sample_train.txt"),),
+        predict_files=(os.path.join(REPO, "data", "sample_test.txt"),),
+        model_file=os.path.join(wd, "model", "fm"),
+        score_path=os.path.join(wd, "score"), serve_max_batch=8, **kw)
+
+
+def _published(wd, **kw):
+    cfg = _cfg(wd, **kw)
+    table = np.random.default_rng(0).uniform(
+        -0.1, 0.1, (cfg.vocabulary_size, cfg.row_dim)).astype(np.float32)
+    save_checkpoint_from_numpy(cfg, table, None, 2)
+    assert fmckpt.main(["publish", cfg.model_file, "2"]) == 0
+    return cfg
+
+
+@pytest.mark.parametrize("key,item,what", IGNORED_KEYS)
+def test_every_ignored_key_is_a_config_key(key, item, what):
+    defaults = FmConfig()
+    assert hasattr(defaults, key) and item in ("A11", "A13") and what
+    assert ignored_keys_set(defaults) == []
+
+
+def test_ignored_keys_set_lists_keys_away_from_default():
+    got = ignored_keys_set(FmConfig(**SET))
+    assert [(k, v, item) for k, v, item, _ in got] == [
+        ("metrics_file", "auto", "A11"), ("anatomy", False, "A11"),
+        ("slo_min_auc", 0.6, "A13")]
+
+
+def test_train_logs_ignored_keys(tmp_path, port_log):
+    train(_cfg(str(tmp_path), **SET), device="cpu")
+    _assert_logged(port_log)
+    with pytest.raises(NotImplementedError, match="item A10"):
+        train(_cfg(str(tmp_path), elastic="shrink", **SET), device="cpu")
+
+
+def test_predict_logs_ignored_keys(tmp_path, port_log):
+    cfg = _published(str(tmp_path), **SET)
+    (path,) = predict(cfg, device="cpu")
+    assert os.path.getsize(path) > 0
+    _assert_logged(port_log)
+    with pytest.raises(NotImplementedError, match="item A7"):
+        predict(dataclasses.replace(cfg, lookup="host"), device="cpu")
+
+
+def test_serve_logs_ignored_keys(tmp_path, port_log):
+    cfg = _published(str(tmp_path), **SET)
+    server = ScorerServer(cfg, device="cpu", watch=False)
+    try:
+        assert len(server.score_lines(["1 3:1 5:0.5"], timeout=30).scores) \
+            == 1
+    finally:
+        server.close()
+    _assert_logged(port_log)
+    with pytest.raises(NotImplementedError, match="item A9"):
+        ScorerServer(dataclasses.replace(cfg, serve_reload_mode="external"),
+                     device="cpu", watch=False)

@@ -68,7 +68,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.data.pipeline",
                  "fast_tffm_tpu_torch.utils.fetch",
                  "fast_tffm_tpu_torch.scoring",
-                 "fast_tffm_tpu_torch.predict"):
+                 "fast_tffm_tpu_torch.predict",
+                 "fast_tffm_tpu_torch.wire",
+                 "fast_tffm_tpu_torch.utils.ignored"):
         assert name in out["imported"]
 
 

@@ -220,11 +220,8 @@ def test_entry_points_raise_without_a_card(slice_run):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(model_type="ffm", field_num=2), "A6"),
-    (dict(order=3), "A6"),
     (dict(vocab_mode="admit"), "A8"),
     (dict(lookup="host"), "A7"),
-    (dict(wire_format="packed"), "A5"),
     (dict(serve_replicas=2, serve_port=7070), "A9"),
 ])
 def test_unported_config_values_raise(slice_run, change, item):

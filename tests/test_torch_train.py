@@ -367,7 +367,6 @@ def test_train_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     ("[Train]\nuniq_bucket = 1024\n", "A10"),
     ("[General]\nlookup = host\n", "A7"),
     ("[Train]\npublish_interval_seconds = 5\n", "A13"),
-    ("[Train]\nwire_format = packed\n", "A5"),
 ])
 def test_unported_keys_raise(tmp_path, extra, item):
     path = os.path.join(str(tmp_path), "sample.cfg")
