@@ -10,7 +10,7 @@ BASELINE config #2's model: 2nd-order FM, factor_num = 16, hashed ids,
 vocabulary 2^24, a [2^24+1, 17] f32 table (1.14 GB) — over
 Criteo-shaped lines it generates itself; then, on the same lines,
 config #3's FFM and config #4's order-3 FM, and config #2's model again
-on the packed wire:
+on the packed wire, and config #2's model in the stream run mode:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: both kernel libraries, one nvcc each, and the C++ parser
@@ -93,7 +93,28 @@ on the packed wire:
    1e-4, and neither launches a hand-written kernel (torch ops, as XLA
    ran them in the JAX package); each with its resident step time and
    device ms by op;
-12. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+12. the stream run mode (config #2's model): a writer thread appends the
+   train lines as 4 shards of 32,768 lines (3 appends each, cut in the
+   middle of a line, then ``<shard>.done``); ``python -m
+   fast_tffm_tpu_torch train`` in a subprocess (``run_mode = stream``,
+   publishes every 2 s through a gate at the train phase's AUC floor,
+   no periodic saves) steps shards 1-2 and takes a SIGTERM once the
+   ``published`` pointer names step 8, which must save step 8's
+   watermark and exit 0; the same command again must restore step 8,
+   resume from its watermark, step shards 3-4 and end at step 16 on
+   ``STOP``, the two runs stepping 131,072 examples in all. A
+   ScorerServer (hot reload by poll) on the model directory answers
+   client threads throughout: every ``X-FM-Step`` a step the trainer
+   published, at least two swaps, and bodies for the validation lines
+   equal to predict of the final published step byte for byte. A
+   control run in process (the port's StreamSource over the finished
+   directory through train_step_body, no saves) must match step 16's
+   table and accumulator at rtol 1e-4 / atol 1e-6 and its watermark
+   exactly. Its line: the loop's rate, each publish's sweep, save,
+   verify and flip seconds, freshness (a shard's ``.done`` to the first
+   published step holding it), resume seconds, the server's swaps and
+   p99, and the kernels' launches;
+13. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
 train loop (the snapshot), the final save with ``wait``, the background
@@ -1803,6 +1824,489 @@ def wire_bytes_rows(torch, cfg, device):
     return out
 
 
+STREAM_SHARDS = 4                 # of TRAIN_LINES / 4 lines: 4 batches each
+STREAM_APPENDS = 3                # each shard written in 3 appends
+STREAM_POLL_SECONDS = 0.5
+STREAM_PUBLISH_SECONDS = 2
+STREAM_CLIENTS = 4
+STREAM_RUN_TIMEOUT = 420          # seconds for one train command
+# The train command in a subprocess (so that SIGTERM is real): the entry
+# point ``python -m fast_tffm_tpu_torch train`` calls, with the
+# checkpoint and publish calls timed and the kernels' launch counts
+# written to a JSON file when it returns.
+STREAM_TRAIN = r"""
+import json, sys, time
+from fast_tffm_tpu_torch import checkpoint as ck
+from fast_tffm_tpu_torch import train as tr
+from fast_tffm_tpu_torch import wire
+from fast_tffm_tpu_torch.__main__ import main
+from fast_tffm_tpu_torch.ops import fm_kernel
+out_path, argv = sys.argv[1], sys.argv[2:]
+rec = {"saves": [], "verifies": [], "flips": [], "sweeps": [],
+       "restore_start": None, "first_step": None, "last_step": None,
+       "stepped_examples": 0}
+
+
+def timed(store, fn, **fields):
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        t1 = time.perf_counter()
+        store.append({"seconds": t1 - t0, "end": t1,
+                      **{k: f(args, kwargs, out)
+                         for k, f in fields.items()}})
+        return out
+    return wrapper
+
+
+save, restore, body = (ck.CheckpointState.save, ck.CheckpointState.restore,
+                       tr.train_step_body)
+ck.CheckpointState.save = timed(
+    rec["saves"], save, step=lambda a, k, o: int(a[1]),
+    wait=lambda a, k, o: bool(k.get("wait")))
+ck.verify_step_dir = timed(rec["verifies"], ck.verify_step_dir,
+                           step=lambda a, k, o: int(a[1]))
+ck.write_published = timed(
+    rec["flips"], ck.write_published, step=lambda a, k, o: int(a[1]),
+    t=lambda a, k, o: time.time(),
+    watermark=lambda a, k, o: ck.read_watermark(a[0], int(a[1])))
+tr.evaluate = timed(rec["sweeps"], tr.evaluate,
+                    auc=lambda a, k, o: o[0])
+
+
+def timed_restore(self, *args, **kwargs):
+    rec["restore_start"] = time.perf_counter()
+    return restore(self, *args, **kwargs)
+
+
+def timed_body(*args, **kwargs):
+    now = time.perf_counter()
+    rec["first_step"] = rec["first_step"] or now
+    rec["last_step"] = now
+    return body(*args, **kwargs)
+
+
+encode = wire.WireEncoder.encode_train
+
+
+def counted_encode(self, batch):
+    rec["stepped_examples"] += int(batch.num_real)
+    return encode(self, batch)
+
+
+ck.CheckpointState.restore = timed_restore
+tr.train_step_body = timed_body
+wire.WireEncoder.encode_train = counted_encode
+rc = main(argv)
+rec.update(rc=rc, fm_score_launches=fm_kernel.launches,
+           fm_score_bwd_launches=fm_kernel.bwd_launches)
+with open(out_path, "w") as fh:
+    json.dump(rec, fh)
+sys.exit(rc)
+"""
+
+
+def write_stream_cfg(wd, data_wd, auc_floor):
+    path = os.path.join(wd, "stream.cfg")
+    with open(path, "w") as fh:
+        fh.write(f"""[General]
+vocabulary_size = {VOCAB}
+hash_feature_id = True
+factor_num = {FACTORS}
+model_file = {os.path.join(wd, 'model', 'fm_model')}
+log_file = {os.path.join(wd, 'stream.log')}
+
+[Train]
+run_mode = stream
+stream_dir = {os.path.join(wd, 'stream')}
+stream_poll_seconds = {STREAM_POLL_SECONDS}
+publish_interval_seconds = {STREAM_PUBLISH_SECONDS}
+publish_min_auc = {auc_floor!r}
+validation_files = {os.path.join(data_wd, 'val.txt')}
+batch_size = {TRAIN_BATCH}
+learning_rate = {TRAIN_LR}
+loss_type = logistic
+log_steps = 1
+save_steps = 0
+
+[Predict]
+predict_files = {os.path.join(data_wd, 'val.txt')}
+score_path = {os.path.join(wd, 'score')}
+
+[Serve]
+serve_port = 0
+serve_max_batch = {SERVE_MAX_BATCH}
+serve_max_wait_ms = 2
+serve_poll_seconds = {RELOAD_POLL_SECONDS}
+""")
+    return path
+
+
+def write_shard(sd, k, lines, done_times):
+    """Shard ``k`` in STREAM_APPENDS appends, every cut but the last in
+    the middle of a line, then its ``.done`` marker (its wall time kept
+    in ``done_times``)."""
+    text = ("\n".join(lines) + "\n").encode()
+    cuts = [len(text) * i // STREAM_APPENDS
+            for i in range(1, STREAM_APPENDS)]
+    cuts = [c + 1 if text[c - 1:c] == b"\n" else c for c in cuts]
+    path = os.path.join(sd, f"part-{k:05d}")
+    for lo, hi in zip([0] + cuts, cuts + [len(text)]):
+        with open(path, "ab") as fh:
+            fh.write(text[lo:hi])
+        time.sleep(0.2)
+    open(path + ".done", "w").close()
+    done_times[path] = time.time()
+
+
+def start_stream_train(wd, cfg_path, run):
+    out = open(os.path.join(wd, f"run{run}.out"), "w")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", STREAM_TRAIN,
+         os.path.join(wd, f"run{run}.json"), "train", cfg_path],
+        cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def wait_until(cond, what, proc=None, timeout=STREAM_RUN_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(proc is None or proc.poll() is None,
+              f"the stream trainer exited before {what}")
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def stream_phase(torch, device, card, data, train_row):
+    """``run_mode = stream`` at config #2's width: a writer appends the
+    train lines as 4 shards (each in 3 appends cut mid-line, then
+    ``.done``); run 1 of ``python -m fast_tffm_tpu_torch train
+    stream.cfg`` (a subprocess) steps shards 1-2 and publishes through the
+    gate (publish_min_auc = the train phase's AUC floor) until the
+    ``published`` pointer names step 8, then takes a SIGTERM; run 2
+    restores step 8 and its watermark and steps shards 3-4 to ``STOP``.
+    A ScorerServer on the model directory answers requests throughout.
+    Then a control run in process: the port's StreamSource over the
+    finished directory through train_step_body from the same table."""
+    import dataclasses
+    import re
+    import signal
+    import numpy as np
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data import stream as sl
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.predict import predict
+    from fast_tffm_tpu_torch.serve.frontend import make_http_server
+    from fast_tffm_tpu_torch.serve.server import ScorerServer
+    data_wd, val_lines = data[0], data[1]
+    wd = os.path.join(WORK, "stream_phase")
+    sd = os.path.join(wd, "stream")
+    os.makedirs(sd)
+    cfg_path = write_stream_cfg(wd, data_wd, train_row["auc_floor"])
+    cfg = load_config(cfg_path)
+    directory = cfg.model_file + ".ckpt"
+    with open(os.path.join(data_wd, "train.txt")) as fh:
+        lines = fh.read().splitlines()
+    per = len(lines) // STREAM_SHARDS
+    steps_per_shard = per // TRAIN_BATCH
+    shards = [lines[k * per:(k + 1) * per] for k in range(STREAM_SHARDS)]
+    del lines
+    done_times, writer_errors = {}, []
+
+    def log_has(text):
+        try:
+            with open(cfg.log_file) as fh:
+                return text in fh.read()
+        except OSError:
+            return False
+
+    def writer(first, then_stop):
+        """Shards ``first`` and ``first + 1``; the second once a publish
+        has evaluated the first's last step, so that publishes land
+        while the stream flows."""
+        try:
+            write_shard(sd, first, shards[first], done_times)
+            wait_until(lambda: log_has(
+                "publish quality eval at step "
+                f"{(first + 1) * steps_per_shard}:"),
+                f"a publish sweep after shard {first + 1}")
+            write_shard(sd, first + 1, shards[first + 1], done_times)
+            if then_stop:
+                open(os.path.join(sd, "STOP"), "w").close()
+        except Exception as e:  # noqa: BLE001 - reported by a check
+            writer_errors.append(repr(e))
+
+    fm_kernel.launches = 0
+    fm_kernel.bwd_launches = 0
+    server = httpd = http_thread = None
+    stop_clients = threading.Event()
+    results, lock, failures, clients = [], threading.Lock(), [], []
+
+    def client(k):
+        rng = np.random.default_rng(SEED + 40 + k)
+        try:
+            while not stop_clients.is_set():
+                n = int(rng.integers(1, SERVE_MAX_BATCH + 1))
+                lo = int(rng.integers(0, len(val_lines) - n + 1))
+                t0 = time.perf_counter()
+                status, body, step = post(
+                    port, "\n".join(val_lines[lo:lo + n]) + "\n")
+                with lock:
+                    results.append((lo, n, status, body, step,
+                                    time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 - reported by a check
+            failures.append(repr(e))
+
+    runs, t_phase = [], time.perf_counter()
+    try:
+        # Run 1: shards 1-2, published through the gate, then SIGTERM.
+        proc, out = start_stream_train(wd, cfg_path, 1)
+        try:
+            w = threading.Thread(target=writer, args=(0, False))
+            w.start()
+            wait_until(lambda: ck.read_published(directory) is not None,
+                       "the first publish", proc)
+            server = ScorerServer(dataclasses.replace(
+                cfg, log_file=os.path.join(wd, "serve.log")), device=device)
+            httpd = make_http_server(server, 0)
+            http_thread = threading.Thread(target=httpd.serve_forever,
+                                           name="smoke-http", daemon=True)
+            http_thread.start()
+            port = httpd.server_address[1]
+            clients = [threading.Thread(target=client, args=(k,))
+                       for k in range(STREAM_CLIENTS)]
+            for th in clients:
+                th.start()
+            w.join()
+            run1_steps = 2 * steps_per_shard
+            wait_until(lambda: ck.read_published(directory) == run1_steps,
+                       f"a publish of step {run1_steps}", proc)
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=STREAM_RUN_TIMEOUT)
+            runs.append({"rc": rc, "sigterm_to_exit_seconds":
+                         time.perf_counter() - t_term})
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        check(runs[0]["rc"] == 0, f"stream run 1 exited {runs[0]['rc']}")
+        with open(cfg.log_file) as fh:
+            log1 = fh.read()
+        check("preemption signalled; saving the stream position and "
+              "exiting" in log1, "run 1 did not log the preemption")
+        wm8 = ck.read_watermark(directory, run1_steps)
+        check(wm8 is not None and sum(f["lines"] for f in wm8["files"])
+              == 2 * per, f"watermark-{run1_steps}.json: {wm8}")
+
+        # Run 2: shards 3-4 and STOP; restores step 8 and its watermark.
+        proc, out = start_stream_train(wd, cfg_path, 2)
+        try:
+            w = threading.Thread(target=writer, args=(2, True))
+            w.start()
+            rc = proc.wait(timeout=STREAM_RUN_TIMEOUT)
+            runs.append({"rc": rc})
+            w.join()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        check(runs[1]["rc"] == 0, f"stream run 2 exited {runs[1]['rc']}")
+        check(not writer_errors, f"the writer failed: {writer_errors}")
+        final_steps = STREAM_SHARDS * steps_per_shard
+        wait_until(lambda: server.served_step == final_steps,
+                   f"the server's swap to step {final_steps}",
+                   timeout=120)
+        time.sleep(4 * RELOAD_POLL_SECONDS)
+        stop_clients.set()
+        for th in clients:
+            th.join(timeout=300)
+            check(not th.is_alive(), "a stream serve client hung")
+        # The final published step's predict lines, against the server's
+        # bodies for the validation lines.
+        pred_cfg = dataclasses.replace(
+            cfg, log_file=os.path.join(wd, "predict.log"))
+        predict(pred_cfg, device=device)
+        with open(os.path.join(cfg.score_path, "val.txt.score")) as fh:
+            expected = fh.read().splitlines(keepends=True)
+        final_bodies_equal = True
+        for lo in range(0, len(val_lines), SERVE_MAX_BATCH):
+            status, body, step = post(port, "\n".join(
+                val_lines[lo:lo + SERVE_MAX_BATCH]) + "\n")
+            final_bodies_equal &= (status == 200 and step == str(final_steps)
+                                   and body == "".join(
+                                       expected[lo:lo + SERVE_MAX_BATCH]
+                                       ).encode())
+        health = healthz(port)
+    finally:
+        stop_clients.set()
+        if httpd is not None:
+            httpd.shutdown()
+            http_thread.join(timeout=60)
+            httpd.server_close()
+        if server is not None:
+            server.close()
+    serve_launches = fm_kernel.launches
+    phase_s = time.perf_counter() - t_phase
+    with open(cfg.log_file) as fh:
+        log = fh.read()
+    recs = []
+    for run in (1, 2):
+        with open(os.path.join(wd, f"run{run}.json")) as fh:
+            recs.append(json.load(fh))
+    check("restored checkpoint at step 8" in log,
+          "run 2 did not restore step 8")
+    done = [int(n) for n in re.findall(r"training done: (\d+) steps", log)]
+    check(done == [run1_steps, final_steps],
+          f"the stream runs ended at steps {done}")
+    stepped = [r["stepped_examples"] for r in recs]
+    check(sum(stepped) == STREAM_SHARDS * per,
+          f"the two runs stepped {stepped} examples, not "
+          f"{STREAM_SHARDS * per} in all")
+    published = [int(n) for n in re.findall(
+        r"published checkpoint step (\d+) \(size-verified\)", log)]
+    check(published and published[-1] == final_steps
+          and ck.read_published(directory) == final_steps,
+          f"published steps {published}")
+    check(not failures, f"stream serve clients failed: {failures[:3]}")
+    by_step = {}
+    for lo, n, status, body, step, _ in results:
+        check(status == 200, f"stream serve answered {status}: "
+                             f"{body[:200]}")
+        check(int(step) in published,
+              f"X-FM-Step {step} is not a step the trainer published "
+              f"({published})")
+        if int(step) == final_steps:
+            check(body == "".join(expected[lo:lo + n]).encode(),
+                  f"body for lines [{lo}, {lo + n}) differs from step "
+                  f"{final_steps}'s predict lines")
+        by_step[step] = by_step.get(step, 0) + 1
+    check(final_bodies_equal, "the server's bodies for the validation "
+          "lines differ from predict of the final published step")
+    check(health["reloads"] >= 2, f"the server swapped "
+          f"{health['reloads']} times: {health}")
+    launches = {k: sum(r[k] for r in recs)
+                for k in ("fm_score_launches", "fm_score_bwd_launches")}
+    check(all(r["fm_score_launches"] > 0 and r["fm_score_bwd_launches"] > 0
+              for r in recs), f"stream kernel launches: {recs}")
+    check(launches["fm_score_bwd_launches"] == final_steps,
+          f"fm_score_bwd launched {launches} for {final_steps} steps")
+    check(serve_launches > 0, "the stream server never launched fm_score")
+
+    # The control run: the same batches through train_step_body.
+    from fast_tffm_tpu_torch.models.fm import batch_args
+    spec = port_fm.ModelSpec.from_config(cfg)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    table = port_fm.init_table(cfg, device, gen)
+    acc = port_fm.init_accumulator(cfg, device)
+    src = sl.StreamSource(cfg, sl.StreamTracker(
+        sd, cfg.stream_poll_seconds, cfg.seal_policy), raw_ids=True,
+        workers=sl.stream_workers(cfg))
+    n_control, last_pos = 0, None
+    t0 = time.perf_counter()
+    try:
+        while True:
+            b = src.next_batch(block=True)
+            if b is sl.DONE:
+                break
+            table, acc, _, _ = port_fm.train_step_body(
+                spec, table, acc, **batch_args(b, device))
+            n_control += 1
+            last_pos = b.stream_pos
+    finally:
+        src.close()
+    torch.cuda.synchronize()
+    control_s = time.perf_counter() - t0
+    check(n_control == final_steps, f"the control run took {n_control} "
+                                    "steps")
+    restored = ck.CheckpointState(cfg.model_file).restore(
+        step=final_steps)
+    errs = {}
+    for name, want in (("table", table), ("acc", acc)):
+        got = restored[name].to(device)
+        diff = (got - want).abs()
+        errs[name] = float(diff.max())
+        check(bool((diff <= 1e-6 + 1e-4 * want.abs()).all()),
+              f"step {final_steps}'s {name} differs from the control run "
+              f"by up to {errs[name]}")
+        del got, diff
+    wm16 = ck.read_watermark(directory, final_steps)
+    check(wm16 == last_pos, "watermark-16.json differs from the control "
+                            "source's final snapshot")
+    del table, acc, restored
+    torch.cuda.empty_cache()
+
+    rates = [float(r) for r in re.findall(
+        r"step \d+ epoch 0 loss [0-9.]+ examples/sec ([0-9.]+)", log)]
+    def last_before(items, t):
+        before = [x for x in items if x["end"] <= t]
+        return before[-1]["seconds"] if before else None
+
+    # Each publish: the sweep, the save that waits, the verify and the
+    # pointer flip that came last before its flip.
+    publishes = []
+    for r in recs:
+        waits = [x for x in r["saves"] if x["wait"]]
+        for flip in r["flips"]:
+            t = flip["end"] - flip["seconds"]
+            publishes.append({
+                "step": flip["step"],
+                "sweep_seconds": last_before(r["sweeps"], t),
+                "save_seconds": last_before(waits, t),
+                "verify_seconds": last_before(r["verifies"], t),
+                "flip_seconds": flip["seconds"]})
+    freshness = {}
+    for path, t_done in done_times.items():
+        firsts = [f["t"] for r in recs for f in r["flips"]
+                  if any(x["path"] == path and x["end"] is not None
+                         and x["bytes"] >= x["end"]
+                         for x in (f["watermark"] or {}).get("files", ()))]
+        freshness[os.path.basename(path)] = (
+            min(firsts) - t_done if firsts else None)
+    lat = sorted(x[5] for x in results)
+    row = {"phase": "stream", "card": card, "shards": STREAM_SHARDS,
+           "lines_per_shard": per, "appends_per_shard": STREAM_APPENDS,
+           "batch_size": TRAIN_BATCH, "steps": final_steps,
+           "poll_seconds": STREAM_POLL_SECONDS,
+           "publish_interval_seconds": STREAM_PUBLISH_SECONDS,
+           "publish_min_auc": train_row["auc_floor"],
+           "phase_seconds": phase_s, "runs": runs,
+           "stepped_examples_by_run": stepped,
+           # Arrival sets the stream's pace: the loop's rate over the
+           # logged windows counts the waits for data; the median window
+           # is a step that followed another.
+           "examples_per_s_loop": (len(rates) * TRAIN_BATCH
+                                   / sum(TRAIN_BATCH / r for r in rates)
+                                   if rates else None),
+           "examples_per_s_step_window_median": (
+               sorted(rates)[len(rates) // 2] if rates else None),
+           "stepping_seconds_by_run": [r["last_step"] - r["first_step"]
+                                       for r in recs],
+           "publishes": publishes, "published_steps": published,
+           "quality_sweep_auc": [s["auc"] for r in recs
+                                 for s in r["sweeps"]],
+           "freshness_seconds": freshness,
+           "resume_seconds": recs[1]["first_step"] - recs[1]["restore_start"],
+           "server_swaps": health["reloads"],
+           "server_reload_failures": health["reload_failures"],
+           "server_requests": len(results), "responses_by_step": by_step,
+           "server_p50_ms": health["latency_p50_ms"],
+           "server_p99_ms": health["latency_p99_ms"],
+           "round_trip_ms_median": lat[len(lat) // 2] * 1e3,
+           "fm_score_launches": launches["fm_score_launches"],
+           "fm_score_bwd_launches": launches["fm_score_bwd_launches"],
+           "serve_launches": serve_launches,
+           "control_seconds": control_s,
+           "control_max_abs_err": errs}
+    emit(row)
+    return row
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -1948,6 +2452,11 @@ def main(argv) -> int:
         ffm_row["generate_seconds"] = ffm_data_s
         order3_row = model_leg(torch, device, smi, train_data[0], "order3",
                                train_row)
+        # 12. the stream run mode, its watermark and the gated publish
+        for name in os.listdir(train_data[0]):  # disk for the phase
+            if name.startswith("model"):
+                shutil.rmtree(os.path.join(train_data[0], name))
+        stream_row = stream_phase(torch, device, smi, train_data, train_row)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1969,7 +2478,9 @@ def main(argv) -> int:
                      + packed_serving_row["predict_packed-wide_launches"]
                      + packed_serving_row["predict_packed-narrow_launches"]
                      + packed_serving_row["serve_launches"]
-                     + packed_train_row["fm_score_launches"]),
+                     + packed_train_row["fm_score_launches"]
+                     + stream_row["fm_score_launches"]
+                     + stream_row["serve_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1986,16 +2497,20 @@ def main(argv) -> int:
             packed_serving_row["predict_packed-wide_launches"]
             + packed_serving_row["predict_packed-narrow_launches"],
         "packed_serve_launches": packed_serving_row["serve_launches"],
-        "train_packed_launches": packed_train_row["fm_score_launches"]}, {
+        "train_packed_launches": packed_train_row["fm_score_launches"],
+        "stream_train_launches": stream_row["fm_score_launches"],
+        "stream_serve_launches": stream_row["serve_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
         "launches": (train_row["fm_score_bwd_launches"]
                      + host_row["fm_score_bwd_launches"]
-                     + packed_train_row["fm_score_bwd_launches"]),
+                     + packed_train_row["fm_score_bwd_launches"]
+                     + stream_row["fm_score_bwd_launches"]),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
+        "stream_train_launches": stream_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -2016,7 +2531,7 @@ def main(argv) -> int:
                        "packed_serving": packed_serving_row,
                        "train_packed": packed_train_row,
                        "train_ffm": ffm_row, "train_order3": order3_row,
-                       **kernels}, fh, indent=1)
+                       "stream": stream_row, **kernels}, fh, indent=1)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

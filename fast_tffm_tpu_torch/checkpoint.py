@@ -7,12 +7,15 @@ byte for byte: ``<model_file>.ckpt/`` holds digit-named step
 directories, each committed by an atomic rename; beside each step, a
 ``manifest-<step>.json`` (per-file size + crc32, the step/epoch/vocab
 echo, ``format: 1``) and, where the final save corrected a stale epoch
-count, ``epoch_override-<step>``; a step that fails verification (or
-fails to load) is quarantined as ``corrupt-<step>[.k]`` and restore
-walks back to the next older step; the ``published`` and
-``published-canary`` pointer files name the step a scorer serves. So the
-JAX package's ``tools.fmckpt ls``/``verify`` read a port directory as
-they read their own.
+count, ``epoch_override-<step>``; in ``run_mode = stream``, the
+step's stream position, ``watermark-<step>.json``; a step that fails
+verification (or fails to load) is quarantined as ``corrupt-<step>[.k]``
+with its sidecars, and restore walks back to the next older step and
+its older watermark; the ``published`` and ``published-canary`` pointer
+files name the step a scorer serves, and ``gate_baseline`` beside them
+holds the publish gate's drop baseline. So the JAX package's
+``tools.fmckpt ls``/``verify`` read a port directory as they read their
+own.
 
 Inside a step directory, ``<dir>/<step>/``: ``table.pt`` and ``acc.pt``,
 one ``[ckpt_rows, D]`` float32 tensor each (``torch.save``; the rows
@@ -29,14 +32,14 @@ and never quarantined; ``models/convert.save_checkpoint_from_numpy``
 carries a JAX-trained model across.
 
 Not ported, each waiting for its ROADMAP.md item: the vocab-admission
-sidecar (A8), the stream watermark (A13), multi-process broadcasts
-(A10), ``restore_partial`` for offload (A7), and the telemetry counters
+sidecar (A8), multi-process broadcasts (A10), ``restore_partial`` for offload (A7), and the telemetry counters
 and ``health: ckpt_fallback`` event (A11).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import pickle
 import re
@@ -153,6 +156,62 @@ def _atomic_write_bytes(path: str, blob: bytes) -> None:
 
 def _atomic_write_text(path: str, data: str) -> None:
     _atomic_write_bytes(path, data.encode("utf-8"))
+
+
+def watermark_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"watermark-{step}.json")
+
+
+def read_watermark(directory: str, step: int) -> Optional[dict]:
+    """The step's durable stream-position sidecar (run_mode = stream),
+    or None when the step has none (epoch-mode steps never do). A
+    garbled sidecar also reads as None, with a warning: train then
+    warns that the stream starts from the beginning."""
+    path = watermark_path(directory, step)
+    try:
+        with open(path, encoding="utf-8") as fh:
+            return json.load(fh)
+    except FileNotFoundError:
+        return None
+    except (ValueError, OSError):
+        get_logger().warning(
+            "stream watermark sidecar %s is unreadable/garbled; "
+            "treating step %d as carrying no stream position", path,
+            step, exc_info=True)
+        return None
+
+
+def write_watermark(directory: str, step: int, payload: dict) -> str:
+    """Atomically renamed watermark write: the sidecar exists complete
+    or not at all, so a stream never resumes at a garbage offset."""
+    path = watermark_path(directory, step)
+    _atomic_write_text(path, json.dumps(payload, sort_keys=True))
+    return path
+
+
+# Beside the published pointer: the validation AUC of the last
+# SUCCESSFUL gated publish, the publish gate's drop baseline
+# (obs/quality.PublishGate). A resumed trainer re-arms
+# publish_max_auc_drop from it.
+GATE_BASELINE = "gate_baseline"
+
+
+def read_gate_baseline(directory: str) -> Optional[float]:
+    """The persisted drop baseline, or None (never published through a
+    gate, unreadable or garbled: the gate starts baseline-free)."""
+    try:
+        with open(os.path.join(directory, GATE_BASELINE),
+                  encoding="utf-8") as fh:
+            v = float(fh.read().strip())
+        return v if math.isfinite(v) else None
+    except (OSError, ValueError):
+        return None
+
+
+def write_gate_baseline(directory: str, auc: float) -> None:
+    """Atomically persist the drop baseline beside the pointer."""
+    _atomic_write_text(os.path.join(directory, GATE_BASELINE),
+                       f"{float(auc):.10f}\n")
 
 
 def _read_pointer_file(directory: str, name: str) -> Optional[int]:
@@ -360,7 +419,10 @@ class CheckpointState:
     previous one first (back-pressure: at most one snapshot in flight,
     and the buffers are never overwritten while a write reads them);
     ``wait=True`` (the final and the preemption save) returns only once
-    the step and its manifest are durable.
+    the step and its manifest are durable. ``stream_state`` (run_mode =
+    stream) is the watermark adopted at the step being saved, taken at
+    the same instant as the snapshot; it is written as
+    ``watermark-<step>.json``.
 
     ``retry`` wraps RESTORE's reads in the transient-IO retry loop (a
     pure read is always safe to re-drive). SAVE is never retried: a
@@ -392,7 +454,8 @@ class CheckpointState:
     def save(self, step: int, table: torch.Tensor, acc: torch.Tensor,
              vocabulary_size: int, force: bool = False,
              wait: bool = False, epoch: int = 0,
-             rewrite_stale_metadata: bool = False) -> None:
+             rewrite_stale_metadata: bool = False,
+             stream_state: Optional[dict] = None) -> None:
         """Save ``table`` and ``acc`` (``[vocabulary_size + 1, D]``, on
         any device) as ``step``, with ``epoch``, the count of COMPLETED
         epochs (train.resume_start_epoch reads it). ``vocabulary_size``
@@ -407,16 +470,29 @@ class CheckpointState:
         periodic save's step with a different epoch count, and then
         ``rewrite_stale_metadata`` records the true count in the
         atomically written ``epoch_override-<step>`` sidecar, which
-        restore overlays."""
+        restore overlays.
+
+        ``stream_state``: the watermark payload of the last batch
+        stepped into these arrays. On a fresh step the writer thread
+        makes it durable just before the step's commit rename, so a
+        committed step never lacks its position (as in the JAX package,
+        whose watermark is written before orbax's background commit); a
+        failed commit leaves it an orphan, pruned at the next save. On a
+        step that exists it is written here: the arrays are the same
+        state, and so is the position (it only advances with steps)."""
         step = int(step)
         self._join_writer()
         steps = list_step_dirs(self.directory)
         if not force and steps and step <= steps[-1]:
+            if stream_state is not None and step in steps:
+                write_watermark(self.directory, step, stream_state)
             return
         if step in steps:
             if rewrite_stale_metadata:
                 _atomic_write_text(self._epoch_sidecar(step),
                                    str(int(epoch)))
+            if stream_state is not None:
+                write_watermark(self.directory, step, stream_state)
         else:
             if not self._swept:
                 self._sweep_litter()
@@ -429,8 +505,8 @@ class CheckpointState:
             meta = {"format": STEP_FORMAT, "step": step,
                     "epoch": int(epoch), "vocab": int(vocabulary_size)}
             self._writer = threading.Thread(
-                target=self._write_step, args=(meta,), name="ckpt-writer",
-                daemon=True)
+                target=self._write_step, args=(meta, stream_state),
+                name="ckpt-writer", daemon=True)
             self._writer.start()
         if wait:
             self._join_writer()
@@ -465,12 +541,14 @@ class CheckpointState:
             # they are complete.
             torch.cuda.current_stream(device).synchronize()
 
-    def _write_step(self, meta: Dict[str, Any]) -> None:
-        """The writer thread: files, commit, retention, manifest."""
+    def _write_step(self, meta: Dict[str, Any],
+                    stream_state: Optional[dict]) -> None:
+        """The writer thread: files, watermark, commit, retention,
+        manifest."""
         step = meta["step"]
         t0 = time.perf_counter()
         try:
-            nbytes = self._write_step_files(meta)
+            nbytes = self._write_step_files(meta, stream_state)
         except Exception as e:  # raised at the next join
             self._writer_error = e
             return
@@ -483,7 +561,8 @@ class CheckpointState:
             "hashed in %.3fs", step, nbytes / 1e6, t_commit - t0,
             time.perf_counter() - t_commit)
 
-    def _write_step_files(self, meta: Dict[str, Any]) -> int:
+    def _write_step_files(self, meta: Dict[str, Any],
+                          stream_state: Optional[dict]) -> int:
         step = meta["step"]
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
@@ -502,6 +581,8 @@ class CheckpointState:
                 fh.flush()
                 os.fsync(fh.fileno())
             _fsync_path(tmp)
+            if stream_state is not None:
+                write_watermark(self.directory, step, stream_state)
             os.rename(tmp, final)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -570,9 +651,14 @@ class CheckpointState:
 
     def _prune_fresh_step(self, step: int) -> None:
         """Correctness-bearing: anything but "not there" raises and
-        fails the save."""
+        fails the save. A stale same-step watermark (a cleared and
+        reused directory, or an epoch-mode save landing on an old
+        stream step) would resume a later stream at positions this
+        state never trained."""
         mp = manifest_path(self.directory, step)
-        for stale in (self._epoch_sidecar(step), mp, mp + ".tmp"):
+        wp = watermark_path(self.directory, step)
+        for stale in (self._epoch_sidecar(step), mp, mp + ".tmp", wp,
+                      wp + ".tmp"):
             try:
                 os.remove(stale)
             except FileNotFoundError:
@@ -640,8 +726,9 @@ class CheckpointState:
 
     def quarantine_step(self, step: int, reason: str) -> str:
         """Move a bad step out of the restore path without deleting it:
-        the step dir is renamed ``corrupt-<step>`` and its manifest and
-        epoch sidecars move inside it. Returns the quarantine dir."""
+        the step dir is renamed ``corrupt-<step>`` and its manifest,
+        epoch and watermark sidecars move inside it. Returns the
+        quarantine dir."""
         src = os.path.join(self.directory, str(step))
         dst = os.path.join(self.directory, f"{QUARANTINE_PREFIX}{step}")
         k = 0
@@ -650,7 +737,8 @@ class CheckpointState:
             dst = os.path.join(self.directory,
                                f"{QUARANTINE_PREFIX}{step}.{k}")
         os.rename(src, dst)
-        for name in (f"manifest-{step}.json", f"epoch_override-{step}"):
+        for name in (f"manifest-{step}.json", f"epoch_override-{step}",
+                     f"watermark-{step}.json"):
             try:
                 os.replace(os.path.join(self.directory, name),
                            os.path.join(dst, name))
@@ -720,9 +808,10 @@ class CheckpointState:
     def restore(self, step: Optional[int] = None,
                 template: Optional[Dict[str, Tuple[int, int]]] = None
                 ) -> Optional[Dict[str, Any]]:
-        """Returns ``{"table", "acc", "step", "epoch", "vocab"}`` with
-        the arrays as CPU tensors ``[vocab + 1, D]`` (the stored padding
-        sliced off), or None when no checkpoint exists yet (a fresh
+        """Returns ``{"table", "acc", "step", "epoch", "vocab",
+        "stream"}`` with the arrays as CPU tensors ``[vocab + 1, D]``
+        (the stored padding sliced off) and ``stream`` the step's
+        watermark payload (None without one), or None when no checkpoint exists yet (a fresh
         start). ``template`` maps the arrays to load to the shapes this
         config wants (``train.checkpoint_template``); an array it leaves
         out is not read (predict loads the table alone), and a stored
@@ -749,7 +838,7 @@ class CheckpointState:
             restored, err = self._attempt_restore(step, template)
             if err is not None:
                 self._raise_restore_error(step, err)
-            return self._apply_epoch_override(step, restored)
+            return self._apply_sidecars(step, restored)
         return self._restore_newest_intact(template)
 
     def _restore_newest_intact(self, template
@@ -780,7 +869,7 @@ class CheckpointState:
                 return None
             restored, err = self._attempt_restore(cand, template)
             if err is None:
-                return self._apply_epoch_override(cand, restored)
+                return self._apply_sidecars(cand, restored)
             if first_err is None:
                 first_err = (cand, err)
             # Walk past a load failure only when an OLDER step remains:
@@ -836,12 +925,15 @@ class CheckpointState:
         except _LOAD_ERRORS as e:
             return None, e
 
-    def _apply_epoch_override(self, step: int,
-                              restored: Dict[str, Any]) -> Dict[str, Any]:
-        """Overlay a same-step epoch-correction sidecar (see save())."""
+    def _apply_sidecars(self, step: int,
+                        restored: Dict[str, Any]) -> Dict[str, Any]:
+        """Overlay a same-step epoch-correction sidecar (see save())
+        and attach the step's stream watermark: a walk-back to an older
+        step resumes at that step's older position."""
         override = read_epoch_override(self.directory, step)
         if override is not None:
             restored["epoch"] = override
+        restored["stream"] = read_watermark(self.directory, step)
         return restored
 
     def _raise_restore_error(self, s, e) -> None:

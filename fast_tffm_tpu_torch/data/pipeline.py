@@ -102,6 +102,9 @@ class DeviceBatch:
     num_real: int = 0        # examples that are not padding
     uniq_ids: Optional[np.ndarray] = None  # i32 [U]; None = raw ids
     fields: Optional[np.ndarray] = None    # i32 [B, L]; 0 padding (FFM)
+    # run_mode = stream: the watermark payload after this batch's lines
+    # (data/stream.py); None for every other source.
+    stream_pos: Optional[dict] = None
 
 
 class FileMarks:

@@ -1,1 +1,2 @@
-"""Serving-side metrics registry (copied from the JAX package)."""
+"""Observability: the serving metrics registry and the publish quality
+gate (copied from the JAX package)."""

@@ -12,7 +12,8 @@ checkpoint.py, with the same output lines and exit codes.
 
 - ``ls``      one row per committed step — file count, bytes, the
               manifest's epoch/vocab echo (epoch-override sidecars
-              applied, as restore applies them) — plus every quarantined
+              applied, as restore applies them), ``+watermark`` where a
+              stream run left the step's position — plus every quarantined
               ``corrupt-*`` dir and orphaned sidecar, and the PUBLISHED /
               CANARY marks.
 - ``verify``  the manifest integrity check over every step (or one
@@ -26,11 +27,12 @@ checkpoint.py, with the same output lines and exit codes.
               watches. A missing step or a failed verification leaves
               the pointer untouched (exit 1).
 - ``gc``      delete quarantined ``corrupt-*`` dirs and orphaned
-              sidecars whose step no longer exists; ``--dry-run`` lists
-              without deleting. Committed steps are never touched.
+              sidecars (watermarks included) whose step no longer
+              exists; ``--dry-run`` lists without deleting. Committed
+              steps are never touched.
 
-The vocab-admission and stream-watermark marks of the JAX tool wait for
-ROADMAP.md A8 and A13: the port writes neither sidecar.
+The vocab-admission mark of the JAX tool waits for ROADMAP.md A8: the
+port writes no such sidecar.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from fast_tffm_tpu_torch.checkpoint import (QUARANTINE_PREFIX,
                                             read_epoch_override,
                                             read_manifest, read_published,
                                             sidecar_step, verify_step_dir,
-                                            write_canary, write_published)
+                                            watermark_path, write_canary,
+                                            write_published)
 
 
 def resolve_ckpt_dir(path: str) -> str:
@@ -94,6 +97,8 @@ def scan(directory: str) -> Dict[str, object]:
             "manifest": man is not None,
             "epoch": override if override is not None else epoch,
             "vocab": man.get("vocab") if man else None,
+            # Existence only: which steps can resume a stream position.
+            "watermark": os.path.exists(watermark_path(directory, s)),
         })
     quarantined: List[Dict[str, object]] = []
     orphans: List[str] = []
@@ -138,6 +143,8 @@ def cmd_ls(directory: str, as_json: bool = False, out=None) -> int:
         epoch = "?" if s["epoch"] is None else s["epoch"]
         vocab = "?" if s["vocab"] is None else s["vocab"]
         marks = ""
+        if s["watermark"]:
+            marks += " +watermark"
         if state["published"] == s["step"]:
             marks += "  PUBLISHED"
         if state["canary"] == s["step"]:

@@ -32,20 +32,37 @@ Log lines are the JAX package's. Losses stay on the device and are
 fetched together at the epoch barrier, so the loop never waits for the
 device to log.
 
+``run_mode = stream`` (``_run_stream``) replaces the epoch loop with the
+online loop over ``stream_dir`` (data/stream.py): every arriving batch
+is stepped; the watermark of the last stepped batch rides every save
+(``watermark-<step>.json``), so a restore resumes the stream with no
+example skipped or repeated; every ``publish_interval_seconds`` a
+publish runs the validation sweep (``publish_quality_eval``), the
+``publish_min_auc`` / ``publish_max_auc_drop`` gate (obs/quality.py;
+its baseline persists beside the pointer), then a synchronous save, a
+verify and the ``published`` pointer flip; a held publish mints no
+step. A ``STOP`` marker ends the run: the final save carries the
+watermark and, when publishing, a gated exit publish follows (a
+preempted gated run skips it). As in the JAX package,
+``publish_interval_seconds`` is inert in ``run_mode = epochs``.
+
 Not ported yet, each refused with the ROADMAP.md item that brings it:
-multi-process and elastic training and the fixed unique bucket (A10);
-the stream run mode and its publishing (A13). The observability keys
-are accepted, ignored and logged (utils/ignored.py: A11, A13).
+multi-process and elastic training, multi-worker streams and the fixed
+unique bucket (A10). The observability keys are accepted, ignored and
+logged (utils/ignored.py: A11).
 """
 
 from __future__ import annotations
 
 import signal
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from fast_tffm_tpu_torch.checkpoint import CheckpointState
+from fast_tffm_tpu_torch.checkpoint import (CheckpointState,
+                                            read_gate_baseline,
+                                            write_gate_baseline)
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.badlines import BadLineTracker
 from fast_tffm_tpu_torch.data.pipeline import (batch_iterator,
@@ -53,12 +70,16 @@ from fast_tffm_tpu_torch.data.pipeline import (batch_iterator,
                                                gil_bound_iteration,
                                                host_parallel_workers,
                                                prefetch)
+from fast_tffm_tpu_torch.data.stream import (DONE, IDLE, WATERMARK_FORMAT,
+                                             StreamPrefetcher, StreamSource,
+                                             StreamTracker, stream_workers)
 from fast_tffm_tpu_torch.metrics import StreamingAUC
 from fast_tffm_tpu_torch.models.convert import save_npz
 from fast_tffm_tpu_torch.models.fm import (ModelSpec, init_accumulator,
                                            init_table,
                                            packed_train_step_body,
                                            train_step_body)
+from fast_tffm_tpu_torch.obs.quality import PublishGate, QualityStats
 from fast_tffm_tpu_torch.scoring import CompiledScorer
 from fast_tffm_tpu_torch.utils.device import resolve_device
 from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
@@ -82,12 +103,6 @@ def check_train_supported(cfg: FmConfig) -> None:
     result than the JAX package's."""
     check_stream_supported(cfg)
     refusals = (
-        (cfg.run_mode == "stream", "run_mode = stream", "A13"),
-        # The JAX config takes the publish knobs in stream mode only.
-        (cfg.publish_interval_seconds > 0 or cfg.publish_min_auc > 0
-         or cfg.publish_max_auc_drop > 0,
-         "publish_interval_seconds / publish_min_auc / "
-         "publish_max_auc_drop", "A13"),
         (bool(cfg.ps_hosts or cfg.worker_hosts),
          "ps_hosts / worker_hosts (dist_train)", "A10"),
         (cfg.elastic != "off", f"elastic = {cfg.elastic}", "A10"),
@@ -135,7 +150,8 @@ def check_restored_vocab(cfg: FmConfig, restored) -> None:
 
 def evaluate(cfg: FmConfig, table: torch.Tensor, files,
              max_batches: Optional[int] = None, weight_files=(),
-             bad_lines: Optional[BadLineTracker] = None
+             bad_lines: Optional[BadLineTracker] = None,
+             collect: Optional[QualityStats] = None
              ) -> Tuple[float, int]:
     """Streamed AUC over ``files``: (auc, n_examples). ``weight_files``
     (sidecars parallel to ``files``) weight each example's AUC
@@ -143,7 +159,9 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
     tracker, so a bad line met every epoch is quarantined once. Batches
     score through a ``CompiledScorer`` (its wire encoder, as predict's);
     scores stay on the device and are fetched in chunks, behind the
-    scoring (utils/fetch.py)."""
+    scoring (utils/fetch.py). ``collect`` (obs/quality.QualityStats)
+    is fed the same score chunks as the AUC: the publish gate's quality
+    numbers."""
     scorer = CompiledScorer(cfg, table.device)
     auc = StreamingAUC()
     n = 0
@@ -152,6 +170,8 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
     def consume(scores, meta):
         labels, m, weights = meta
         auc.update(scores[:m], labels[:m], weights[:m])
+        if collect is not None:
+            collect.update(scores[:m], labels[:m], weights[:m])
 
     fetcher = ChunkedFetcher(consume)
     try:
@@ -175,6 +195,134 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
     return auc.result(), n
 
 
+class _Stepper:
+    """What one train session steps: the table and accumulator (updated
+    in place), the step count, the last loss on the device, the wire
+    accounting and the buffered loss log lines."""
+
+    def __init__(self, cfg: FmConfig, spec: ModelSpec,
+                 encoder: WireEncoder, device: torch.device,
+                 table: torch.Tensor, acc: torch.Tensor, step: int,
+                 logger):
+        self.cfg, self.spec, self.encoder = cfg, spec, encoder
+        self.device, self.logger = device, logger
+        self.table, self.acc = table, acc
+        self.global_step = step
+        self.loss: Optional[torch.Tensor] = None
+        self.loss_val = float("nan")
+        self.timer = StepTimer()
+        self.h2d_bytes = self.logical_bytes = 0
+        self._log_buffer: list = []  # (step, epoch, loss on device, ex/s)
+
+    def step(self, batch, epoch: int) -> None:
+        wb = self.encoder.encode_train(batch)
+        args = self.encoder.device_put(wb, self.device)
+        if wb.packed:
+            self.table, self.acc, self.loss, _ = packed_train_step_body(
+                self.spec, wb.L, self.table, self.acc, **args)
+        else:
+            self.table, self.acc, self.loss, _ = train_step_body(
+                self.spec, self.table, self.acc, **args)
+        self.h2d_bytes += wb.wire_bytes
+        self.logical_bytes += wb.logical_bytes
+        self.global_step += 1
+        self.timer.tick(batch.num_real)
+        log_steps = self.cfg.log_steps
+        if log_steps and self.global_step % log_steps == 0:
+            self._log_buffer.append((self.global_step, epoch, self.loss,
+                                     self.timer.consume_window_rate()))
+            if len(self._log_buffer) >= LOG_BUFFER_MAX:
+                self.flush_log()
+
+    def flush_log(self) -> None:
+        """One fetch for every buffered loss line."""
+        if not self._log_buffer:
+            return
+        values = torch.stack([b[2] for b in self._log_buffer]
+                             ).cpu().tolist()
+        for (s, ep, _, eps), val in zip(self._log_buffer, values):
+            self.loss_val = val
+            self.logger.info("step %d epoch %d loss %.6f examples/sec %.0f",
+                             s, ep, val, eps)
+        self._log_buffer.clear()
+
+
+class _Publisher:
+    """The session's publish gate and quality sweep (the JAX package's
+    ``_gate_published`` and ``_publish_decision``): session-scoped, since
+    the exit publish after the final save is gated too."""
+
+    def __init__(self, cfg: FmConfig, ckpt: CheckpointState,
+                 bad_tracker: Optional[BadLineTracker], logger):
+        self.cfg, self.ckpt = cfg, ckpt
+        self.bad_tracker, self.logger = bad_tracker, logger
+        stream_mode = cfg.run_mode == "stream"
+        self.gate = PublishGate.from_config(cfg) if stream_mode else None
+        # "auto" opts in exactly when the run declared a quality
+        # objective (a gate knob, or slo_min_auc): a stream config with
+        # validation_files does not silently start paying a sweep per
+        # publish.
+        qmode = cfg.publish_quality_eval
+        self.quality_on = (stream_mode and bool(cfg.validation_files)
+                           and cfg.publish_interval_seconds > 0
+                           and (qmode == "on"
+                                or (qmode == "auto"
+                                    and (self.gate is not None
+                                         or cfg.slo_min_auc > 0))))
+        if self.gate is not None:
+            # The drop baseline survives restarts beside the pointer: a
+            # resumed run does not exempt its first publish from
+            # publish_max_auc_drop.
+            self.gate.note_published(read_gate_baseline(ckpt.directory))
+            logger.info(
+                "publish gate armed: min AUC %s, max AUC drop %s%s "
+                "(validation sweep at every publish settle)",
+                cfg.publish_min_auc or "off",
+                cfg.publish_max_auc_drop or "off",
+                "" if self.gate.baseline is None
+                else f", restored baseline {self.gate.baseline:.6f}")
+
+    def published(self, decision: Optional[dict]) -> None:
+        """Advance and persist the drop baseline after a publish landed:
+        the one baseline write of interval and exit publishes."""
+        if self.gate is None or decision is None:
+            return
+        self.gate.note_published(decision.get("auc"))
+        if self.gate.baseline is not None:
+            write_gate_baseline(self.ckpt.directory, self.gate.baseline)
+
+    def decide(self, table: torch.Tensor, step: int) -> Optional[dict]:
+        """Quality sweep and gate decision for the publish about to
+        happen; None when no quality loop is configured (publish
+        unconditionally)."""
+        if not self.quality_on:
+            return None
+        cfg = self.cfg
+        stats = QualityStats(cfg.loss_type)
+        t_q = time.perf_counter()
+        auc, n = evaluate(cfg, table, cfg.validation_files,
+                          max_batches=cfg.validation_max_batches or None,
+                          weight_files=cfg.validation_weight_files,
+                          bad_lines=self.bad_tracker, collect=stats)
+        dt_q = time.perf_counter() - t_q
+        self.logger.info(
+            "publish quality eval at step %d: AUC %.6f, loss %s, "
+            "calibration %s over %d examples (%.2fs)", step, auc,
+            "-" if stats.loss is None else f"{stats.loss:.6f}",
+            "-" if stats.calibration is None
+            else f"{stats.calibration:.4f}", n, dt_q)
+        if self.gate is None:
+            return {"held": False, "auc": float(auc), "examples": int(n)}
+        decision = self.gate.decide(float(auc), step)
+        decision["examples"] = int(n)
+        if decision["held"]:
+            self.logger.warning(
+                "publish GATE HELD at step %d: %s — the published "
+                "pointer stays on the last passing step", step,
+                "; ".join(decision["reasons"]))
+        return decision
+
+
 def train(cfg: FmConfig, device=None,
           init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
           ) -> torch.Tensor:
@@ -188,15 +336,20 @@ def train(cfg: FmConfig, device=None,
     device = resolve_device(device)
     spec = ModelSpec.from_config(cfg)  # refuses unported model values
     check_train_supported(cfg)
+    stream_mode = cfg.run_mode == "stream"
     logger = get_logger(log_file=cfg.log_file or None)
-    log_ignored_keys(cfg, logger)
+    # slo_min_auc takes effect in a publishing stream run with
+    # validation files (it switches the quality sweep on there).
+    log_ignored_keys(cfg, logger, in_effect=(
+        ("slo_min_auc",) if stream_mode and cfg.validation_files
+        and cfg.publish_interval_seconds > 0 else ()))
     wire = resolve_wire(cfg, train=True)
     encoder = WireEncoder(wire, pad_id=cfg.pad_id)
     logger.info("wire format: %s%s", wire.describe(),
                 " (flat CSR, unpacked on the device)" if wire.packed
                 else "")
     host_workers = host_parallel_workers(cfg, cfg.weight_files)
-    if host_workers > 1:
+    if host_workers > 1 and not stream_mode:
         logger.info(
             "host data plane: %d parallel batch-build workers "
             "(host_threads = %s; bounded ordered ring)",
@@ -226,6 +379,7 @@ def train(cfg: FmConfig, device=None,
         if start_epoch:
             logger.info("resuming interrupted epoch schedule at epoch "
                         "%d/%d", start_epoch, cfg.epoch_num)
+        publisher = _Publisher(cfg, ckpt, bad_tracker, logger)
 
         # Preemption: SIGTERM/SIGINT set a flag the loop drains at the
         # next step boundary, and the final save below is the
@@ -238,27 +392,19 @@ def train(cfg: FmConfig, device=None,
             except ValueError:  # not the main thread
                 pass
 
-        timer = StepTimer()
-        h2d_bytes = logical_bytes = 0
-        loss = None
-        loss_val = float("nan")
-        log_buffer: list = []  # (step, epoch, loss on the device, ex/s)
-
-        def flush_log():
-            nonlocal loss_val
-            if not log_buffer:
-                return
-            values = torch.stack([b[2] for b in log_buffer]).cpu().tolist()
-            for (s, ep, _, eps), val in zip(log_buffer, values):
-                loss_val = val
-                logger.info("step %d epoch %d loss %.6f examples/sec %.0f",
-                            s, ep, val, eps)
-            log_buffer.clear()
-
+        st = _Stepper(cfg, spec, encoder, device, table, acc, global_step,
+                      logger)
         completed_epochs = start_epoch
         last_periodic_save = (None, None)  # (step, epoch) of the latest
         stopping = False
-        for epoch in range(start_epoch, cfg.epoch_num):
+        stream_watermark = None
+        if stream_mode:
+            stopping, stream_watermark, last_periodic_save = _run_stream(
+                cfg, st, ckpt, publisher, restored, bad_tracker,
+                preempted, logger)
+        epoch_schedule = (range(0) if stream_mode
+                          else range(start_epoch, cfg.epoch_num))
+        for epoch in epoch_schedule:
             it = prefetch(batch_iterator(cfg, cfg.train_files,
                                          training=True,
                                          weight_files=cfg.weight_files,
@@ -275,36 +421,20 @@ def train(cfg: FmConfig, device=None,
                         logger.info(
                             "preemption signalled; saving and exiting")
                         break
-                    wb = encoder.encode_train(batch)
-                    args = encoder.device_put(wb, device)
-                    if wb.packed:
-                        table, acc, loss, _ = packed_train_step_body(
-                            spec, wb.L, table, acc, **args)
-                    else:
-                        table, acc, loss, _ = train_step_body(
-                            spec, table, acc, **args)
-                    h2d_bytes += wb.wire_bytes
-                    logical_bytes += wb.logical_bytes
-                    global_step += 1
-                    timer.tick(batch.num_real)
-                    if cfg.log_steps and global_step % cfg.log_steps == 0:
-                        log_buffer.append((global_step, epoch, loss,
-                                           timer.consume_window_rate()))
-                        if len(log_buffer) >= LOG_BUFFER_MAX:
-                            flush_log()
+                    st.step(batch, epoch)
                     if cfg.save_steps and \
-                            global_step % cfg.save_steps == 0:
+                            st.global_step % cfg.save_steps == 0:
                         # Asynchronous: the snapshot is complete when
                         # save returns, so the next step may update the
                         # table in place; the write runs behind it.
-                        ckpt.save(global_step, table, acc,
+                        ckpt.save(st.global_step, st.table, st.acc,
                                   vocabulary_size=cfg.vocabulary_size,
                                   epoch=completed_epochs)
-                        last_periodic_save = (global_step,
+                        last_periodic_save = (st.global_step,
                                               completed_epochs)
             finally:
                 it.close()
-            flush_log()  # the epoch barrier: one fetch for its lines
+            st.flush_log()  # the epoch barrier: one fetch for its lines
             if bad_tracker is not None and bad_tracker.bad:
                 logger.info("bad-line policy through epoch %d: %s",
                             epoch, bad_tracker.describe())
@@ -312,14 +442,16 @@ def train(cfg: FmConfig, device=None,
                 break
             completed_epochs = epoch + 1
             if cfg.validation_files:
-                auc, n = evaluate(cfg, table, cfg.validation_files,
+                auc, n = evaluate(cfg, st.table, cfg.validation_files,
                                   max_batches=cfg.validation_max_batches
                                   or None,
                                   weight_files=cfg.validation_weight_files,
                                   bad_lines=bad_tracker)
                 logger.info("epoch %d validation AUC %.6f over %d "
                             "examples", epoch, auc, n)
-        loss_val = float(loss) if loss is not None else loss_val
+        table, acc, global_step = st.table, st.acc, st.global_step
+        if st.loss is not None:
+            st.loss_val = float(st.loss)
         # Final/preemption save: returns once the step is durable. If
         # this step's checkpoint exists with a stale epoch count — from
         # this run's last periodic save, or the restored checkpoint
@@ -333,7 +465,24 @@ def train(cfg: FmConfig, device=None,
         ckpt.save(global_step, table, acc,
                   vocabulary_size=cfg.vocabulary_size, force=True,
                   wait=True, epoch=completed_epochs,
-                  rewrite_stale_metadata=stale)
+                  rewrite_stale_metadata=stale,
+                  stream_state=(_stream_state(stream_watermark)
+                                if stream_mode else None))
+        if stream_mode and cfg.publish_interval_seconds > 0:
+            _exit_publish(cfg, ckpt, publisher, table, global_step,
+                          stopping, logger)
+        if stream_mode and cfg.validation_files and \
+                not publisher.quality_on:
+            # Stream mode has no per-epoch sweeps: a validation corpus
+            # gets one scored pass here (a publishing stream validated
+            # through the exit publish's sweep).
+            auc, n = evaluate(cfg, table, cfg.validation_files,
+                              max_batches=cfg.validation_max_batches
+                              or None,
+                              weight_files=cfg.validation_weight_files,
+                              bad_lines=bad_tracker)
+            logger.info("final validation AUC %.6f over %d examples",
+                        auc, n)
         nbytes = cfg.num_rows * cfg.row_dim * 4
         if nbytes > EXPORT_NPZ_MAX_BYTES:
             logger.info(
@@ -344,11 +493,11 @@ def train(cfg: FmConfig, device=None,
         else:
             save_npz(table, cfg.model_file + ".npz", cfg)
         logger.info("wire %s: h2d_bytes = %d over %d steps, against %d "
-                    "in the padded layout", wire.describe(), h2d_bytes,
-                    global_step - restored_step, logical_bytes)
+                    "in the padded layout", wire.describe(), st.h2d_bytes,
+                    global_step - restored_step, st.logical_bytes)
         logger.info("training done: %d steps, final loss %.6f, %.0f "
-                    "examples/sec", global_step, loss_val,
-                    timer.total_examples_per_sec)
+                    "examples/sec", global_step, st.loss_val,
+                    st.timer.total_examples_per_sec)
         return table
     finally:
         for sig, handler in prev_handlers.items():
@@ -358,6 +507,179 @@ def train(cfg: FmConfig, device=None,
         ckpt.close()
         if bad_tracker is not None:
             bad_tracker.close()
+
+
+def _stream_state(watermark: Optional[dict]) -> dict:
+    """The watermark payload a stream save carries: the one adopted from
+    the last stepped batch (an empty ledger before any)."""
+    return watermark or {"format": WATERMARK_FORMAT, "files": []}
+
+
+def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
+                publisher: _Publisher, restored: Optional[dict],
+                bad_tracker: Optional[BadLineTracker], preempted: list,
+                logger) -> Tuple[bool, Optional[dict], tuple]:
+    """The online loop of ``run_mode = stream``: poll the stream
+    source, step every arriving batch, save with the watermark adopted
+    from the last stepped batch, and publish a verified checkpoint
+    every ``publish_interval_seconds``. A prefetch thread builds
+    batches behind the steps. Returns (preempted, the adopted
+    watermark, (step, epoch) of the last save)."""
+    restored_wm = (restored or {}).get("stream")
+    # Seeded from the restored sidecar: a resumed session may save at
+    # its restored step before any new batch steps (a publish fires on
+    # an idle tick), and an empty watermark there would rewrite the
+    # step's sidecar to empty and retrain the consumed prefix.
+    state = {"watermark": restored_wm, "last_save": (None, None),
+             "stopping": False}
+    if restored is not None and restored_wm is None:
+        logger.warning(
+            "restored checkpoint at step %d carries no stream "
+            "watermark (an epoch-mode warm start, or a lost "
+            "watermark sidecar): streaming starts from the "
+            "BEGINNING of %s — any stream bytes this model "
+            "already trained on will be trained again",
+            st.global_step, cfg.stream_dir)
+    tracker = StreamTracker(
+        cfg.stream_dir, cfg.stream_poll_seconds, cfg.seal_policy,
+        retry=RetryPolicy.from_config(cfg), bad_lines=bad_tracker,
+        watermark=restored_wm)
+    workers = stream_workers(cfg)
+    if workers > 1:
+        logger.info(
+            "stream host data plane: %d parallel batch-build "
+            "workers (host_threads = %s; sealed line groups "
+            "through the bounded ordered ring)",
+            workers, cfg.host_threads)
+    source = StreamSource(cfg, tracker, stop=lambda: bool(preempted),
+                          raw_ids=st.spec.dedup == "device",
+                          workers=workers, bad_lines=bad_tracker)
+    gate = publisher.gate
+    publish_every = float(cfg.publish_interval_seconds)
+    last_publish = [time.monotonic()]
+    # While the last gate decision HELD, the retention-pressure trigger
+    # is disarmed (a republish would hold the same state again); the
+    # interval keeps re-checking at the publish cadence.
+    gate_holding = [False]
+    risk_pause_logged = [False]  # one retention-pause log per hold
+
+    def publish_due() -> bool:
+        """Interval elapsed, or retention pressure: periodic saves must
+        never delete the published step from under a scorer."""
+        if publish_every <= 0:
+            return False
+        if time.monotonic() - last_publish[0] >= publish_every:
+            return True
+        # Gated runs check one retention slot early (margin=2): the tick
+        # this arm triggers may turn out HELD, and the mandatory final
+        # save must still land without evicting the last-good step.
+        return (bool(cfg.save_steps) and not gate_holding[0]
+                and ckpt.published_at_risk(
+                    margin=2 if gate is not None else 1))
+
+    def stream_save(wait: bool) -> None:
+        # The watermark passed here is the one adopted at this step: the
+        # snapshot is taken now, and later steps update the table in
+        # place.
+        ckpt.save(st.global_step, st.table, st.acc,
+                  vocabulary_size=cfg.vocabulary_size, wait=wait,
+                  epoch=0, stream_state=_stream_state(state["watermark"]))
+        state["last_save"] = (st.global_step, 0)
+
+    def do_publish() -> None:
+        """Sweep and gate, then save, verify and repoint ``published``.
+        A HELD decision skips the save too: held ticks must not mint
+        steps that retention could use to lap the published one."""
+        st.flush_log()
+        decision = publisher.decide(st.table, st.global_step)
+        gate_holding[0] = bool(decision and decision.get("held"))
+        if not gate_holding[0]:
+            risk_pause_logged[0] = False
+        if decision is None or not decision.get("held"):
+            stream_save(wait=True)
+            if ckpt.publish_step(st.global_step) is not None:
+                publisher.published(decision)
+        last_publish[0] = time.monotonic()
+
+    def step_once(batch) -> None:
+        st.step(batch, 0)
+        # The durable position advances ONLY with stepped batches.
+        if batch.stream_pos is not None:
+            state["watermark"] = batch.stream_pos
+        if not (cfg.save_steps and st.global_step % cfg.save_steps == 0):
+            return
+        if gate_holding[0] and ckpt.published_at_risk(margin=2):
+            # Retention pause: while the gate holds, a periodic save
+            # that would push the published (last-good) step past
+            # max_to_keep does not run; the watermark re-trains the
+            # progress since the last save exactly once after a crash.
+            if not risk_pause_logged[0]:
+                risk_pause_logged[0] = True
+                logger.warning(
+                    "publish gate holding with the published step at "
+                    "the retention boundary: pausing periodic saves so "
+                    "GC cannot evict the last-good checkpoint; heal the "
+                    "input stream (or raise max_to_keep) to resume")
+            return
+        # Gated runs save synchronously: the retention arithmetic above
+        # counts COMMITTED steps, and an in-flight step is not one yet.
+        stream_save(wait=gate is not None)
+
+    def emit_preempted() -> None:
+        state["stopping"] = True
+        logger.info("preemption signalled; saving the stream position "
+                    "and exiting")
+
+    pf = StreamPrefetcher(source, depth=cfg.prefetch_depth)
+    try:
+        while True:
+            if preempted:
+                emit_preempted()
+                break
+            # A bounded wait: the publish clock and the preemption check
+            # keep ticking while the stream idles.
+            batch = pf.get(timeout=min(cfg.stream_poll_seconds, 0.5))
+            if batch is DONE:
+                if preempted:
+                    emit_preempted()
+                break
+            if batch is IDLE:
+                st.flush_log()
+            else:
+                step_once(batch)
+            if publish_due():
+                do_publish()
+    finally:
+        pf.close()
+        source.close()
+    st.flush_log()
+    if bad_tracker is not None and bad_tracker.bad:
+        logger.info("bad-line policy through the stream run: %s",
+                    bad_tracker.describe())
+    if source.stats.batches:
+        logger.info("stream input: %s", source.stats.describe())
+    return state["stopping"], state["watermark"], state["last_save"]
+
+
+def _exit_publish(cfg: FmConfig, ckpt: CheckpointState,
+                  publisher: _Publisher, table: torch.Tensor, step: int,
+                  stopping: bool, logger) -> None:
+    """The exit publish after the final save: a clean STOP drain, or a
+    preemption's durable save, is the freshest state a scorer can
+    hot-reload. Gated like every other publish. A PREEMPTED gated run
+    skips it: the grace window before SIGKILL has no room for a
+    validation sweep, and the pointer stays on the last passing step."""
+    if stopping and publisher.gate is not None:
+        logger.info(
+            "preempted with a publish gate configured: exit "
+            "publish skipped (no quality sweep inside the "
+            "grace window); the pointer stays on the last "
+            "passing step")
+        return
+    decision = None if stopping else publisher.decide(table, step)
+    if decision is None or not decision.get("held"):
+        if ckpt.publish_step(step) is not None:
+            publisher.published(decision)
 
 
 def _initial_state(cfg: FmConfig, device: torch.device, restored,

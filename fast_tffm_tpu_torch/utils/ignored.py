@@ -5,7 +5,8 @@ The port loads every ``FmConfig`` key the JAX package loads, so one
 config file serves both. A key whose subsystem is not ported yet must
 not pass in silence: each entry point (``train``, ``predict``,
 ``serve``) logs every key of ``IGNORED_KEYS`` that is set away from its
-default, naming the item. Keys the port refuses outright raise
+default, naming the item, unless the caller says the key takes effect
+there (``in_effect``). Keys the port refuses outright raise
 ``NotImplementedError`` elsewhere (``models/fm.check_supported``,
 ``train.check_train_supported``, the serve server).
 """
@@ -30,7 +31,13 @@ IGNORED_KEYS = (
     ("slo_publish_staleness_seconds", "A11", "observability"),
     ("slo_p99_ms", "A11", "observability"),
     ("slo_max_bad_fraction", "A11", "observability"),
-    ("slo_min_auc", "A13", "the stream run mode's publish gate"),
+    # In a stream run with validation files that publishes, slo_min_auc
+    # does take effect: under publish_quality_eval = auto it switches
+    # the publish quality sweep on (train passes it in ``in_effect``).
+    ("slo_min_auc", "A11",
+     "the SLO verdict (slo_min_auc only switches the publish quality "
+     "sweep on, under publish_quality_eval = auto, in a stream run with "
+     "validation files that publishes)"),
 )
 
 
@@ -43,9 +50,13 @@ def ignored_keys_set(cfg: FmConfig):
             if getattr(cfg, key) != getattr(defaults, key)]
 
 
-def log_ignored_keys(cfg: FmConfig, logger) -> None:
-    """One log line per ignored key ``cfg`` sets, naming its item."""
+def log_ignored_keys(cfg: FmConfig, logger, in_effect=()) -> None:
+    """One log line per ignored key ``cfg`` sets, naming its item;
+    the keys in ``in_effect`` take effect in the caller's run and are
+    not logged."""
     for key, value, item, what in ignored_keys_set(cfg):
+        if key in in_effect:
+            continue
         logger.info(
             "%s = %r is accepted and ignored: %s is not ported to "
             "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item %s)",

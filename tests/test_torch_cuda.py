@@ -39,6 +39,9 @@ Tolerances:
   step's rtol 1e-4 / atol 1e-6 (the backward's atomics); the
   double-buffered copy delivers every batch intact though the host
   overwrites its arrays as soon as ``device_put`` returns.
+- ``run_mode = stream``: a train over a pre-sealed directory on the card
+  against the CPU at the step's rtol 1e-4 / atol 1e-6, both kernels
+  launched once a step, and the same watermark.
 """
 
 import numpy as np
@@ -595,3 +598,58 @@ def test_double_buffered_copy_survives_host_reuse(card):
             assert sorted(got) == sorted(want)
             for k, v in got.items():
                 assert v.is_cuda and torch.equal(v.cpu(), want[k]), k
+
+
+def test_stream_train_on_card_matches_cpu(card, tmp_path):
+    """A stream train over a small pre-sealed directory on the card and
+    on the CPU, from one table: both kernels launch on every step, and
+    the tables, accumulators and watermarks agree at the step's
+    tolerance (rtol 1e-4 / atol 1e-6)."""
+    import dataclasses
+    import os
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch.models import convert
+    from fast_tffm_tpu_torch.train import checkpoint_template, train
+    rng = np.random.default_rng(12)
+    sd = tmp_path / "stream"
+    sd.mkdir()
+    for k in range(2):
+        lines = [f"{int(rng.integers(0, 2))} " + " ".join(
+            f"{int(j)}:{v:.3f}" for j, v in zip(
+                rng.integers(0, 1000, 9), rng.uniform(0.1, 2.0, 9)))
+            for _ in range(300)]
+        (sd / f"part-{k}").write_text("\n".join(lines) + "\n")
+        (sd / f"part-{k}.done").write_text("")
+    (sd / "STOP").write_text("")
+    cfg0 = FmConfig(vocabulary_size=1000, factor_num=8, batch_size=64,
+                    run_mode="stream", stream_dir=str(sd), save_steps=4,
+                    stream_poll_seconds=0.05, learning_rate=0.1)
+    table0 = (rng.normal(size=(cfg0.num_rows, cfg0.row_dim)) * 0.01
+              ).astype(np.float32)
+    table0[-1] = 0.0
+    states = {}
+    fm_kernel.launches = fm_kernel.bwd_launches = 0
+    for name, dev in (("cpu", torch.device("cpu")), ("card", card)):
+        cfg = dataclasses.replace(
+            cfg0, model_file=str(tmp_path / name / "fm"))
+        train(cfg, device=dev, init_state=convert.state_from_numpy(
+            table0.copy(), np.full_like(table0, cfg.adagrad_init), cfg,
+            dev))
+        d = cfg.model_file + ".ckpt"
+        step = ck.list_step_dirs(d)[-1]
+        r = ck.CheckpointState(cfg.model_file).restore(
+            template=checkpoint_template(cfg))
+        states[name] = (step, r["table"].numpy(), r["acc"].numpy(),
+                        ck.read_watermark(d, step))
+        if name == "cpu":
+            assert fm_kernel.launches == fm_kernel.bwd_launches == 0
+    steps = -(-600 // 64)
+    assert fm_kernel.launches == fm_kernel.bwd_launches == steps
+    (s_c, t_c, a_c, w_c), (s_g, t_g, a_g, w_g) = states["cpu"], \
+        states["card"]
+    assert s_c == s_g == steps
+    assert w_c == w_g and sum(f["lines"] for f in w_g["files"]) == 600
+    np.testing.assert_allclose(t_g, t_c, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(a_g, a_c, rtol=1e-4, atol=1e-6)
+    assert os.path.exists(ck.watermark_path(
+        str(tmp_path / "card" / "fm.ckpt"), steps))

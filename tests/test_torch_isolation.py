@@ -66,6 +66,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.data.cparser",
                  "fast_tffm_tpu_torch.data.badlines",
                  "fast_tffm_tpu_torch.data.pipeline",
+                 "fast_tffm_tpu_torch.data.stream",
+                 "fast_tffm_tpu_torch.obs.quality",
                  "fast_tffm_tpu_torch.utils.fetch",
                  "fast_tffm_tpu_torch.scoring",
                  "fast_tffm_tpu_torch.predict",
