@@ -10,10 +10,11 @@ BASELINE config #2's model: 2nd-order FM, factor_num = 16, hashed ids,
 vocabulary 2^24, a [2^24+1, 17] f32 table (1.14 GB) — over
 Criteo-shaped lines it generates itself; then, on the same lines,
 config #3's FFM and config #4's order-3 FM, and config #2's model again
-on the packed wire, and config #2's model in the stream run mode:
+on the packed wire, and config #2's model in the stream run mode, and
+config #5's width with the table offloaded to the host:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: both kernel libraries, one nvcc each, and the C++ parser
+2. build: the three kernel libraries, one nvcc each, and the C++ parser
    library (g++), all started together, with nvcc's register report and
    the parser's build seconds;
    pipeline: the train phase's 131,072 lines (written here) through
@@ -114,7 +115,36 @@ on the packed wire, and config #2's model in the stream run mode:
    verify and flip seconds, freshness (a shard's ``.done`` to the first
    published step holding it), resume seconds, the server's swaps and
    p99, and the kernels' launches;
-13. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+13. ``lookup = host`` (config #5's width: 2nd-order FM, k = 8, hashed
+   ids; its 10^9 rows cut to 10^8, a [10^8+1, 9] f32 table and an equal
+   accumulator, 7.2 GB of page-locked host state): run A (one epoch,
+   final save at 16) and run B (restores 16 into page-locked memory,
+   resumes at epoch 1/2, ends at 32) of ``python -m fast_tffm_tpu_torch
+   train`` as subprocesses under a wrapper that writes to JSON the four
+   kernels' launches, the host RSS before and after the backend is built
+   and at its peak, the card's peak allocated bytes from then on, and
+   whether the state is page-locked. The loss must fall, the AUC clear
+   the floor, all four kernels launch on every step, the card's peak
+   stay under 1 GiB, and RSS grow by about two tables' bytes and peak
+   at most three. A control run in process draws run A's initial table
+   again with the port's host init (a CPU generator: the same numbers)
+   and steps run A's stream on the card through ``train_step_body``; it
+   must match step 16 at rtol 1e-4 / atol 1e-6; its loop, and the same
+   loop on a pinned backend, give the two paths' rates side by side.
+   Predict of step 32 with
+   ``lookup = host`` on the padded and the packed wire must equal
+   ``lookup = device`` predict byte for byte. Eight batches step a
+   fresh pinned backend and a ``HostOffloadLookup`` (whose states must
+   agree at the step's tolerance), with each one's step ms; then the
+   pinned backend's resident step by events and by kernel, and both
+   offload kernels against their plain versions on a batch (gather
+   exact, write-back within rtol 1e-6), with device and event ms, bytes
+   over the host link each way and in device memory, and the bound at
+   the host link's rate each way, measured by 64 MiB pinned copies to
+   and from the card; and both FM kernels against their plain versions
+   on that batch with the control run's table (K = 8, Zipf-skewed
+   host-deduped rows);
+14. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
 train loop (the snapshot), the final save with ``wait``, the background
@@ -123,8 +153,9 @@ load, and the reload from the pointer flip to the swap. Every phase line
 carries the card's name and power limit.
 
 Any failed check raises, and the script exits non-zero. Scratch files
-(checkpoint steps of 2.28 GB, 1.14 GB .npz exports) live in ``.smoke/``
-at the repo root and are removed at the end. ``--out DIR`` also writes a
+(checkpoint steps of 2.28 GB, 1.14 GB .npz exports, the offload phase's
+7.2 GB steps) live in ``.smoke/`` at the repo root and are removed at
+the end. ``--out DIR`` also writes a
 JSON summary of every phase to ``DIR/chip_smoke.json``.
 """
 
@@ -166,7 +197,8 @@ SERVE_STEP = 1                    # the step the random table is written at
 RELOAD_POLL_SECONDS = 0.2
 RELOAD_CLIENTS = 8
 RELOAD_ROUNDS = 6                 # each client's requests after the swap
-MIN_FREE_BYTES = 16 << 30         # 4 checkpoint steps, an export, data
+MIN_FREE_BYTES = 24 << 30         # the offload phase's two 7.2 GB steps,
+                                  # data and score files (the widest)
 RESIDENT_BATCHES = 4
 RESIDENT_STEPS = 20
 PROFILED_STEPS = 8
@@ -174,6 +206,8 @@ AUC_GAP = 2e-3               # |exact AUC of predict - binned AUC|
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12          # H100 SXM, non-tensor-core f32
 L2_FLUSH_BYTES = 64 << 20         # > the 50 MB L2
+LINK_PEAK_BYTES = 64 << 20        # a copy long enough to reach the link's
+                                  # rate (no per-copy cost in sight)
 TIMED_LAUNCHES = 30
 PROFILED_LAUNCHES = 10
 PROFILE_ATTEMPTS = 5
@@ -2307,6 +2341,625 @@ def stream_phase(torch, device, card, data, train_row):
     return row
 
 
+OFFLOAD_VOCAB = 10 ** 8           # config #5's 10^9 rows, cut to 10^8
+OFFLOAD_FACTORS = 8               # config #5: k = 8, a row of 9 floats
+OFFLOAD_MIN_FREE_BYTES = 24 << 30  # two 7.2 GB steps, data, score files
+OFFLOAD_HBM_PEAK = 1 << 30        # tools/offload_smoke.py's bound
+OFFLOAD_LEG_STEPS = 8             # steps of the HostOffloadLookup leg
+OFFLOAD_RUN_TIMEOUT = 600         # seconds for one train command
+OFFLOAD_KERNELS = ("fm_score_kernel", "fm_score_bwd_kernel",
+                   "offload_gather_kernel", "offload_adagrad_kernel")
+# The offload train command in a subprocess, so that its host RSS and the
+# card's peak are its own: the entry point ``python -m fast_tffm_tpu_torch
+# train`` calls, with the backend's construction, the saves and the
+# restore timed and measured, the host RSS (/proc's VmRSS) sampled every
+# 10 ms and its peak kept per stage, and the four kernels' launch counts
+# written to a JSON file when it returns. The peak is sampled because
+# /proc lacks VmHWM under some container runtimes, and getrusage's peak
+# then carries the RSS of the parent that forked the process.
+OFFLOAD_TRAIN = r"""
+import json, sys, threading, time
+import torch
+torch.zeros(1, device="cuda")  # the CUDA context sits in the baseline
+from fast_tffm_tpu_torch import checkpoint as ck
+from fast_tffm_tpu_torch import lookup as lu
+from fast_tffm_tpu_torch import train as tr
+from fast_tffm_tpu_torch.__main__ import main
+from fast_tffm_tpu_torch.ops import fm_kernel
+from fast_tffm_tpu_torch.ops import offload_kernel as ok
+out_path, argv = sys.argv[1], sys.argv[2:]
+rec = {"saves": [], "restores": [], "start": lu.memory_report()}
+make, save, restore = (tr.make_offload_backend, ck.CheckpointState.save,
+                       ck.CheckpointState.restore)
+make_step, evaluate = tr.make_offload_train_step, tr.evaluate
+stage, peaks, done = ["start"], {}, threading.Event()
+
+
+def rss_mb():
+    with open("/proc/self/status") as fh:
+        for ln in fh:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) // 1024
+
+
+def sample():
+    while True:
+        now = stage[0]
+        peaks[now] = max(peaks.get(now, 0), rss_mb())
+        if done.wait(0.01):
+            return
+
+
+def staged(name, fn):
+    def wrapper(*args, **kwargs):
+        prev, stage[0] = stage[0], name
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stage[0] = prev
+    return wrapper
+
+
+def stepper(*args, **kwargs):
+    step = make_step(*args, **kwargs)
+
+    def staged_step(*a, **k):
+        stage[0] = "steps"
+        return step(*a, **k)
+    return staged_step
+
+
+def made(*args, **kwargs):
+    t0 = time.perf_counter()
+    lk = make(*args, **kwargs)
+    rec["backend_seconds"] = time.perf_counter() - t0
+    rec["backend"] = lu.memory_report()
+    rec["state_bytes"] = lk.table.nbytes + lk.acc.nbytes
+    rec["table_bytes"] = lk.table.nbytes
+    rec["page_locked"] = [ok.is_page_locked(lk.table),
+                          ok.is_page_locked(lk.acc)]
+    rec["pinned_by_torch"] = [lk.table.is_pinned(), lk.acc.is_pinned()]
+    rec["registered_bytes"] = ok.registered_bytes()
+    rec["mode"] = lk.mode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec["hbm_after_backend"] = torch.cuda.memory_allocated()
+    return lk
+
+
+def timed_save(self, step, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = save(self, step, *args, **kwargs)
+    rec["saves"].append({"step": int(step), "wait": bool(kwargs.get("wait")),
+                         "seconds": time.perf_counter() - t0})
+    return out
+
+
+def timed_restore(self, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = restore(self, *args, **kwargs)
+    rec["restores"].append({"step": None if out is None else out["step"],
+                            "seconds": time.perf_counter() - t0})
+    return out
+
+
+tr.make_offload_backend = staged("backend", made)
+tr.make_offload_train_step = stepper
+tr.evaluate = staged("evaluate", evaluate)
+ck.CheckpointState.save = staged("save", timed_save)
+ck.CheckpointState.restore = staged("restore", timed_restore)
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+rc = main(argv)
+torch.cuda.synchronize()
+done.set()
+sampler.join()
+rec.update(rc=rc, end=lu.memory_report(), rss_peaks_mb=peaks,
+           hbm_peak=torch.cuda.max_memory_allocated(),
+           fm_score=fm_kernel.launches, fm_score_bwd=fm_kernel.bwd_launches,
+           offload_gather=ok.gather_launches,
+           offload_adagrad=ok.adagrad_launches)
+with open(out_path, "w") as fh:
+    json.dump(rec, fh)
+sys.exit(rc)
+"""
+
+
+def run_offload_train(wd, cfg_path, run):
+    """One offload train command in a subprocess; returns its record."""
+    out_json = os.path.join(wd, f"run{run}.json")
+    with open(os.path.join(wd, f"run{run}.out"), "w") as out:
+        proc = subprocess.run(
+            [sys.executable, "-c", OFFLOAD_TRAIN, out_json, "train",
+             cfg_path], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=out, stderr=subprocess.STDOUT,
+            timeout=OFFLOAD_RUN_TIMEOUT)
+    if proc.returncode != 0:
+        with open(os.path.join(wd, f"run{run}.out")) as fh:
+            print(fh.read()[-6000:], flush=True)
+    check(proc.returncode == 0,
+          f"offload train run {run} exited {proc.returncode}")
+    with open(out_json) as fh:
+        return json.load(fh)
+
+
+def events_median_ms(torch, fn, n, warmup=2):
+    """Median CUDA-event time of ``fn(i)`` for i in [warmup, warmup + n),
+    after ``warmup`` untimed calls; each interval includes any wait of
+    the card for the host inside the call."""
+    times = []
+    for i in range(warmup + n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(i)
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def compare_chunked(torch, got, want, device, rtol=1e-4, atol=1e-6,
+                    chunk=1 << 24):
+    """(count of elements outside |a - b| <= atol + rtol|b|, max |a - b|)
+    over two [N, D] tensors, compared in row chunks on the card."""
+    bad, worst = 0, 0.0
+    for a in range(0, got.shape[0], chunk):
+        x = got[a:a + chunk].to(device, non_blocking=True)
+        y = want[a:a + chunk].to(device, non_blocking=True)
+        diff = (x - y).abs()
+        bad += int((diff > atol + rtol * y.abs()).sum())
+        worst = max(worst, float(diff.max()))
+    return bad, worst
+
+
+def host_link_ms(torch, nbytes, device, to_card=True):
+    """Median ms of a plain copy of ``nbytes`` between pinned host memory
+    and the card (CUDA events), to the card or from it."""
+    host = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    card = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+    src, dst = (host, card) if to_card else (card, host)
+    ms = events_median_ms(
+        torch, lambda i: dst.copy_(src, non_blocking=True), TIMED_LAUNCHES)
+    del host, card
+    return ms
+
+
+def offload_kernel_rows(torch, lk, spec, batch, device, card):
+    """Both offload kernels against their plain versions on one host-
+    deduped batch of the phase, as a step of pinned backend ``lk``: the
+    gather exact, the write-back within rtol 1e-6 of the
+    plain version on the card's copy of the rows (the kernel's rsqrtf
+    against torch.rsqrt on the card, which is CUDA's rsqrtf too); then
+    each kernel's device ms (profiler, else CUDA events) and event ms,
+    L2 flushed before each launch (a step reads rows no earlier launch
+    brought in), the plain version's ms on the CPU, the bytes over the host link and
+    in device memory, and the bound: each direction's host-link bytes at
+    that direction's peak rate (a LINK_PEAK_BYTES pinned copy, measured
+    here; the link is full duplex, so the larger of the two times), or
+    the device-memory bytes at HBM_BYTES_PER_S if that is longer. The
+    gather reads U·D·4 bytes from the host; the write-back reads the
+    U·D·4 accumulator bytes and writes 2·U·D·4 back. A plain copy of the
+    gather's bytes alone is timed beside them (a copy that small is
+    mostly its fixed cost)."""
+    import numpy as np
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.ops import offload_kernel as ok
+    ids = batch["uniq_ids"]
+    ids_cpu = ids.cpu()
+    U, D = int(ids.shape[0]), lk.dim
+    lr = spec.learning_rate
+    rows = ok.offload_gather(lk.table, ids)
+    torch.cuda.synchronize()
+    plain_rows = ok.offload_gather_plain(lk.table, ids_cpu)
+    check(torch.equal(rows.cpu(), plain_rows),
+          "offload_gather differs from its plain version")
+    _, _, grad = port_fm.grad_body(spec, rows, batch["labels"],
+                                   batch["weights"], ids,
+                                   batch["local_idx"], batch["vals"])
+    acc_rows = ok.offload_gather_plain(lk.acc, ids_cpu).to(device)
+    want_acc, want_rows = ok.adagrad_rows(acc_rows, rows, grad, lr)
+    ok.offload_adagrad(lk.table, lk.acc, ids, rows, grad, lr)
+    torch.cuda.synchronize()
+    got_rows = ok.offload_gather_plain(lk.table, ids_cpu).to(device)
+    got_acc = ok.offload_gather_plain(lk.acc, ids_cpu).to(device)
+    errs = []
+    for got, want, what in ((got_rows, want_rows, "rows"),
+                            (got_acc, want_acc, "accumulator")):
+        diff = (got - want).abs()
+        check(bool((diff <= 1e-6 * want.abs()).all()),
+              f"offload_adagrad {what} outside rtol 1e-6 of the plain "
+              f"version (max abs diff {float(diff.max())})")
+        errs.append(float(diff.max()))
+    check(not lk.table[-1].any() and not
+          ok.offload_gather_plain(lk.table, torch.tensor(
+              [spec.vocabulary_size], dtype=torch.int32)).any(),
+          "the pad row moved")
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    rows_bytes = U * D * 4
+    # GB/s each way, from copies long enough to show the link's rate.
+    h2d_rate, d2h_rate = (
+        LINK_PEAK_BYTES / host_link_ms(torch, LINK_PEAK_BYTES, device,
+                                       to_card) / 1e6
+        for to_card in (True, False))
+    rows_copy_ms = host_link_ms(torch, rows_bytes, device)
+    out = []
+    for name, h2d_bytes, d2h_bytes, hbm_bytes, run, plain in (
+            ("offload_gather", rows_bytes, 0, U * 4 + rows_bytes,
+             lambda: ok.offload_gather(lk.table, ids),
+             lambda: ok.offload_gather_plain(lk.table, ids_cpu)),
+            ("offload_adagrad", rows_bytes, 2 * rows_bytes,
+             U * 4 + 2 * rows_bytes,
+             lambda: ok.offload_adagrad(lk.table, lk.acc, ids, rows, grad,
+                                        lr),
+             lambda: ok.offload_adagrad_plain(lk.table, lk.acc, ids_cpu,
+                                              rows.cpu(), grad.cpu(), lr))):
+        launch = Launch(run)
+        device_ms, timing = kernel_ms(torch, launch, flush, name + "_kernel")
+        ev_ms = event_ms(torch, launch, flush)
+        torch.cuda.synchronize()
+        plain_times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            plain()
+            plain_times.append((time.perf_counter() - t0) * 1e3)
+        bound_ms = max(h2d_bytes / h2d_rate / 1e6,
+                       d2h_bytes / d2h_rate / 1e6,
+                       hbm_bytes / HBM_BYTES_PER_S * 1e3)
+        out.append({"phase": "kernel", "name": name, "card": card,
+                    "U": U, "D": D, "device_ms": device_ms,
+                    "device_timing": timing, "event_ms": ev_ms,
+                    "plain_ms": sorted(plain_times)[2],
+                    "plain_on": "cpu",
+                    "host_link_bytes": h2d_bytes + d2h_bytes,
+                    "host_to_card_bytes": h2d_bytes,
+                    "card_to_host_bytes": d2h_bytes, "hbm_bytes": hbm_bytes,
+                    "link_peak_copy_bytes": LINK_PEAK_BYTES,
+                    "host_to_card_GBps": h2d_rate,
+                    "card_to_host_GBps": d2h_rate,
+                    "rows_copy_ms": rows_copy_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "max_abs_err": 0.0 if name == "offload_gather"
+                    else max(errs)})
+    for row in out:
+        emit(row)
+    return out
+
+
+def offload_phase(torch, device, card, data, train_row):
+    """``lookup = host`` at config #5's width (2nd-order FM, k = 8, hashed
+    ids) with 10^8 rows: a [10^8+1, 9] f32 table and its accumulator,
+    7.2 GB of page-locked host state. Run A (one epoch) and run B
+    (resumed to two) of ``python -m fast_tffm_tpu_torch train`` in
+    subprocesses; a control run of the device path in process; predict
+    of step 32 on both wires against device-lookup predict; both offload
+    kernels against their plain versions, and both FM kernels on an
+    offload batch; the HostOffloadLookup leg. Returns (the phase's row,
+    the offload kernels' rows, the FM forward's and backward's rows)."""
+    import dataclasses
+    import re
+    import numpy as np
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch import lookup as lu
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.ops import offload_kernel as ok
+    from fast_tffm_tpu_torch.train import checkpoint_template
+    data_wd = data[0]
+    wd = os.path.join(WORK, "offload")
+    os.makedirs(wd)
+    free = shutil.disk_usage(wd).free
+    check(free >= OFFLOAD_MIN_FREE_BYTES,
+          f"{free} bytes free under {wd}; the offload phase needs "
+          f"{OFFLOAD_MIN_FREE_BYTES}")
+    t_phase = time.perf_counter()
+    try:
+        paths = [write_train_cfg(data_wd, epochs, save_steps=0,
+                                 leg="offload", model="lookup = host",
+                                 vocab=OFFLOAD_VOCAB,
+                                 factors=OFFLOAD_FACTORS)
+                 for epochs in (1, TRAIN_EPOCHS)]
+        cfg = load_config(paths[-1])
+        check(cfg.lookup == "host" and cfg.dedup == "auto",
+              f"offload config: lookup {cfg.lookup}, dedup {cfg.dedup}")
+        spec = port_fm.ModelSpec.from_config(cfg)
+        check(spec.dedup == "host", f"dedup = auto resolved to {spec.dedup}")
+        steps = -(-TRAIN_LINES // TRAIN_BATCH)
+        val_batches = -(-VAL_LINES // TRAIN_BATCH)
+        table_bytes = cfg.ckpt_rows * cfg.row_dim * 4
+
+        # Run A: one epoch and its final save at step 16; run B: restore
+        # into page-locked memory, resume at epoch 1/2, end at step 32.
+        recs, run_s = [], []
+        for run, path in enumerate(paths):
+            t0 = time.perf_counter()
+            recs.append(run_offload_train(wd, path, run))
+            run_s.append(time.perf_counter() - t0)
+        with open(cfg.log_file) as fh:
+            log = fh.read()
+        check(log.count("offload lookup [pinned-host (pinned)]: table "
+                        f"[{cfg.ckpt_rows}, {cfg.row_dim}] outside HBM") == 2,
+              "the runs did not log the pinned offload backend")
+        check("restored checkpoint at step 16" in log and
+              "resuming interrupted epoch schedule at epoch 1/2" in log,
+              "run B did not restore step 16 and resume at epoch 1/2")
+        losses, rates, aucs, done = read_train_log(cfg.log_file)
+        check([n for n, _ in done] == [steps, 2 * steps],
+              f"the offload runs ended at steps {done}")
+        mean_loss = [float(np.mean(losses[e])) for e in range(TRAIN_EPOCHS)]
+        check(all(np.isfinite(v).all() for v in losses.values())
+              and mean_loss[-1] < mean_loss[0],
+              f"offload mean loss did not fall: {mean_loss}")
+        check(len(aucs) == TRAIN_EPOCHS and aucs[-1] > train_row["auc_floor"],
+              f"offload validation AUC {aucs} not above "
+              f"{train_row['auc_floor']}")
+        for run, r in enumerate(recs):
+            want = (steps + val_batches, steps, steps + val_batches, steps)
+            got = (r["fm_score"], r["fm_score_bwd"], r["offload_gather"],
+                   r["offload_adagrad"])
+            check(got == want, f"run {run} launched fm_score, fm_score_bwd, "
+                  f"offload_gather, offload_adagrad {got} times, want {want}")
+            check(r["mode"] == "pinned" and all(r["page_locked"])
+                  and r["registered_bytes"] == r["state_bytes"]
+                  == 2 * table_bytes,
+                  f"run {run}: state not page-locked: {r}")
+            check(r["hbm_peak"] < OFFLOAD_HBM_PEAK,
+                  f"run {run}: the card's peak allocated bytes "
+                  f"{r['hbm_peak']} not under {OFFLOAD_HBM_PEAK}")
+            # In tables' bytes over the RSS before the restore and the
+            # backend: the growth once the state is built, the sampled
+            # peak up to then (init or restore) and over the whole run.
+            peaks = r["rss_peaks_mb"]
+            tables = [(mb - r["start"]["host_rss_mb"])
+                      / (table_bytes / 2**20) for mb in (
+                          r["backend"]["host_rss_mb"],
+                          max(peaks.get(k, 0) for k in
+                              ("start", "restore", "backend")),
+                          max(peaks.values()))]
+            (r["rss_growth_tables"], r["rss_init_peak_tables"],
+             r["rss_peak_tables"]) = tables
+            r["rss_peak_stage"] = max(peaks, key=peaks.get)
+            check(1.9 <= tables[0] <= 2.3 and tables[1] <= 3.0
+                  and tables[2] <= 3.0,
+                  f"run {run}: host RSS grew by {tables[0]} and peaked at "
+                  f"{tables[1]} up to the backend, {tables[2]} in all "
+                  f"(tables' bytes; want about 2 and at most 3); peaks "
+                  f"by stage {peaks}")
+        commits = committed_steps_in_log(cfg.log_file)
+        check([c["step"] for c in commits] == [steps, 2 * steps],
+              f"committed offload steps: {commits}")
+        state = {s: sorted(os.listdir(os.path.join(
+            cfg.model_file + ".ckpt", str(s)))) for s in (16, 32)}
+        check(all(v == ["acc.pt", "meta.json", "table.pt"]
+                  for v in state.values()), f"offload steps: {state}")
+
+        # Control: run A's initial table drawn again by the port's host
+        # init (a CPU generator: the same numbers), stepped on the card
+        # through the device path's train_step_body over run A's stream,
+        # in process (no prefetch thread, no wire encoder), timed.
+        t0 = time.perf_counter()
+        t_host, a_host = lu.init_host_state(cfg, cfg.seed)
+        table = t_host[:cfg.num_rows].to(device)
+        acc = a_host[:cfg.num_rows].to(device)
+        del t_host, a_host
+        torch.cuda.synchronize()
+        control_init_s = time.perf_counter() - t0
+        it = batch_iterator(cfg, cfg.train_files, training=True, epochs=1,
+                            seed=cfg.seed, raw_ids=False)
+        n_control = 0
+        t0 = time.perf_counter()
+        try:
+            for b in it:
+                table, acc, _, _ = port_fm.train_step_body(
+                    spec, table, acc, **port_fm.batch_args(b, device))
+                n_control += b.num_real
+        finally:
+            it.close()
+        torch.cuda.synchronize()
+        control_loop_s = time.perf_counter() - t0
+        ckpt = ck.CheckpointState(cfg.model_file)
+        stored = ckpt.restore(step=steps, template=checkpoint_template(cfg))
+        ckpt.close()
+        control = {}
+        for name, got in (("table", table), ("acc", acc)):
+            bad, worst = compare_chunked(torch, got, stored[name], device)
+            control[name] = worst
+            check(bad == 0, f"control run {name}: {bad} elements outside "
+                  f"rtol 1e-4 / atol 1e-6 of run A's step {steps} (max abs "
+                  f"diff {worst})")
+        del stored
+
+        # The device path's resident step on this state, beside the
+        # offload backend's below.
+        batches = []
+        it = batch_iterator(cfg, cfg.train_files, training=True, epochs=1,
+                            raw_ids=False)
+        try:
+            for b in it:
+                batches.append(port_fm.batch_args(b, device))
+                if len(batches) == OFFLOAD_LEG_STEPS:
+                    break
+        finally:
+            it.close()
+        device_step_ms = events_median_ms(
+            torch, lambda i: port_fm.train_step_body(
+                spec, table, acc, **batches[i % len(batches)]),
+            RESIDENT_STEPS)
+        # Both FM kernels against their plain versions on the shapes the
+        # offload step gives them: a host-deduped batch's rows of this
+        # table (K = 8, Zipf-skewed, U at the dedup's rung).
+        fwd_rows, bwd_rows = train_batch_kernel_rows(
+            torch, spec, table, batches[0], device, tag="offload")
+        del table, acc
+        torch.cuda.empty_cache()
+
+        # Predict of step 32: device lookup, then lookup = host on the
+        # padded and the packed wire, equal byte for byte.
+        predict_paths, predict_s, predict_launches = {}, {}, {}
+        for name, text in (("device", "lookup = device"),
+                           ("padded", "lookup = host"),
+                           ("packed", "lookup = host")):
+            with open(paths[-1]) as fh:
+                body = fh.read().replace("lookup = host", text).replace(
+                    "score_offload", f"score_offload_{name}")
+            if name == "packed":
+                body = body.replace("[Train]\n", "[Train]\nwire_format = "
+                                    "packed\n")
+            p = os.path.join(wd, f"predict_{name}.cfg")
+            with open(p, "w") as fh:
+                fh.write(body)
+            fm_kernel.launches = 0
+            ok.gather_launches = 0
+            t0 = time.perf_counter()
+            rc = cli(["predict", p])
+            predict_s[name] = time.perf_counter() - t0
+            check(rc == 0, f"offload phase predict ({name}) returned {rc}")
+            predict_launches[name] = (fm_kernel.launches, ok.gather_launches)
+            predict_paths[name] = os.path.join(load_config(p).score_path,
+                                               "val.txt.score")
+        check(predict_launches["padded"] == predict_launches["packed"]
+              == (val_batches, val_batches)
+              and predict_launches["device"] == (val_batches, 0),
+              f"predict launches (fm_score, offload_gather): "
+              f"{predict_launches}")
+        with open(predict_paths["device"], "rb") as fh:
+            want = fh.read()
+        for name in ("padded", "packed"):
+            with open(predict_paths[name], "rb") as fh:
+                check(fh.read() == want, f"offload predict ({name}) differs "
+                      "from device-lookup predict")
+        check(len(want.splitlines()) == VAL_LINES,
+              f"{len(want.splitlines())} predict lines for {VAL_LINES}")
+        with open(cfg.log_file) as fh:
+            log = fh.read()
+        check(log.count("offload predict [PinnedHostLookup]: table "
+                        f"[{cfg.ckpt_rows}, {cfg.row_dim}] outside HBM")
+              == 2, "offload predict did not log its backend")
+        shutil.rmtree(os.path.dirname(cfg.model_file))  # the 14.4 GB steps
+
+        # Eight steps of the same batches on the pinned backend and on the
+        # HostOffloadLookup leg (a blocking gradient fetch a step), from
+        # the same init; then the pinned backend's resident step, and
+        # both kernels against their plain versions on its state.
+        t0 = time.perf_counter()
+        pinned = lu.PinnedHostLookup(cfg, cfg.seed, device=device)
+        init_s = time.perf_counter() - t0
+        host = lu.HostOffloadLookup(cfg, cfg.seed, device=device)
+        legs = {}
+        for name, lk in (("pinned", pinned), ("host_offload", host)):
+            step = lu.make_offload_train_step(spec, lk, spec.learning_rate)
+            legs[name] = events_median_ms(
+                torch, lambda i: step(**batches[i]), OFFLOAD_LEG_STEPS - 2)
+        leg_err = {}
+        for name, got, want in zip(("table", "acc"), pinned.state(),
+                                   host.state()):
+            bad, worst = compare_chunked(torch, got, want, device)
+            leg_err[name] = worst
+            check(bad == 0, f"HostOffloadLookup leg {name}: {bad} elements "
+                  f"outside rtol 1e-4 / atol 1e-6 of the pinned backend's "
+                  f"(max abs diff {worst})")
+        del host
+        # The control's loop again with the pinned backend's step (the
+        # same stream, batch building and copies): the two paths' rates
+        # side by side, the entry point's loop apart.
+        step = lu.make_offload_train_step(spec, pinned, spec.learning_rate)
+        it = batch_iterator(cfg, cfg.train_files, training=True, epochs=1,
+                            seed=cfg.seed, raw_ids=False)
+        n_offload = 0
+        t0 = time.perf_counter()
+        try:
+            for b in it:
+                step(**port_fm.batch_args(b, device))
+                n_offload += b.num_real
+        finally:
+            it.close()
+        torch.cuda.synchronize()
+        offload_loop_s = time.perf_counter() - t0
+        # The resident offload step: batches on the card, state on the
+        # host; its median by CUDA events and its device ms by kernel.
+        offload_step_ms = events_median_ms(
+            torch, lambda i: step(**batches[i % len(batches)]),
+            RESIDENT_STEPS)
+        per_kernel, seen = step_kernel_ms(
+            torch, lambda i: step(**batches[i % len(batches)]),
+            names=OFFLOAD_KERNELS)
+        kernel_rows = offload_kernel_rows(torch, pinned, spec, batches[0],
+                                          device, card)
+        del pinned, step, batches
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    top = (None if per_kernel is None else
+           dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))
+    final = [s for r in recs for s in r["saves"] if s["wait"]]
+    row = {"phase": "offload", "card": card, "rows": cfg.num_rows,
+           "ckpt_rows": cfg.ckpt_rows, "row_dim": cfg.row_dim,
+           "table_bytes": table_bytes, "state_bytes": 2 * table_bytes,
+           "reduced": "vocabulary 10^9 -> 10^8 rows (7.2 GB of state "
+                      "where config #5 has 72 GB)",
+           "lines": TRAIN_LINES, "validation_lines": VAL_LINES,
+           "batch_size": TRAIN_BATCH, "steps": 2 * steps,
+           "run_seconds": run_s, "phase_seconds": phase_s,
+           "epoch_mean_loss": mean_loss, "validation_auc": aucs,
+           "auc_floor": train_row["auc_floor"],
+           "examples_per_s_loop": (len(rates) * TRAIN_BATCH
+                                   / sum(TRAIN_BATCH / r for r in rates)),
+           "examples_per_s_train_log": [e for _, e in done],
+           "device_path_examples_per_s_inprocess_loop":
+               n_control / control_loop_s,
+           "examples_per_s_inprocess_loop": n_offload / offload_loop_s,
+           "device_path_control_init_seconds": control_init_s,
+           "resident_step_ms_median": offload_step_ms,
+           "device_path_resident_step_ms_median": device_step_ms,
+           "profiled_device_ms_per_step":
+               None if per_kernel is None else sum(per_kernel.values()),
+           "profiled_kernels_ms_per_step": top,
+           "profiled_kernel_launches_seen": seen,
+           "pinned_leg_step_ms_median": legs["pinned"],
+           "host_offload_leg_step_ms_median": legs["host_offload"],
+           "host_offload_leg_max_abs_err": leg_err,
+           "backend_init_seconds": init_s,
+           "backend_seconds_by_run": [r["backend_seconds"] for r in recs],
+           "page_locked_bytes": recs[0]["registered_bytes"],
+           "torch_is_pinned_by_run": [r["pinned_by_torch"] for r in recs],
+           "hbm_peak_bytes_by_run": [r["hbm_peak"] for r in recs],
+           "hbm_after_backend_by_run": [r["hbm_after_backend"] for r in recs],
+           "host_rss_growth_tables_by_run":
+               [r["rss_growth_tables"] for r in recs],
+           "host_rss_init_peak_tables_by_run":
+               [r["rss_init_peak_tables"] for r in recs],
+           "host_rss_peak_tables_by_run": [r["rss_peak_tables"] for r in recs],
+           "host_rss_peak_stage_by_run": [r["rss_peak_stage"] for r in recs],
+           "host_rss_start_mb_by_run": [r["start"]["host_rss_mb"]
+                                        for r in recs],
+           "final_save_seconds": [s["seconds"] for s in final],
+           "final_save_steps": [s["step"] for s in final],
+           "checkpoint_commits": commits,
+           "restore_seconds": [s["seconds"] for r in recs
+                               for s in r["restores"] if s["step"]],
+           "predict_seconds": predict_s,
+           "predict_launches": predict_launches,
+           "control_max_abs_err": control,
+           "fm_score_launches": sum(r["fm_score"] for r in recs)
+               + predict_launches["padded"][0]
+               + predict_launches["packed"][0],
+           "fm_score_bwd_launches": sum(r["fm_score_bwd"] for r in recs),
+           "offload_gather_launches": sum(r["offload_gather"] for r in recs)
+               + predict_launches["padded"][1]
+               + predict_launches["packed"][1],
+           "offload_adagrad_launches":
+               sum(r["offload_adagrad"] for r in recs)}
+    emit(row)
+    return row, kernel_rows, fwd_rows, bwd_rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -2357,6 +3010,7 @@ def main(argv) -> int:
         parser_built, parser_s = parser_build.result()
     build.load_fm_score()
     build.load_fm_score_bwd()
+    build.load_offload_rows()
     print(f"parser library {'built' if parser_built else 'found'} and "
           f"loaded in {parser_s:.2f}s: {cparser.library_path()}")
     print(f"build+load seconds {time.perf_counter() - t0:.2f}", flush=True)
@@ -2457,6 +3111,12 @@ def main(argv) -> int:
             if name.startswith("model"):
                 shutil.rmtree(os.path.join(train_data[0], name))
         stream_row = stream_phase(torch, device, smi, train_data, train_row)
+        # 13. lookup = host: the state in page-locked host memory
+        shutil.rmtree(os.path.join(WORK, "stream_phase"))
+        offload_row, offload_rows, fwd_offload_rows, bwd_offload_rows = \
+            offload_phase(torch, device, smi, train_data, train_row)
+        kernel_rows += fwd_offload_rows
+        bwd_rows += bwd_offload_rows
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2480,7 +3140,8 @@ def main(argv) -> int:
                      + packed_serving_row["serve_launches"]
                      + packed_train_row["fm_score_launches"]
                      + stream_row["fm_score_launches"]
-                     + stream_row["serve_launches"]),
+                     + stream_row["serve_launches"]
+                     + offload_row["fm_score_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2499,18 +3160,21 @@ def main(argv) -> int:
         "packed_serve_launches": packed_serving_row["serve_launches"],
         "train_packed_launches": packed_train_row["fm_score_launches"],
         "stream_train_launches": stream_row["fm_score_launches"],
-        "stream_serve_launches": stream_row["serve_launches"]}, {
+        "stream_serve_launches": stream_row["serve_launches"],
+        "offload_launches": offload_row["fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
         "launches": (train_row["fm_score_bwd_launches"]
                      + host_row["fm_score_bwd_launches"]
                      + packed_train_row["fm_score_bwd_launches"]
-                     + stream_row["fm_score_bwd_launches"]),
+                     + stream_row["fm_score_bwd_launches"]
+                     + offload_row["fm_score_bwd_launches"]),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
         "stream_train_launches": stream_row["fm_score_bwd_launches"],
+        "offload_launches": offload_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -2518,7 +3182,25 @@ def main(argv) -> int:
         "shape_BLK": [bwd_head["B"], bwd_head["L"], bwd_head["K"]],
         "device_ms": bwd_head["device_ms"],
         "device_timing": bwd_head["device_timing"], "need_dx": False,
-        "batch": "train"}]}
+        "batch": "train"}] + [{
+        "name": r["name"], "route": "cuda",
+        "source": "fast_tffm_tpu_torch/csrc/offload_rows.cu",
+        "replaces": ("fast_tffm_tpu/lookup.py:421"
+                     if r["name"] == "offload_gather"
+                     else "fast_tffm_tpu/lookup.py:428"),
+        "launches": offload_row[r["name"] + "_launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "device_timing": r["device_timing"], "event_ms": r["event_ms"],
+        "plain_on": r["plain_on"], "U": r["U"], "D": r["D"],
+        "host_link_bytes": r["host_link_bytes"],
+        "host_to_card_bytes": r["host_to_card_bytes"],
+        "card_to_host_bytes": r["card_to_host_bytes"],
+        "hbm_bytes": r["hbm_bytes"],
+        "host_to_card_GBps": r["host_to_card_GBps"],
+        "card_to_host_GBps": r["card_to_host_GBps"]}
+        for r in offload_rows]}
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -2531,7 +3213,9 @@ def main(argv) -> int:
                        "packed_serving": packed_serving_row,
                        "train_packed": packed_train_row,
                        "train_ffm": ffm_row, "train_order3": order3_row,
-                       "stream": stream_row, **kernels}, fh, indent=1)
+                       "stream": stream_row, "offload": offload_row,
+                       "kernel_offload": offload_rows, **kernels}, fh,
+                      indent=1)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,11 @@ without the port's ``meta.json`` mark (an orbax step) is refused loudly
 and never quarantined; ``models/convert.save_checkpoint_from_numpy``
 carries a JAX-trained model across.
 
+``restore_partial`` (the offload predict path, lookup.py) loads the
+table alone; the accumulator is never read.
+
 Not ported, each waiting for its ROADMAP.md item: the vocab-admission
-sidecar (A8), multi-process broadcasts (A10), ``restore_partial`` for offload (A7), and the telemetry counters
+sidecar (A8), multi-process broadcasts (A10), and the telemetry counters
 and ``health: ckpt_fallback`` event (A11).
 """
 
@@ -422,7 +425,11 @@ class CheckpointState:
     the step and its manifest are durable. ``stream_state`` (run_mode =
     stream) is the watermark adopted at the step being saved, taken at
     the same instant as the snapshot; it is written as
-    ``watermark-<step>.json``.
+    ``watermark-<step>.json``. ``from_state=True`` (the offload
+    backend's host-resident state, lookup.py: ``[ckpt_rows, D]`` CPU
+    tensors in the stored layout) writes the tensors themselves, with no
+    snapshot (at config #5's size a second copy is tens of GB), and so
+    only with ``wait=True``.
 
     ``retry`` wraps RESTORE's reads in the transient-IO retry loop (a
     pure read is always safe to re-drive). SAVE is never retried: a
@@ -455,9 +462,11 @@ class CheckpointState:
              vocabulary_size: int, force: bool = False,
              wait: bool = False, epoch: int = 0,
              rewrite_stale_metadata: bool = False,
-             stream_state: Optional[dict] = None) -> None:
-        """Save ``table`` and ``acc`` (``[vocabulary_size + 1, D]``, on
-        any device) as ``step``, with ``epoch``, the count of COMPLETED
+             stream_state: Optional[dict] = None,
+             from_state: bool = False) -> None:
+        """Save ``table`` and ``acc`` (``[vocabulary_size + 1, D]`` on
+        any device; with ``from_state``, the stored ``[ckpt_rows, D]`` on
+        the CPU) as ``step``, with ``epoch``, the count of COMPLETED
         epochs (train.resume_start_epoch reads it). ``vocabulary_size``
         is stored beside the arrays: the aligned row layout cannot tell
         two vocabularies in one bucket apart, so callers check it on
@@ -481,6 +490,10 @@ class CheckpointState:
         step that exists it is written here: the arrays are the same
         state, and so is the position (it only advances with steps)."""
         step = int(step)
+        if from_state and not wait:
+            raise ValueError(
+                "a from_state save writes the caller's own tensors, which "
+                "it updates in place: save with wait=True")
         self._join_writer()
         steps = list_step_dirs(self.directory)
         if not force and steps and step <= steps[-1]:
@@ -501,15 +514,36 @@ class CheckpointState:
             # overlay the wrong epoch, and a stale manifest would brand
             # the fresh bytes corrupt.
             self._prune_fresh_step(step)
-            self._snapshot(table, acc, int(vocabulary_size))
+            if from_state:
+                arrays = self._stored(table, acc, int(vocabulary_size))
+            else:
+                self._snapshot(table, acc, int(vocabulary_size))
+                arrays = self._buffers
             meta = {"format": STEP_FORMAT, "step": step,
                     "epoch": int(epoch), "vocab": int(vocabulary_size)}
             self._writer = threading.Thread(
-                target=self._write_step, args=(meta, stream_state),
+                target=self._write_step, args=(meta, stream_state, arrays),
                 name="ckpt-writer", daemon=True)
             self._writer.start()
         if wait:
             self._join_writer()
+
+    @staticmethod
+    def _stored(table: torch.Tensor, acc: torch.Tensor,
+                vocabulary_size: int) -> Dict[str, torch.Tensor]:
+        """A ``from_state`` save's arrays, written as they are: CPU
+        tensors in the stored layout, whose padded rows are the caller's
+        (the offload state keeps them as the snapshot writes them)."""
+        rows = ckpt_rows_for(vocabulary_size + 1)
+        for name, t in (("table", table), ("acc", acc)):
+            if t.device.type != "cpu" or t.dtype != torch.float32 or \
+                    t.dim() != 2 or int(t.shape[0]) != rows or \
+                    not t.is_contiguous():
+                raise ValueError(
+                    f"from_state saves a contiguous float32 [{rows}, D] "
+                    f"CPU {name}, got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
+        return {"table": table.detach(), "acc": acc.detach()}
 
     def _snapshot(self, table: torch.Tensor, acc: torch.Tensor,
                   vocabulary_size: int) -> None:
@@ -542,13 +576,14 @@ class CheckpointState:
             torch.cuda.current_stream(device).synchronize()
 
     def _write_step(self, meta: Dict[str, Any],
-                    stream_state: Optional[dict]) -> None:
+                    stream_state: Optional[dict],
+                    arrays: Dict[str, torch.Tensor]) -> None:
         """The writer thread: files, watermark, commit, retention,
         manifest."""
         step = meta["step"]
         t0 = time.perf_counter()
         try:
-            nbytes = self._write_step_files(meta, stream_state)
+            nbytes = self._write_step_files(meta, stream_state, arrays)
         except Exception as e:  # raised at the next join
             self._writer_error = e
             return
@@ -562,7 +597,8 @@ class CheckpointState:
             time.perf_counter() - t_commit)
 
     def _write_step_files(self, meta: Dict[str, Any],
-                          stream_state: Optional[dict]) -> int:
+                          stream_state: Optional[dict],
+                          arrays: Dict[str, torch.Tensor]) -> int:
         step = meta["step"]
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
@@ -572,7 +608,7 @@ class CheckpointState:
         try:
             for name in ARRAYS:
                 path = os.path.join(tmp, name + ".pt")
-                torch.save(self._buffers[name], path)
+                torch.save(arrays[name], path)
                 _fsync_path(path)
                 nbytes += os.path.getsize(path)
             with open(os.path.join(tmp, META_FILE), "w",
@@ -840,6 +876,14 @@ class CheckpointState:
                 self._raise_restore_error(step, err)
             return self._apply_sidecars(step, restored)
         return self._restore_newest_intact(template)
+
+    def restore_partial(self, template: Dict[str, Tuple[int, int]],
+                        step: Optional[int] = None
+                        ) -> Optional[Dict[str, Any]]:
+        """Restore only the arrays ``template`` names (the JAX package's
+        name): the offload predict path loads the table without the
+        same-sized accumulator. ``restore`` with that template."""
+        return self.restore(step=step, template=template)
 
     def _restore_newest_intact(self, template
                                ) -> Optional[Dict[str, Any]]:

@@ -6,10 +6,13 @@ The single-device subset of ``fast_tffm_tpu/models/fm.py``:
 ``_scores``, ``rows_score_body``, ``score_body`` and ``train_step_body``:
 (``_device_dedup`` for a raw-ids batch, none for a host-deduped one) →
 gather → ``grad_body`` (``loss_and_scores`` and its gradient with respect
-to the gathered rows) → ``sparse_adagrad_apply``; and the packed wire's
+to the gathered rows) → ``sparse_adagrad_apply``; the packed wire's
 ``packed_train_step_body`` and ``packed_score_body``, which rebuild the
 padded rectangles on the device (``wire.unpack_rectangles``) and run the
-same bodies.
+same bodies; and the offload seam's score side (lookup.py):
+``packed_rows_score_body``, ``ships_raw_batches`` and
+``make_batch_scorer``, whose backend arm scores the row block a backend
+gathered.
 
 ``_scores`` dispatches as the JAX package's: FFM
 (``model_type = ffm``) scores through ``ops/interaction.ffm_batch_scores``
@@ -21,10 +24,11 @@ card (forward, and in training the hand-written backward), their plain
 versions for tensors on the CPU. The ``kernel`` key is accepted and
 ignored: on the card an order-2 FM always runs the kernels. ``dedup``
 resolves as the JAX package resolves it on one device (``auto`` →
-``device``): ``device`` steps take raw-ids batches and run the unique on
-the card, ``host`` steps take the pipeline's host-deduped batches
-(``uniq_ids`` set), whose U is a ladder rung the host picked, so the
-step never waits for the card to learn it.
+``device``, or ``host`` with ``lookup = host``, whose backend gathers
+by the host-side unique): ``device`` steps take raw-ids batches and run
+the unique on the card, ``host`` steps take the pipeline's host-deduped
+batches (``uniq_ids`` set), whose U is a ladder rung the host picked, so
+the step never waits for the card to learn it.
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ def check_supported(cfg: FmConfig) -> None:
     ROADMAP.md item that brings each."""
     refusals = (
         (cfg.vocab_mode == "admit", "vocab_mode = admit", "A8"),
-        (cfg.lookup == "host", "lookup = host", "A7"),
         (cfg.serve_replicas > 1,
          f"serve_replicas = {cfg.serve_replicas}", "A9"),
     )
@@ -76,13 +79,17 @@ class ModelSpec:
     @classmethod
     def from_config(cls, cfg: FmConfig) -> "ModelSpec":
         check_supported(cfg)
+        dedup = cfg.dedup
+        if dedup == "auto":
+            # The offload backend gathers by the host-side unique
+            # (config.py refuses an explicit dedup = device there).
+            dedup = "device" if cfg.lookup == "device" else "host"
         return cls(model_type=cfg.model_type, order=cfg.order,
                    factor_num=cfg.factor_num, field_num=cfg.field_num,
                    vocabulary_size=cfg.vocabulary_size,
                    loss_type=cfg.loss_type, factor_lambda=cfg.factor_lambda,
                    bias_lambda=cfg.bias_lambda,
-                   learning_rate=cfg.learning_rate,
-                   dedup="host" if cfg.dedup == "host" else "device")
+                   learning_rate=cfg.learning_rate, dedup=dedup)
 
     @property
     def row_dim(self) -> int:
@@ -305,6 +312,44 @@ def packed_score_body(spec: ModelSpec, L: int, table: torch.Tensor,
                                            flat_idx, flat_vals, flat_fields)
     return score_body(spec, table, local_idx, vals, uniq_ids=uniq_ids,
                       fields=fields)
+
+
+def packed_rows_score_body(spec: ModelSpec, L: int, gathered: torch.Tensor,
+                           lengths: torch.Tensor, flat_idx: torch.Tensor,
+                           flat_vals: torch.Tensor,
+                           flat_fields: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The offload score path on the packed wire: a backend gathered the
+    ``[U, D]`` rows from the withheld uniq ids (``WireBatch.host_uniq``)
+    and only those rows and the flat CSR reach the card. Padding indexes
+    the block's last row, as in ``rows_score_body``'s padded batches."""
+    from fast_tffm_tpu_torch.wire import unpack_rectangles
+    local_idx, vals, fields = unpack_rectangles(
+        L, gathered.shape[0] - 1, lengths, flat_idx, flat_vals, flat_fields)
+    return rows_score_body(spec, gathered, local_idx, vals, fields)
+
+
+def ships_raw_batches(spec: ModelSpec, backend=None) -> bool:
+    """Whether an inference path builds raw-ids batches for this spec:
+    the one place the policy lives (an offload backend gathers by the
+    host-side unique whatever ``spec.dedup`` says)."""
+    return spec.dedup == "device" and backend is None
+
+
+def make_batch_scorer(spec: ModelSpec, backend=None):
+    """``score(table, args) -> [B]`` raw scores for a padded batch's
+    ``batch_args`` without labels and weights. With a lookup backend
+    (lookup.py) the backend gathers the rows of ``args["uniq_ids"]``
+    (popped) and the card scores that block, ``table`` unused; else
+    ``score_body`` on ``table``."""
+    if backend is not None:
+        def score(table, args):
+            gathered = backend.gather(args.pop("uniq_ids"))
+            return rows_score_body(spec, gathered, **args)
+    else:
+        def score(table, args):
+            return score_body(spec, table, **args)
+    return score
 
 
 def batch_args(batch: DeviceBatch,

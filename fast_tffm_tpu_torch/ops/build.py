@@ -28,7 +28,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 FM_SCORE_SRC = os.path.join(CSRC, "fm_score.cu")
 FM_SCORE_BWD_SRC = os.path.join(CSRC, "fm_score_bwd.cu")
-SOURCES = (FM_SCORE_SRC, FM_SCORE_BWD_SRC)
+OFFLOAD_ROWS_SRC = os.path.join(CSRC, "offload_rows.cu")
+SOURCES = (FM_SCORE_SRC, FM_SCORE_BWD_SRC, OFFLOAD_ROWS_SRC)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -123,7 +124,8 @@ def _load(src: str, signatures) -> ctypes.CDLL:
         return lib
 
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 
 
 def load_fm_score() -> ctypes.CDLL:
@@ -141,3 +143,19 @@ def load_fm_score_bwd() -> ctypes.CDLL:
     return _load(FM_SCORE_BWD_SRC, {
         "fm_score_bwd": ([_P] * 6 + [_LL] + [_I] * 5 + [_P], _I),
         "fm_score_bwd_error_string": ([_I], ctypes.c_char_p)})
+
+
+def load_offload_rows() -> ctypes.CDLL:
+    """The offload row library: offload_gather(table, ids, out, n_rows,
+    D, U, device, stream), offload_adagrad(table, acc, ids, rows, grad,
+    lr, n_rows, D, U, device, stream), and the page-locking calls
+    offload_host_register(ptr, nbytes, device),
+    offload_host_unregister(ptr) and offload_device_pointer(ptr,
+    &dev_ptr)."""
+    return _load(OFFLOAD_ROWS_SRC, {
+        "offload_gather": ([_P] * 3 + [_LL, _I, _LL, _I, _P], _I),
+        "offload_adagrad": ([_P] * 5 + [_F, _LL, _I, _LL, _I, _P], _I),
+        "offload_host_register": ([_P, _LL, _I], _I),
+        "offload_host_unregister": ([_P], _I),
+        "offload_device_pointer": ([_P, ctypes.POINTER(_P)], _I),
+        "offload_error_string": ([_I], ctypes.c_char_p)})

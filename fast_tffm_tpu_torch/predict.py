@@ -13,8 +13,13 @@ model bias (``keep_empty``), so score files stay line-aligned with their
 inputs. Batches ship through the scorer's wire encoder (wire.py), padded
 or packed as ``wire_format`` says.
 
+``lookup = host``: the table is restored (table only) or wrapped into a
+score backend (``lookup.make_score_backend``), page-locked on the host;
+the card only ever holds each batch's gathered ``[U, D]`` rows. The
+scores equal the device lookup's byte for byte.
+
 Not ported yet: the mesh and multi-process sweeps with their part
-files (ROADMAP.md A10), offload (A7), admit mode's slot map (A8).
+files (ROADMAP.md A10), admit mode's slot map (A8).
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch
 from fast_tffm_tpu_torch.checkpoint import CheckpointState
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.pipeline import expand_files
+from fast_tffm_tpu_torch.lookup import make_score_backend
+from fast_tffm_tpu_torch.models.fm import ModelSpec
 from fast_tffm_tpu_torch.scoring import (CompiledScorer, ScoreWriter,
                                          score_sweep)
 from fast_tffm_tpu_torch.train import check_restored_vocab, checkpoint_template
@@ -75,18 +82,28 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
             device=None) -> List[str]:
     """Run batch prediction; returns the score files written. ``device``
     defaults to the card (utils/device.py); ``table`` defaults to the
-    newest intact checkpoint step's (``load_table``)."""
+    newest intact checkpoint step's (``load_table``). With ``lookup =
+    host`` a given ``table`` is a CPU tensor and stays on the host."""
     device = resolve_device(device)
-    scorer = CompiledScorer(cfg, device)  # refuses unported config values
+    ModelSpec.from_config(cfg)  # refuses unported config values
     logger = get_logger(log_file=cfg.log_file or None)
     log_ignored_keys(cfg, logger)
-    logger.info("wire format: %s", scorer.wire.describe())
-    if table is None:
+    backend = None
+    if cfg.lookup == "host":
+        # Never table.to(device): an offload-scale table does not fit
+        # the card's memory.
+        backend = make_score_backend(cfg, table, device=device)
+        table = None
+        logger.info("offload predict [%s]: table [%d, %d] outside HBM",
+                    type(backend).__name__, *backend.table.shape)
+    elif table is None:
         table = load_table(cfg, device)
+    scorer = CompiledScorer(cfg, device, backend=backend)
+    logger.info("wire format: %s", scorer.wire.describe())
     return _predict_body(cfg, table, scorer, logger)
 
 
-def _predict_body(cfg: FmConfig, table: torch.Tensor,
+def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
                   scorer: CompiledScorer, logger) -> List[str]:
     os.makedirs(cfg.score_path, exist_ok=True)
     written: List[str] = []

@@ -10,7 +10,12 @@ the two cannot pair a batch with another score path. A raw-ids batch
 (``dedup = host``) has its rows gathered first. ``raw`` says which
 batches the pipeline builds for this scorer. The scorer owns the
 ``WireEncoder`` (wire.py) every batch ships through: padded, or packed
-and rebuilt on the device by ``packed_score_body``.
+and rebuilt on the device by ``packed_score_body``. With a lookup
+``backend`` (lookup.py, ``lookup = host``) the table never comes to the
+card: batches are host-deduped, the backend gathers each batch's rows
+(a padded batch's shipped ``uniq_ids``, a packed batch's withheld
+``host_uniq``) and the card scores the row block (``rows_score_body``,
+``packed_rows_score_body``).
 
 ``format_scores`` is the one ``%.6f``-per-line formatter: predict writes
 it to ``.score`` files and serving returns it as the response body, so
@@ -44,40 +49,50 @@ from fast_tffm_tpu_torch.data.pipeline import (DeviceBatch, FileMarks,
                                                gil_bound_iteration,
                                                prefetch)
 from fast_tffm_tpu_torch.metrics import sigmoid
-from fast_tffm_tpu_torch.models.fm import (ModelSpec, packed_score_body,
-                                           score_body)
+from fast_tffm_tpu_torch.models.fm import (ModelSpec, make_batch_scorer,
+                                           packed_rows_score_body,
+                                           packed_score_body,
+                                           ships_raw_batches)
 from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
 from fast_tffm_tpu_torch.wire import (NARROW_VALUE_DTYPE, WireEncoder,
                                       resolve_wire)
 
 
 class CompiledScorer:
-    """Scores batches against a table on ``device``. ``dedup``
-    overrides the config's resolution (the serving process forces
-    ``"device"``: raw-ids flushes); ``serve_ladder`` buckets packed flat
-    arrays to the serve ladder (``wire.rect_fraction_rungs``)."""
+    """Scores batches against a table on ``device``, or through a lookup
+    ``backend`` (``table`` then unused: pass None). ``dedup`` overrides
+    the config's resolution (the serving process forces ``"device"``:
+    raw-ids flushes); ``serve_ladder`` buckets packed flat arrays to the
+    serve ladder (``wire.rect_fraction_rungs``)."""
 
     def __init__(self, cfg: FmConfig, device: torch.device,
-                 dedup: Optional[str] = None, serve_ladder: bool = False):
+                 dedup: Optional[str] = None, serve_ladder: bool = False,
+                 backend=None):
         spec = ModelSpec.from_config(cfg)
         if dedup is not None:
             spec = dataclasses.replace(spec, dedup=dedup)
         self.spec = spec
         self.device = torch.device(device)
+        self.backend = backend
         # Whether the pipeline builds raw-ids batches for this scorer.
-        self.raw = self.spec.dedup == "device"
-        self.wire = resolve_wire(cfg)
+        self.raw = ships_raw_batches(spec, backend=backend)
+        self._score = make_batch_scorer(spec, backend=backend)
+        self.wire = resolve_wire(cfg, backend=backend)
         self.encoder = WireEncoder(self.wire, pad_id=cfg.pad_id,
+                                   host_uniq=backend is not None,
                                    rect_fraction=serve_ladder)
 
-    def score_batch(self, table: torch.Tensor,
+    def score_batch(self, table: Optional[torch.Tensor],
                     batch: DeviceBatch) -> torch.Tensor:
         """Raw [B] scores, left on the device (callers fetch them)."""
         wb = self.encoder.encode_score(batch)
         args = self.encoder.device_put(wb, self.device)
-        if wb.packed:
-            return packed_score_body(self.spec, wb.L, table, **args)
-        return score_body(self.spec, table, **args)
+        if not wb.packed:
+            return self._score(table, args)
+        if self.backend is not None:
+            gathered = self.backend.gather(wb.host_uniq)
+            return packed_rows_score_body(self.spec, wb.L, gathered, **args)
+        return packed_score_body(self.spec, wb.L, table, **args)
 
     def score_packed_shape(self, table: torch.Tensor, B: int, L: int,
                            P: int) -> torch.Tensor:
@@ -240,14 +255,16 @@ class ScoreDemux:
                 f"has {len(starts)} entries)")
 
 
-def score_sweep(cfg: FmConfig, table: torch.Tensor, files: Sequence[str],
+def score_sweep(cfg: FmConfig, table: Optional[torch.Tensor],
+                files: Sequence[str],
                 on_file: Callable[[str, np.ndarray], None],
                 scorer: Optional[CompiledScorer] = None) -> int:
     """One continuous scoring sweep over all ``files`` (keep_empty: one
     score per input line): per-file raw score arrays go to ``on_file``
     in file order as each file's last batch lands. Returns the number of
     examples scored. ``on_file`` runs on the fetch worker mid-sweep (on
-    the caller's thread for the files cut at the end)."""
+    the caller's thread for the files cut at the end). ``table`` is
+    None for a scorer with a backend."""
     scorer = scorer or CompiledScorer(cfg, table.device)
     marks = FileMarks()
     demux = ScoreDemux(marks, on_file)

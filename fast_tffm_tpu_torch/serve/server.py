@@ -32,6 +32,10 @@ and say so: every response carries the step that scored it. The old
 table is freed when its last flush drains. A failed reload counts
 ``serve/reload_failures`` and the old table keeps serving.
 
+``lookup = host`` is refused with the JAX package's ``ValueError``, as
+its serving process refuses it: offload-scale tables are scored by
+batch predict.
+
 Not ported yet: telemetry, SLO gauges, capacity pre-flight, admit mode,
 background warmup (ROADMAP.md), and ``serve_reload_mode = external``
 with ``POST /reload`` (A9, the fleet).
@@ -168,6 +172,12 @@ class ScorerServer:
 
     def __init__(self, cfg: FmConfig, logger=None, device=None,
                  watch: bool = True):
+        if cfg.lookup != "device":
+            raise ValueError(
+                "serving requires lookup = device: the raw-gather "
+                "scorer's pre-compiled shape ladder has no host-gather "
+                "protocol (offload-scale tables belong behind the "
+                "batch predict path)")
         if cfg.serve_reload_mode != "poll":
             raise NotImplementedError(
                 f"serve_reload_mode = {cfg.serve_reload_mode} (POST "

@@ -1,7 +1,7 @@
 """Training — the single-process, single-device subset of
 ``fast_tffm_tpu/train.py`` (``train`` → ``_train_session`` on one device,
-``lookup = device``, ``vocab_mode = fixed``): FM of order 2 and higher,
-and field-aware FM.
+``vocab_mode = fixed``): FM of order 2 and higher, and field-aware FM,
+with the table on the device or, with ``lookup = host``, outside it.
 
     python -m fast_tffm_tpu_torch train <cfg> [--device cuda|cpu]
 
@@ -46,6 +46,16 @@ watermark and, when publishing, a gated exit publish follows (a
 preempted gated run skips it). As in the JAX package,
 ``publish_interval_seconds`` is inert in ``run_mode = epochs``.
 
+``lookup = host`` (lookup.py; BASELINE config #5): the table and the
+accumulator live in page-locked host memory (``make_offload_backend``,
+restored into in place), each step runs ``make_offload_train_step`` on
+host-deduped, padded-wide batches, and the card holds only each batch's
+``[U, D]`` rows and their gradient. Every save is written from the
+backend's ``state()`` with ``wait=True`` (no snapshot copy), evaluate
+and the publish sweep score through ``CompiledScorer(backend=...)``, and
+``train`` returns the host table. A multi-process offload run is
+refused, as in the JAX package.
+
 Not ported yet, each refused with the ROADMAP.md item that brings it:
 multi-process and elastic training, multi-worker streams and the fixed
 unique bucket (A10). The observability keys are accepted, ignored and
@@ -73,6 +83,8 @@ from fast_tffm_tpu_torch.data.pipeline import (batch_iterator,
 from fast_tffm_tpu_torch.data.stream import (DONE, IDLE, WATERMARK_FORMAT,
                                              StreamPrefetcher, StreamSource,
                                              StreamTracker, stream_workers)
+from fast_tffm_tpu_torch.lookup import (make_offload_backend,
+                                        make_offload_train_step)
 from fast_tffm_tpu_torch.metrics import StreamingAUC
 from fast_tffm_tpu_torch.models.convert import save_npz
 from fast_tffm_tpu_torch.models.fm import (ModelSpec, init_accumulator,
@@ -102,6 +114,13 @@ def check_train_supported(cfg: FmConfig) -> None:
     item that brings each; a silently ignored key would give another
     result than the JAX package's."""
     check_stream_supported(cfg)
+    if cfg.lookup == "host" and bool(cfg.ps_hosts or cfg.worker_hosts):
+        # The JAX package's design position: multi-host scale uses the
+        # row-sharded mesh (lookup = device), which waits for A10 here.
+        raise ValueError(
+            "lookup = host is single-process by design: multi-host scale "
+            "uses the row-sharded mesh (lookup = device) — see "
+            "BASELINE.md's multi-host beyond-HBM design note")
     refusals = (
         (bool(cfg.ps_hosts or cfg.worker_hosts),
          "ps_hosts / worker_hosts (dist_train)", "A10"),
@@ -148,12 +167,14 @@ def check_restored_vocab(cfg: FmConfig, restored) -> None:
             "the config.")
 
 
-def evaluate(cfg: FmConfig, table: torch.Tensor, files,
+def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
              max_batches: Optional[int] = None, weight_files=(),
              bad_lines: Optional[BadLineTracker] = None,
-             collect: Optional[QualityStats] = None
+             collect: Optional[QualityStats] = None, backend=None
              ) -> Tuple[float, int]:
-    """Streamed AUC over ``files``: (auc, n_examples). ``weight_files``
+    """Streamed AUC over ``files``: (auc, n_examples). A lookup
+    ``backend`` (lookup.py) scores a host-resident table; ``table`` is
+    then unused. ``weight_files``
     (sidecars parallel to ``files``) weight each example's AUC
     contribution as training weights its loss. ``bad_lines``: the run's
     tracker, so a bad line met every epoch is quarantined once. Batches
@@ -162,7 +183,9 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
     scoring (utils/fetch.py). ``collect`` (obs/quality.QualityStats)
     is fed the same score chunks as the AUC: the publish gate's quality
     numbers."""
-    scorer = CompiledScorer(cfg, table.device)
+    scorer = CompiledScorer(
+        cfg, backend.device if backend is not None else table.device,
+        backend=backend)
     auc = StreamingAUC()
     n = 0
     n_batches = 0
@@ -197,16 +220,21 @@ def evaluate(cfg: FmConfig, table: torch.Tensor, files,
 
 class _Stepper:
     """What one train session steps: the table and accumulator (updated
-    in place), the step count, the last loss on the device, the wire
-    accounting and the buffered loss log lines."""
+    in place) or the offload backend ``lookup`` that holds them, the step
+    count, the last loss on the device, the wire accounting and the
+    buffered loss log lines."""
 
     def __init__(self, cfg: FmConfig, spec: ModelSpec,
                  encoder: WireEncoder, device: torch.device,
-                 table: torch.Tensor, acc: torch.Tensor, step: int,
-                 logger):
+                 table: Optional[torch.Tensor], acc: Optional[torch.Tensor],
+                 step: int, logger, lookup=None):
         self.cfg, self.spec, self.encoder = cfg, spec, encoder
         self.device, self.logger = device, logger
         self.table, self.acc = table, acc
+        self.lookup = lookup
+        self._offload_step = (None if lookup is None else
+                              make_offload_train_step(spec, lookup,
+                                                      cfg.learning_rate))
         self.global_step = step
         self.loss: Optional[torch.Tensor] = None
         self.loss_val = float("nan")
@@ -217,7 +245,9 @@ class _Stepper:
     def step(self, batch, epoch: int) -> None:
         wb = self.encoder.encode_train(batch)
         args = self.encoder.device_put(wb, self.device)
-        if wb.packed:
+        if self._offload_step is not None:
+            self.loss, _ = self._offload_step(**args)
+        elif wb.packed:
             self.table, self.acc, self.loss, _ = packed_train_step_body(
                 self.spec, wb.L, self.table, self.acc, **args)
         else:
@@ -233,6 +263,31 @@ class _Stepper:
                                      self.timer.consume_window_rate()))
             if len(self._log_buffer) >= LOG_BUFFER_MAX:
                 self.flush_log()
+
+    def save(self, ckpt: CheckpointState, wait: bool = False,
+             **kwargs) -> None:
+        """Save this step. An offload state is written from the
+        backend's ``state()`` (synced with the card) and waits for the
+        write: the next step updates it in place."""
+        if self.lookup is None:
+            table, acc = self.table, self.acc
+        else:
+            (table, acc), wait = self.lookup.state(), True
+            kwargs["from_state"] = True
+        ckpt.save(self.global_step, table, acc,
+                  vocabulary_size=self.cfg.vocabulary_size, wait=wait,
+                  **kwargs)
+
+    def host_table(self) -> torch.Tensor:
+        """The ``[num_rows, D]`` table: the device tensor, or a view of
+        the offload state once the card's writes to it are done."""
+        if self.lookup is None:
+            return self.table
+        return self.lookup.state()[0][:self.cfg.num_rows]
+
+    def evaluate(self, files, **kwargs) -> Tuple[float, int]:
+        return evaluate(self.cfg, self.table, files, backend=self.lookup,
+                        **kwargs)
 
     def flush_log(self) -> None:
         """One fetch for every buffered loss line."""
@@ -291,19 +346,20 @@ class _Publisher:
         if self.gate.baseline is not None:
             write_gate_baseline(self.ckpt.directory, self.gate.baseline)
 
-    def decide(self, table: torch.Tensor, step: int) -> Optional[dict]:
-        """Quality sweep and gate decision for the publish about to
-        happen; None when no quality loop is configured (publish
-        unconditionally)."""
+    def decide(self, st: "_Stepper") -> Optional[dict]:
+        """Quality sweep and gate decision for the publish of ``st``'s
+        step about to happen; None when no quality loop is configured
+        (publish unconditionally)."""
         if not self.quality_on:
             return None
         cfg = self.cfg
+        step = st.global_step
         stats = QualityStats(cfg.loss_type)
         t_q = time.perf_counter()
-        auc, n = evaluate(cfg, table, cfg.validation_files,
-                          max_batches=cfg.validation_max_batches or None,
-                          weight_files=cfg.validation_weight_files,
-                          bad_lines=self.bad_tracker, collect=stats)
+        auc, n = st.evaluate(cfg.validation_files,
+                             max_batches=cfg.validation_max_batches or None,
+                             weight_files=cfg.validation_weight_files,
+                             bad_lines=self.bad_tracker, collect=stats)
         dt_q = time.perf_counter() - t_q
         self.logger.info(
             "publish quality eval at step %d: AUC %.6f, loss %s, "
@@ -326,16 +382,24 @@ class _Publisher:
 def train(cfg: FmConfig, device=None,
           init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
           ) -> torch.Tensor:
-    """Train per ``cfg``; returns the final table ``[num_rows, D]``.
-    ``device`` defaults to the card (utils/device.py). A checkpoint
-    under ``<model_file>.ckpt/`` is resumed; without one the run starts
-    from ``init_state``, a ``(table, acc)`` pair (models/convert.py
-    ``state_from_numpy``), or else from a table drawn from ``cfg.seed``
-    and an accumulator filled with ``adagrad_init``. Both are updated in
+    """Train per ``cfg``; returns the final table ``[num_rows, D]``
+    (with ``lookup = host``, on the host: a view of the backend's
+    page-locked state). ``device`` defaults to the card
+    (utils/device.py). A checkpoint under ``<model_file>.ckpt/`` is
+    resumed; without one the run starts from ``init_state``, a ``(table,
+    acc)`` pair (models/convert.py ``state_from_numpy``; device lookup
+    only), or else from a table drawn from ``cfg.seed`` and an
+    accumulator filled with ``adagrad_init``. Both are updated in
     place."""
     device = resolve_device(device)
     spec = ModelSpec.from_config(cfg)  # refuses unported model values
     check_train_supported(cfg)
+    offload = cfg.lookup == "host"
+    if offload and init_state is not None:
+        raise ValueError(
+            "lookup = host draws its state on the host "
+            "(lookup.init_host_state) or restores it; init_state is a "
+            "lookup = device start")
     stream_mode = cfg.run_mode == "stream"
     logger = get_logger(log_file=cfg.log_file or None)
     # slo_min_auc takes effect in a publishing stream run with
@@ -343,11 +407,6 @@ def train(cfg: FmConfig, device=None,
     log_ignored_keys(cfg, logger, in_effect=(
         ("slo_min_auc",) if stream_mode and cfg.validation_files
         and cfg.publish_interval_seconds > 0 else ()))
-    wire = resolve_wire(cfg, train=True)
-    encoder = WireEncoder(wire, pad_id=cfg.pad_id)
-    logger.info("wire format: %s%s", wire.describe(),
-                " (flat CSR, unpacked on the device)" if wire.packed
-                else "")
     host_workers = host_parallel_workers(cfg, cfg.weight_files)
     if host_workers > 1 and not stream_mode:
         logger.info(
@@ -368,12 +427,29 @@ def train(cfg: FmConfig, device=None,
         restored_epoch = 0
         if restored is not None:
             check_restored_vocab(cfg, restored)
-        table, acc = _initial_state(cfg, device, restored, init_state,
-                                    ckpt.directory)
-        if restored is not None:
             global_step = int(restored["step"])
             restored_epoch = int(restored["epoch"])
             logger.info("restored checkpoint at step %d", global_step)
+        lk = table = acc = None
+        if offload:
+            # The backend adopts the restored tensors and page-locks them
+            # in place; the restored dict lets go of them.
+            lk = make_offload_backend(cfg, cfg.seed, restored=restored,
+                                      device=device)
+            if restored is not None:
+                restored["table"] = restored["acc"] = None
+            logger.info("offload lookup [pinned-host (%s)]: table [%d, %d] "
+                        "outside HBM (%.2f GB + accumulator)", lk.mode,
+                        lk.rows, lk.dim, lk.rows * lk.dim * 4 / 2**30)
+        else:
+            table, acc = _initial_state(cfg, device, restored, init_state,
+                                        ckpt.directory)
+        # The offload step gathers by the host's uniq ids: padded-wide.
+        wire = resolve_wire(cfg, backend=lk, train=True)
+        encoder = WireEncoder(wire, pad_id=cfg.pad_id)
+        logger.info("wire format: %s%s", wire.describe(),
+                    " (flat CSR, unpacked on the device)" if wire.packed
+                    else "")
         restored_step = global_step
         start_epoch = resume_start_epoch(restored_epoch, cfg.epoch_num)
         if start_epoch:
@@ -393,7 +469,7 @@ def train(cfg: FmConfig, device=None,
                 pass
 
         st = _Stepper(cfg, spec, encoder, device, table, acc, global_step,
-                      logger)
+                      logger, lookup=lk)
         completed_epochs = start_epoch
         last_periodic_save = (None, None)  # (step, epoch) of the latest
         stopping = False
@@ -426,10 +502,9 @@ def train(cfg: FmConfig, device=None,
                             st.global_step % cfg.save_steps == 0:
                         # Asynchronous: the snapshot is complete when
                         # save returns, so the next step may update the
-                        # table in place; the write runs behind it.
-                        ckpt.save(st.global_step, st.table, st.acc,
-                                  vocabulary_size=cfg.vocabulary_size,
-                                  epoch=completed_epochs)
+                        # table in place; the write runs behind it (an
+                        # offload save writes the state itself and waits).
+                        st.save(ckpt, epoch=completed_epochs)
                         last_periodic_save = (st.global_step,
                                               completed_epochs)
             finally:
@@ -442,14 +517,14 @@ def train(cfg: FmConfig, device=None,
                 break
             completed_epochs = epoch + 1
             if cfg.validation_files:
-                auc, n = evaluate(cfg, st.table, cfg.validation_files,
-                                  max_batches=cfg.validation_max_batches
-                                  or None,
-                                  weight_files=cfg.validation_weight_files,
-                                  bad_lines=bad_tracker)
+                auc, n = st.evaluate(cfg.validation_files,
+                                     max_batches=cfg.validation_max_batches
+                                     or None,
+                                     weight_files=cfg.validation_weight_files,
+                                     bad_lines=bad_tracker)
                 logger.info("epoch %d validation AUC %.6f over %d "
                             "examples", epoch, auc, n)
-        table, acc, global_step = st.table, st.acc, st.global_step
+        global_step = st.global_step
         if st.loss is not None:
             st.loss_val = float(st.loss)
         # Final/preemption save: returns once the step is durable. If
@@ -462,27 +537,25 @@ def train(cfg: FmConfig, device=None,
                  or (restored is not None
                      and global_step == restored_step
                      and completed_epochs != restored_epoch))
-        ckpt.save(global_step, table, acc,
-                  vocabulary_size=cfg.vocabulary_size, force=True,
-                  wait=True, epoch=completed_epochs,
-                  rewrite_stale_metadata=stale,
-                  stream_state=(_stream_state(stream_watermark)
-                                if stream_mode else None))
+        st.save(ckpt, force=True, wait=True, epoch=completed_epochs,
+                rewrite_stale_metadata=stale,
+                stream_state=(_stream_state(stream_watermark)
+                              if stream_mode else None))
         if stream_mode and cfg.publish_interval_seconds > 0:
-            _exit_publish(cfg, ckpt, publisher, table, global_step,
-                          stopping, logger)
+            _exit_publish(cfg, ckpt, publisher, st, stopping, logger)
         if stream_mode and cfg.validation_files and \
                 not publisher.quality_on:
             # Stream mode has no per-epoch sweeps: a validation corpus
             # gets one scored pass here (a publishing stream validated
             # through the exit publish's sweep).
-            auc, n = evaluate(cfg, table, cfg.validation_files,
-                              max_batches=cfg.validation_max_batches
-                              or None,
-                              weight_files=cfg.validation_weight_files,
-                              bad_lines=bad_tracker)
+            auc, n = st.evaluate(cfg.validation_files,
+                                 max_batches=cfg.validation_max_batches
+                                 or None,
+                                 weight_files=cfg.validation_weight_files,
+                                 bad_lines=bad_tracker)
             logger.info("final validation AUC %.6f over %d examples",
                         auc, n)
+        table = st.host_table()
         nbytes = cfg.num_rows * cfg.row_dim * 4
         if nbytes > EXPORT_NPZ_MAX_BYTES:
             logger.info(
@@ -580,10 +653,9 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
     def stream_save(wait: bool) -> None:
         # The watermark passed here is the one adopted at this step: the
         # snapshot is taken now, and later steps update the table in
-        # place.
-        ckpt.save(st.global_step, st.table, st.acc,
-                  vocabulary_size=cfg.vocabulary_size, wait=wait,
-                  epoch=0, stream_state=_stream_state(state["watermark"]))
+        # place (an offload save always waits).
+        st.save(ckpt, wait=wait, epoch=0,
+                stream_state=_stream_state(state["watermark"]))
         state["last_save"] = (st.global_step, 0)
 
     def do_publish() -> None:
@@ -591,7 +663,7 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
         A HELD decision skips the save too: held ticks must not mint
         steps that retention could use to lap the published one."""
         st.flush_log()
-        decision = publisher.decide(st.table, st.global_step)
+        decision = publisher.decide(st)
         gate_holding[0] = bool(decision and decision.get("held"))
         if not gate_holding[0]:
             risk_pause_logged[0] = False
@@ -662,8 +734,8 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
 
 
 def _exit_publish(cfg: FmConfig, ckpt: CheckpointState,
-                  publisher: _Publisher, table: torch.Tensor, step: int,
-                  stopping: bool, logger) -> None:
+                  publisher: _Publisher, st: _Stepper, stopping: bool,
+                  logger) -> None:
     """The exit publish after the final save: a clean STOP drain, or a
     preemption's durable save, is the freshest state a scorer can
     hot-reload. Gated like every other publish. A PREEMPTED gated run
@@ -676,9 +748,9 @@ def _exit_publish(cfg: FmConfig, ckpt: CheckpointState,
             "grace window); the pointer stays on the last "
             "passing step")
         return
-    decision = None if stopping else publisher.decide(table, step)
+    decision = None if stopping else publisher.decide(st)
     if decision is None or not decision.get("held"):
-        if ckpt.publish_step(step) is not None:
+        if ckpt.publish_step(st.global_step) is not None:
             publisher.published(decision)
 
 

@@ -23,9 +23,11 @@ waits for the copy's event before it reads them.
 
 ``resolve_wire`` keeps the JAX package's downgrades (the mesh,
 multi-process lockstep and the offload train step need the padded
-layout); the port refuses those paths today (ROADMAP.md A7, A10), so on
-its paths the knobs resolve as set. The memory ledger's ``wire_buffers``
-entry waits for A11.
+layout): the offload train step (lookup.py) runs padded-wide with a
+warning; the port refuses the other two paths today (ROADMAP.md A10).
+An offload scorer's encoder (``host_uniq``) withholds a packed batch's
+uniq ids for the backend's gather (``WireBatch.host_uniq``). The memory
+ledger's ``wire_buffers`` entry waits for A11.
 """
 
 from __future__ import annotations
@@ -113,7 +115,8 @@ def resolve_wire(cfg: FmConfig, mesh=None, backend=None,
     """The one resolution of the wire knobs for a dispatch path. Paths
     that need the padded layout — mesh sharding, multi-process lockstep,
     the offload train step — resolve to padded-wide with a warning, as
-    in the JAX package; the port has none of them yet (A7, A10)."""
+    in the JAX package; the port has the offload one (the mesh and
+    lockstep paths wait for A10)."""
     spec = WireSpec(cfg.wire_format, cfg.wire_dtypes)
     if not spec.packed:
         return spec
@@ -142,6 +145,9 @@ class WireBatch:
     L: int                   # rectangle width (the unpack's target)
     wire_bytes: int          # bytes of ``args``: what is shipped
     logical_bytes: int       # bytes of the padded layout
+    # Offload score path, packed: the uniq ids, kept on the host for the
+    # backend's gather and never shipped.
+    host_uniq: Optional[np.ndarray] = None
 
 
 class WireEncoder:
@@ -149,14 +155,17 @@ class WireEncoder:
 
     ``pad_id`` is the model's pad id (``cfg.pad_id == vocabulary_size``):
     raw-ids batches mark padding cells with it; host-dedup batches mark
-    padding through the uniq table's pad_id slots. ``rect_fraction``
+    padding through the uniq table's pad_id slots. ``host_uniq`` (the
+    offload score path): a packed batch's uniq ids stay out of the
+    shipped arguments, on ``WireBatch.host_uniq``. ``rect_fraction``
     (the serving process) buckets flat arrays to the coarse
     ``rect_fraction_rungs`` ladder instead of ``flat_bucket``."""
 
-    def __init__(self, wire: WireSpec, pad_id: int,
+    def __init__(self, wire: WireSpec, pad_id: int, host_uniq: bool = False,
                  rect_fraction: bool = False):
         self.wire = wire
         self.pad_id = int(pad_id)
+        self.host_uniq = bool(host_uniq)
         self.rect_fraction = bool(rect_fraction)
         self._stream: Optional["torch.cuda.Stream"] = None
 
@@ -212,7 +221,10 @@ class WireEncoder:
             ff = np.zeros(P, dtype=np.int32)
             ff[:nnz] = batch.fields[mask]
             arrays["flat_fields"] = ff
-        if batch.uniq_ids is not None:
+        host_uniq = None
+        if self.host_uniq:
+            host_uniq = batch.uniq_ids
+        elif batch.uniq_ids is not None:
             arrays["uniq_ids"] = batch.uniq_ids
         if train:
             arrays["labels"] = batch.labels
@@ -221,7 +233,7 @@ class WireEncoder:
         args = {k: torch.from_numpy(v) for k, v in arrays.items()}
         return WireBatch(args=args, packed=True, L=L,
                          wire_bytes=batch_payload_bytes(arrays),
-                         logical_bytes=logical)
+                         logical_bytes=logical, host_uniq=host_uniq)
 
     def device_put(self, wb: WireBatch, device) -> Dict[str, torch.Tensor]:
         """The encoded arrays on ``device``, ready for the step or score

@@ -42,6 +42,13 @@ Tolerances:
 - ``run_mode = stream``: a train over a pre-sealed directory on the card
   against the CPU at the step's rtol 1e-4 / atol 1e-6, both kernels
   launched once a step, and the same watermark.
+- ``lookup = host`` (csrc/offload_rows.cu on registered host memory):
+  the gather equal to its plain version to the bit; the Adagrad
+  write-back (``rsqrtf`` on the card, ``torch.rsqrt`` = 1/sqrt in the
+  CPU plain version) at rtol 1e-6 / atol 1e-7; an offload train of
+  sample.cfg on the card against the CPU at the step's rtol 1e-4 /
+  atol 1e-6, all four kernels launched every step; the card's peak
+  allocated bytes at the batch blocks while a 151 MB table trains.
 """
 
 import numpy as np
@@ -653,3 +660,128 @@ def test_stream_train_on_card_matches_cpu(card, tmp_path):
     np.testing.assert_allclose(a_g, a_c, rtol=1e-4, atol=1e-6)
     assert os.path.exists(ck.watermark_path(
         str(tmp_path / "card" / "fm.ckpt"), steps))
+
+
+def _offload_case(seed, R=5000, D=9, U=700, pads=37):
+    """A [R, D] host state, U unique ids with a tail of pad slots that
+    repeat the zero pad row R - 1, and a gradient whose pad rows are 0."""
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-0.1, 0.1, (R, D)).astype(np.float32)
+    table[R - 1] = 0.0
+    acc = rng.uniform(0.1, 0.5, (R, D)).astype(np.float32)
+    ids = np.concatenate([rng.choice(R - 1, U - pads, replace=False),
+                          np.full(pads, R - 1)]).astype(np.int32)
+    grad = rng.normal(0, 0.1, (U, D)).astype(np.float32)
+    grad[U - pads:] = 0.0
+    return [torch.from_numpy(a) for a in (table, acc, ids, grad)]
+
+
+def test_offload_kernels_match_plain_versions_on_registered_memory(card):
+    """offload_gather copies: equal to the plain version to the bit.
+    offload_adagrad (rsqrtf on the card, 1/sqrt in the CPU plain
+    version): rtol 1e-6 / atol 1e-7; the pad row stays 0."""
+    from fast_tffm_tpu_torch.ops import offload_kernel as ok
+    table, acc, ids, grad = _offload_case(21)
+    ok.register_host(table, card)
+    ok.register_host(acc, card)
+    assert ok.is_page_locked(table) and ok.is_page_locked(acc)
+    assert ok.registered_bytes() >= 2 * table.numel() * 4
+    g0, a0 = ok.gather_launches, ok.adagrad_launches
+    rows = ok.offload_gather(table, ids.to(card))
+    torch.cuda.synchronize()
+    assert rows.is_cuda and ok.gather_launches == g0 + 1
+    assert torch.equal(rows.cpu(), ok.offload_gather_plain(table, ids))
+    want_t, want_a = table.clone(), acc.clone()
+    ok.offload_adagrad_plain(want_t, want_a, ids, rows.cpu(), grad, 0.1)
+    ok.offload_adagrad(table, acc, ids.to(card), rows, grad.to(card), 0.1)
+    torch.cuda.synchronize()
+    assert ok.adagrad_launches == a0 + 1
+    np.testing.assert_allclose(acc.numpy(), want_a.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(table.numpy(), want_t.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    assert not table[-1].any()
+    ok.unregister_host(table)
+    ok.unregister_host(acc)
+    assert not ok.is_page_locked(table)
+    with pytest.raises(ValueError, match="page-locked"):
+        ok.offload_gather(table, ids.to(card))
+
+
+def test_offload_train_on_card_matches_cpu(card, tmp_path):
+    """sample.cfg with lookup = host on the card and on the CPU (the same
+    host init): tables and accumulators at the step's rtol 1e-4 / atol
+    1e-6, and all four kernels launched on every step (the forward and
+    the gather on every validation batch too)."""
+    import dataclasses
+    import os
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.lookup import PinnedHostLookup
+    from fast_tffm_tpu_torch.ops import offload_kernel as ok
+    from fast_tffm_tpu_torch.train import train
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = load_config(os.path.join(repo, "sample.cfg"))
+    base = dataclasses.replace(
+        base, lookup="host", epoch_num=2,
+        train_files=tuple(os.path.join(repo, f) for f in base.train_files),
+        validation_files=tuple(os.path.join(repo, f)
+                               for f in base.validation_files))
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", card)):
+        cfg = dataclasses.replace(base, model_file=str(tmp_path / name /
+                                                       "fm"),
+                                  log_file="")
+        fm_kernel.launches = fm_kernel.bwd_launches = 0
+        ok.gather_launches = ok.adagrad_launches = 0
+        table = train(cfg, device=dev)
+        assert table.device.type == "cpu"
+        if name == "card":
+            assert ok.is_page_locked(table)
+        counts = (fm_kernel.launches, fm_kernel.bwd_launches,
+                  ok.gather_launches, ok.adagrad_launches)
+        lk = PinnedHostLookup.from_checkpoint(cfg, device="cpu")
+        out[name] = (table.numpy().copy(), lk.acc.numpy(), counts)
+    steps = 2 * -(-2000 // base.batch_size)
+    val = 2 * -(-500 // base.batch_size)
+    assert out["cpu"][2] == (0, 0, 0, 0)
+    assert out["card"][2] == (steps + val, steps, steps + val, steps)
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(out["card"][1][:base.num_rows],
+                               out["cpu"][1][:base.num_rows], rtol=1e-4,
+                               atol=1e-6)
+    assert not out["card"][0][base.pad_id].any()
+
+
+def test_offload_card_memory_stays_at_the_batch_blocks(card, tmp_path):
+    """A 2^22-row table (151 MB, and its accumulator) trains with the
+    card's peak allocated bytes over the run at the batch blocks: under
+    16 MB above what the card held before."""
+    import dataclasses
+    import os
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.lookup import (make_offload_backend,
+                                            make_offload_train_step)
+    from fast_tffm_tpu_torch.ops import offload_kernel as ok
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dataclasses.replace(
+        load_config(os.path.join(repo, "sample.cfg")), lookup="host",
+        vocabulary_size=1 << 22, hash_feature_id=True,
+        train_files=(os.path.join(repo, "data", "sample_train.txt"),))
+    spec = port_fm.ModelSpec.from_config(cfg)
+    assert spec.dedup == "host"
+    lk = make_offload_backend(cfg, cfg.seed, device=card)
+    assert lk.mode == "pinned" and ok.is_page_locked(lk.table)
+    assert ok.is_page_locked(lk.acc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step = make_offload_train_step(spec, lk, cfg.learning_rate)
+    for batch in batch_iterator(cfg, cfg.train_files, training=True,
+                                epochs=1, raw_ids=False):
+        loss, _ = step(**port_fm.batch_args(batch, card))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert torch.cuda.max_memory_allocated() - base < 16 << 20
+    assert lk.table.nbytes > 150e6

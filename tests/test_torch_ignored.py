@@ -103,8 +103,12 @@ def test_predict_logs_ignored_keys(tmp_path, port_log):
     (path,) = predict(cfg, device="cpu")
     assert os.path.getsize(path) > 0
     _assert_logged(port_log)
-    with pytest.raises(NotImplementedError, match="item A7"):
-        predict(dataclasses.replace(cfg, lookup="host"), device="cpu")
+    # lookup = host predicts too, and logs the same ignored keys.
+    port_log.clear()
+    (path,) = predict(dataclasses.replace(cfg, lookup="host"),
+                      device="cpu")
+    assert os.path.getsize(path) > 0
+    _assert_logged(port_log)
 
 
 def test_serve_logs_ignored_keys(tmp_path, port_log):

@@ -72,6 +72,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.scoring",
                  "fast_tffm_tpu_torch.predict",
                  "fast_tffm_tpu_torch.wire",
+                 "fast_tffm_tpu_torch.lookup",
+                 "fast_tffm_tpu_torch.ops.offload_kernel",
                  "fast_tffm_tpu_torch.utils.ignored"):
         assert name in out["imported"]
 

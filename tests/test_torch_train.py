@@ -365,7 +365,6 @@ def test_train_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     ("[Train]\nuniq_bucket = 1024\n", "A10"),
-    ("[General]\nlookup = host\n", "A7"),
 ])
 def test_unported_keys_raise(tmp_path, extra, item):
     path = os.path.join(str(tmp_path), "sample.cfg")
@@ -382,7 +381,6 @@ def test_unported_keys_raise(tmp_path, extra, item):
 
 @pytest.mark.parametrize("changes,item", [
     (dict(uniq_bucket=1024), "A10"),
-    (dict(lookup="host"), "A7"),
     (dict(elastic="shrink"), "A10"),
 ])
 def test_unported_values_raise(tmp_path, changes, item):
