@@ -11,7 +11,8 @@ vocabulary 2^24, a [2^24+1, 17] f32 table (1.14 GB) — over
 Criteo-shaped lines it generates itself; then, on the same lines,
 config #3's FFM and config #4's order-3 FM, and config #2's model again
 on the packed wire, and config #2's model in the stream run mode, and
-config #5's width with the table offloaded to the host:
+config #5's width with the table offloaded to the host, and config #2's
+model in vocabulary admit mode:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: the three kernel libraries, one nvcc each, and the C++ parser
@@ -29,8 +30,11 @@ config #5's width with the table offloaded to the host:
    batch's Zipf-skewed raw ids), with errors, median times (CUDA events,
    L2 flushed between launches), the kernel's device time alone (a
    profiler trace of bare launches, or CUDA events around them where
-   the trace misses the kernel), bytes moved and the bound. Tables are
-   drawn N(0, 0.1^2) from a seeded torch.Generator.
+   the trace misses the kernel), bytes moved and the bound; fm_score_bwd
+   against the plain version with float64 row sums, at rtol 1e-5 of each
+   element's sum of absolute contributions plus atol 1e-6 on every row,
+   and equal to the bit across two launches on one input. Tables
+   are drawn N(0, 0.1^2) from a seeded torch.Generator.
    The random table of phases 4-5 is written as a checkpoint step with
    ``models/convert.save_checkpoint_from_numpy`` and published with
    ``python -m fast_tffm_tpu_torch.tools.fmckpt publish`` (in process);
@@ -143,8 +147,44 @@ config #5's width with the table offloaded to the host:
    the host link's rate each way, measured by 64 MiB pinned copies to
    and from the card; and both FM kernels against their plain versions
    on that batch with the control run's table (K = 8, Zipf-skewed
-   host-deduped rows);
-14. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   host-deduped rows); then, on the pinned backend, ``reset_rows``
+   straight after a step over a set holding the batch's hottest row:
+   exactly 0.0 and ``adagrad_init`` there, and the next step equal to
+   the HostOffloadLookup backend's at rtol 1e-4 / atol 1e-6;
+14. ``vocab_mode = admit`` (config #2's model, 2^24 physical rows, ids
+   hashed into 2^30; threshold 2, decay 0.5, sketch 1 MB): run A of
+   ``python -m fast_tffm_tpu_torch train`` (in process) over the train
+   phase's lines, one epoch, whose barrier admits and whose final save
+   writes ``vocab-16.json.gz``; run B restores step 16 with its slot map
+   and trains one epoch to step 32 on 131,072 new lines (and 16,384
+   validation lines) whose planted fields keep their tokens and whose
+   high-cardinality fields take ids run A never saw, so its barrier
+   evicts. Both kernels launch every step; the loss falls and run B's
+   AUC clears the floor (run A's validation follows its first barrier,
+   whose admitted rows are untrained: near chance); live rows stay
+   under 2^24; the rows run B's barrier freed hold 0.0 and
+   ``adagrad_init`` at step 32; ``fmckpt`` marks steps 16 and 32
+   ``+VOCAB`` and verifies them in full. Both runs save every 8 steps,
+   so each barrier's step is also a periodic save's, written anew by the
+   final save. A control run in process (a fresh VocabRuntime and
+   train_step_body over both streams, the same barriers and initial
+   table), run twice, must match step 32's payload exactly each time,
+   and the two runs' tables and accumulators must be equal to the bit;
+   step 32 must equal the control at rtol 1e-4 / atol 1e-6 in every
+   element, and to the bit in every row outside the cold row's reach;
+   the control gives the loop's rate beside the same loop in fixed
+   mode. Admit predict of step 32 (65,536 lines) on the padded and the packed-wide wire must be
+   equal byte for byte, a fixed-mode predict is refused, and a
+   ScorerServer serves step 16 then step 32 (published under client
+   load) with every body equal to the predict lines of the step it
+   names, one reload and no failure; a copy of step 32 whose sidecar has
+   one flipped byte fails its reload and step 32 keeps serving. Both
+   kernels against their plain versions on the two runs' first remapped
+   raw-ids batches as the control stepped them (run A's: every id on the
+   cold row 0; run B's: its unseen ids there), with the cold row's share
+   of their slots; the remap's ms a batch, each barrier's seconds and
+   reset's ms, the sidecar's bytes;
+15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
 train loop (the snapshot), the final save with ``wait``, the background
@@ -154,8 +194,8 @@ carries the card's name and power limit.
 
 Any failed check raises, and the script exits non-zero. Scratch files
 (checkpoint steps of 2.28 GB, 1.14 GB .npz exports, the offload phase's
-7.2 GB steps) live in ``.smoke/`` at the repo root and are removed at
-the end. ``--out DIR`` also writes a
+7.2 GB steps, the admit phase's serving directory) live in ``.smoke/``
+at the repo root and are removed at the end. ``--out DIR`` also writes a
 JSON summary of every phase to ``DIR/chip_smoke.json``.
 """
 
@@ -182,9 +222,14 @@ HEADLINE_SHAPE = (8192, 64, 16)   # the predict batch of the main path
 # fm_score must equal its plain version bit for bit; ATOL floors |plain|
 # in the relative error its rows report.
 ATOL = 1e-6
-# fm_score_bwd: float atomics sum in a varying order, so each element is
-# held to BWD_RTOL of its sum of absolute contributions, plus BWD_ATOL.
+# fm_score_bwd sums each row exactly in fixed point, so each element is
+# held to BWD_RTOL of its sum of absolute contributions, plus BWD_ATOL,
+# against the plain version with each row's contributions summed in
+# float64, and two launches on one input must agree to the bit.
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+# The kernels of one fm_score_bwd call, in launch order.
+BWD_KERNEL_NAMES = ("fm_score_bwd_scale", "fm_score_bwd_kernel",
+                    "fm_score_bwd_finish")
 TRAIN_LINES = 131072
 GENERIC_LINES = 32768             # the generic path's check: a prefix
 GENERIC_BAD = (101, 5000, 17777, 25000, 32000)   # planted bad lines
@@ -290,12 +335,14 @@ def committed_steps_in_log(path):
                  r"([0-9.]+)s; manifest hashed in ([0-9.]+)s", text)]
 
 
-def criteo_lines(n, seed, planted=None, ffm=False):
+def criteo_lines(n, seed, planted=None, ffm=False, fresh=False):
     """``n`` Criteo-shaped lines. Labels are Bernoulli(0.25), or, with
     ``planted`` (a PLANTED_* model), Bernoulli(sigmoid(planted logit));
     returns (lines, planted logits or None). ``ffm``: the same tokens
     tagged with their field, one field per column (13 numeric, then 26
-    categorical), as libffm's Criteo files are."""
+    categorical), as libffm's Criteo files are. ``fresh``: the
+    categorical fields outside PLANTED_FIELDS take token names no other
+    call makes (``C{f}=w...``), the planted fields keep theirs."""
     import numpy as np
     rng = np.random.default_rng(seed)
     cat = np.stack([(rng.zipf(ZIPF_A, size=n) - 1) % v for v in CAT_VOCABS],
@@ -303,6 +350,8 @@ def criteo_lines(n, seed, planted=None, ffm=False):
     num = np.round(np.log1p(rng.lognormal(1.0, 1.2, size=(n, NUM_FIELDS))),
                    3)
     miss = rng.random((n, NUM_FIELDS)) < 0.08
+    tags = ["w" if fresh and f not in PLANTED_FIELDS else "v"
+            for f in range(len(CAT_VOCABS))]
     logits = None
     if planted is None:
         labels = (rng.random(n) < 0.25).astype(np.int32)
@@ -321,7 +370,8 @@ def criteo_lines(n, seed, planted=None, ffm=False):
         else:
             parts += [f"I{j}:{num[i, j]}" for j in range(NUM_FIELDS)
                       if not miss[i, j]]
-            parts += [f"C{f}=v{cat[i, f]}" for f in range(len(CAT_VOCABS))]
+            parts += [f"C{f}={tags[f]}{cat[i, f]}"
+                      for f in range(len(CAT_VOCABS))]
         lines.append(" ".join(parts))
     return lines, logits
 
@@ -412,14 +462,14 @@ def median_ms(torch, fn, flush):
     return times[len(times) // 2]
 
 
-def profiled_ms(torch, launch, flush, kernel_name):
-    """Mean device time of the kernel named ``kernel_name`` over
-    PROFILED_LAUNCHES calls of ``launch.run`` under torch.profiler, L2
-    flushed (unless ``flush`` is None) and the outputs reset
-    (``launch.reset``) before each: the kernel alone. The profiler now
-    and then returns a trace without the records of a kernel launched
-    through ctypes; such a trace is taken again, up to PROFILE_ATTEMPTS
-    times in all, and then None."""
+def profiled_ms(torch, launch, flush, kernel_names):
+    """Mean device time per call of the kernels named ``kernel_names``
+    (one launch of each a call) over PROFILED_LAUNCHES calls of
+    ``launch.run`` under torch.profiler, L2 flushed (unless ``flush`` is
+    None) and the outputs reset (``launch.reset``) before each: the
+    kernels alone. The profiler now and then returns a trace without the
+    records of a kernel launched through ctypes; such a trace is taken
+    again, up to PROFILE_ATTEMPTS times in all, and then None."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
@@ -433,11 +483,11 @@ def profiled_ms(torch, launch, flush, kernel_name):
         us, n = 0.0, 0
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and \
-                    kernel_name in e.key:
+                    any(name in e.key for name in kernel_names):
                 us += e.self_device_time_total
                 n += e.count
-        if n == PROFILED_LAUNCHES:
-            return us / 1e3 / n
+        if n == PROFILED_LAUNCHES * len(kernel_names):
+            return us / 1e3 / PROFILED_LAUNCHES
     return None
 
 
@@ -464,12 +514,13 @@ def event_ms(torch, launch, flush):
     return times[len(times) // 2]
 
 
-def kernel_ms(torch, launch, flush, kernel_name):
-    """(device ms of the kernel alone, "profiler" or "events"): by
-    profiled_ms, or by event_ms where the profiler keeps missing it."""
+def kernel_ms(torch, launch, flush, kernel_names):
+    """(device ms of the kernels of one call alone, "profiler" or
+    "events"): by profiled_ms, or by event_ms where the profiler keeps
+    missing them."""
     launch.reset()
     launch.run()  # warm up
-    ms = profiled_ms(torch, launch, flush, kernel_name)
+    ms = profiled_ms(torch, launch, flush, kernel_names)
     if ms is not None:
         return ms, "profiler"
     return event_ms(torch, launch, flush), "events"
@@ -510,13 +561,15 @@ def bwd_launch(torch, params, idx, vals, g, need_dx):
     (N, D), (B, L) = params.shape, idx.shape
     dparams = torch.zeros_like(params)
     dvals = torch.empty((B, L), dtype=torch.float32, device=vals.device)
+    acc = torch.empty((N, D), dtype=torch.int64, device=params.device)
+    row_max = torch.empty(N, dtype=torch.int32, device=params.device)
 
     def run():
         rc = lib.fm_score_bwd(
             params.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-            g.data_ptr(), dparams.data_ptr(), dvals.data_ptr(), N, D, B, L,
-            int(need_dx), params.device.index,
-            torch.cuda.current_stream().cuda_stream)
+            g.data_ptr(), dparams.data_ptr(), dvals.data_ptr(),
+            acc.data_ptr(), row_max.data_ptr(), N, D, B, L, int(need_dx),
+            params.device.index, torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"fm_score_bwd launch failed: {rc}")
     return Launch(run, dparams.zero_)
 
@@ -544,7 +597,7 @@ def fwd_kernel_row(torch, table, idx, vals, flush, **tags):
     plain_ms = median_ms(torch, lambda: interaction.fm_batch_scores(
         table, idx, vals), flush)
     new = fwd_launch(torch, table, idx, vals)
-    device_ms, timing = kernel_ms(torch, new, flush, "fm_score_kernel")
+    device_ms, timing = kernel_ms(torch, new, flush, ("fm_score_kernel",))
     # Each input read once: the U distinct rows the batch references
     # (all pad cells share one), idx and vals; the scores written.
     U = int(torch.unique(idx).numel())
@@ -584,30 +637,73 @@ def kernel_phase(torch, tables, predict_batch, device):
     return rows
 
 
+def bwd_row_sums_f64(torch, params, local, vals, g):
+    """(dparams, dparams_abs) of the plain backward
+    (ops/interaction.py:fm_batch_scores_bwd) with each slot's float32
+    contribution, formed as the plain version forms it, summed into its
+    row in float64: the reference a float32 sum of a row's slots is
+    held to."""
+    B, L = local.shape
+    K = params.shape[1] - 1
+    s = params.new_zeros((B, K))
+    for l in range(L):
+        s = s + params.index_select(0, local[:, l].long())[:, :K] * \
+            vals[:, l][:, None]
+    dp = torch.zeros(params.shape, dtype=torch.float64,
+                     device=params.device)
+    dp_abs = torch.zeros_like(dp)
+    for l in range(L):
+        r = local[:, l].long()
+        v = params.index_select(0, r)[:, :K]
+        x = vals[:, l]
+        gx = g * x
+        grow = torch.cat([gx[:, None] * (s - v * x[:, None]), gx[:, None]],
+                         dim=1).double()
+        dp.index_add_(0, r, grow)
+        dp_abs.index_add_(0, r, grow.abs())
+    return dp, dp_abs
+
+
 def bwd_kernel_rows(torch, params, local, vals, g, flush,
                     need_dx_cases=(False, True), **tags):
     """fm_score_bwd against its plain version on one input, for each
     ``need_dx`` in ``need_dx_cases``: a row each (emitted, tagged with
     ``tags``), or a raised SmokeFailure. ``flush`` None times it with L2
-    warm."""
+    warm. The reference is the plain version with each row's float32
+    contributions summed in float64 (``bwd_row_sums_f64``); the kernel,
+    which sums each row exactly in fixed point, is held to rtol 1e-5 of
+    each element's sum of absolute contributions plus atol 1e-6 on every
+    row, and a second launch on the same input must equal the first to
+    the bit. The float32 plain version's own error against the same
+    reference is reported beside it (a row taking hundreds of thousands
+    of slots, an admit batch's cold row, drives it past that bound)."""
     from fast_tffm_tpu_torch.ops import fm_kernel, interaction
     B, L = local.shape
     U, D = params.shape
     K = D - 1
-    dp, dv, dp_abs, dv_abs = interaction.fm_batch_scores_bwd(
+    pdp, dv, _, dv_abs = interaction.fm_batch_scores_bwd(
         params, local, vals, g, need_dx=True, magnitudes=True)
+    dp, dp_abs = bwd_row_sums_f64(torch, params, local, vals, g)
+    bound = BWD_ATOL + BWD_RTOL * dp_abs
+    perr = (pdp.double() - dp).abs()
+    plain_err = float(perr.max())
+    plain_misses = int((perr > bound).any(dim=1).sum())
+    del pdp, perr
     rows = []
     for need_dx in need_dx_cases:
         kdp, kdv = fm_kernel.fm_batch_scores_bwd(params, local, vals, g,
                                                  need_dx)
+        again, _ = fm_kernel.fm_batch_scores_bwd(params, local, vals, g,
+                                                 need_dx)
         torch.cuda.synchronize()
-        err = (kdp - dp).abs()
-        bound = BWD_ATOL + BWD_RTOL * dp_abs
+        repeatable = bool(torch.equal(kdp, again))
+        del again
+        err = (kdp.double() - dp).abs()
         ok = bool((err <= bound).all()) and bool(torch.isfinite(kdp).all())
         max_abs = float(err.max())
         excess = float((err - bound).max())
         if need_dx:
-            derr = (kdv - dv).abs()
+            derr = (kdv.double() - dv).abs()
             dbound = BWD_ATOL + BWD_RTOL * dv_abs
             ok = ok and bool((derr <= dbound).all()) and bool(
                 torch.isfinite(kdv).all())
@@ -619,8 +715,7 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush,
             torch, lambda: interaction.fm_batch_scores_bwd(
                 params, local, vals, g, need_dx), flush)
         new = bwd_launch(torch, params, local, vals, g, need_dx)
-        device_ms, timing = kernel_ms(torch, new, flush,
-                                      "fm_score_bwd_kernel")
+        device_ms, timing = kernel_ms(torch, new, flush, BWD_KERNEL_NAMES)
         # Each input read once (the U gathered rows, idx, vals, g),
         # each output written once (dparams, and dvals if asked).
         nbytes = (2 * U * D * 4 + B * L * 8 + B * 4
@@ -630,7 +725,7 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush,
         hottest = int(torch.bincount(local[vals != 0].long(),
                                      minlength=U).max()) if nnz else 0
         # pass 1: 2K per nonzero slot; pass 2: 3K + 1 per nonzero slot
-        # plus its K + 1 atomic adds; dvals: 2K + 2 per slot.
+        # plus its K + 1 adds; dvals: 2K + 2 per slot.
         flops = nnz * (6 * K + 2) + (B * L * (2 * K + 2) if need_dx else 0)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / FP32_FLOPS_PER_S * 1e3
@@ -639,6 +734,9 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush,
                "l2": "cold" if flush is not None else "warm", "nnz": nnz,
                "hottest_row_slots": hottest, "need_dx": need_dx,
                "max_abs_err": max_abs, "max_excess_over_bound": excess,
+               "plain_f32_max_abs_err": plain_err,
+               "plain_f32_rows_over_bound": plain_misses,
+               "repeatable": repeatable,
                "within_tol": ok, "rtol_of_abs_sum": BWD_RTOL,
                "atol": BWD_ATOL, "ms": ms, "plain_ms": plain_ms,
                "device_ms": device_ms, "device_timing": timing,
@@ -652,6 +750,8 @@ def bwd_kernel_rows(torch, params, local, vals, g, flush,
         check(ok, f"fm_score_bwd disagrees with its plain version on "
                   f"{tags} at B={B} L={L} K={K} need_dx={need_dx}: max abs "
                   f"err {max_abs}, worst excess over the bound {excess}")
+        check(repeatable, f"fm_score_bwd gave two results on one input on "
+                          f"{tags} at B={B} L={L} K={K} need_dx={need_dx}")
     return rows
 
 
@@ -684,7 +784,8 @@ def numeric_ids(vocab):
     return [hash_feature(f"I{j}", vocab) for j in range(NUM_FIELDS)]
 
 
-def train_batch_kernel_rows(torch, spec, table, args, device, tag="train"):
+def train_batch_kernel_rows(torch, spec, table, args, device, tag="train",
+                            numeric=None):
     """Both kernels against their plain versions on one batch of the
     train phase's stream, deduped (on the card for a raw-ids batch, by
     the host for a ``dedup = host`` one) and gathered as train_step_body
@@ -694,8 +795,10 @@ def train_batch_kernel_rows(torch, spec, table, args, device, tag="train"):
     warm (as in the step), then flushed once more on the same batch with
     the numeric fields' slots at x = 0 ("train_no_numeric"), which
     leaves the Zipf-spread categorical rows and takes the hottest rows
-    away. Rows are tagged ``tag`` (and ``tag + "_no_numeric"``). Returns
-    (forward rows, backward rows)."""
+    away. Rows are tagged ``tag`` (and ``tag + "_no_numeric"``).
+    ``numeric``: the numeric features' rows (default: their hashed ids;
+    in admit mode, the rows the slot map gives them). Returns (forward
+    rows, backward rows)."""
     from fast_tffm_tpu_torch.models import fm as port_fm
     from fast_tffm_tpu_torch.ops.interaction import gather_rows
     if "uniq_ids" in args:
@@ -717,9 +820,10 @@ def train_batch_kernel_rows(torch, spec, table, args, device, tag="train"):
                           batch=tag)
     bwd += bwd_kernel_rows(torch, rows, local, args["vals"], g, None,
                            need_dx_cases=(False,), batch=tag)
+    if numeric is None:
+        numeric = numeric_ids(spec.vocabulary_size)
     numeric = torch.isin(raw_idx, torch.tensor(
-        numeric_ids(spec.vocabulary_size), dtype=raw_idx.dtype,
-        device=device))
+        numeric, dtype=raw_idx.dtype, device=device))
     check(bool(numeric.any()), "the train batch has no numeric slot")
     no_numeric = args["vals"].masked_fill(numeric, 0.0)
     bwd += bwd_kernel_rows(torch, rows, local, no_numeric, g, flush,
@@ -2514,6 +2618,19 @@ def compare_chunked(torch, got, want, device, rtol=1e-4, atol=1e-6,
     return bad, worst
 
 
+def equal_rows(torch, got, want, keep, device, chunk=1 << 24):
+    """Whether the rows ``keep`` (a bool mask on the card) of two
+    [N, D] tensors are equal bit for bit, compared in row chunks on the
+    card."""
+    for a in range(0, got.shape[0], chunk):
+        m = keep[a:a + chunk]
+        x = got[a:a + chunk].to(device, non_blocking=True)
+        y = want[a:a + chunk].to(device, non_blocking=True)
+        if not torch.equal(x[m], y[m]):
+            return False
+    return True
+
+
 def host_link_ms(torch, nbytes, device, to_card=True):
     """Median ms of a plain copy of ``nbytes`` between pinned host memory
     and the card (CUDA events), to the card or from it."""
@@ -2598,7 +2715,8 @@ def offload_kernel_rows(torch, lk, spec, batch, device, card):
              lambda: ok.offload_adagrad_plain(lk.table, lk.acc, ids_cpu,
                                               rows.cpu(), grad.cpu(), lr))):
         launch = Launch(run)
-        device_ms, timing = kernel_ms(torch, launch, flush, name + "_kernel")
+        device_ms, timing = kernel_ms(torch, launch, flush,
+                                      (name + "_kernel",))
         ev_ms = event_ms(torch, launch, flush)
         torch.cuda.synchronize()
         plain_times = []
@@ -2627,6 +2745,56 @@ def offload_kernel_rows(torch, lk, spec, batch, device, card):
     for row in out:
         emit(row)
     return out
+
+
+def offload_reset_check(torch, np, lu, spec, cfg, pinned, host, batches):
+    """Admit mode's eviction hook on the pinned backend: a step queues
+    its write-back into the page-locked state, and ``reset_rows`` straight
+    after it, over a set holding the batch's hottest row, must leave
+    exactly 0.0 and ``adagrad_init`` there (the plain expectation: the
+    reset waits for the write-back); the next step must then match the
+    HostOffloadLookup backend's (the control) on every row the two
+    batches touch, at rtol 1e-4 / atol 1e-6."""
+    b0, b1 = batches[0], batches[1]
+    uniq = b0["uniq_ids"].cpu().numpy()
+    real = (b0["vals"] != 0).reshape(-1).cpu().numpy()
+    counts = np.bincount(b0["local_idx"].reshape(-1).cpu().numpy()[real],
+                         minlength=len(uniq))
+    hottest = int(uniq[int(np.argmax(counts))])
+    live = uniq[uniq != cfg.pad_id]
+    rng = np.random.default_rng(SEED + 30)
+    reset = np.unique(np.concatenate([[hottest], rng.choice(
+        live, 255, replace=False)])).astype(np.int32)
+    legs = [(lk, lu.make_offload_train_step(spec, lk, spec.learning_rate))
+            for lk in (pinned, host)]
+    t0 = time.perf_counter()
+    for lk, step in legs:
+        step(**b0)
+        lk.reset_rows(reset, cfg.adagrad_init)
+        if lk is pinned:
+            reset_s = time.perf_counter() - t0
+            table, acc = pinned.state()
+            idx = torch.from_numpy(reset.astype(np.int64))
+            check(not table.index_select(0, idx).any().item()
+                  and bool((acc.index_select(0, idx)
+                            == np.float32(cfg.adagrad_init)).all()),
+                  "pinned reset_rows straight after a step: a reset row "
+                  "holds the step's write-back")
+    for _, step in legs:
+        step(**b1)
+    rows = torch.from_numpy(np.unique(np.concatenate(
+        [uniq, b1["uniq_ids"].cpu().numpy()])).astype(np.int64))
+    worst = 0.0
+    for got, want in zip(pinned.state(), host.state()):
+        g, w = got.index_select(0, rows), want.index_select(0, rows)
+        diff = (g - w).abs()
+        check(bool((diff <= 1e-6 + 1e-4 * w.abs()).all()),
+              "the step after reset_rows differs from the control's")
+        worst = max(worst, float(diff.max()))
+    return {"rows": int(len(reset)), "hottest_row": hottest,
+            "hottest_row_slots": int(counts.max()),
+            "reset_seconds_after_step": reset_s, "next_step_max_abs_err":
+                worst}
 
 
 def offload_phase(torch, device, card, data, train_row):
@@ -2864,6 +3032,8 @@ def offload_phase(torch, device, card, data, train_row):
             check(bad == 0, f"HostOffloadLookup leg {name}: {bad} elements "
                   f"outside rtol 1e-4 / atol 1e-6 of the pinned backend's "
                   f"(max abs diff {worst})")
+        reset_row = offload_reset_check(torch, np, lu, spec, cfg, pinned,
+                                        host, batches)
         del host
         # The control's loop again with the pinned backend's step (the
         # same stream, batch building and copies): the two paths' rates
@@ -2925,6 +3095,7 @@ def offload_phase(torch, device, card, data, train_row):
            "pinned_leg_step_ms_median": legs["pinned"],
            "host_offload_leg_step_ms_median": legs["host_offload"],
            "host_offload_leg_max_abs_err": leg_err,
+           "reset_rows": reset_row,
            "backend_init_seconds": init_s,
            "backend_seconds_by_run": [r["backend_seconds"] for r in recs],
            "page_locked_bytes": recs[0]["registered_bytes"],
@@ -2958,6 +3129,588 @@ def offload_phase(torch, device, card, data, train_row):
                sum(r["offload_adagrad"] for r in recs)}
     emit(row)
     return row, kernel_rows, fwd_rows, bwd_rows
+
+
+ADMIT_SAVE_STEPS = 8              # periodic saves at 8, 16, 24, 32: each
+# barrier's step (16, 32) is a periodic save's too, and the final save
+# after the barrier writes that step anew (its rows were cold-started)
+ADMIT_CONTROLS = 2                # in-process control runs of one stream
+ADMIT_VOCAB = ("[Vocab]\nvocab_mode = admit\nvocab_admit_threshold = 2\n"
+               "vocab_decay = 0.5\nvocab_sketch_mb = 1\n")
+ADMIT_REMAP_BATCHES = 8           # batches the remap is timed on
+
+
+class AdmitTimes:
+    """While active, times what admit mode adds to a train command: each
+    barrier (seconds, its stats), each row reset on the card (CUDA
+    events around ``reset_table_rows``), each remap on the build side,
+    and each vocab sidecar write (seconds and bytes)."""
+
+    def __enter__(self):
+        import fast_tffm_tpu_torch.checkpoint as ck
+        import fast_tffm_tpu_torch.train as tr
+        from fast_tffm_tpu_torch.vocab.table import VocabMap, VocabRuntime
+        self.barriers, self.resets, self.remaps, self.sidecars = \
+            [], [], [], []
+        self._orig = (VocabRuntime.barrier, tr.reset_table_rows,
+                      VocabMap.remap, ck.write_vocab_sidecar)
+        barrier, reset, remap, write = self._orig
+
+        def timed_barrier(rt, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = barrier(rt, *args, **kwargs)
+            self.barriers.append(dict(out, seconds=time.perf_counter() - t0))
+            return out
+
+        def timed_reset(table, acc, rows, *args):
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            reset(table, acc, rows, *args)
+            end.record()
+            end.synchronize()
+            self.resets.append({"rows": int(len(rows)),
+                                "ms": start.elapsed_time(end)})
+
+        def timed_remap(vm, batch):
+            t0 = time.perf_counter()
+            out = remap(vm, batch)
+            self.remaps.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_write(directory, step, payload):
+            t0 = time.perf_counter()
+            path = write(directory, step, payload)
+            self.sidecars.append({"step": int(step),
+                                  "seconds": time.perf_counter() - t0,
+                                  "bytes": os.path.getsize(path)})
+            return path
+        VocabRuntime.barrier = timed_barrier
+        tr.reset_table_rows = timed_reset
+        VocabMap.remap = timed_remap
+        ck.write_vocab_sidecar = timed_write
+        return self
+
+    def __exit__(self, *exc):
+        import fast_tffm_tpu_torch.checkpoint as ck
+        import fast_tffm_tpu_torch.train as tr
+        from fast_tffm_tpu_torch.vocab.table import VocabMap, VocabRuntime
+        (VocabRuntime.barrier, tr.reset_table_rows, VocabMap.remap,
+         ck.write_vocab_sidecar) = self._orig
+
+
+def copy_step(src_dir, dst_dir, step):
+    """A committed step with its manifest and vocab sidecar, into
+    another checkpoint directory."""
+    os.makedirs(dst_dir, exist_ok=True)
+    shutil.copytree(os.path.join(src_dir, str(step)),
+                    os.path.join(dst_dir, str(step)))
+    for name in (f"manifest-{step}.json", f"vocab-{step}.json.gz"):
+        shutil.copy2(os.path.join(src_dir, name),
+                     os.path.join(dst_dir, name))
+
+
+def slot_map(payload):
+    """{hashed id: physical row} of a vocab sidecar payload."""
+    import base64
+    import numpy as np
+    keys = np.frombuffer(base64.b64decode(payload["state"]["slot_keys"]),
+                         np.int64)
+    rows = np.frombuffer(base64.b64decode(payload["state"]["slot_rows"]),
+                         np.int32)
+    return dict(zip(keys.tolist(), rows.tolist()))
+
+
+def barrier_lines(log):
+    """(where, admitted, evicted, live) of each 'vocab barrier' line."""
+    import re
+    return [(w, int(a), int(e), int(n)) for w, a, e, n in re.findall(
+        r"vocab barrier \((.*?)\): \+(\d+) admitted, -(\d+) evicted, "
+        r"(\d+)/\d+ live rows", log)]
+
+
+def admit_phase(torch, device, card, data, train_row):
+    """``vocab_mode = admit`` at config #2's width: run A (the train
+    phase's lines, one epoch) and run B (restores step 16 with its slot
+    map, one more epoch on lines whose high-cardinality ids run A never
+    saw) of ``python -m fast_tffm_tpu_torch train`` in process; the slot
+    maps, the freed rows, fmckpt, a control run in process, admit predict
+    on both wires, the fixed-mode refusal, a ScorerServer across the
+    reload of step 16 to 32 and a torn sidecar's failed reload, and both
+    kernels on a remapped batch. Returns (the phase's row, the forward's
+    and the backward's kernel rows)."""
+    import dataclasses
+    import io
+    import numpy as np
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.metrics import exact_auc
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    from fast_tffm_tpu_torch.predict import predict
+    from fast_tffm_tpu_torch.serve.frontend import make_http_server
+    from fast_tffm_tpu_torch.serve.server import ScorerServer
+    from fast_tffm_tpu_torch.tools import fmckpt
+    from fast_tffm_tpu_torch.train import checkpoint_template
+    from fast_tffm_tpu_torch.vocab.sketch import HASH_SPACE
+    from fast_tffm_tpu_torch.vocab.table import (COLD_ROW, VocabMap,
+                                                 VocabRuntime,
+                                                 reset_table_rows)
+    data_wd = data[0]
+    t_phase = time.perf_counter()
+    # Run B's lines: the planted fields' tokens as run A's, the
+    # high-cardinality fields' ids new.
+    t0 = time.perf_counter()
+    model = planted_model(SEED + 4)
+    b_train, _ = criteo_lines(TRAIN_LINES, SEED + 21, model, fresh=True)
+    b_val, b_logits = criteo_lines(VAL_LINES, SEED + 22, model, fresh=True)
+    for name, lines in (("b_train.txt", b_train), ("b_val.txt", b_val)):
+        with open(os.path.join(data_wd, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    del b_train
+    gen_s = time.perf_counter() - t0
+    paths = [write_train_cfg(data_wd, 1, save_steps=ADMIT_SAVE_STEPS,
+                             leg="admit", model=ADMIT_VOCAB),
+             write_train_cfg(data_wd, 2, save_steps=ADMIT_SAVE_STEPS,
+                             leg="admit", model=ADMIT_VOCAB, files="b_")]
+    cfg_a, cfg = load_config(paths[0]), load_config(paths[1])
+    check(cfg.vocab_mode == "admit" and cfg.vocab_admit_threshold == 2
+          and cfg.vocab_decay == 0.5 and cfg.vocab_sketch_mb == 1
+          and cfg.vocabulary_size == VOCAB and cfg.dedup == "auto",
+          f"admit config: {cfg}")
+    spec = port_fm.ModelSpec.from_config(cfg)
+    directory = cfg.model_file + ".ckpt"
+    serve_model = os.path.join(WORK, "admit_serve", "fm_model")
+    serve_dir = serve_model + ".ckpt"
+    steps = -(-TRAIN_LINES // TRAIN_BATCH)
+    val_batches = -(-VAL_LINES // TRAIN_BATCH)
+    floor = train_row["auc_floor"]
+    torn_step = 2 * steps + 8  # the serving directory's torn copy
+
+    def ls_verify(step):
+        """fmckpt ls's line for ``step`` and verify --mode full of it."""
+        out, vout = io.StringIO(), io.StringIO()
+        fmckpt.cmd_ls(directory, out=out)
+        rc = fmckpt.cmd_verify(directory, mode="full", step=step, out=vout)
+        line = next((ln for ln in out.getvalue().splitlines()
+                     if ln.strip().startswith(f"step {step} ")), "")
+        print(line + "\n" + vout.getvalue(), end="", flush=True)
+        check("+VOCAB" in line, f"fmckpt ls does not mark step {step} "
+              f"+VOCAB: {line!r}")
+        check(rc == 0 and "+vocab crc OK" in vout.getvalue(),
+              f"fmckpt verify --step {step}: {vout.getvalue()}")
+
+    # Run A, then run B, through the entry point; the launches of each.
+    run_s, launches = [], []
+    with AdmitTimes() as times, CheckpointTimes() as ck_times:
+        for run, path in enumerate(paths):
+            fm_kernel.launches = fm_kernel.bwd_launches = 0
+            t0 = time.perf_counter()
+            rc = cli(["train", path])
+            run_s.append(time.perf_counter() - t0)
+            launches.append((fm_kernel.launches, fm_kernel.bwd_launches))
+            check(rc == 0, f"admit train ({path}) returned {rc}")
+            if run == 0:
+                payload16 = ck.read_vocab_sidecar(directory, steps)
+                check(payload16 is not None, "run A left no sidecar at 16")
+                ls_verify(steps)
+                copy_step(directory, serve_dir, steps)
+    entry_remaps = list(times.remaps)
+    for run, (f, b) in enumerate(launches):
+        check(b == steps and f == steps + val_batches,
+              f"admit run {run} launched fm_score {f} and fm_score_bwd {b} "
+              f"times for {steps} steps and {val_batches} validation "
+              "batches")
+    with open(cfg.log_file) as fh:
+        log = fh.read()
+    check(f"restored checkpoint at step {steps}" in log
+          and "resuming interrupted epoch schedule at epoch 1/2" in log
+          and f"restored vocab admission state at step {steps}: "
+              f"{len(slot_map(payload16))} live rows" in log,
+          "run B did not restore step 16 with its slot map")
+    # Each barrier's step is written twice: its periodic save, then anew
+    # by the final save after the barrier moved the slot map.
+    commits = sorted(c["step"] for c in committed_steps_in_log(
+        cfg.log_file))
+    check(commits == sorted(list(range(ADMIT_SAVE_STEPS, 2 * steps + 1,
+                                       ADMIT_SAVE_STEPS)) + [steps, 2 * steps]),
+          f"admit commits {commits}")
+    barriers = barrier_lines(log)
+    check([w for w, *_ in barriers] == ["epoch 0", f"final save step "
+                                        f"{steps}", "epoch 1",
+                                        f"final save step {2 * steps}"],
+          f"barriers: {barriers}")
+    check(barriers[0][1] >= 1 and barriers[2][2] >= 1
+          and barriers[1][1:3] == barriers[3][1:3] == (0, 0),
+          f"run A's barrier admitted {barriers[0][1]}, run B's evicted "
+          f"{barriers[2][2]} (the final-save barriers must be no-ops)")
+    check(all(n <= VOCAB - 1 for *_, n in barriers), f"live rows {barriers}")
+    losses, rates, aucs, done = read_train_log(cfg.log_file)
+    mean_loss = [float(np.mean(losses[e])) for e in range(2)]
+    check(all(np.isfinite(v).all() for v in losses.values())
+          and mean_loss[1] < mean_loss[0],
+          f"admit mean loss did not fall: {mean_loss}")
+    # Run A trains every id through the cold row (nothing is admitted
+    # before its epoch's barrier), and its validation sweep follows that
+    # barrier, whose newly admitted rows are untrained: its AUC is near
+    # chance by design. Run B trains the admitted rows.
+    check(len(aucs) == 2 and 0.0 <= aucs[0] <= 1.0 and aucs[1] > floor,
+          f"admit validation AUC {aucs}: run B's not above {floor}")
+    ls_verify(2 * steps)
+
+    # The rows run B's barrier freed: the rows of the ids it evicted,
+    # zero in step 32's table and adagrad_init in its accumulator (no
+    # step follows that barrier).
+    payload32 = ck.read_vocab_sidecar(directory, 2 * steps)
+    map16, map32 = slot_map(payload16), slot_map(payload32)
+    check(len(map32) == barriers[2][3] and max(map32.values()) < VOCAB
+          and min(map32.values()) >= 1, "step 32's slot rows")
+    freed = np.array(sorted(map16[k] for k in set(map16) - set(map32)),
+                     np.int64)
+    check(len(freed) == barriers[2][2], f"{len(freed)} rows freed, "
+          f"{barriers[2][2]} evicted")
+    state = ck.CheckpointState(cfg.model_file)
+    stored = state.restore(step=2 * steps,
+                           template=checkpoint_template(cfg))
+    state.close()
+    idx = torch.from_numpy(freed)
+    check(not stored["table"].index_select(0, idx).any().item()
+          and bool((stored["acc"].index_select(0, idx)
+                    == np.float32(cfg.adagrad_init)).all()),
+          "a freed row is not cold-started in step 32")
+
+    # Control: a fresh VocabRuntime and train_step_body on the card over
+    # run A's then run B's streams, the same barriers and the same
+    # initial table; timed, beside the same loop in fixed mode.
+    def control_loop(vocab, c, firsts=None):
+        """The two runs' streams through train_step_body; ``firsts``
+        (a list) takes each run's first batch as it was stepped, with
+        the numeric features' rows under the map of that moment."""
+        gen = torch.Generator(device=device).manual_seed(c.seed)
+        table = port_fm.init_table(c, device, gen)
+        acc = port_fm.init_accumulator(c, device)
+        n, loop_s = 0, 0.0
+        for epoch, c_run in enumerate((cfg_a, cfg)):
+            c_run = dataclasses.replace(c_run, vocab_mode=c.vocab_mode)
+            it = batch_iterator(c_run, c_run.train_files, training=True,
+                                epochs=1, seed=c.seed + epoch,
+                                raw_ids=True, vocab=vocab)
+            t0 = time.perf_counter()
+            try:
+                for b in it:
+                    if vocab is not None:
+                        b = vocab.ensure_current(b)
+                    if firsts is not None and len(firsts) == epoch:
+                        firsts.append((b, vocab.lookup(np.array(
+                            numeric_ids(HASH_SPACE), np.int64))))
+                    port_fm.train_step_body(spec, table, acc,
+                                            **port_fm.batch_args(b, device))
+                    if vocab is not None:
+                        vocab.note_trained(b)
+                    n += b.num_real
+            finally:
+                it.close()
+            if vocab is not None:
+                for _ in range(2):  # the epoch's, then the final save's
+                    vocab.barrier(lambda rows: reset_table_rows(
+                        table, acc, rows, c.adagrad_init))
+            torch.cuda.synchronize()
+            loop_s += time.perf_counter() - t0
+        return table, acc, n / loop_s
+
+    # The control, ADMIT_CONTROLS times. Every id of run A trains
+    # through the cold row (some 300,000 slots a batch on one row); the
+    # backward sums each row exactly, so two controls must be equal to
+    # the bit, and step 32 must equal a control at rtol 1e-4 / atol 1e-6
+    # in every element, and to the bit in every row outside the cold
+    # row's reach (the rows run B's barrier cold-started or admitted
+    # into, the rows no id ever held, the pad row).
+    controls = []
+    for k in range(ADMIT_CONTROLS):
+        rt = VocabRuntime.from_config(cfg)
+        firsts = [] if k == 0 else None
+        table, acc, eps = control_loop(rt, cfg, firsts)
+        check(rt.state_payload() == payload32,
+              f"control run {k}'s slot map and payload differ from step "
+              "32's")
+        if k == 0:
+            admit_eps, first_batches = eps, firsts
+        controls.append((table, acc))
+    trained = torch.tensor([0] + [map32[key] for key in map16
+                                  if key in map32], device=device)
+    exact = torch.ones(VOCAB + 1, dtype=torch.bool, device=device)
+    exact[trained] = False
+    control = {"exact_rows": int(exact.sum()),
+               "trained_rows": int(trained.numel())}
+    for j, name in enumerate(("table", "acc")):
+        for k in range(1, ADMIT_CONTROLS):
+            check(torch.equal(controls[k][j], controls[0][j]),
+                  f"admit control {name}: control run {k} differs from "
+                  "control run 0")
+        check(equal_rows(torch, controls[0][j], stored[name], exact,
+                         device),
+              f"admit control {name}: a row outside the cold row's reach "
+              "differs from step 32's")
+        bad, worst = compare_chunked(torch, controls[0][j], stored[name],
+                                     device)
+        control[name] = {"outside_tolerance": bad, "max_abs_err": worst}
+        check(bad == 0,
+              f"admit control {name}: {bad} elements outside rtol 1e-4 / "
+              f"atol 1e-6 of step 32, the largest difference {worst}")
+    table, firsts = controls[0][0], first_batches
+    del controls, acc, exact
+    fixed_cfg = dataclasses.replace(cfg, vocab_mode="fixed")
+    _t, _a, fixed_eps = control_loop(None, fixed_cfg)
+    del _t, _a
+    torch.cuda.empty_cache()
+
+    # The remap alone on the build side, on hash-space batches of run
+    # B's stream: raw ids (the dedup = device main path) and host-deduped.
+    remap_ms = {}
+    for name, raw in (("raw_ids", True), ("host_dedup", False)):
+        it = batch_iterator(VocabMap.build_cfg(cfg), cfg.train_files,
+                            training=False, raw_ids=raw)
+        ms = []
+        try:
+            for k, b in enumerate(it):
+                t0 = time.perf_counter()
+                rt.remap(b)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if k + 1 == ADMIT_REMAP_BATCHES:
+                    break
+        finally:
+            it.close()
+        remap_ms[name] = sorted(ms)[len(ms) // 2]
+
+    # Both kernels against their plain versions on each run's first
+    # batch as the control stepped it (step 32's table): run A's, every
+    # id on the cold row, and run B's under run A's map, its unseen ids
+    # on the cold row; the cold row's share of the slots and its count.
+    fwd_rows, bwd_rows, cold = [], [], {}
+    for tag, (b, numeric) in zip(("admit_run_a", "admit_run_b"), firsts):
+        real = b.vals != 0
+        cells = int(((b.local_idx == COLD_ROW) & real).sum())
+        cold[tag] = {"slots": cells, "share": cells / int(real.sum())}
+        f, bw = train_batch_kernel_rows(
+            torch, spec, table, port_fm.batch_args(b, device), device,
+            tag=tag, numeric=numeric.tolist())
+        fwd_rows += f
+        bwd_rows += bw
+    del table, firsts
+    torch.cuda.empty_cache()
+
+    # Admit predict of step 32 over the 65,536 predict lines, padded then
+    # packed-wide: equal byte for byte; a fixed-mode predict is refused.
+    predict_s, predict_launches, outs = {}, {}, {}
+    for wire in ("padded", "packed"):
+        pcfg = dataclasses.replace(
+            cfg, predict_files=(os.path.join(WORK, "criteo.txt"),),
+            score_path=os.path.join(WORK, f"admit_score_{wire}"),
+            wire_format=wire)
+        fm_kernel.launches = 0
+        t0 = time.perf_counter()
+        predict(pcfg, device=device)
+        predict_s[wire] = time.perf_counter() - t0
+        predict_launches[wire] = fm_kernel.launches
+        with open(os.path.join(pcfg.score_path, "criteo.txt.score"),
+                  "rb") as fh:
+            outs[wire] = fh.read()
+    check(outs["padded"] == outs["packed"], "admit predict: packed-wide "
+          "differs from padded")
+    scores = np.array([float(x) for x in outs["padded"].split()])
+    check(scores.shape == (PREDICT_LINES,) and np.isfinite(scores).all(),
+          f"{scores.shape} admit predict scores")
+    del outs
+    try:
+        predict(dataclasses.replace(cfg, vocab_mode="fixed"), device=device)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "vocab admission sidecar" in refused,
+          f"a fixed-mode predict of step 32 was not refused: {refused}")
+
+    # Serving: step 16 published in a directory of its own, step 32
+    # published there under client load; then a copy of step 32 whose
+    # sidecar has one flipped byte.
+    serve_cfg = dataclasses.replace(
+        cfg, model_file=serve_model, predict_files=(
+            os.path.join(data_wd, "b_val.txt"),), serve_poll_seconds=0.2)
+    expected = {}
+
+    def predict_lines(step):
+        pcfg = dataclasses.replace(serve_cfg, score_path=os.path.join(
+            WORK, f"admit_serve_score{step}"))
+        predict(pcfg, device=device)
+        with open(os.path.join(pcfg.score_path, "b_val.txt.score")) as fh:
+            expected[step] = fh.read().splitlines(keepends=True)
+
+    predict_lines(steps)
+    check(fmckpt.main(["publish", serve_model, str(steps)]) == 0,
+          "fmckpt publish of step 16 failed")
+    fm_kernel.launches = 0
+    server = ScorerServer(serve_cfg, device=device)
+    httpd = make_http_server(server, 0)
+    http_thread = threading.Thread(target=httpd.serve_forever,
+                                   name="smoke-admit-http", daemon=True)
+    http_thread.start()
+    port = httpd.server_address[1]
+    results, lock, failures = [], threading.Lock(), []
+    phase = {"name": "16"}
+
+    def client(k, leg):
+        """Requests until RELOAD_ROUNDS of them were sent outside the
+        leg ``leg`` (after the swap), or, with ``leg`` None, in all."""
+        rng = np.random.default_rng(SEED + 40 + k)
+        rounds = 0
+        try:
+            while rounds < RELOAD_ROUNDS:
+                n = int(rng.integers(1, SERVE_MAX_BATCH + 1))
+                lo = int(rng.integers(0, len(b_val) - n + 1))
+                tag = phase["name"]
+                status, body, step = post(
+                    port, "\n".join(b_val[lo:lo + n]) + "\n")
+                with lock:
+                    results.append((lo, n, status, body, step, tag))
+                rounds += leg is None or tag != leg
+        except Exception as e:  # noqa: BLE001 - reported by the check
+            failures.append(repr(e))
+
+    def load(leg):
+        threads = [threading.Thread(target=client, args=(k, leg))
+                   for k in range(RELOAD_CLIENTS)]
+        for th in threads:
+            th.start()
+        return threads
+
+    try:
+        threads = load("16")
+        deadline = time.monotonic() + 120
+        while len(results) < 4 * RELOAD_CLIENTS and not failures and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        copy_step(directory, serve_dir, 2 * steps)
+        t_flip = time.perf_counter()
+        check(fmckpt.main(["publish", serve_model, str(2 * steps)]) == 0,
+              "fmckpt publish of step 32 failed")
+        while server.served_step != 2 * steps and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        flip_to_swap_s = time.perf_counter() - t_flip
+        phase["name"] = "32"
+        for th in threads:
+            th.join(timeout=300)
+            check(not th.is_alive(), "an admit serve client hung")
+        health = healthz(port)
+        check(health["reloads"] == 1 and health["reload_failures"] == 0
+              and health["served_step"] == 2 * steps
+              and health["flush_errors"] == 0, f"/healthz: {health}")
+        # The torn copy: publishing it with fmckpt fails; the pointer
+        # moved by hand makes the server's reload fail whole.
+        state = ck.CheckpointState(serve_model, adagrad_init=cfg.adagrad_init)
+        state.save(torn_step, stored["table"], stored["acc"],
+                   vocabulary_size=cfg.vocabulary_size, wait=True,
+                   vocab_state=payload32)
+        state.close()
+        del stored
+        vp = ck.vocab_sidecar_path(serve_dir, torn_step)
+        with open(vp, "r+b") as fh:
+            fh.seek(-6, os.SEEK_END)
+            byte = fh.read(1)
+            fh.seek(-6, os.SEEK_END)
+            fh.write(bytes([byte[0] ^ 0xFF]))
+        out = io.StringIO()
+        check(fmckpt.cmd_publish(serve_dir, torn_step, out=out) == 1,
+              f"fmckpt published the torn step: {out.getvalue()}")
+        ck.write_published(serve_dir, torn_step)
+        deadline = time.monotonic() + 60
+        while server.stats()["reload_failures"] < 1 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        phase["name"] = "torn"
+        for th in load(None):
+            th.join(timeout=300)
+            check(not th.is_alive(), "an admit serve client hung")
+        torn_health = healthz(port)
+    finally:
+        httpd.shutdown()
+        http_thread.join(timeout=60)
+        httpd.server_close()
+        server.close()
+    serve_launches = fm_kernel.launches
+    check(not failures, f"admit serve clients failed: {failures[:3]}")
+    # The watcher retries the torn step at every poll: each retry fails.
+    check(torn_health["reload_failures"] >= 1
+          and torn_health["served_step"] == 2 * steps
+          and torn_health["published_step"] == torn_step
+          and torn_health["reloads"] == 1,
+          f"/healthz after the torn sidecar: {torn_health}")
+    # Step 32's predict lines: the serve directory's newest intact step
+    # once the torn copy is gone.
+    shutil.rmtree(os.path.join(serve_dir, str(torn_step)))
+    predict_lines(2 * steps)
+    seen = {}
+    for lo, n, status, body, step, tag in results:
+        check(status == 200, f"admit serve answered {status}: {body[:200]}")
+        check(step in (str(steps), str(2 * steps))
+              and (tag == "16" or step == str(2 * steps)),
+              f"X-FM-Step {step} in the {tag} leg")
+        check(body == "".join(expected[int(step)][lo:lo + n]).encode(),
+              f"admit body for lines [{lo}, {lo + n}) differs from step "
+              f"{step}'s predict lines")
+        seen[f"{tag}:{step}"] = seen.get(f"{tag}:{step}", 0) + 1
+    check(seen.get(f"16:{steps}") and seen.get(f"32:{2 * steps}")
+          and seen.get(f"torn:{2 * steps}"), f"responses: {seen}")
+    phase_s = time.perf_counter() - t_phase
+    saves = [t for t in ck_times.saves]
+    row = {"phase": "admit", "card": card, "vocabulary_size": VOCAB,
+           "hash_space": HASH_SPACE, "threshold": cfg.vocab_admit_threshold,
+           "decay": cfg.vocab_decay, "sketch_mb": cfg.vocab_sketch_mb,
+           "lines": [TRAIN_LINES, TRAIN_LINES],
+           "validation_lines": [VAL_LINES, VAL_LINES],
+           "batch_size": TRAIN_BATCH, "steps": 2 * steps,
+           "reduced": "two one-epoch commands of 131,072 lines (run B on "
+                      "fresh high-cardinality ids) instead of Criteo-1TB; "
+                      "run B's lines not cut (its AUC floor check needs "
+                      "its 16 steps)",
+           "generate_seconds": gen_s, "run_seconds": run_s,
+           "phase_seconds": phase_s, "epoch_mean_loss": mean_loss,
+           "validation_auc": aucs, "auc_floor": floor,
+           "b_planted_auc": exact_auc(b_logits, np.array(
+               [int(ln.split(" ", 1)[0]) for ln in b_val])),
+           "barriers": [{"where": w, "admitted": a, "evicted": e,
+                         "live": n} for w, a, e, n in barriers],
+           "barrier_seconds": [t["seconds"] for t in times.barriers],
+           "reset_ms": times.resets, "freed_rows": len(freed),
+           "sidecars": times.sidecars,
+           "checkpoint_saves": saves, "committed_steps": commits,
+           "remap_ms_entry_point_median":
+               sorted(entry_remaps)[len(entry_remaps) // 2],
+           "remap_ms_by_batch": remap_ms,
+           "examples_per_s_train_log": [e for _, e in done],
+           "examples_per_s_loop": (len(rates) * TRAIN_BATCH
+                                   / sum(TRAIN_BATCH / r for r in rates)),
+           "examples_per_s_inprocess_loop_admit": admit_eps,
+           "examples_per_s_inprocess_loop_fixed": fixed_eps,
+           "admit_over_fixed_loop": admit_eps / fixed_eps,
+           "cold_row_by_first_batch": cold,
+           "control_max_abs_err": control,
+           "predict_seconds_after_load": predict_s,
+           "predict_launches": predict_launches,
+           "serve_responses": seen, "serve_flip_to_swap_seconds":
+               flip_to_swap_s,
+           "serve_p50_ms": torn_health["latency_p50_ms"],
+           "serve_p99_ms": torn_health["latency_p99_ms"],
+           "serve_launches": serve_launches,
+           "serve_reload_failures_torn": torn_health["reload_failures"],
+           "fm_score_launches": sum(f for f, _ in launches)
+               + predict_launches["padded"] + predict_launches["packed"]
+               + serve_launches,
+           "fm_score_bwd_launches": sum(b for _, b in launches)}
+    emit(row)
+    return row, fwd_rows, bwd_rows
 
 
 def main(argv) -> int:
@@ -3117,6 +3870,11 @@ def main(argv) -> int:
             offload_phase(torch, device, smi, train_data, train_row)
         kernel_rows += fwd_offload_rows
         bwd_rows += bwd_offload_rows
+        # 14. vocab_mode = admit: the slot map, its barriers and sidecar
+        admit_row, fwd_admit_rows, bwd_admit_rows = admit_phase(
+            torch, device, smi, train_data, train_row)
+        kernel_rows += fwd_admit_rows
+        bwd_rows += bwd_admit_rows
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3141,7 +3899,8 @@ def main(argv) -> int:
                      + packed_train_row["fm_score_launches"]
                      + stream_row["fm_score_launches"]
                      + stream_row["serve_launches"]
-                     + offload_row["fm_score_launches"]),
+                     + offload_row["fm_score_launches"]
+                     + admit_row["fm_score_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3161,7 +3920,8 @@ def main(argv) -> int:
         "train_packed_launches": packed_train_row["fm_score_launches"],
         "stream_train_launches": stream_row["fm_score_launches"],
         "stream_serve_launches": stream_row["serve_launches"],
-        "offload_launches": offload_row["fm_score_launches"]}, {
+        "offload_launches": offload_row["fm_score_launches"],
+        "admit_launches": admit_row["fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
@@ -3169,12 +3929,14 @@ def main(argv) -> int:
                      + host_row["fm_score_bwd_launches"]
                      + packed_train_row["fm_score_bwd_launches"]
                      + stream_row["fm_score_bwd_launches"]
-                     + offload_row["fm_score_bwd_launches"]),
+                     + offload_row["fm_score_bwd_launches"]
+                     + admit_row["fm_score_bwd_launches"]),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
         "stream_train_launches": stream_row["fm_score_bwd_launches"],
         "offload_launches": offload_row["fm_score_bwd_launches"],
+        "admit_launches": admit_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -3214,6 +3976,7 @@ def main(argv) -> int:
                        "train_packed": packed_train_row,
                        "train_ffm": ffm_row, "train_order3": order3_row,
                        "stream": stream_row, "offload": offload_row,
+                       "admit": admit_row,
                        "kernel_offload": offload_rows, **kernels}, fh,
                       indent=1)
     emit(kernels)

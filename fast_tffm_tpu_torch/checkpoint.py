@@ -8,10 +8,13 @@ directories, each committed by an atomic rename; beside each step, a
 ``manifest-<step>.json`` (per-file size + crc32, the step/epoch/vocab
 echo, ``format: 1``) and, where the final save corrected a stale epoch
 count, ``epoch_override-<step>``; in ``run_mode = stream``, the
-step's stream position, ``watermark-<step>.json``; a step that fails
-verification (or fails to load) is quarantined as ``corrupt-<step>[.k]``
-with its sidecars, and restore walks back to the next older step and
-its older watermark; the ``published`` and ``published-canary`` pointer
+step's stream position, ``watermark-<step>.json``; in ``vocab_mode =
+admit``, the step's slot map and sketch, ``vocab-<step>.json.gz`` (gzip
+of the sorted-key JSON payload with its own crc32: either package reads
+the other's); a step that fails verification (or fails to load) is
+quarantined as ``corrupt-<step>[.k]`` with its sidecars, and restore
+walks back to the next older step, its older watermark and its older
+slot map; the ``published`` and ``published-canary`` pointer
 files name the step a scorer serves, and ``gate_baseline`` beside them
 holds the publish gate's drop baseline. So the JAX package's
 ``tools.fmckpt ls``/``verify`` read a port directory as they read their
@@ -34,13 +37,14 @@ carries a JAX-trained model across.
 ``restore_partial`` (the offload predict path, lookup.py) loads the
 table alone; the accumulator is never read.
 
-Not ported, each waiting for its ROADMAP.md item: the vocab-admission
-sidecar (A8), multi-process broadcasts (A10), and the telemetry counters
-and ``health: ckpt_fallback`` event (A11).
+Not ported, each waiting for its ROADMAP.md item: multi-process
+broadcasts (A10), and the telemetry counters and ``health:
+ckpt_fallback`` event (A11).
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import math
 import os
@@ -190,6 +194,103 @@ def write_watermark(directory: str, step: int, payload: dict) -> str:
     path = watermark_path(directory, step)
     _atomic_write_text(path, json.dumps(payload, sort_keys=True))
     return path
+
+
+def vocab_sidecar_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"vocab-{step}.json.gz")
+
+
+def load_vocab_sidecar(directory: str, step: int
+                       ) -> Tuple[Optional[dict], Optional[str]]:
+    """(payload, reason) for a step's vocab-admission sidecar: the one
+    torn-sidecar decision the restore path and ``fmckpt verify`` share.
+    Absent -> (None, None); readable with a matching embedded crc32 ->
+    (payload, None); unreadable gzip or json, or a crc mismatch ->
+    (None, <the failure>)."""
+    from fast_tffm_tpu_torch.vocab.table import payload_crc_ok
+    path = vocab_sidecar_path(directory, step)
+    name = os.path.basename(path)
+    try:
+        with gzip.open(path, "rt", encoding="utf-8") as fh:
+            payload = json.load(fh)
+    except FileNotFoundError:
+        return None, None
+    except (ValueError, OSError, EOFError, zlib.error) as e:
+        # zlib.error: a flipped byte inside the deflate stream (the JAX
+        # reader lets it escape; the trailer's crc raises OSError).
+        return None, f"vocab sidecar {name} is unreadable/garbled: {e}"
+    if not payload_crc_ok(payload):
+        return None, (f"vocab sidecar {name} failed its embedded "
+                      "crc32 check (torn or bit-rotted)")
+    return payload, None
+
+
+def read_vocab_sidecar(directory: str, step: int) -> Optional[dict]:
+    """The step's vocab-admission sidecar payload, or None when the step
+    has none (every fixed-mode step). A garbled or torn sidecar also
+    reads as None, with a warning: an admit-mode resume then starts
+    admission fresh and cold-starts every row (train.py)."""
+    payload, reason = load_vocab_sidecar(directory, step)
+    if reason is not None:
+        get_logger().warning(
+            "%s; treating step %d as carrying no admission state",
+            reason, step)
+    return payload
+
+
+def write_vocab_sidecar(directory: str, step: int, payload: dict) -> str:
+    """Atomically renamed gzip write of the vocab admission payload (the
+    tmp + fsync + rename + directory-fsync every sidecar gets): it
+    exists complete or not at all. The payload carries its own crc32
+    (vocab/table.py), which ``read_vocab_sidecar`` and ``fmckpt
+    verify`` both check. The bytes are the JAX package's: gzip of the
+    sorted-key JSON."""
+    path = vocab_sidecar_path(directory, step)
+    _atomic_write_bytes(path, gzip.compress(
+        json.dumps(payload, sort_keys=True).encode("utf-8")))
+    return path
+
+
+def load_vocab_map(cfg, directory: str, step: Optional[int]):
+    """The one inference-side (table, slot map, step) pairing load:
+    predict and the serving reload both come here. Returns the step's
+    VocabMap; raises FileNotFoundError when the step carries no
+    readable sidecar (missing or torn: scoring without the slot map
+    would misroute every admitted id)."""
+    from fast_tffm_tpu_torch.vocab.table import VocabMap
+    payload = (read_vocab_sidecar(directory, int(step))
+               if step is not None and step >= 0 else None)
+    if payload is None:
+        raise FileNotFoundError(
+            f"checkpoint step {step} at {directory} carries no "
+            "readable vocab admission sidecar (vocab-<step>.json.gz) "
+            "but vocab_mode = admit: scoring without the slot map "
+            "would misroute every admitted id. Was the model trained "
+            "with vocab_mode = fixed?")
+    return VocabMap.from_payload(cfg, payload)
+
+
+def refuse_fixed_mode_admit_step(cfg, directory: str, step: Optional[int],
+                                 payload: Optional[dict] = None) -> None:
+    """The one admit-trained-under-fixed refusal (train resume, predict
+    and the serving reload call it): a step carrying a vocab admission
+    sidecar was trained with ``vocab_mode = admit``, so its rows are
+    slot-mapped and modulo ids would gather the wrong ones. Keys on the
+    sidecar's existence (a torn one still proves admit training) or a
+    ``payload`` the caller already read. A no-op under admit mode or
+    when ``step`` is unknown."""
+    if cfg.vocab_mode != "fixed":
+        return
+    if payload is None and (step is None or step < 0
+                            or not os.path.exists(
+                                vocab_sidecar_path(directory, int(step)))):
+        return
+    raise ValueError(
+        f"checkpoint step {step} carries a vocab admission sidecar — "
+        "it was trained with vocab_mode = admit, so its table rows "
+        "are slot-mapped — but this config has vocab_mode = fixed: "
+        "modulo ids would gather/train the wrong rows. Set "
+        "vocab_mode = admit (or start a fresh model_file).")
 
 
 # Beside the published pointer: the validation AUC of the last
@@ -463,7 +564,8 @@ class CheckpointState:
              wait: bool = False, epoch: int = 0,
              rewrite_stale_metadata: bool = False,
              stream_state: Optional[dict] = None,
-             from_state: bool = False) -> None:
+             from_state: bool = False,
+             vocab_state: Optional[dict] = None) -> None:
         """Save ``table`` and ``acc`` (``[vocabulary_size + 1, D]`` on
         any device; with ``from_state``, the stored ``[ckpt_rows, D]`` on
         the CPU) as ``step``, with ``epoch``, the count of COMPLETED
@@ -474,8 +576,9 @@ class CheckpointState:
 
         As orbax's manager does, a save at a step at or below the
         newest committed one is skipped unless ``force``. A save at a
-        step that already exists never rewrites the arrays (the state
-        at a step is unique); the final save can land on the last
+        step that already exists does not rewrite the arrays (the state
+        at a step is unique), except in admit mode after a barrier moved
+        the slot map (below); the final save can land on the last
         periodic save's step with a different epoch count, and then
         ``rewrite_stale_metadata`` records the true count in the
         atomically written ``epoch_override-<step>`` sidecar, which
@@ -488,7 +591,20 @@ class CheckpointState:
         whose watermark is written before orbax's background commit); a
         failed commit leaves it an orphan, pruned at the next save. On a
         step that exists it is written here: the arrays are the same
-        state, and so is the position (it only advances with steps)."""
+        state, and so is the position (it only advances with steps).
+
+        ``vocab_state`` (``vocab_mode = admit``): the slot map and sketch
+        payload (``VocabRuntime.state_payload``) paired with these
+        arrays, written as ``vocab-<step>.json.gz`` where the watermark
+        is: before the commit rename of a fresh step, here on a step
+        that exists with that same payload. The slot map moves at
+        barriers, and a barrier's eviction resets rows in place, so a
+        publish or final save right after one may land on the step of
+        the last periodic save with other arrays than it holds: when
+        the step's payload differs from ``vocab_state``, forced or not,
+        the step is written anew (``_write_step_files``: the old step
+        leaves the digit namespace before the new sidecars land, so no
+        instant pairs the old arrays with the new slot map)."""
         step = int(step)
         if from_state and not wait:
             raise ValueError(
@@ -496,16 +612,18 @@ class CheckpointState:
                 "it updates in place: save with wait=True")
         self._join_writer()
         steps = list_step_dirs(self.directory)
-        if not force and steps and step <= steps[-1]:
-            if stream_state is not None and step in steps:
-                write_watermark(self.directory, step, stream_state)
+        replace = (step in steps and vocab_state is not None and
+                   load_vocab_sidecar(self.directory, step)[0]
+                   != vocab_state)
+        if not replace and not force and steps and step <= steps[-1]:
+            if step in steps:
+                self._write_step_sidecars(step, stream_state, vocab_state)
             return
-        if step in steps:
+        if step in steps and not replace:
             if rewrite_stale_metadata:
                 _atomic_write_text(self._epoch_sidecar(step),
                                    str(int(epoch)))
-            if stream_state is not None:
-                write_watermark(self.directory, step, stream_state)
+            self._write_step_sidecars(step, stream_state, vocab_state)
         else:
             if not self._swept:
                 self._sweep_litter()
@@ -513,7 +631,8 @@ class CheckpointState:
             # sidecar left by a cleared-and-reused directory would
             # overlay the wrong epoch, and a stale manifest would brand
             # the fresh bytes corrupt.
-            self._prune_fresh_step(step)
+            if not replace:
+                self._prune_fresh_step(step)
             if from_state:
                 arrays = self._stored(table, acc, int(vocabulary_size))
             else:
@@ -522,11 +641,20 @@ class CheckpointState:
             meta = {"format": STEP_FORMAT, "step": step,
                     "epoch": int(epoch), "vocab": int(vocabulary_size)}
             self._writer = threading.Thread(
-                target=self._write_step, args=(meta, stream_state, arrays),
+                target=self._write_step,
+                args=(meta, stream_state, vocab_state, arrays, replace),
                 name="ckpt-writer", daemon=True)
             self._writer.start()
         if wait:
             self._join_writer()
+
+    def _write_step_sidecars(self, step: int, stream_state: Optional[dict],
+                             vocab_state: Optional[dict]) -> None:
+        """The step's watermark and vocab sidecars, where given."""
+        if stream_state is not None:
+            write_watermark(self.directory, step, stream_state)
+        if vocab_state is not None:
+            write_vocab_sidecar(self.directory, step, vocab_state)
 
     @staticmethod
     def _stored(table: torch.Tensor, acc: torch.Tensor,
@@ -577,13 +705,16 @@ class CheckpointState:
 
     def _write_step(self, meta: Dict[str, Any],
                     stream_state: Optional[dict],
-                    arrays: Dict[str, torch.Tensor]) -> None:
-        """The writer thread: files, watermark, commit, retention,
-        manifest."""
+                    vocab_state: Optional[dict],
+                    arrays: Dict[str, torch.Tensor],
+                    replace: bool) -> None:
+        """The writer thread: files, watermark and vocab sidecars,
+        commit, retention, manifest."""
         step = meta["step"]
         t0 = time.perf_counter()
         try:
-            nbytes = self._write_step_files(meta, stream_state, arrays)
+            nbytes = self._write_step_files(meta, stream_state,
+                                            vocab_state, arrays, replace)
         except Exception as e:  # raised at the next join
             self._writer_error = e
             return
@@ -598,10 +729,19 @@ class CheckpointState:
 
     def _write_step_files(self, meta: Dict[str, Any],
                           stream_state: Optional[dict],
-                          arrays: Dict[str, torch.Tensor]) -> int:
+                          vocab_state: Optional[dict],
+                          arrays: Dict[str, torch.Tensor],
+                          replace: bool) -> int:
+        """Write the step into ``<step>.tmp`` and commit it by rename.
+        ``replace``: the step exists and is written anew. Its old
+        directory is renamed out of the digit namespace and its
+        sidecars pruned first: a kill from there to the commit leaves
+        the step missing (restore takes the step before it, with its
+        own sidecars), never the old arrays under the new sidecars."""
         step = meta["step"]
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
+        retired = final + ".del"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         nbytes = 0
@@ -617,13 +757,18 @@ class CheckpointState:
                 fh.flush()
                 os.fsync(fh.fileno())
             _fsync_path(tmp)
-            if stream_state is not None:
-                write_watermark(self.directory, step, stream_state)
+            if replace:
+                shutil.rmtree(retired, ignore_errors=True)
+                os.rename(final, retired)
+                self._prune_fresh_step(step)
+            self._write_step_sidecars(step, stream_state, vocab_state)
             os.rename(tmp, final)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         _fsync_path(self.directory)
+        if replace:
+            shutil.rmtree(retired, ignore_errors=True)
         return nbytes
 
     def _delete_old_steps(self) -> None:
@@ -690,11 +835,13 @@ class CheckpointState:
         fails the save. A stale same-step watermark (a cleared and
         reused directory, or an epoch-mode save landing on an old
         stream step) would resume a later stream at positions this
-        state never trained."""
+        state never trained; a stale vocab sidecar would remap ids onto
+        rows this table never assigned them."""
         mp = manifest_path(self.directory, step)
         wp = watermark_path(self.directory, step)
+        vp = vocab_sidecar_path(self.directory, step)
         for stale in (self._epoch_sidecar(step), mp, mp + ".tmp", wp,
-                      wp + ".tmp"):
+                      wp + ".tmp", vp, vp + ".tmp"):
             try:
                 os.remove(stale)
             except FileNotFoundError:
@@ -763,7 +910,7 @@ class CheckpointState:
     def quarantine_step(self, step: int, reason: str) -> str:
         """Move a bad step out of the restore path without deleting it:
         the step dir is renamed ``corrupt-<step>`` and its manifest,
-        epoch and watermark sidecars move inside it. Returns the
+        epoch, watermark and vocab sidecars move inside it. Returns the
         quarantine dir."""
         src = os.path.join(self.directory, str(step))
         dst = os.path.join(self.directory, f"{QUARANTINE_PREFIX}{step}")
@@ -774,7 +921,7 @@ class CheckpointState:
                                f"{QUARANTINE_PREFIX}{step}.{k}")
         os.rename(src, dst)
         for name in (f"manifest-{step}.json", f"epoch_override-{step}",
-                     f"watermark-{step}.json"):
+                     f"watermark-{step}.json", f"vocab-{step}.json.gz"):
             try:
                 os.replace(os.path.join(self.directory, name),
                            os.path.join(dst, name))
@@ -845,9 +992,11 @@ class CheckpointState:
                 template: Optional[Dict[str, Tuple[int, int]]] = None
                 ) -> Optional[Dict[str, Any]]:
         """Returns ``{"table", "acc", "step", "epoch", "vocab",
-        "stream"}`` with the arrays as CPU tensors ``[vocab + 1, D]``
-        (the stored padding sliced off) and ``stream`` the step's
-        watermark payload (None without one), or None when no checkpoint exists yet (a fresh
+        "stream", "vocab_admission"}`` with the arrays as CPU tensors
+        ``[vocab + 1, D]`` (the stored padding sliced off), ``stream``
+        the step's watermark payload and ``vocab_admission`` its vocab
+        sidecar payload (each None without one; a torn vocab sidecar
+        reads as None with a warning), or None when no checkpoint exists yet (a fresh
         start). ``template`` maps the arrays to load to the shapes this
         config wants (``train.checkpoint_template``); an array it leaves
         out is not read (predict loads the table alone), and a stored
@@ -972,12 +1121,15 @@ class CheckpointState:
     def _apply_sidecars(self, step: int,
                         restored: Dict[str, Any]) -> Dict[str, Any]:
         """Overlay a same-step epoch-correction sidecar (see save())
-        and attach the step's stream watermark: a walk-back to an older
-        step resumes at that step's older position."""
+        and attach the step's stream watermark and vocab admission
+        payload: a walk-back to an older step resumes at that step's
+        older position with its own slot map."""
         override = read_epoch_override(self.directory, step)
         if override is not None:
             restored["epoch"] = override
         restored["stream"] = read_watermark(self.directory, step)
+        restored["vocab_admission"] = read_vocab_sidecar(self.directory,
+                                                         step)
         return restored
 
     def _raise_restore_error(self, s, e) -> None:

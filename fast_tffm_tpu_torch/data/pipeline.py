@@ -26,7 +26,14 @@ There is no Python fallback: when the C++ library cannot be built,
 ``batch_iterator`` raises (data/cparser.py). Not ported yet: sharded
 byte ranges (``num_shards > 1``), ``fixed_shape`` and the fixed unique
 bucket (``uniq_bucket``) with its spill protocol (ROADMAP.md A10); the
-``vocab`` remap of admit mode (A8); the pipeline telemetry (A11).
+pipeline telemetry (A11).
+
+``vocab_mode = admit`` (vocab/table.py): ``batch_iterator`` and
+``plain_batch_iterator`` take the run's ``vocab`` map, build every
+batch under ``vocab.build_cfg(cfg)`` (ids mod into the 2^30 hashed
+space, whose pad sentinel is 2^30) and remap it to physical rows on the
+producing side, before a prefetch queue or the wire sees it. Without a
+map the stream is the fixed mode's, unchanged.
 
 Padding invariants, as in the JAX package: pad cells of ``vals`` hold
 0.0; in raw-ids batches pad cells of ``local_idx`` hold ``pad_id ==
@@ -105,6 +112,14 @@ class DeviceBatch:
     # run_mode = stream: the watermark payload after this batch's lines
     # (data/stream.py); None for every other source.
     stream_pos: Optional[dict] = None
+    # vocab_mode = admit only (vocab/table.py): the batch's distinct
+    # hashed ids, attached by the remap and fed to the sketch only once
+    # the batch is stepped (adopt-on-step, as stream_pos); the slot-map
+    # generation the remap ran under and the hash-space originals, so
+    # ensure_current can redo a remap a barrier made stale.
+    vocab_obs: Optional[np.ndarray] = None
+    vocab_gen: Optional[int] = None
+    vocab_src: Optional[tuple] = None
 
 
 class FileMarks:
@@ -900,6 +915,20 @@ def gil_bound_iteration(cfg: FmConfig, weight_files: Sequence[str] = (),
     return keep_empty and not _fast_path_eligible(cfg, weight_files)
 
 
+def _remapped(vocab, it: Iterator[DeviceBatch]) -> Iterator[DeviceBatch]:
+    """``it``'s batches through ``vocab.remap`` (None: ``it`` as it
+    is); closing this generator closes ``it``, so its build pool is
+    joined at once."""
+    if vocab is None:
+        yield from it
+        return
+    try:
+        for batch in it:
+            yield vocab.remap(batch)
+    finally:
+        it.close()
+
+
 def batch_iterator(cfg: FmConfig, files: Sequence[str],
                    training: bool = True,
                    weight_files: Sequence[str] = (),
@@ -911,8 +940,34 @@ def batch_iterator(cfg: FmConfig, files: Sequence[str],
                    fixed_shape: bool = False,
                    raw_ids: bool = True,
                    bad_lines: Optional[BadLineTracker] = None,
-                   file_marks: Optional[FileMarks] = None
-                   ) -> Iterator[DeviceBatch]:
+                   file_marks: Optional[FileMarks] = None,
+                   vocab=None) -> Iterator[DeviceBatch]:
+    """``_batch_iterator_impl``'s stream; with ``vocab`` (a
+    vocab.VocabMap or VocabRuntime, ``vocab_mode = admit``) built under
+    ``vocab.build_cfg(cfg)`` and remapped to physical rows batch by
+    batch, here on the producing side."""
+    return _remapped(vocab, _batch_iterator_impl(
+        cfg if vocab is None else vocab.build_cfg(cfg), files,
+        training=training, weight_files=weight_files,
+        shard_index=shard_index, num_shards=num_shards, epochs=epochs,
+        batch_size=batch_size, seed=seed, keep_empty=keep_empty,
+        fixed_shape=fixed_shape, raw_ids=raw_ids, bad_lines=bad_lines,
+        file_marks=file_marks))
+
+
+def _batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
+                         training: bool = True,
+                         weight_files: Sequence[str] = (),
+                         shard_index: int = 0, num_shards: int = 1,
+                         epochs: Optional[int] = None,
+                         batch_size: Optional[int] = None,
+                         seed: Optional[int] = None,
+                         keep_empty: bool = False,
+                         fixed_shape: bool = False,
+                         raw_ids: bool = True,
+                         bad_lines: Optional[BadLineTracker] = None,
+                         file_marks: Optional[FileMarks] = None
+                         ) -> Iterator[DeviceBatch]:
     """Epoch/shuffle/batch loop over text files: the JAX package's
     ``batch_iterator`` with the same arguments, array for array, on one
     shard. ``raw_ids`` defaults to True here (the port's main path is
@@ -1112,14 +1167,24 @@ def plain_batch_iterator(cfg: FmConfig, files: Sequence[str],
                          epochs: Optional[int] = None,
                          batch_size: Optional[int] = None,
                          seed: Optional[int] = None,
-                         keep_empty: bool = False
-                         ) -> Iterator[DeviceBatch]:
+                         keep_empty: bool = False,
+                         vocab=None) -> Iterator[DeviceBatch]:
     """The fast path's raw-ids stream, built in plain Python: lines
     through the pure-Python ``parse_lines`` and ``make_device_batch``,
     B example-producing lines a batch across file boundaries, a short
     batch closing each epoch, shuffled by the same ``_BatchEmitter``.
     No C++ runs: this is the plain version the C++ stream is held to
-    (tests, ``chip_smoke.py``)."""
+    (tests, ``chip_smoke.py``). ``vocab``: as ``batch_iterator``'s."""
+    return _remapped(vocab, _plain_batch_iterator_impl(
+        cfg if vocab is None else vocab.build_cfg(cfg), files, training,
+        epochs, batch_size, seed, keep_empty))
+
+
+def _plain_batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
+                               training: bool, epochs: Optional[int],
+                               batch_size: Optional[int],
+                               seed: Optional[int], keep_empty: bool
+                               ) -> Iterator[DeviceBatch]:
     check_stream_supported(cfg)
     files = expand_files(files)
     B = batch_size or cfg.batch_size

@@ -34,6 +34,11 @@ abstraction:
 A ``STOP`` marker in the stream directory ends the run once every
 sealed byte is consumed; until then the source reports IDLE.
 
+``vocab_mode = admit``: ``StreamSource(..., vocab=...)`` builds under
+``vocab.build_cfg(cfg)`` (ids in the 2^30 hashed space) and remaps each
+batch to physical rows before it joins the ready deque, as the epoch
+pipeline does.
+
 Not ported yet: the multi-worker lockstep (ledger broadcast, watermark
 exchange and merge, the fixed unique bucket probe: ROADMAP.md A10) and
 the stream telemetry counters and gauges (A11).
@@ -411,12 +416,19 @@ class StreamSource:
     after its lines. The route (serial C++ builder, the ring of
     ``workers`` builders, or the generic tolerant path) is chosen once,
     here, by ``stream_workers``' predicate. ``raw_ids``: as
-    ``batch_iterator``'s (True for the ``dedup = device`` step)."""
+    ``batch_iterator``'s (True for the ``dedup = device`` step).
+    ``vocab``: the run's slot map (``vocab_mode = admit``); batches are
+    built under ``vocab.build_cfg(cfg)`` and remapped before the ready
+    deque."""
 
     def __init__(self, cfg: FmConfig, tracker: StreamTracker,
                  stop=None, raw_ids: bool = True, workers: int = 1,
-                 bad_lines: Optional[BadLineTracker] = None):
+                 bad_lines: Optional[BadLineTracker] = None, vocab=None):
         pl.check_stream_supported(cfg)
+        self._vocab = vocab
+        # The BUILD-side config: every parser and builder below mods ids
+        # into the hashed space under admit mode.
+        cfg = cfg if vocab is None else vocab.build_cfg(cfg)
         self.cfg = cfg
         self.tracker = tracker
         self._stop_cb = stop or (lambda: False)
@@ -483,8 +495,12 @@ class StreamSource:
                                   self.tracker.files[fi].resume_lines))
         self._pos[fi] = (b + nbytes, l + nlines)
 
+    def _remap(self, batch):
+        return batch if self._vocab is None else self._vocab.remap(batch)
+
     def _emit(self, out) -> None:
         for batch in self._emitter.emit_drain(out):
+            batch = self._remap(batch)
             batch.stream_pos = self._snapshot()
             self.stats.count(batch.num_real, self.B)
             self._ready.append(batch)
@@ -703,9 +719,9 @@ class StreamSource:
                 self.bad_lines.record(self.tracker.path(fi), ln, raw,
                                       pl._strip_line_prefix(msg))
         if block.batch_size:
-            out_batch = pl.make_device_batch(
+            out_batch = self._remap(pl.make_device_batch(
                 block, self.cfg, self.B, raw_ids=self.raw_ids,
-                dedup=cparser.dedup_ids_fast)
+                dedup=cparser.dedup_ids_fast))
             # EVERY file the chunk touches advances: a batch spanning a
             # file boundary records the earlier files' final positions
             # too (files are consumed in ledger order, so each file's

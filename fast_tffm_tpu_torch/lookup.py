@@ -46,8 +46,13 @@ pad row are 0 in the table and ``adagrad_init`` in the accumulator, as a
 checkpoint pads them. A restored state is adopted and page-locked in
 place.
 
-``reset_rows`` (vocabulary eviction) waits for admit mode (ROADMAP.md
-A8).
+``reset_rows(rows, adagrad_init)`` is the backends' half of the
+vocabulary eviction seam (``vocab_mode = admit``, vocab/table.py): the
+barrier's freed rows are cold-started in place on the CPU, zero in the
+table and ``adagrad_init`` in the accumulator. ``PinnedHostLookup``
+waits for the card's queued writes into its page-locked state first
+(``state()``), and returns with the writes done, so the next gather
+reads them.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from fast_tffm_tpu_torch.ops import offload_kernel
 from fast_tffm_tpu_torch.ops.offload_kernel import (offload_adagrad,
                                                     offload_gather)
 from fast_tffm_tpu_torch.utils.device import resolve_device
+from fast_tffm_tpu_torch.vocab.table import reset_table_rows
 
 # Rows drawn per chunk of the host init: 2^22 rows of 9 floats is 151 MB
 # of generator output at a time.
@@ -156,12 +162,6 @@ def _as_ids(uniq_ids, device: torch.device) -> torch.Tensor:
     return uniq_ids.to(device).contiguous()
 
 
-def _reset_rows_refused(*_args, **_kwargs):
-    raise NotImplementedError(
-        "reset_rows (vocabulary eviction) is not ported to "
-        "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A8)")
-
-
 class HostOffloadLookup:
     """Host-RAM embedding store with a blocking per-step update: the
     JAX package's numpy backend. ``device`` is where ``gather`` returns
@@ -208,7 +208,13 @@ class HostOffloadLookup:
         on the host."""
         return self.table, self.acc
 
-    reset_rows = _reset_rows_refused
+    def reset_rows(self, rows, adagrad_init: float = 0.1) -> None:
+        """Cold-start the given physical rows (the vocab barrier's
+        eviction hook): zero embeddings and, when the backend holds one,
+        the accumulator at ``adagrad_init``. Every step's update is
+        already on the host (``apply_grad`` blocks), so the rows are
+        written at once."""
+        reset_table_rows(self.table, self.acc, rows, adagrad_init)
 
     def load(self, table: torch.Tensor,
              acc: Optional[torch.Tensor] = None) -> None:
@@ -308,7 +314,19 @@ class PinnedHostLookup:
         self.sync()
         return self.table, self.acc
 
-    reset_rows = _reset_rows_refused
+    def reset_rows(self, rows, adagrad_init: float = 0.1) -> None:
+        """Cold-start the given physical rows in place (the vocab
+        barrier's eviction hook). The card may still have write-backs
+        queued into the page-locked state: ``state()`` waits for them
+        before the CPU writes the rows, and the writes are done when
+        this returns, before the next gather is launched."""
+        if self.acc is None:
+            raise RuntimeError(
+                "reset_rows needs the accumulator: eviction resets are "
+                "a training-side operation (score-only backends never "
+                "see a barrier)")
+        table, acc = self.state()
+        reset_table_rows(table, acc, rows, adagrad_init)
 
     def load(self, table: torch.Tensor,
              acc: Optional[torch.Tensor] = None) -> None:

@@ -51,7 +51,6 @@ def check_supported(cfg: FmConfig) -> None:
     """Refuse config values this slice does not serve, naming the
     ROADMAP.md item that brings each."""
     refusals = (
-        (cfg.vocab_mode == "admit", "vocab_mode = admit", "A8"),
         (cfg.serve_replicas > 1,
          f"serve_replicas = {cfg.serve_replicas}", "A9"),
     )

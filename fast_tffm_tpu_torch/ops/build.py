@@ -138,10 +138,10 @@ def load_fm_score() -> ctypes.CDLL:
 
 def load_fm_score_bwd() -> ctypes.CDLL:
     """The fm_score_bwd (backward) library: fm_score_bwd(params, idx,
-    vals, g, dparams, dvals, n_rows, D, B, L, need_dx, device,
-    stream)."""
+    vals, g, dparams, dvals, acc, row_max, n_rows, D, B, L, need_dx,
+    device, stream)."""
     return _load(FM_SCORE_BWD_SRC, {
-        "fm_score_bwd": ([_P] * 6 + [_LL] + [_I] * 5 + [_P], _I),
+        "fm_score_bwd": ([_P] * 8 + [_LL] + [_I] * 5 + [_P], _I),
         "fm_score_bwd_error_string": ([_I], ctypes.c_char_p)})
 
 

@@ -139,19 +139,24 @@ def fm_batch_scores_bwd(params: torch.Tensor, local_idx: torch.Tensor,
             not g.is_contiguous():
         raise ValueError(f"g must be a contiguous float32 [{B}], got "
                          f"{g.dtype} {tuple(g.shape)}")
-    dparams = torch.zeros_like(params)
     dvals = (torch.empty((B, L), dtype=torch.float32, device=vals.device)
              if need_dx else None)
     if B == 0 or L == 0:
-        return dparams, dvals
+        return torch.zeros_like(params), dvals
     check_kernel_shape(B, L, D)
     lib = _backward_library()
     dev = params.device.index
+    dparams = torch.empty_like(params)
+    # The kernel's scratch: each row's gradient in 64-bit fixed point and
+    # its largest contribution (csrc/fm_score_bwd.cu zeroes both).
+    acc = torch.empty((N, D), dtype=torch.int64, device=params.device)
+    row_max = torch.empty(N, dtype=torch.int32, device=params.device)
     rc = lib.fm_score_bwd(
         params.data_ptr(), local_idx.data_ptr(), vals.data_ptr(),
         g.data_ptr(), dparams.data_ptr(),
-        dvals.data_ptr() if need_dx else None, N, D, B, L, int(need_dx),
-        dev, torch.cuda.current_stream(dev).cuda_stream)
+        dvals.data_ptr() if need_dx else None, acc.data_ptr(),
+        row_max.data_ptr(), N, D, B, L, int(need_dx), dev,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"fm_score_bwd kernel launch failed (B={B}, L={L}, K+1={D}): "

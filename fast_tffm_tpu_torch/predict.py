@@ -18,8 +18,14 @@ score backend (``lookup.make_score_backend``), page-locked on the host;
 the card only ever holds each batch's gathered ``[U, D]`` rows. The
 scores equal the device lookup's byte for byte.
 
+``vocab_mode = admit``: the restored step's table is paired with that
+step's slot map (``checkpoint.load_vocab_map``: the (table, slot map,
+step) triple), and the sweep remaps through it; a caller-held table has
+no slot map and is refused. Under ``vocab_mode = fixed`` a step that
+carries a vocab sidecar is refused (``refuse_fixed_mode_admit_step``).
+
 Not ported yet: the mesh and multi-process sweeps with their part
-files (ROADMAP.md A10), admit mode's slot map (A8).
+files (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fast_tffm_tpu_torch.checkpoint import CheckpointState
+from fast_tffm_tpu_torch.checkpoint import (CheckpointState, load_vocab_map,
+                                            refuse_fixed_mode_admit_step)
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.pipeline import expand_files
 from fast_tffm_tpu_torch.lookup import make_score_backend
@@ -88,23 +95,42 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
     ModelSpec.from_config(cfg)  # refuses unported config values
     logger = get_logger(log_file=cfg.log_file or None)
     log_ignored_keys(cfg, logger)
+    admit = cfg.vocab_mode == "admit"
+    if admit and table is not None:
+        raise ValueError(
+            "vocab_mode = admit predict restores the (table, slot "
+            "map, step) triple from the checkpoint together — a "
+            "caller-held table has no slot map to pair with; pass "
+            "table=None")
     backend = None
+    step = None  # the restored step; None for a caller-held table
     if cfg.lookup == "host":
         # Never table.to(device): an offload-scale table does not fit
         # the card's memory.
         backend = make_score_backend(cfg, table, device=device)
+        step = getattr(backend, "step", None)
         table = None
         logger.info("offload predict [%s]: table [%d, %d] outside HBM",
                     type(backend).__name__, *backend.table.shape)
     elif table is None:
-        table = load_table(cfg, device)
+        table, step = load_table(cfg, device, with_step=True)
+    directory = os.path.abspath(cfg.model_file) + ".ckpt"
+    vocab = None
+    if admit:
+        # The restored table with ITS step's slot map: the sidecar rides
+        # the step, so a walk-back never splits the pair.
+        vocab = load_vocab_map(cfg, directory, step)
+        logger.info("vocab admission map: %d live rows at step %d",
+                    vocab.live_rows, step)
+    else:
+        refuse_fixed_mode_admit_step(cfg, directory, step)
     scorer = CompiledScorer(cfg, device, backend=backend)
     logger.info("wire format: %s", scorer.wire.describe())
-    return _predict_body(cfg, table, scorer, logger)
+    return _predict_body(cfg, table, scorer, logger, vocab)
 
 
 def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
-                  scorer: CompiledScorer, logger) -> List[str]:
+                  scorer: CompiledScorer, logger, vocab=None) -> List[str]:
     os.makedirs(cfg.score_path, exist_ok=True)
     written: List[str] = []
     # The inner close() raises a deferred write error on the clean path;
@@ -121,7 +147,7 @@ def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
 
     try:
         n_examples = score_sweep(cfg, table, expand_files(cfg.predict_files),
-                                 on_file, scorer)
+                                 on_file, scorer, vocab=vocab)
         writer.close()
     finally:
         writer.close(raise_error=False)

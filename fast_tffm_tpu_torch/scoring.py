@@ -258,13 +258,16 @@ class ScoreDemux:
 def score_sweep(cfg: FmConfig, table: Optional[torch.Tensor],
                 files: Sequence[str],
                 on_file: Callable[[str, np.ndarray], None],
-                scorer: Optional[CompiledScorer] = None) -> int:
+                scorer: Optional[CompiledScorer] = None,
+                vocab=None) -> int:
     """One continuous scoring sweep over all ``files`` (keep_empty: one
     score per input line): per-file raw score arrays go to ``on_file``
     in file order as each file's last batch lands. Returns the number of
     examples scored. ``on_file`` runs on the fetch worker mid-sweep (on
     the caller's thread for the files cut at the end). ``table`` is
-    None for a scorer with a backend."""
+    None for a scorer with a backend. ``vocab`` (``vocab_mode =
+    admit``): the step's slot map; the sweep builds in the hashed space
+    and remaps through it, so it scores the rows training assigned."""
     scorer = scorer or CompiledScorer(cfg, table.device)
     marks = FileMarks()
     demux = ScoreDemux(marks, on_file)
@@ -273,7 +276,7 @@ def score_sweep(cfg: FmConfig, table: Optional[torch.Tensor],
     try:
         it = batch_iterator(cfg, list(files), training=False, epochs=1,
                             keep_empty=True, raw_ids=scorer.raw,
-                            file_marks=marks)
+                            file_marks=marks, vocab=vocab)
         with torch.no_grad():
             for batch in prefetch(it, depth=cfg.prefetch_depth,
                                   gil_bound=gil_bound_iteration(

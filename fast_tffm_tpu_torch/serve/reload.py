@@ -1,6 +1,6 @@
 """Hot-reload watcher — the port's counterpart of
 ``fast_tffm_tpu/serve/reload.py``: poll the ``published`` pointer, swap
-the table.
+the table (under ``vocab_mode = admit``, the table with its slot map).
 
 The pointer file in ``<model_file>.ckpt/`` is the train-to-serve
 contract: ``fmckpt publish`` only repoints it at a manifest-verified
@@ -8,12 +8,16 @@ step, atomically. This thread re-reads it every ``serve_poll_seconds``
 (times a seeded jitter of ``serve_poll_jitter``, so a fleet never polls
 in lockstep), and when it names a step other than the one being served,
 hands the step to ``ScorerServer.reload_step``: a verified restore of
-that explicit step, then an atomic swap. Requests in flight keep the
-(table, step) pair their flush captured.
+that explicit step, then an atomic swap. Under ``vocab_mode = admit``
+the swap is the (table, slot map, step) triple: the step's vocab
+sidecar loads, crc-checked, before the table, so a reload never pairs a
+new table with an old map. Requests in flight keep the triple their
+flush captured.
 
 Failure posture: a garbled or unreadable pointer reads as "nothing new"
 and heals on the next poll; a step that fails verification or restore
-counts a ``serve/reload_failures`` and the previous table keeps serving.
+(or, in admit mode, carries no readable vocab sidecar) counts a
+``serve/reload_failures`` and the previous triple keeps serving.
 The memory-ledger gauges wait for ROADMAP.md A11, and
 ``serve_reload_mode = external`` (the fleet's reload token) for A9.
 """

@@ -32,11 +32,21 @@ and say so: every response carries the step that scored it. The old
 table is freed when its last flush drains. A failed reload counts
 ``serve/reload_failures`` and the old table keeps serving.
 
+``vocab_mode = admit``: requests parse under ``VocabMap.build_cfg``
+(ids in the 2^30 hashed space), and each flush remaps through the slot
+map it captured with its table. A load reads the step's vocab sidecar
+(``checkpoint.load_vocab_map``) before the table and swaps the (table,
+slot map, step) triple under the one lock; a missing or torn sidecar
+fails the reload whole and the previous triple keeps serving. The
+``serve/vocab_live_rows`` gauge holds the served map's live rows. Under
+``vocab_mode = fixed`` a step carrying a sidecar is refused
+(``refuse_fixed_mode_admit_step``).
+
 ``lookup = host`` is refused with the JAX package's ``ValueError``, as
 its serving process refuses it: offload-scale tables are scored by
 batch predict.
 
-Not ported yet: telemetry, SLO gauges, capacity pre-flight, admit mode,
+Not ported yet: telemetry, SLO gauges, capacity pre-flight,
 background warmup (ROADMAP.md), and ``serve_reload_mode = external``
 with ``POST /reload`` (A9, the fleet).
 """
@@ -52,7 +62,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from fast_tffm_tpu_torch.checkpoint import read_pointer
+from fast_tffm_tpu_torch.checkpoint import (load_vocab_map, read_pointer,
+                                            refuse_fixed_mode_admit_step)
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.parser import ParsedBlock, parse_lines
 from fast_tffm_tpu_torch.data.pipeline import (_ladder_fit, make_device_batch,
@@ -64,6 +75,7 @@ from fast_tffm_tpu_torch.serve.reload import ReloadWatcher
 from fast_tffm_tpu_torch.utils.device import resolve_device
 from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
+from fast_tffm_tpu_torch.vocab.table import VocabMap
 from fast_tffm_tpu_torch.wire import flat_rungs
 
 # Request-latency histogram bounds, in milliseconds (/healthz p50/p99).
@@ -193,14 +205,19 @@ class ScorerServer:
         # Raw-ids flushes (no U axis), flat arrays on the serve ladder.
         self._scorer = CompiledScorer(cfg, self.device, dedup="device",
                                       serve_ladder=True)
+        # Admit mode parses into the hashed id space; each flush remaps
+        # through the slot map it captured with its table.
+        self._admit = cfg.vocab_mode == "admit"
+        self._build_cfg = VocabMap.build_cfg(cfg) if self._admit else cfg
+        self._vocab_map: Optional[VocabMap] = None
         self._b_ladder = batch_rung_ladder(cfg.serve_max_batch)
         self._l_rungs = tuple(
             b for b in cfg.bucket_ladder
             if b <= _ladder_fit(max(1, cfg.max_features_per_example),
                                 cfg.bucket_ladder))
         self.directory = os.path.abspath(cfg.model_file) + ".ckpt"
-        # Guards the (table, served_step) pair: a flush captures both
-        # from the same swap.
+        # Guards the (table, slot map, served_step) triple: a flush
+        # captures all three from the same swap.
         self._table_lock = threading.Lock()
         self._table = None
         self._served_step = -1
@@ -259,13 +276,23 @@ class ScorerServer:
     def _load_step(self, step: int) -> None:
         """Verified restore of an explicit step (raises on integrity
         failure — never silently serves other bytes), copied to the
-        device completely, then swapped in. In-flight flushes keep the
-        pair they captured, so the old table lives until they drain."""
+        device completely, then swapped in. Admit mode loads the step's
+        slot map first: a missing or torn sidecar raises before the
+        table is read. In-flight flushes keep the triple they captured,
+        so the old table lives until they drain."""
         from fast_tffm_tpu_torch.predict import load_table
+        vmap = None
+        if self._admit:
+            vmap = load_vocab_map(self.cfg, self.directory, step)
+        else:
+            refuse_fixed_mode_admit_step(self.cfg, self.directory, step)
         table = load_table(self.cfg, self.device, step=step)
         with self._table_lock:
             self._table = table
+            self._vocab_map = vmap
             self._served_step = int(step)
+        if vmap is not None:
+            self._reg.set("serve/vocab_live_rows", float(vmap.live_rows))
 
     def note_published(self, step: int) -> None:
         """The pointer value last seen (``/healthz`` published_step)."""
@@ -296,7 +323,7 @@ class ScorerServer:
     # -- request path ----------------------------------------------------
 
     def _parse(self, lines: Sequence[str]) -> ParsedBlock:
-        cfg = self.cfg
+        cfg = self._build_cfg
         # keep_empty: one score per request line, exactly the predict
         # alignment contract — a blank line scores as the model bias.
         return parse_lines(
@@ -391,13 +418,17 @@ class ScorerServer:
                         bounds=LATENCY_BUCKETS_MS)
             block = _concat_blocks([p.block for p in window])
             rung = next(b for b in self._b_ladder if b >= n)
-            batch = make_device_batch(block, self.cfg, batch_size=rung)
+            with self._table_lock:
+                table = self._table
+                vmap = self._vocab_map
+                step = self._served_step
+            batch = make_device_batch(block, self._build_cfg,
+                                      batch_size=rung)
+            if vmap is not None:
+                batch = vmap.remap(batch)
             t_dev = time.perf_counter()
             reg.observe("serve/pad_ms", (t_dev - t0) * 1000.0,
                         bounds=LATENCY_BUCKETS_MS)
-            with self._table_lock:
-                table = self._table
-                step = self._served_step
             raw = self._scorer.score_batch(table, batch)[:n]
             raw = raw.cpu().numpy()
             reg.observe("serve/device_ms",
@@ -434,7 +465,7 @@ class ScorerServer:
         """Score one all-real batch at every [B rung, L rung] shape a
         flush can pad to, and, on the packed wire, every flat rung a
         flush of that shape can encode to, before the first request."""
-        cfg = self.cfg
+        cfg = self._build_cfg
         t0 = time.monotonic()
         for B in self._b_ladder:
             for L in self._l_rungs:
@@ -447,6 +478,8 @@ class ScorerServer:
                     fields=(np.zeros(L, dtype=np.int32)
                             if cfg.model_type == "ffm" else None))
                 batch = make_device_batch(block, cfg, batch_size=B)
+                if self._vocab_map is not None:
+                    batch = self._vocab_map.remap(batch)
                 self._scorer.score_batch(self._table, batch).cpu()
                 if self._scorer.wire.packed:
                     for P in flat_rungs(B, L):

@@ -13,26 +13,25 @@ checkpoint.py, with the same output lines and exit codes.
 - ``ls``      one row per committed step — file count, bytes, the
               manifest's epoch/vocab echo (epoch-override sidecars
               applied, as restore applies them), ``+watermark`` where a
-              stream run left the step's position — plus every quarantined
+              stream run left the step's position, ``+VOCAB`` where an
+              admit-mode run left its slot map — plus every quarantined
               ``corrupt-*`` dir and orphaned sidecar, and the PUBLISHED /
               CANARY marks.
 - ``verify``  the manifest integrity check over every step (or one
               ``--step``): sizes, plus a crc32 re-hash under ``--mode
-              full`` (the default here). Steps without a manifest report
+              full`` (the default here), and each vocab sidecar's
+              embedded crc32. Steps without a manifest report
               UNVERIFIABLE, not FAIL. Exit 1 on any failure. Read-only:
               the tool never quarantines.
 - ``publish`` verify a committed step, then atomically repoint the
               ``published`` pointer (``--canary``: ``published-canary``)
               at it — the signal a serving process's hot-reload poll
-              watches. A missing step or a failed verification leaves
-              the pointer untouched (exit 1).
+              watches. A missing step, a failed verification or a torn
+              vocab sidecar leaves the pointer untouched (exit 1).
 - ``gc``      delete quarantined ``corrupt-*`` dirs and orphaned
-              sidecars (watermarks included) whose step no longer
-              exists; ``--dry-run`` lists without deleting. Committed
-              steps are never touched.
-
-The vocab-admission mark of the JAX tool waits for ROADMAP.md A8: the
-port writes no such sidecar.
+              sidecars (watermarks and vocab sidecars included) whose
+              step no longer exists; ``--dry-run`` lists without
+              deleting. Committed steps are never touched.
 """
 
 from __future__ import annotations
@@ -44,10 +43,12 @@ import sys
 from typing import Dict, List, Optional
 
 from fast_tffm_tpu_torch.checkpoint import (QUARANTINE_PREFIX,
-                                            list_step_dirs, read_canary,
+                                            list_step_dirs,
+                                            load_vocab_sidecar, read_canary,
                                             read_epoch_override,
                                             read_manifest, read_published,
                                             sidecar_step, verify_step_dir,
+                                            vocab_sidecar_path,
                                             watermark_path, write_canary,
                                             write_published)
 
@@ -97,8 +98,11 @@ def scan(directory: str) -> Dict[str, object]:
             "manifest": man is not None,
             "epoch": override if override is not None else epoch,
             "vocab": man.get("vocab") if man else None,
-            # Existence only: which steps can resume a stream position.
+            # Existence only: which steps can resume a stream position,
+            # and which carry a slot map (verify owns the crc).
             "watermark": os.path.exists(watermark_path(directory, s)),
+            "vocab_sidecar": os.path.exists(vocab_sidecar_path(directory,
+                                                               s)),
         })
     quarantined: List[Dict[str, object]] = []
     orphans: List[str] = []
@@ -145,6 +149,8 @@ def cmd_ls(directory: str, as_json: bool = False, out=None) -> int:
         marks = ""
         if s["watermark"]:
             marks += " +watermark"
+        if s["vocab_sidecar"]:
+            marks += " +VOCAB"
         if state["published"] == s["step"]:
             marks += "  PUBLISHED"
         if state["canary"] == s["step"]:
@@ -171,6 +177,19 @@ def cmd_ls(directory: str, as_json: bool = False, out=None) -> int:
     return 0
 
 
+def _verify_vocab_sidecar(directory: str, step: int):
+    """(note, failed) for a step's vocab sidecar: absent -> ("", False);
+    readable with a matching crc32 -> (", +vocab crc OK", False); torn
+    or garbled -> (the reason, True). The decision is
+    ``checkpoint.load_vocab_sidecar``, the reader restore uses."""
+    payload, reason = load_vocab_sidecar(directory, step)
+    if reason is not None:
+        return reason, True
+    if payload is None:
+        return "", False
+    return ", +vocab crc OK", False
+
+
 def cmd_verify(directory: str, mode: str = "full",
                step: Optional[int] = None, out=None) -> int:
     out = out or sys.stdout
@@ -192,14 +211,21 @@ def cmd_verify(directory: str, mode: str = "full",
             man = read_manifest(directory, s)
         except ValueError:
             man = "garbled"
+        vocab_note, vocab_fail = _verify_vocab_sidecar(directory, s)
         if man is None:
             out.write(f"step {s}: UNVERIFIABLE (predates manifests; "
                       "restore accepts it as-is)\n")
+            if vocab_fail:
+                failures += 1
+                out.write(f"step {s}: FAIL — {vocab_note}\n")
             continue
         reason = verify_step_dir(directory, s, mode)
+        if reason is None and vocab_fail:
+            reason = vocab_note
         if reason is None:
             n = len(man["files"]) if isinstance(man, dict) else "?"
-            out.write(f"step {s}: OK ({mode} check, {n} files)\n")
+            out.write(f"step {s}: OK ({mode} check, {n} files"
+                      f"{vocab_note})\n")
         else:
             failures += 1
             out.write(f"step {s}: FAIL — {reason}\n")
@@ -222,6 +248,12 @@ def cmd_publish(directory: str, step: int, mode: str = "size",
                   "untouched\n")
         return 1
     reason = verify_step_dir(directory, step, mode)
+    if reason is None:
+        # A torn vocab sidecar fails the publish too: every admit-mode
+        # reload of the step would fail.
+        vocab_note, vocab_fail = _verify_vocab_sidecar(directory, step)
+        if vocab_fail:
+            reason = vocab_note
     if reason is not None:
         out.write(f"step {step}: FAIL — {reason}; pointer untouched\n")
         return 1

@@ -1,7 +1,8 @@
 """Training — the single-process, single-device subset of
-``fast_tffm_tpu/train.py`` (``train`` → ``_train_session`` on one device,
-``vocab_mode = fixed``): FM of order 2 and higher, and field-aware FM,
-with the table on the device or, with ``lookup = host``, outside it.
+``fast_tffm_tpu/train.py`` (``train`` → ``_train_session`` on one device):
+FM of order 2 and higher, and field-aware FM, with the table on the
+device or, with ``lookup = host``, outside it, and ids mod into the
+table or, with ``vocab_mode = admit``, admitted into it.
 
     python -m fast_tffm_tpu_torch train <cfg> [--device cuda|cpu]
 
@@ -56,6 +57,21 @@ and the publish sweep score through ``CompiledScorer(backend=...)``, and
 ``train`` returns the host table. A multi-process offload run is
 refused, as in the JAX package.
 
+``vocab_mode = admit`` (vocab/; README "Unbounded vocabulary"): a
+``VocabRuntime`` owns the sketch and the slot map. Every stream (the
+epoch iterators, the stream source, ``evaluate`` through ``eval_view``)
+builds in the 2^30 hashed space and remaps to physical rows; before a
+batch is encoded ``ensure_current`` redoes a remap a barrier made stale,
+and once it is stepped ``note_trained`` feeds its ids to the sketch.
+Barriers (decay, evict, admit, refreeze, then the freed rows'
+cold-start: ``reset_table_rows`` on the device tensors, or the offload
+backend's ``reset_rows``) run at each epoch boundary, at each publish
+settle (the published step pairs the post-barrier table with its slot
+map) and before the final save. Every
+save carries the payload as ``vocab-<step>.json.gz``; a resume loads it,
+and a restored step without one starts admission fresh over a
+cold-started table. A fixed-mode resume of an admit step is refused.
+
 Not ported yet, each refused with the ROADMAP.md item that brings it:
 multi-process and elastic training, multi-worker streams and the fixed
 unique bucket (A10). The observability keys are accepted, ignored and
@@ -68,10 +84,12 @@ import signal
 import time
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.checkpoint import (CheckpointState,
                                             read_gate_baseline,
+                                            refuse_fixed_mode_admit_step,
                                             write_gate_baseline)
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.badlines import BadLineTracker
@@ -99,6 +117,7 @@ from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy
 from fast_tffm_tpu_torch.utils.timing import StepTimer
+from fast_tffm_tpu_torch.vocab.table import VocabRuntime, reset_table_rows
 from fast_tffm_tpu_torch.wire import WireEncoder, resolve_wire
 
 # Above this, the dense .npz export is skipped (the JAX package's gate).
@@ -114,6 +133,12 @@ def check_train_supported(cfg: FmConfig) -> None:
     item that brings each; a silently ignored key would give another
     result than the JAX package's."""
     check_stream_supported(cfg)
+    if cfg.vocab_mode == "admit" and bool(cfg.ps_hosts or cfg.worker_hosts):
+        raise ValueError(
+            "vocab_mode = admit is single-process: the slot map is host "
+            "state, and lockstep workers would need a chief-broadcast "
+            "admission protocol to agree on it (ROADMAP.md A10). Run "
+            "admit-mode training on one process.")
     if cfg.lookup == "host" and bool(cfg.ps_hosts or cfg.worker_hosts):
         # The JAX package's design position: multi-host scale uses the
         # row-sharded mesh (lookup = device), which waits for A10 here.
@@ -170,11 +195,12 @@ def check_restored_vocab(cfg: FmConfig, restored) -> None:
 def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
              max_batches: Optional[int] = None, weight_files=(),
              bad_lines: Optional[BadLineTracker] = None,
-             collect: Optional[QualityStats] = None, backend=None
-             ) -> Tuple[float, int]:
+             collect: Optional[QualityStats] = None, backend=None,
+             vocab=None) -> Tuple[float, int]:
     """Streamed AUC over ``files``: (auc, n_examples). A lookup
     ``backend`` (lookup.py) scores a host-resident table; ``table`` is
-    then unused. ``weight_files``
+    then unused. ``vocab`` (``vocab_mode = admit``): the run's slot map,
+    through which the sweep remaps (its ``eval_view``). ``weight_files``
     (sidecars parallel to ``files``) weight each example's AUC
     contribution as training weights its loss. ``bad_lines``: the run's
     tracker, so a bad line met every epoch is quarantined once. Batches
@@ -186,6 +212,8 @@ def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
     scorer = CompiledScorer(
         cfg, backend.device if backend is not None else table.device,
         backend=backend)
+    if vocab is not None:
+        vocab = vocab.eval_view()
     auc = StreamingAUC()
     n = 0
     n_batches = 0
@@ -203,7 +231,7 @@ def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
                     batch_iterator(cfg, files, training=False, epochs=1,
                                    weight_files=weight_files,
                                    raw_ids=scorer.raw,
-                                   bad_lines=bad_lines),
+                                   bad_lines=bad_lines, vocab=vocab),
                     depth=cfg.prefetch_depth,
                     gil_bound=gil_bound_iteration(cfg, weight_files)):
                 fetcher.add(scorer.score_batch(table, batch),
@@ -220,18 +248,20 @@ def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
 
 class _Stepper:
     """What one train session steps: the table and accumulator (updated
-    in place) or the offload backend ``lookup`` that holds them, the step
-    count, the last loss on the device, the wire accounting and the
-    buffered loss log lines."""
+    in place) or the offload backend ``lookup`` that holds them, the
+    admit mode's ``vocab`` runtime, the step count, the last loss on the
+    device, the wire accounting and the buffered loss log lines."""
 
     def __init__(self, cfg: FmConfig, spec: ModelSpec,
                  encoder: WireEncoder, device: torch.device,
                  table: Optional[torch.Tensor], acc: Optional[torch.Tensor],
-                 step: int, logger, lookup=None):
+                 step: int, logger, lookup=None,
+                 vocab: Optional[VocabRuntime] = None):
         self.cfg, self.spec, self.encoder = cfg, spec, encoder
         self.device, self.logger = device, logger
         self.table, self.acc = table, acc
         self.lookup = lookup
+        self.vocab = vocab
         self._offload_step = (None if lookup is None else
                               make_offload_train_step(spec, lookup,
                                                       cfg.learning_rate))
@@ -243,6 +273,12 @@ class _Stepper:
         self._log_buffer: list = []  # (step, epoch, loss on device, ex/s)
 
     def step(self, batch, epoch: int) -> None:
+        if self.vocab is not None:
+            # A barrier may have moved the slot map while this batch sat
+            # in a prefetch queue: redo its remap before it is encoded,
+            # so it never scatters into rows the barrier evicted, reset
+            # or reassigned (one integer compare when nothing moved).
+            batch = self.vocab.ensure_current(batch)
         wb = self.encoder.encode_train(batch)
         args = self.encoder.device_put(wb, self.device)
         if self._offload_step is not None:
@@ -253,6 +289,11 @@ class _Stepper:
         else:
             self.table, self.acc, self.loss, _ = train_step_body(
                 self.spec, self.table, self.acc, **args)
+        if self.vocab is not None:
+            # Adopt-on-step, as the watermark: only stepped batches feed
+            # the sketch, so a saved payload describes the trained
+            # prefix.
+            self.vocab.note_trained(wb)
         self.h2d_bytes += wb.wire_bytes
         self.logical_bytes += wb.logical_bytes
         self.global_step += 1
@@ -276,7 +317,30 @@ class _Stepper:
             kwargs["from_state"] = True
         ckpt.save(self.global_step, table, acc,
                   vocabulary_size=self.cfg.vocabulary_size, wait=wait,
+                  vocab_state=(None if self.vocab is None
+                               else self.vocab.state_payload()),
                   **kwargs)
+
+    def vocab_reset(self, rows: np.ndarray) -> None:
+        """The eviction hook: cold-start ``rows`` of the device tensors
+        in place, on the current stream behind the last step, or through
+        the offload backend's ``reset_rows``."""
+        if self.lookup is not None:
+            self.lookup.reset_rows(rows, self.cfg.adagrad_init)
+        else:
+            reset_table_rows(self.table, self.acc, rows,
+                             self.cfg.adagrad_init)
+
+    def vocab_barrier(self, where: str) -> None:
+        """One admission/eviction barrier (admit mode; a no-op
+        otherwise, and when nothing was stepped since the last one)."""
+        if self.vocab is None:
+            return
+        st = self.vocab.barrier(self.vocab_reset)
+        self.logger.info(
+            "vocab barrier (%s): +%d admitted, -%d evicted, %d/%d live "
+            "rows", where, st["admitted"], st["evicted"], st["live"],
+            self.cfg.vocabulary_size - 1)
 
     def host_table(self) -> torch.Tensor:
         """The ``[num_rows, D]`` table: the device tensor, or a view of
@@ -287,7 +351,7 @@ class _Stepper:
 
     def evaluate(self, files, **kwargs) -> Tuple[float, int]:
         return evaluate(self.cfg, self.table, files, backend=self.lookup,
-                        **kwargs)
+                        vocab=self.vocab, **kwargs)
 
     def flush_log(self) -> None:
         """One fetch for every buffered loss line."""
@@ -413,6 +477,14 @@ def train(cfg: FmConfig, device=None,
             "host data plane: %d parallel batch-build workers "
             "(host_threads = %s; bounded ordered ring)",
             host_workers, cfg.host_threads)
+    vocab = None
+    if cfg.vocab_mode == "admit":
+        vocab = VocabRuntime.from_config(cfg)
+        logger.info(
+            "vocab admission: %d physical rows (row 0 = shared cold row) "
+            "over a 2^30 hashed id space; admit/evict threshold %.1f, "
+            "decay %.2f/barrier, sketch %.1f MB", cfg.vocabulary_size,
+            cfg.vocab_admit_threshold, cfg.vocab_decay, cfg.vocab_sketch_mb)
     ckpt = CheckpointState(cfg.model_file,
                            retry=RetryPolicy.from_config(cfg),
                            verify=cfg.ckpt_verify,
@@ -430,6 +502,8 @@ def train(cfg: FmConfig, device=None,
             global_step = int(restored["step"])
             restored_epoch = int(restored["epoch"])
             logger.info("restored checkpoint at step %d", global_step)
+        fresh_over_restore = _restore_vocab(cfg, vocab, restored,
+                                            ckpt.directory, logger)
         lk = table = acc = None
         if offload:
             # The backend adopts the restored tensors and page-locks them
@@ -469,7 +543,15 @@ def train(cfg: FmConfig, device=None,
                 pass
 
         st = _Stepper(cfg, spec, encoder, device, table, acc, global_step,
-                      logger, lookup=lk)
+                      logger, lookup=lk, vocab=vocab)
+        if fresh_over_restore:
+            # Every row, the cold row 0 included, still holds the lost
+            # mapping's trained weights: cold-start them all, so no id
+            # trains through another id's vector.
+            st.vocab_reset(np.arange(0, cfg.vocabulary_size,
+                                     dtype=np.int32))
+            logger.info("cold-started %d table rows for the fresh "
+                        "admission state", cfg.vocabulary_size)
         completed_epochs = start_epoch
         last_periodic_save = (None, None)  # (step, epoch) of the latest
         stopping = False
@@ -486,7 +568,8 @@ def train(cfg: FmConfig, device=None,
                                          weight_files=cfg.weight_files,
                                          epochs=1, seed=cfg.seed + epoch,
                                          raw_ids=spec.dedup == "device",
-                                         bad_lines=bad_tracker),
+                                         bad_lines=bad_tracker,
+                                         vocab=vocab),
                           depth=cfg.prefetch_depth,
                           gil_bound=gil_bound_iteration(cfg,
                                                         cfg.weight_files))
@@ -515,6 +598,9 @@ def train(cfg: FmConfig, device=None,
                             epoch, bad_tracker.describe())
             if stopping:  # a preemption-cut epoch is NOT completed
                 break
+            # The epoch boundary is a barrier point: the next epoch and
+            # the validation sweep below run on the refreshed slot map.
+            st.vocab_barrier(f"epoch {epoch}")
             completed_epochs = epoch + 1
             if cfg.validation_files:
                 auc, n = st.evaluate(cfg.validation_files,
@@ -527,6 +613,10 @@ def train(cfg: FmConfig, device=None,
         global_step = st.global_step
         if st.loss is not None:
             st.loss_val = float(st.loss)
+        # The final save is a barrier point: nothing is in flight, so the
+        # durable (table, slot map) pair admits the last interval's ids
+        # and cold-starts its evicted rows before the bytes land.
+        st.vocab_barrier(f"final save step {global_step}")
         # Final/preemption save: returns once the step is durable. If
         # this step's checkpoint exists with a stale epoch count — from
         # this run's last periodic save, or the restored checkpoint
@@ -626,7 +716,8 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
             workers, cfg.host_threads)
     source = StreamSource(cfg, tracker, stop=lambda: bool(preempted),
                           raw_ids=st.spec.dedup == "device",
-                          workers=workers, bad_lines=bad_tracker)
+                          workers=workers, bad_lines=bad_tracker,
+                          vocab=st.vocab)
     gate = publisher.gate
     publish_every = float(cfg.publish_interval_seconds)
     last_publish = [time.monotonic()]
@@ -663,11 +754,18 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
         A HELD decision skips the save too: held ticks must not mint
         steps that retention could use to lap the published one."""
         st.flush_log()
+        # The publish settle is a barrier point, before the sweep: the
+        # published (table, slot map, step) triple is post-barrier, and
+        # the sweep measures exactly what a pass would publish.
+        st.vocab_barrier(f"publish step {st.global_step}")
         decision = publisher.decide(st)
         gate_holding[0] = bool(decision and decision.get("held"))
         if not gate_holding[0]:
             risk_pause_logged[0] = False
         if decision is None or not decision.get("held"):
+            # A publish on the step of the last periodic save rewrites
+            # that step's sidecars (the barrier may have moved the slot
+            # map), as a forced save does in the JAX package.
             stream_save(wait=True)
             if ckpt.publish_step(st.global_step) is not None:
                 publisher.published(decision)
@@ -752,6 +850,35 @@ def _exit_publish(cfg: FmConfig, ckpt: CheckpointState,
     if decision is None or not decision.get("held"):
         if ckpt.publish_step(st.global_step) is not None:
             publisher.published(decision)
+
+
+def _restore_vocab(cfg: FmConfig, vocab: Optional[VocabRuntime],
+                   restored: Optional[dict], directory: str,
+                   logger) -> bool:
+    """Pair a restored step with its admission state. Admit mode loads
+    the step's vocab payload; a step without one (a fixed-mode warm
+    start, or a lost or torn sidecar) starts admission fresh and returns
+    True: the caller then cold-starts every row. Fixed mode refuses a
+    step trained under admit mode."""
+    if restored is None:
+        return False
+    step = int(restored["step"])
+    payload = restored.get("vocab_admission")
+    if vocab is None:
+        refuse_fixed_mode_admit_step(cfg, directory, step, payload=payload)
+        return False
+    if payload is None:
+        logger.warning(
+            "restored checkpoint at step %d carries no vocab admission "
+            "sidecar (a fixed-mode warm start, or a lost/garbled "
+            "sidecar): admission state starts FRESH — previously "
+            "admitted ids serve from the cold row until they re-cross "
+            "the threshold", step)
+        return True
+    vocab.load(cfg, payload)
+    logger.info("restored vocab admission state at step %d: %d live rows",
+                step, vocab.live_rows)
+    return False
 
 
 def _initial_state(cfg: FmConfig, device: torch.device, restored,

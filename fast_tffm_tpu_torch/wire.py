@@ -148,6 +148,9 @@ class WireBatch:
     # Offload score path, packed: the uniq ids, kept on the host for the
     # backend's gather and never shipped.
     host_uniq: Optional[np.ndarray] = None
+    # vocab_mode = admit: the batch's distinct hashed ids (never
+    # shipped), for the step loop's note_trained.
+    vocab_obs: Optional[np.ndarray] = None
 
 
 class WireEncoder:
@@ -155,7 +158,11 @@ class WireEncoder:
 
     ``pad_id`` is the model's pad id (``cfg.pad_id == vocabulary_size``):
     raw-ids batches mark padding cells with it; host-dedup batches mark
-    padding through the uniq table's pad_id slots. ``host_uniq`` (the
+    padding through the uniq table's pad_id slots. An admit-mode batch
+    is encoded after its remap (``vocab_mode = admit``: the train step's
+    ``ensure_current``, the pipeline's and the serving flush's remap),
+    so it carries physical rows and the physical pad_id, and its
+    ``vocab_obs`` rides on the ``WireBatch``. ``host_uniq`` (the
     offload score path): a packed batch's uniq ids stay out of the
     shipped arguments, on ``WireBatch.host_uniq``. ``rect_fraction``
     (the serving process) buckets flat arrays to the coarse
@@ -193,7 +200,8 @@ class WireEncoder:
             if not train:
                 del args["labels"], args["weights"]
             return WireBatch(args=args, packed=False, L=L,
-                             wire_bytes=logical, logical_bytes=logical)
+                             wire_bytes=logical, logical_bytes=logical,
+                             vocab_obs=batch.vocab_obs)
         # A cell is padding iff its target row is the dead pad row; a
         # host-deduped batch is tested through its uniq table, since the
         # C++ builder parks padding at slot 0 and make_device_batch at
@@ -233,7 +241,8 @@ class WireEncoder:
         args = {k: torch.from_numpy(v) for k, v in arrays.items()}
         return WireBatch(args=args, packed=True, L=L,
                          wire_bytes=batch_payload_bytes(arrays),
-                         logical_bytes=logical, host_uniq=host_uniq)
+                         logical_bytes=logical, host_uniq=host_uniq,
+                         vocab_obs=batch.vocab_obs)
 
     def device_put(self, wb: WireBatch, device) -> Dict[str, torch.Tensor]:
         """The encoded arrays on ``device``, ready for the step or score

@@ -14,12 +14,13 @@ Tolerances:
   so the two are expected to agree to the bit, and the edges of its
   register-batched row loads (the 32-slot chunk, the column chunks a
   lane holds) are held to exact equality.
-- backward (csrc/fm_score_bwd.cu): float atomics add the rows'
-  contributions in an order that changes from run to run, so each
-  element of ``dparams`` is held to rtol 1e-5 of its sum of absolute
-  contributions (which the plain version computes alongside), plus atol
-  1e-6; ``dvals``, summed in another order than the plain version's,
-  likewise against ``|g|·(|w| + Σ_f |v_f·(s_f − z_f)|)``.
+- backward (csrc/fm_score_bwd.cu): each row's contributions are summed
+  exactly in fixed point, in another order than the plain version's
+  float32 sum, so each element of ``dparams`` is held to rtol 1e-5 of
+  its sum of absolute contributions (which the plain version computes
+  alongside), plus atol 1e-6, and two launches on one input must agree
+  to the bit; ``dvals``, summed in another order than the plain
+  version's, likewise against ``|g|·(|w| + Σ_f |v_f·(s_f − z_f)|)``.
 - one train step on the card against the same step on the CPU: rtol
   1e-4 / atol 1e-6, the bound the CPU tests hold the step to against the
   JAX package.
@@ -49,6 +50,22 @@ Tolerances:
   sample.cfg on the card against the CPU at the step's rtol 1e-4 /
   atol 1e-6, all four kernels launched every step; the card's peak
   allocated bytes at the batch blocks while a 151 MB table trains.
+- ``vocab_mode = admit``: ``reset_table_rows`` on card tensors equal to
+  the CPU result to the bit (the rows, more than one 4,096-row chunk,
+  and nothing else), and a checkpoint snapshot taken right after it holds
+  the reset rows; ``PinnedHostLookup.reset_rows`` straight after a step
+  (its write-back still queued) on a set holding the batch's hottest
+  row, against the same step and reset on the CPU (rtol 1e-6 / atol
+  1e-7; the reset rows exact), and the next step likewise; a remapped
+  raw-ids batch (most cells on the cold row 0) through both kernels
+  against their plain versions (forward to the bit, backward at the
+  atomics' bound); every slot of a batch on one row (an admit batch
+  before its first barrier), the backward against the plain version
+  with float64 row sums at float32 summation's probabilistic bound for
+  that slot count (the float32 plain version's one sequential sum a
+  column misses rtol 1e-5 there too); an admit train on the card against the
+  CPU at the step's tolerance, both kernels launched every step, the
+  same slot map.
 """
 
 import numpy as np
@@ -785,3 +802,214 @@ def test_offload_card_memory_stays_at_the_batch_blocks(card, tmp_path):
     assert np.isfinite(float(loss))
     assert torch.cuda.max_memory_allocated() - base < 16 << 20
     assert lk.table.nbytes > 150e6
+
+
+def test_reset_table_rows_on_card_matches_cpu(card, tmp_path):
+    from fast_tffm_tpu_torch.checkpoint import CheckpointState
+    from fast_tffm_tpu_torch.vocab.table import reset_table_rows
+    V, D = 20000, 17
+    rng = np.random.default_rng(31)
+    table = torch.from_numpy(rng.normal(size=(V + 1, D)).astype(np.float32))
+    table[V] = 0.0
+    acc = torch.from_numpy(rng.uniform(0.1, 3.0, (V + 1, D))
+                           .astype(np.float32))
+    rows = np.sort(rng.choice(V, 9000, replace=False)).astype(np.int32)
+    want_t, want_a = table.clone(), acc.clone()
+    reset_table_rows(want_t, want_a, rows, 0.1)
+    t, a = table.to(card), acc.to(card)
+    # Queue work before the reset on the same stream: the reset lands
+    # behind it, and the snapshot behind the reset.
+    t.mul_(1.0)
+    reset_table_rows(t, a, rows, 0.1)
+    assert torch.equal(t.cpu(), want_t) and torch.equal(a.cpu(), want_a)
+    assert not want_t[rows].any()
+    ckpt = CheckpointState(str(tmp_path / "m"), adagrad_init=0.1)
+    ckpt.save(1, t, a, vocabulary_size=V, wait=True)
+    r = ckpt.restore(template={"table": (V + 1, D), "acc": (V + 1, D)})
+    assert torch.equal(r["table"], want_t) and torch.equal(r["acc"], want_a)
+
+
+def test_pinned_reset_rows_straight_after_a_step(card):
+    """The reset's CPU writes wait for the write-back the step queued
+    into the page-locked state: equal to the CPU backend doing the same
+    step and reset, and so is the next step."""
+    from fast_tffm_tpu_torch.lookup import (PinnedHostLookup,
+                                            make_offload_train_step)
+    cfg = FmConfig(vocabulary_size=5000, factor_num=8, batch_size=1024,
+                   learning_rate=0.1, lookup="host")
+    spec = port_fm.ModelSpec.from_config(cfg)
+    rng = np.random.default_rng(32)
+    B, L = cfg.batch_size, 24
+    idx = rng.zipf(1.2, size=(B, L)).astype(np.int64) % cfg.vocabulary_size
+    idx[:, 0] = 7  # the hottest row: in every example
+    uniq, inv = np.unique(idx, return_inverse=True)
+    U = len(uniq) + 1
+    uniq_ids = np.full(U, cfg.pad_id, np.int32)
+    uniq_ids[:len(uniq)] = uniq
+    batch = dict(labels=(rng.random(B) < 0.4).astype(np.float32),
+                 weights=np.ones(B, np.float32),
+                 uniq_ids=uniq_ids,
+                 local_idx=inv.reshape(B, L).astype(np.int32),
+                 vals=rng.random((B, L)).astype(np.float32))
+    reset = np.sort(np.concatenate([[7], rng.choice(
+        np.setdiff1d(uniq, [7]), 50, replace=False)])).astype(np.int32)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        lk = PinnedHostLookup(cfg, seed=5, device=dev)
+        step = make_offload_train_step(spec, lk, cfg.learning_rate)
+        args = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        step(**args)
+        lk.reset_rows(reset, cfg.adagrad_init)
+        t, a = (x.clone() for x in lk.state())
+        step(**args)
+        out[dev.type] = (t, a) + tuple(x.clone() for x in lk.state())
+    cpu, got = out["cpu"], out["cuda"]
+    for x, y in zip(got, cpu):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+    assert not got[0][reset].any()
+    assert (got[1][reset] == np.float32(cfg.adagrad_init)).all()
+
+
+def test_remapped_raw_ids_batch_through_both_kernels(card):
+    """Hashed ids remapped through a slot map that admits few of them:
+    most cells land on the cold row 0, a hot row the backward's atomics
+    meet on B·L/2 times and more."""
+    from types import SimpleNamespace
+    from fast_tffm_tpu_torch.vocab.table import COLD_ROW, VocabRuntime
+    cfg = FmConfig(vocabulary_size=4096, factor_num=16, vocab_mode="admit")
+    rng = np.random.default_rng(33)
+    rt = VocabRuntime.from_config(cfg)
+    hot = rng.integers(0, 1 << 30, 600).astype(np.int64)
+    for _ in range(3):
+        rt.note_trained(SimpleNamespace(vocab_obs=np.unique(hot)))
+    rt.barrier()
+    B, L = 2048, 40
+    raw = rng.integers(0, 1 << 30, (B, L)).astype(np.int64)
+    mask = rng.random((B, L)) < 0.3
+    raw[mask] = hot[rng.integers(0, len(hot), int(mask.sum()))]
+    raw[:, 35:] = 1 << 30  # padding
+    batch = SimpleNamespace(uniq_ids=None, local_idx=raw)
+    rt.remap(batch)
+    idx = torch.from_numpy(batch.local_idx.astype(np.int32))
+    counts = torch.bincount(idx.reshape(-1).long())
+    assert int(counts.argmax()) == COLD_ROW
+    assert int(counts[COLD_ROW]) > B * L // 2
+    params = torch.from_numpy((rng.normal(size=(cfg.num_rows, 17)) * 0.1)
+                              .astype(np.float32))
+    params[-1] = 0.0
+    vals = torch.from_numpy(rng.random((B, L)).astype(np.float32))
+    vals[:, 35:] = 0.0
+    plain = interaction.fm_batch_scores(params, idx, vals)
+    got = fm_kernel.fm_batch_scores(params.to(card), idx.to(card),
+                                    vals.to(card)).cpu()
+    assert torch.equal(got, plain)
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32))
+    dp, _, dp_abs, _ = interaction.fm_batch_scores_bwd(
+        params, idx, vals, g, need_dx=True, magnitudes=True)
+    got_dp, _ = fm_kernel.fm_batch_scores_bwd(
+        params.to(card), idx.to(card), vals.to(card), g.to(card),
+        need_dx=False)
+    torch.cuda.synchronize()
+    _assert_within(got_dp, dp, dp_abs, "dparams")
+
+
+def test_admit_train_on_card_matches_cpu(card, tmp_path):
+    """sample.cfg in admit mode with vocabulary_size below its 200 ids:
+    the card against the CPU at the step's tolerance, the same sidecar,
+    both kernels launched on every step."""
+    import dataclasses
+    import os
+    from fast_tffm_tpu_torch.checkpoint import read_vocab_sidecar
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.train import train
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = load_config(os.path.join(repo, "sample.cfg"))
+    base = dataclasses.replace(
+        base, vocab_mode="admit", vocabulary_size=64, epoch_num=3,
+        train_files=tuple(os.path.join(repo, f) for f in base.train_files),
+        validation_files=())
+    from fast_tffm_tpu_torch.models import convert
+    rng = np.random.default_rng(34)
+    table0 = rng.uniform(-0.01, 0.01, (base.num_rows, base.row_dim)
+                         ).astype(np.float32)
+    table0[-1] = 0.0
+    acc0 = np.full_like(table0, base.adagrad_init)
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", card)):
+        cfg = dataclasses.replace(base, model_file=str(tmp_path / name /
+                                                       "fm"), log_file="")
+        f0, b0 = fm_kernel.launches, fm_kernel.bwd_launches
+        table = train(cfg, device=dev, init_state=convert.state_from_numpy(
+            table0, acc0, cfg, dev)).cpu().numpy()
+        out[name] = (table, read_vocab_sidecar(cfg.model_file + ".ckpt",
+                                               48),
+                     fm_kernel.launches - f0, fm_kernel.bwd_launches - b0)
+    assert out["cpu"][2:] == (0, 0) and out["card"][2:] == (48, 48)
+    assert out["card"][1] == out["cpu"][1] is not None
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_bwd_kernel_one_row_takes_every_slot(card):
+    """An admit batch before its first barrier: every slot on the cold
+    row, B·L contributions a column to one row. No float32 sum of that
+    many contributions in one sequence meets the rtol 1e-5 bound (the
+    plain version's misses it, checked here); the kernel's fixed-point
+    sum does, against the plain version with each row's contributions
+    summed in float64, and two launches agree to the bit."""
+    B, L, U, K = 8192, 38, 64, 16
+    rng = np.random.default_rng(35)
+    params = torch.from_numpy((rng.normal(size=(U, K + 1)) * 0.1)
+                              .astype(np.float32))
+    idx = torch.zeros((B, L), dtype=torch.int32)
+    vals = torch.from_numpy(rng.lognormal(0.0, 0.5, (B, L))
+                            .astype(np.float32))
+    g = torch.from_numpy((rng.random(B) - 0.25).astype(np.float32) / B)
+    # Each slot's float32 contribution, formed as the plain version
+    # forms it, summed into the one row in float64.
+    s = torch.zeros((B, K))
+    for l in range(L):
+        s = s + params[idx[:, l].long(), :K] * vals[:, l][:, None]
+    grows = []
+    for l in range(L):
+        x = vals[:, l]
+        gx = g * x
+        sv = s - params[0, :K] * x[:, None]
+        grows.append(torch.cat([gx[:, None] * sv, gx[:, None]],
+                               dim=1).double())
+    grows = torch.stack(grows)
+    dp = torch.zeros((U, K + 1), dtype=torch.float64)
+    dp_abs = torch.zeros_like(dp)
+    dp[0], dp_abs[0] = grows.sum(dim=(0, 1)), grows.abs().sum(dim=(0, 1))
+    plain, _ = interaction.fm_batch_scores_bwd(params, idx, vals, g,
+                                               need_dx=False)
+    assert ((plain.double() - dp).abs() > BWD_ATOL + BWD_RTOL * dp_abs
+            ).any()
+    runs = [fm_kernel.fm_batch_scores_bwd(
+        params.to(card), idx.to(card), vals.to(card), g.to(card),
+        need_dx=False)[0].cpu() for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    _assert_within(runs[0], dp, dp_abs, "dparams")
+
+
+@pytest.mark.parametrize("K", [1, 16, 127])
+def test_bwd_kernel_repeats_to_the_bit(card, K):
+    """Zipf-drawn rows (row 0 takes about a quarter of the batch's
+    slots): launches on one input give one dparams and one dvals, bit
+    for bit."""
+    B, L = 2048, 64
+    rng = np.random.default_rng(36 + K)
+    U = 4096
+    params = torch.from_numpy((rng.normal(size=(U, K + 1)) * 0.1)
+                              .astype(np.float32)).to(card)
+    idx = np.minimum(rng.zipf(1.3, (B, L)) - 1, U - 1).astype(np.int32)
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, (B, L))
+                            .astype(np.float32)).to(card)
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(card)
+    idx = torch.from_numpy(idx).to(card)
+    first = fm_kernel.fm_batch_scores_bwd(params, idx, vals, g, True)
+    for _ in range(3):
+        again = fm_kernel.fm_batch_scores_bwd(params, idx, vals, g, True)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])

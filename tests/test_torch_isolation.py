@@ -74,7 +74,12 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.wire",
                  "fast_tffm_tpu_torch.lookup",
                  "fast_tffm_tpu_torch.ops.offload_kernel",
-                 "fast_tffm_tpu_torch.utils.ignored"):
+                 "fast_tffm_tpu_torch.utils.ignored",
+                 "fast_tffm_tpu_torch.vocab",
+                 "fast_tffm_tpu_torch.vocab.sketch",
+                 "fast_tffm_tpu_torch.vocab.table",
+                 "fast_tffm_tpu_torch.tools.fmckpt",
+                 "fast_tffm_tpu_torch.serve.server"):
         assert name in out["imported"]
 
 

@@ -141,10 +141,61 @@ def test_load_and_for_table_match_jax(port_cls, jax_cls):
 
 @pytest.mark.parametrize("port_cls", [lookup.HostOffloadLookup,
                                       lookup.PinnedHostLookup], ids=IDS)
-def test_reset_rows_waits_for_admit_mode(port_cls):
-    lk = port_cls(FmConfig(**_kw()), seed=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="item A8"):
-        lk.reset_rows(np.array([1, 2]))
+@pytest.mark.parametrize("jax_cls", [jax_lookup.HostOffloadLookup,
+                                     jax_lookup.PinnedHostLookup],
+                         ids=["jax_host_offload", "jax_pinned"])
+def test_reset_rows_matches_jax(port_cls, jax_cls):
+    """The eviction hook on one state, against each JAX backend: the
+    freed rows zero in the table and ``adagrad_init`` in the
+    accumulator, every other row untouched, exactly. A reset past the
+    JAX package's 4,096-row chunk and one of the pad row itself
+    included. The config's ``adagrad_init``, as train passes it: the JAX
+    pinned backend also writes its chunk padding into the alignment
+    tail's last row, which already holds those values."""
+    cfg = FmConfig(**_kw(vocabulary_size=5000, factor_num=2))
+    jcfg = JaxConfig(**_kw(vocabulary_size=5000, factor_num=2))
+    table, acc = _state(cfg)
+    lk, jlk = _pair(port_cls, jax_cls, cfg, jcfg, table, acc)
+    rng = np.random.default_rng(9)
+    resets = (np.array([1, 7, 4999], np.int32),
+              np.sort(rng.choice(5000, 4500, replace=False)
+                      ).astype(np.int32),
+              np.array([0, 5000], np.int32))
+    for rows in resets:
+        lk.reset_rows(rows, adagrad_init=cfg.adagrad_init)
+        jlk.reset_rows(rows, adagrad_init=jcfg.adagrad_init)
+        got, want = lk.state(), jlk.state()
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    t, a = (x.numpy() for x in lk.state())
+    hit = np.unique(np.concatenate(resets))
+    assert not t[hit].any()
+    assert (a[hit] == np.float32(cfg.adagrad_init)).all()
+    kept = np.setdiff1d(np.arange(cfg.ckpt_rows), hit)
+    assert np.array_equal(t[kept], table[kept])
+    assert np.array_equal(a[kept], acc[kept])
+
+
+@pytest.mark.parametrize("port_cls", [lookup.HostOffloadLookup,
+                                      lookup.PinnedHostLookup], ids=IDS)
+def test_reset_rows_without_accumulator(port_cls):
+    """A score-only backend (no accumulator): the pinned backend refuses
+    the reset, as the JAX pinned backend does; the host backend, as the
+    JAX numpy backend, zeroes the table rows alone."""
+    cfg = FmConfig(**_kw())
+    table, _ = _state(cfg)
+    lk = port_cls.for_table(cfg, torch.from_numpy(table.copy()), device=CPU)
+    if port_cls is lookup.PinnedHostLookup:
+        with pytest.raises(RuntimeError, match="needs the accumulator"):
+            lk.reset_rows(np.array([1, 2], np.int32))
+        jlk = jax_lookup.PinnedHostLookup.for_table(
+            JaxConfig(**_kw()), table.copy())
+        with pytest.raises(RuntimeError, match="needs the accumulator"):
+            jlk.reset_rows(np.array([1, 2], np.int32))
+        return
+    lk.reset_rows(np.array([1, 2], np.int32))
+    assert not lk.table[[1, 2]].any() and lk.acc is None
+    assert torch.equal(lk.table[3], torch.from_numpy(table[3]))
 
 
 def _batches(jcfg, path, n=10):

@@ -10,9 +10,17 @@ model (vocabulary 200, k = 8) from one checkpoint step, written by
   returns bodies byte-identical to the port's score file, each tagged
   with the published step in ``X-FM-Step``;
 - a malformed line gets a 400; bad argv exits 2; without a card and
-  without ``--device cpu`` the entry points raise.
+  without ``--device cpu`` the entry points raise;
+- ``vocab_mode = admit``: steps written with a slot map
+  (``vocab-<step>.json.gz``); the port's admit predict against JAX
+  ``predict_scores`` through the same map (atol 1e-6 after sigmoid); an
+  admit server's bodies equal the port's admit predict lines byte for
+  byte; a hot reload swaps the (table, slot map, step) triple; a step
+  whose sidecar has a flipped byte fails its reload whole and the old
+  triple keeps serving; a fixed-mode server refuses an admit step.
 """
 
+import base64
 import dataclasses
 import http.client
 import json
@@ -220,7 +228,6 @@ def test_entry_points_raise_without_a_card(slice_run):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(vocab_mode="admit"), "A8"),
     (dict(lookup="host"), "serving requires lookup = device"),
     (dict(serve_replicas=2, serve_port=7070), "A9"),
 ])
@@ -247,3 +254,103 @@ def test_unported_config_values_raise(slice_run, change, item, tmp_path):
 def test_unported_argv_raises(slice_run, rest, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["serve", slice_run["cfg_path"], "--device", "cpu", *rest])
+
+
+def _admit_step(cfg, step, lines, seed):
+    """A random table and a slot map admitting the ids of ``lines``'
+    first half, written as ``step`` with its vocab sidecar."""
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch.vocab.table import VocabRuntime
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    table = (rng.normal(size=(cfg.num_rows, cfg.row_dim)) * 0.1
+             ).astype(np.float32)
+    table[-1] = 0.0
+    ids = sorted({int(t.split(":")[0]) for ln in lines[:len(lines) // 2]
+                  for t in ln.split()[1:]})
+    rt = VocabRuntime.from_config(cfg)
+    pick = np.asarray(ids[seed % 3::2], np.int64)
+    for _ in range(3):
+        rt.note_trained(SimpleNamespace(vocab_obs=pick))
+    rt.barrier()
+    assert 0 < rt.live_rows <= cfg.vocabulary_size - 1
+    save_checkpoint_from_numpy(cfg, table, None, step)
+    directory = os.path.abspath(cfg.model_file) + ".ckpt"
+    ck.write_vocab_sidecar(directory, step, rt.state_payload())
+    return table, rt.state_payload()
+
+
+def _admit_predict(cfg, tmp_path, name):
+    out = str(tmp_path / name)
+    predict(dataclasses.replace(cfg, score_path=out), device="cpu")
+    with open(os.path.join(out, "in.txt.score")) as fh:
+        return fh.read().splitlines(keepends=True)
+
+
+def test_admit_server_hot_reload_and_torn_sidecar(slice_run, tmp_path):
+    from fast_tffm_tpu.vocab.table import VocabMap as JaxVocabMap
+    from fast_tffm_tpu_torch import checkpoint as ck
+    base, lines = slice_run["cfg"], slice_run["lines"]
+    wd = str(tmp_path)
+    cfg = dataclasses.replace(base, vocab_mode="admit", vocabulary_size=64,
+                              model_file=os.path.join(wd, "m", "fm"))
+    directory = os.path.abspath(cfg.model_file) + ".ckpt"
+    table1, payload1 = _admit_step(cfg, 3, lines, 1)
+    assert fmckpt.main(["publish", cfg.model_file, "3"]) == 0
+    want1 = _admit_predict(cfg, tmp_path, "s3")
+    # JAX predict_scores through the same slot map.
+    jcfg = dataclasses.replace(jax_load_config(slice_run["cfg_path"]),
+                               kernel="pallas", dedup="device",
+                               vocab_mode="admit", vocabulary_size=64)
+    jraw = jax_predict_scores(jcfg, jnp.asarray(table1),
+                              [os.path.join(os.path.dirname(
+                                  slice_run["cfg_path"]), "in.txt")],
+                              vocab=JaxVocabMap.from_payload(jcfg,
+                                                             payload1))
+    np.testing.assert_allclose([float(v) for v in want1],
+                               jax_sigmoid(jraw), rtol=0, atol=1e-6)
+    server = ScorerServer(cfg, device="cpu", watch=False)
+    try:
+        assert server.served_step == 3
+        assert server._reg.gauge("serve/vocab_live_rows").value == \
+            len(np.frombuffer(base64.b64decode(
+                payload1["state"]["slot_keys"]), np.int64))
+
+        def check(want, step, n=None):
+            for lo, k in ((0, 64), (100, 37), (460, 42), (200, 1)):
+                res = server.score_lines(lines[lo:lo + k], timeout=60)
+                assert res.step == step
+                got = "".join(f"{v:.6f}\n" for v in res.scores)
+                assert got == "".join(want[lo:lo + k])
+
+        check(want1, 3)
+        # A new step with another table and slot map: the hot reload
+        # swaps the triple.
+        _admit_step(cfg, 5, lines, 2)
+        want2 = _admit_predict(cfg, tmp_path, "s5")
+        assert want2 != want1
+        assert server.reload_step(5)
+        check(want2, 5)
+        # A step whose sidecar has one flipped byte: the reload fails
+        # whole, and step 5's triple keeps serving.
+        _admit_step(cfg, 8, lines, 3)
+        with open(ck.vocab_sidecar_path(directory, 8), "r+b") as fh:
+            fh.seek(-6, os.SEEK_END)
+            b = fh.read(1)
+            fh.seek(-6, os.SEEK_END)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        assert not server.reload_step(8)
+        stats = server.stats()
+        assert stats["served_step"] == 5 and stats["reload_failures"] == 1
+        assert stats["reloads"] == 1
+        check(want2, 5)
+        # And a step with no sidecar at all.
+        save_checkpoint_from_numpy(cfg, table1, None, 9)
+        assert not server.reload_step(9)
+        check(want2, 5)
+    finally:
+        server.close()
+    fixed = dataclasses.replace(cfg, vocab_mode="fixed")
+    assert fmckpt.main(["publish", cfg.model_file, "5"]) == 0
+    with pytest.raises(ValueError, match="vocab admission sidecar"):
+        ScorerServer(fixed, device="cpu", watch=False)
