@@ -68,6 +68,24 @@ model in vocabulary admit mode:
    and every response must be a 200 whose body equals the predict lines
    of the step its ``X-FM-Step`` names, byte for byte; /healthz must
    count one reload and no failure;
+   fleet: ``serve --replicas 3`` in process (a ``FleetSupervisor`` with
+   a 0.2 s health poll on a free block of ports) over the same model
+   directory: three replica processes on the card behind the failover
+   proxy, step 16 published first; every replica's /healthz must name
+   ``cuda:0`` and the CUDA kernel; 4 client threads post blocks of 1-256
+   validation lines through the proxy; replica 1 is SIGKILLed mid-burst
+   and must respawn (a new pid) and the fleet return to 3 ready; step 32
+   is published under load and reloaded replica by replica, while a
+   sampler of the proxy's /healthz must read at least one ready replica
+   every time. Every response must be a 200 whose body equals the
+   predict lines of its ``X-FM-Step`` byte for byte, both steps must
+   appear, the supervisor must count a death, a restart, at least two
+   reloads and no reload failure, every replica must have flushed and
+   launched fm_score, and no ``fmt-fleet``/``fmt-proxy`` thread may
+   outlive the drain. Its line: spawn-to-ready of each replica,
+   kill-to-ready, the stagger's seconds, the proxied p50/p99 beside
+   phase 5's single server, the retries absorbed and the replicas'
+   fm_score launches;
 8. quarantine: the newest step (32) is torn with ``truncate_checkpoint``;
    a restore must walk back to step 24 and leave ``corrupt-32/`` holding
    ``QUARANTINE`` and ``manifest-32.json``, and publishing step 32 must
@@ -1418,7 +1436,273 @@ def reload_phase(torch, cfg, lines, device, card):
            "server_p50_ms": health["latency_p50_ms"],
            "server_p99_ms": health["latency_p99_ms"]}
     emit(row)
+    return row, expected
+
+
+FLEET_REPLICAS = 3
+FLEET_CLIENTS = 4
+FLEET_HEALTH_POLL_SECONDS = 0.2
+FLEET_RESTART_BACKOFF_SECONDS = 0.5
+FLEET_ROUNDS = 40                 # responses before the kill, after the
+#                                   respawn, and before the publish
+FLEET_TIMEOUT = 300               # seconds for any one wait of the phase
+
+
+def free_port_block(n):
+    """A base port with ``n`` consecutive free loopback ports from it
+    (each bound, then released), below the host's ephemeral range: a
+    replica port inside it can be held for a minute by an outgoing
+    connection's TIME_WAIT, so a killed replica's restart fails to bind
+    until then."""
+    import random
+    import socket
+    from fast_tffm_tpu_torch.serve.fleet import ephemeral_port_range
+    rng = random.Random(os.getpid())
+    top = min(ephemeral_port_range()[0], 32768)
+    for _ in range(200):
+        base = rng.randrange(10000, top - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise SmokeFailure(f"no block of {n} free ports")
+
+
+def post_proxy(port, body, timeout=120):
+    """(status, body, X-FM-Step, X-FM-Replica) of one POST /score."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/score",
+                                 data=body.encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return (resp.status, resp.read(), resp.headers["X-FM-Step"],
+                    resp.headers["X-FM-Replica"])
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), None, None
+
+
+def wait_for(cond, what, timeout=FLEET_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def fleet_phase(train_cfg_path, lines, expected, serve_row, card):
+    """``serve --replicas 3`` at config #2's width, in process: a
+    FleetSupervisor on phase 7's model directory spawns three replica
+    processes on the card behind its failover proxy. Step 16 published
+    first; client threads post blocks of validation lines through the
+    proxy; replica 1 is SIGKILLed mid-burst and must respawn; step 32 is
+    published under load and reloaded replica by replica. Every response
+    a 200 whose body equals the predict lines of its step."""
+    import signal
+    import numpy as np
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.serve.fleet import FleetSupervisor
+    from fast_tffm_tpu_torch.tools import fmckpt
+    t_phase = time.perf_counter()
+    base = free_port_block(FLEET_REPLICAS + 1)
+    proxy_port = base + FLEET_REPLICAS
+    cfg_path = os.path.join(os.path.dirname(train_cfg_path), "fleet.cfg")
+    with open(train_cfg_path) as fh:
+        text = fh.read()
+    check("serve_port = 0\n" in text, "the train config has no [Serve]")
+    with open(cfg_path, "w") as fh:
+        fh.write(text.replace("serve_port = 0\n", f"""serve_port = {base}
+serve_proxy_port = {proxy_port}
+serve_replicas = {FLEET_REPLICAS}
+serve_health_poll_seconds = {FLEET_HEALTH_POLL_SECONDS}
+serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
+"""))
+    cfg = load_config(cfg_path)
+    check(fmckpt.main(["publish", cfg.model_file, "16"]) == 0,
+          "fmckpt publish of step 16 failed")
+    results, lock, failures = [], threading.Lock(), []
+    stop_clients, stop_sampling = threading.Event(), threading.Event()
+    samples, clients, sampler = [], [], None
+
+    def client(k):
+        rng = np.random.default_rng(SEED + 60 + k)
+        while not stop_clients.is_set():
+            n = int(rng.integers(1, SERVE_MAX_BATCH + 1))
+            lo = int(rng.integers(0, len(lines) - n + 1))
+            t0 = time.perf_counter()
+            try:
+                out = post_proxy(proxy_port,
+                                 "\n".join(lines[lo:lo + n]) + "\n")
+            except Exception as e:  # noqa: BLE001 - reported by a check
+                failures.append(repr(e))
+                continue
+            with lock:
+                results.append((lo, n) + out
+                               + ((time.perf_counter() - t0) * 1e3,))
+
+    def sample():
+        while not stop_sampling.is_set():
+            try:
+                samples.append(healthz_status(proxy_port))
+            except Exception as e:  # noqa: BLE001 - reported by a check
+                samples.append((repr(e), 0))
+            time.sleep(0.01)
+
+    def count():
+        with lock:
+            return len(results)
+
+    sup = FleetSupervisor(cfg, cfg_path)
+    t_spawn = time.perf_counter()
+    ready_s = {}
+    try:
+        sup.start()
+
+        def all_ready():
+            for r in sup.replicas:
+                if r.index not in ready_s and r.row.is_ready():
+                    ready_s[r.index] = time.perf_counter() - t_spawn
+            return len(ready_s) == FLEET_REPLICAS
+
+        wait_for(all_ready, f"{FLEET_REPLICAS} ready replicas")
+        first = [r.probe(timeout=30) for r in sup.replicas]
+        for i, h in enumerate(first):
+            check(h is not None and h["device"] == "cuda:0"
+                  and h["kernel"] == "cuda" and h["served_step"] == 16,
+                  f"replica {i} /healthz: {h}")
+        clients = [threading.Thread(target=client, args=(k,),
+                                    name=f"smoke-fleet-{k}")
+                   for k in range(FLEET_CLIENTS)]
+        for th in clients:
+            th.start()
+        wait_for(lambda: count() >= FLEET_ROUNDS, "the burst")
+        victim = sup.replicas[1]
+        old_pid = victim.pid()
+        t_kill = time.perf_counter()
+        os.kill(old_pid, signal.SIGKILL)
+        wait_for(lambda: victim.pid() != old_pid, "the respawn")
+        respawn_s = time.perf_counter() - t_kill
+        wait_for(lambda: victim.row.is_ready()
+                 and sup.wait_ready(FLEET_REPLICAS, 0.05),
+                 f"{FLEET_REPLICAS} ready replicas after the kill")
+        kill_to_ready_s = time.perf_counter() - t_kill
+        mark = count()
+        wait_for(lambda: count() >= mark + FLEET_ROUNDS,
+                 "responses after the respawn")
+        sampler = threading.Thread(target=sample, name="smoke-sampler")
+        sampler.start()
+        t_pub = time.perf_counter()
+        check(fmckpt.main(["publish", cfg.model_file, "32"]) == 0,
+              "fmckpt publish of step 32 failed")
+
+        def reloaded():
+            rows = [r.probe(timeout=30) for r in sup.replicas]
+            return all(h and h["served_step"] == 32 and h["ready"]
+                       for h in rows)
+
+        wait_for(reloaded, "every replica serving step 32")
+        stagger_s = time.perf_counter() - t_pub
+        wait_for(lambda: any(r[4] == "32" for r in list(results)),
+                 "a response on step 32")
+        stop_clients.set()
+        for th in clients:
+            th.join(timeout=FLEET_TIMEOUT)
+            check(not th.is_alive(), "a fleet client hung")
+        stop_sampling.set()
+        sampler.join(timeout=FLEET_TIMEOUT)
+        final = [r.probe(timeout=30) for r in sup.replicas]
+        stats = sup.stats()
+        pids = sup.pids()
+    finally:
+        stop_clients.set()
+        stop_sampling.set()
+        for th in clients + ([sampler] if sampler else []):
+            th.join(timeout=FLEET_TIMEOUT)
+        sup.stop()
+    check(all(r.exited() for r in sup.replicas), "a replica outlived stop")
+    leaked = [t.name for t in threading.enumerate() if t.is_alive()
+              and t.name.startswith(("fmt-fleet", "fmt-proxy"))]
+    check(not leaked, f"fleet threads left after the drain: {leaked}")
+    check(not failures, f"fleet clients failed: {failures[:3]}")
+    check(victim.pid() != old_pid and pids[1] != old_pid,
+          "replica 1 was never respawned")
+    bad = [(s, r) for s, r in samples if s != 200 or r < 1]
+    check(samples and not bad, f"proxy /healthz samples with no replica "
+          f"ready during the reload: {bad[:5]}")
+    by_step, by_replica = {}, {}
+    for lo, n, status, body, step, replica, _ms in results:
+        check(status == 200, f"the proxy answered {status}: {body[:200]}")
+        check(step in ("16", "32"), f"X-FM-Step {step}")
+        check(body == "".join(expected[int(step)][lo:lo + n]).encode(),
+              f"fleet body for lines [{lo}, {lo + n}) differs from step "
+              f"{step}'s predict lines")
+        by_step[step] = by_step.get(step, 0) + 1
+        by_replica[replica] = by_replica.get(replica, 0) + 1
+    check(set(by_step) == {"16", "32"}, f"responses by step: {by_step}")
+    check(stats.get("fleet/deaths", 0) >= 1
+          and stats.get("fleet/restarts", 0) >= 1
+          and stats.get("fleet/reloads", 0) >= 2
+          and stats.get("fleet/reload_failures", 0) == 0,
+          f"fleet counters: {stats}")
+    for i, h in enumerate(final):
+        check(h is not None and h["device"] == "cuda:0"
+              and h["kernel"] == "cuda" and h["flushes"] > 0
+              and h["kernel_launches"] > 0 and h["flush_errors"] == 0
+              and h["served_step"] == 32, f"replica {i} /healthz: {h}")
+    lat = np.array([r[-1] for r in results])
+    retries = int(stats.get("proxy/retries", 0))
+    row = {"phase": "fleet", "card": card, "replicas": FLEET_REPLICAS,
+           "requests": len(results), "clients": FLEET_CLIENTS,
+           "non_200": 0, "responses_by_step": by_step,
+           "responses_by_replica": by_replica,
+           "phase_seconds": time.perf_counter() - t_phase,
+           "spawn_to_ready_seconds": [ready_s[i]
+                                      for i in range(FLEET_REPLICAS)],
+           "kill_to_respawn_seconds": respawn_s,
+           "kill_to_ready_seconds": kill_to_ready_s,
+           "stagger_seconds": stagger_s,
+           "healthz_samples": len(samples),
+           "min_ready_during_reload": min(r for _, r in samples),
+           "proxied_p50_ms": float(np.percentile(lat, 50)),
+           "proxied_p99_ms": float(np.percentile(lat, 99)),
+           "single_server_round_trip_ms_median":
+               serve_row["round_trip_ms_median"],
+           "single_server_p50_ms": serve_row["server_p50_ms"],
+           "single_server_p99_ms": serve_row["server_p99_ms"],
+           "retries_absorbed": retries,
+           "transport_errors": int(stats.get("proxy/transport_errors", 0)),
+           "upstream_5xx": int(stats.get("proxy/upstream_5xx", 0)),
+           "deaths": int(stats["fleet/deaths"]),
+           "restarts": int(stats["fleet/restarts"]),
+           "reloads": int(stats["fleet/reloads"]),
+           "reload_failures": int(stats.get("fleet/reload_failures", 0)),
+           "replica_flushes": [h["flushes"] for h in final],
+           "replica_launches": [h["kernel_launches"] for h in final],
+           # The replicas' fm_score launches, from their /healthz at the
+           # end (replica 1's killed process took its count with it).
+           "launches": sum(h["kernel_launches"] for h in final)}
+    emit(row)
     return row
+
+
+def healthz_status(port):
+    """(HTTP status, ready count) of the proxy's /healthz; a 503 is an
+    answer too."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        return resp.status, int(json.loads(resp.read())["ready"])
+    finally:
+        conn.close()
 
 
 def quarantine_phase(cfg, card):
@@ -3838,8 +4122,13 @@ def main(argv) -> int:
         kernel_rows += fwd_train_rows
         bwd_rows += bwd_train_rows
 
-        # 7. hot reload, 8. quarantine
-        reload_row = reload_phase(torch, train_cfg, val_lines, device, smi)
+        # 7. hot reload, then the fleet over the same steps, 8. quarantine
+        reload_row, reload_lines = reload_phase(torch, train_cfg, val_lines,
+                                                device, smi)
+        torch.cuda.empty_cache()  # the replicas' tables are their own
+        fleet_row = fleet_phase(write_train_cfg(train_data[0], TRAIN_EPOCHS),
+                                val_lines, reload_lines, serve_row, smi)
+        del reload_lines
         quarantine_row = quarantine_phase(train_cfg, smi)
         shutil.rmtree(os.path.dirname(train_cfg.model_file))  # disk for 9
 
@@ -3892,6 +4181,7 @@ def main(argv) -> int:
                      + train_row["fm_score_launches"]
                      + train_row["predict_launches"]
                      + reload_row["launches"]
+                     + fleet_row["launches"]
                      + host_row["fm_score_launches"]
                      + packed_serving_row["predict_packed-wide_launches"]
                      + packed_serving_row["predict_packed-narrow_launches"]
@@ -3912,6 +4202,7 @@ def main(argv) -> int:
         "train_launches": train_row["fm_score_launches"],
         "train_predict_launches": train_row["predict_launches"],
         "reload_launches": reload_row["launches"],
+        "fleet_launches": fleet_row["launches"],
         "train_host_launches": host_row["fm_score_launches"],
         "packed_predict_launches":
             packed_serving_row["predict_packed-wide_launches"]
@@ -3970,7 +4261,8 @@ def main(argv) -> int:
                        "kernel": kernel_rows,
                        "kernel_bwd": bwd_rows, "predict": predict_row,
                        "serve": serve_row, "train": train_row,
-                       "reload": reload_row, "quarantine": quarantine_row,
+                       "reload": reload_row, "fleet": fleet_row,
+                       "quarantine": quarantine_row,
                        "train_host": host_row,
                        "packed_serving": packed_serving_row,
                        "train_packed": packed_train_row,

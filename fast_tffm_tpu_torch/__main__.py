@@ -4,6 +4,7 @@ surface of ``run_tffm.py``:
     python -m fast_tffm_tpu_torch train   <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch predict <cfg> [--device cuda|cpu]
     python -m fast_tffm_tpu_torch serve   <cfg> [--device cuda|cpu]
+                                                [--replicas N]
 
 All read the same INI configs as ``run_tffm.py``. ``train`` resumes
 from and saves to the checkpoint directory ``<model_file>.ckpt/``
@@ -12,12 +13,17 @@ exports ``<model_file>.npz``; ``predict`` reads the newest intact
 checkpoint step; ``serve`` loads the step the ``published`` pointer
 names and hot-reloads each newly published one (publish a step with
 ``python -m fast_tffm_tpu_torch.tools.fmckpt publish <model_file>
-<step>``). The port's checkpoints are in torch's format, not the JAX
-package's: give the two packages different model_files
+<step>``). ``serve --replicas N`` with N >= 2, or ``serve_replicas = N``
+in the config, runs a fleet: N replica processes on ``serve_port + i``
+behind a failover proxy on ``serve_proxy_port``, restarted when they
+die and reloaded in turn when the pointer moves (``--replicas 1`` runs
+the single server whatever the config says). The port's checkpoints
+are in torch's format, not the JAX package's: give the two packages
+different model_files
 (``models/convert.save_checkpoint_from_numpy`` carries a JAX model
 across). They run on the CUDA card unless ``--device cpu`` asks for the
-CPU; without a card they raise. ``dist_train`` roles and ``serve
---replicas`` are not ported yet (ROADMAP.md, queue A).
+CPU; without a card they raise. ``dist_train`` roles are not ported
+yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -47,10 +53,17 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "multi-process dist_train is not ported to "
             "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A10)")
-    if rest[:1] == ["--replicas"]:
-        raise NotImplementedError(
-            "the serving fleet (--replicas) is not ported to "
-            "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A9)")
+    replicas = None
+    if mode == "serve" and rest[:1] == ["--replicas"]:
+        try:
+            replicas = int(rest[1])
+        except (IndexError, ValueError):
+            print("--replicas wants an integer", file=sys.stderr)
+            return _usage()
+        if replicas < 1:
+            print("--replicas must be >= 1", file=sys.stderr)
+            return _usage()
+        rest = rest[2:]
     if rest:
         return _usage()
     cfg = apply_env_overrides(load_config(cfg_path))
@@ -62,6 +75,10 @@ def main(argv=None) -> int:
         from fast_tffm_tpu_torch.predict import predict
         predict(cfg, device=device)
         return 0
+    n = replicas if replicas is not None else cfg.serve_replicas
+    if n > 1:
+        from fast_tffm_tpu_torch.serve.fleet import run_fleet
+        return run_fleet(cfg, cfg_path, replicas=n, device=device)
     from fast_tffm_tpu_torch.serve.frontend import run_serve
     return run_serve(cfg, device=device)
 

@@ -47,20 +47,6 @@ from fast_tffm_tpu_torch.ops.interaction import (anova_batch_scores,
                                                  gather_rows)
 
 
-def check_supported(cfg: FmConfig) -> None:
-    """Refuse config values this slice does not serve, naming the
-    ROADMAP.md item that brings each."""
-    refusals = (
-        (cfg.serve_replicas > 1,
-         f"serve_replicas = {cfg.serve_replicas}", "A9"),
-    )
-    for refused, what, item in refusals:
-        if refused:
-            raise NotImplementedError(
-                f"{what} is not ported to fast_tffm_tpu_torch yet "
-                f"(ROADMAP.md, queue A, item {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """The static subset of FmConfig the score path reads."""
@@ -77,7 +63,6 @@ class ModelSpec:
 
     @classmethod
     def from_config(cls, cfg: FmConfig) -> "ModelSpec":
-        check_supported(cfg)
         dedup = cfg.dedup
         if dedup == "auto":
             # The offload backend gathers by the host-side unique

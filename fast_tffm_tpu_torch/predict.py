@@ -42,7 +42,6 @@ from fast_tffm_tpu_torch.checkpoint import (CheckpointState, load_vocab_map,
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.pipeline import expand_files
 from fast_tffm_tpu_torch.lookup import make_score_backend
-from fast_tffm_tpu_torch.models.fm import ModelSpec
 from fast_tffm_tpu_torch.scoring import (CompiledScorer, ScoreWriter,
                                          score_sweep)
 from fast_tffm_tpu_torch.train import check_restored_vocab, checkpoint_template
@@ -92,7 +91,6 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
     newest intact checkpoint step's (``load_table``). With ``lookup =
     host`` a given ``table`` is a CPU tensor and stays on the host."""
     device = resolve_device(device)
-    ModelSpec.from_config(cfg)  # refuses unported config values
     logger = get_logger(log_file=cfg.log_file or None)
     log_ignored_keys(cfg, logger)
     admit = cfg.vocab_mode == "admit"

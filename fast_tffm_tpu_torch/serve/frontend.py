@@ -10,14 +10,22 @@ port's counterpart of ``fast_tffm_tpu/serve/frontend.py``.
                      Malformed lines are 400 with the parse error; a
                      chunked body is 411; a closed or wedged server is
                      503.
-    GET  /healthz    JSON: alive/ready, the served and published steps,
-                     reloads and reload failures, queue depth, request
-                     counters, latency p50/p99, uptime.
+    POST /reload     the fleet supervisor's reload token. Body: a step
+                     number, or empty for the server's pointer.
+                     Synchronous: 200 with {"ok": true, "step": N} once
+                     step N serves (the step already served is a
+                     no-op), 503 with {"ok": false, ...} when the step
+                     is missing or torn (the old step keeps serving),
+                     400 for a body that is not an integer.
+    GET  /healthz    JSON: alive/ready/warmed, the served and published
+                     steps, reloads and reload failures, queue depth,
+                     request counters, latency p50/p99, uptime, the
+                     device and the kernel that scores.
 
 The served step follows the ``published`` pointer (``fmckpt publish``):
-the ScorerServer's reload thread hot-swaps each newly published step.
-``POST /reload`` (the fleet's reload token) is not ported (ROADMAP.md
-A9).
+the ScorerServer's reload thread hot-swaps each newly published step,
+or, under ``serve_reload_mode = external`` (a fleet replica), the
+supervisor hands it each step through ``POST /reload``.
 
 Each connection gets a thread (ThreadingHTTPServer); all of them funnel
 into the ScorerServer's admission queue, which is the batching point.
@@ -64,8 +72,21 @@ class _Handler(BaseHTTPRequestHandler):
         # not leave its body in the keep-alive stream.
         length = int(self.headers.get("Content-Length") or 0)
         raw = self.rfile.read(length)
+        if self.path == "/reload":
+            try:
+                body = raw.decode("utf-8", errors="strict").strip()
+                step = int(body) if body else None
+            except ValueError as e:
+                self._reply(400, f"{e}\n".encode("utf-8"), "text/plain")
+                return
+            ok, now = self.server.fm_server.external_reload(step)
+            payload = json.dumps({"ok": ok, "step": now}) + "\n"
+            self._reply(200 if ok else 503, payload.encode("utf-8"),
+                        "application/json")
+            return
         if self.path != "/score":
-            self._reply(404, b"unknown path; POST /score\n", "text/plain")
+            self._reply(404, b"unknown path; POST /score or /reload\n",
+                        "text/plain")
             return
         try:
             # decode inside the try: a non-UTF-8 body is the caller's
@@ -112,10 +133,12 @@ def make_http_server(fm_server, port: int,
 
 
 def run_serve(cfg, device=None) -> int:
-    """The ``serve <cfg>`` entry point: load the published checkpoint
-    step, warm the shape ladder, bind the HTTP front end, serve (and
-    hot-reload newly published steps) until SIGTERM/SIGINT, then drain
-    and close. Returns a process exit code."""
+    """The ``serve <cfg>`` entry point (and each fleet replica's): load
+    the published checkpoint step, bind the HTTP front end while the
+    shape ladder warms in the background (``/healthz`` answers alive,
+    not ready, until it is warm), serve (and hot-reload newly published
+    steps) until SIGTERM/SIGINT, then drain and close. Returns a process
+    exit code."""
     import signal
     import threading
     from fast_tffm_tpu_torch.serve.server import ScorerServer
@@ -135,12 +158,13 @@ def run_serve(cfg, device=None) -> int:
     httpd = None
     t = None
     try:
-        server = ScorerServer(cfg, logger=logger, device=device)
+        server = ScorerServer(cfg, logger=logger, device=device,
+                              warmup="background")
         if not stop.is_set():
             httpd = make_http_server(server, cfg.serve_port,
                                      host=cfg.serve_host)
             t = threading.Thread(target=httpd.serve_forever,
-                                 name="fm-serve-http", daemon=True)
+                                 name="fmt-serve-http", daemon=True)
             t.start()
             host, port = httpd.server_address[:2]
             logger.info("serving on http://%s:%d (POST /score, GET "

@@ -14,12 +14,18 @@ sidecar loads, crc-checked, before the table, so a reload never pairs a
 new table with an old map. Requests in flight keep the triple their
 flush captured.
 
+Under ``serve_reload_mode = external`` (a fleet replica) the watcher
+still polls, so ``/healthz``'s published step stays fresh, but never
+reloads: the fleet supervisor's stagger protocol owns reloads and hands
+each replica its turn through ``POST /reload``
+(``ScorerServer.external_reload``), so the fleet never cold-stops
+together.
+
 Failure posture: a garbled or unreadable pointer reads as "nothing new"
 and heals on the next poll; a step that fails verification or restore
 (or, in admit mode, carries no readable vocab sidecar) counts a
 ``serve/reload_failures`` and the previous triple keeps serving.
-The memory-ledger gauges wait for ROADMAP.md A11, and
-``serve_reload_mode = external`` (the fleet's reload token) for A9.
+The memory-ledger gauges wait for ROADMAP.md A11.
 """
 
 from __future__ import annotations
@@ -31,21 +37,25 @@ from fast_tffm_tpu_torch.checkpoint import read_pointer
 
 
 class ReloadWatcher:
-    """Daemon poll thread (``fm-serve-reload``). ``poll_once`` is the
+    """Daemon poll thread (``fmt-serve-reload``). ``poll_once`` is the
     whole per-tick protocol and ``next_wait`` the jittered cadence,
-    both public so tests drive them without the thread."""
+    both public so tests drive them without the thread.
+    ``auto_reload=False`` is the external-coordinator mode: ticks only
+    observe the pointer."""
 
     def __init__(self, server, poll_seconds: float,
-                 jitter: float = 0.0, seed: int = 0):
+                 jitter: float = 0.0, seed: int = 0,
+                 auto_reload: bool = True):
         self._server = server
         self._poll = float(poll_seconds)
         self._jitter = max(0.0, min(float(jitter), 0.999))
         # Deterministic per-replica stream: the same replica jitters
         # the same way run to run, different ports decorrelate.
         self._rng = random.Random(int(seed) * 2654435761 + 1)
+        self._auto = bool(auto_reload)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run,
-                                        name="fm-serve-reload",
+                                        name="fmt-serve-reload",
                                         daemon=True)
 
     def start(self) -> "ReloadWatcher":
@@ -73,13 +83,14 @@ class ReloadWatcher:
 
     def poll_once(self) -> bool:
         """One tick: read the pointer, record what it says, reload when
-        it moved. Returns True when a reload was attempted."""
+        it moved, unless an external coordinator owns reloads. Returns
+        True when a reload was attempted."""
         step = read_pointer(self._server.directory,
                             self._server.cfg.serve_pointer)
         if step is None:
             return False
         self._server.note_published(step)
-        if step == self._server.served_step:
+        if not self._auto or step == self._server.served_step:
             return False
         self._server.reload_step(step)
         return True

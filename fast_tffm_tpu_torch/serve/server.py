@@ -18,7 +18,14 @@ Startup loads the checkpoint step the ``published`` pointer names (or
 them) and scores one batch at every [B rung x L rung] shape
 (``_warmup``; with ``wire_format = packed`` also every flat rung of
 each shape, ``wire.flat_rungs``), so the kernel library is built and
-loaded, and the allocator warm, before the first request. A flush ships
+loaded, and the allocator warm, before the server reports ready. With
+``warmup="background"`` (the ``serve`` entry point, and so every fleet
+replica) the constructor returns once the step is loaded and the ladder
+warms on a thread of its own: the front end binds at once and
+``/healthz`` answers alive but not ready until the ladder is warm, so
+the fleet's proxy routes around a warming replica and its supervisor
+does not restart it. A warmup failure leaves the server alive and never
+ready, and counts ``serve/warmup_errors``. A flush ships
 through the scorer's wire encoder with the serve ladder
 (``rect_fraction``): padded and packed-wide answers are equal to the
 bit. FFM requests carry their fields.
@@ -30,7 +37,10 @@ swaps the (table, step) pair under one lock. Each flush captures the
 pair once, so requests in flight across a swap drain on the old step
 and say so: every response carries the step that scored it. The old
 table is freed when its last flush drains. A failed reload counts
-``serve/reload_failures`` and the old table keeps serving.
+``serve/reload_failures`` and the old table keeps serving. Under
+``serve_reload_mode = external`` the watcher only observes the pointer
+and reloads come through ``external_reload`` (``POST /reload``), the
+reload token the fleet supervisor hands each replica in turn.
 
 ``vocab_mode = admit``: requests parse under ``VocabMap.build_cfg``
 (ids in the 2^30 hashed space), and each flush remaps through the slot
@@ -46,9 +56,8 @@ fails the reload whole and the previous triple keeps serving. The
 its serving process refuses it: offload-scale tables are scored by
 batch predict.
 
-Not ported yet: telemetry, SLO gauges, capacity pre-flight,
-background warmup (ROADMAP.md), and ``serve_reload_mode = external``
-with ``POST /reload`` (A9, the fleet).
+Not ported yet: telemetry, SLO gauges and the capacity pre-flight
+(ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from fast_tffm_tpu_torch.data.pipeline import (_ladder_fit, make_device_batch,
                                                require_bounded_examples)
 from fast_tffm_tpu_torch.models.fm import resolved_kernel
 from fast_tffm_tpu_torch.obs.registry import MetricsRegistry
+from fast_tffm_tpu_torch.ops import fm_kernel
 from fast_tffm_tpu_torch.scoring import CompiledScorer
 from fast_tffm_tpu_torch.serve.reload import ReloadWatcher
 from fast_tffm_tpu_torch.utils.device import resolve_device
@@ -180,21 +190,22 @@ class ScorerServer:
         server.close()                    # drains and stops
 
     ``device`` defaults to the card. ``watch=False`` skips the reload
-    thread (tests drive ``reload_step`` directly)."""
+    thread (tests drive ``reload_step`` directly). ``warmup`` is
+    ``"sync"`` (the constructor returns warm) or ``"background"`` (it
+    returns once the step is loaded; ``ready`` stays false until the
+    ladder is warm)."""
 
     def __init__(self, cfg: FmConfig, logger=None, device=None,
-                 watch: bool = True):
+                 watch: bool = True, warmup: str = "sync"):
+        if warmup not in ("sync", "background"):
+            raise ValueError(f"warmup must be sync or background, got "
+                             f"{warmup!r}")
         if cfg.lookup != "device":
             raise ValueError(
                 "serving requires lookup = device: the raw-gather "
                 "scorer's pre-compiled shape ladder has no host-gather "
                 "protocol (offload-scale tables belong behind the "
                 "batch predict path)")
-        if cfg.serve_reload_mode != "poll":
-            raise NotImplementedError(
-                f"serve_reload_mode = {cfg.serve_reload_mode} (POST "
-                "/reload) is not ported to fast_tffm_tpu_torch yet "
-                "(ROADMAP.md, queue A, item A9)")
         # Every parsed example must fit the width ladder.
         require_bounded_examples(cfg, "online serving")
         self.cfg = cfg
@@ -223,6 +234,12 @@ class ScorerServer:
         self._served_step = -1
         self._published_step = -1
         self._reloading = threading.Event()
+        # Readiness, split from liveness: the proxy routes on ready,
+        # the supervisor restarts on alive (an answering /healthz).
+        self._warmed = threading.Event()
+        # The warmup thread and the dispatcher share the scorer and its
+        # wire encoder: one scores at a time.
+        self._score_lock = threading.Lock()
         # The published pointer IS the serving contract: an unpublished
         # directory is an operator error, not a wait.
         step = read_pointer(self.directory, cfg.serve_pointer)
@@ -243,23 +260,34 @@ class ScorerServer:
         self._flushes = 0
         self._start_time = time.time()
         self._shed_depth = max(8, 2 * cfg.serve_max_batch)
-        self._warmup()
+        self._warmup_thread = None
+        if warmup == "background":
+            self._warmup_thread = threading.Thread(
+                target=self._warmup_bg, name="fmt-serve-warmup",
+                daemon=True)
+            self._warmup_thread.start()
+        else:
+            self._warmup()
+            self._warmed.set()
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
-                                            name="fm-serve-dispatch",
+                                            name="fmt-serve-dispatch",
                                             daemon=True)
         self._dispatcher.start()
         self._watcher = None
         if watch:
             self._watcher = ReloadWatcher(
                 self, poll_seconds=cfg.serve_poll_seconds,
-                jitter=cfg.serve_poll_jitter, seed=cfg.serve_port).start()
+                jitter=cfg.serve_poll_jitter, seed=cfg.serve_port,
+                auto_reload=cfg.serve_reload_mode == "poll").start()
         self._logger.info(
             "serving checkpoint step %d from %s on %s (%d batch x %d "
-            "width rungs warmed, max_batch=%d, max_wait=%.1fms, "
-            "wire=%s)",
+            "width rungs %s, max_batch=%d, max_wait=%.1fms, "
+            "wire=%s, reload=%s)",
             self._served_step, self.directory, self.device,
-            len(self._b_ladder), len(self._l_rungs), cfg.serve_max_batch,
-            cfg.serve_max_wait_ms, self._scorer.wire.describe())
+            len(self._b_ladder), len(self._l_rungs),
+            "warmed" if warmup == "sync" else "warming in the background",
+            cfg.serve_max_batch, cfg.serve_max_wait_ms,
+            self._scorer.wire.describe(), cfg.serve_reload_mode)
 
     # -- model load / hot reload ------------------------------------------
 
@@ -319,6 +347,25 @@ class ScorerServer:
         self._logger.info("hot-reloaded published checkpoint step %d",
                           step)
         return True
+
+    def external_reload(self, step: Optional[int] = None
+                        ) -> Tuple[bool, int]:
+        """The ``POST /reload`` control surface: the reload token the
+        fleet supervisor's stagger protocol hands each replica in turn
+        (``serve_reload_mode = external``). ``step=None`` resolves this
+        server's pointer (``serve_pointer``). Synchronous: returns (ok,
+        the step now serving) only after the swap or its counted
+        failure; the step already served is a no-op."""
+        if step is None:
+            step = read_pointer(self.directory, self.cfg.serve_pointer)
+            if step is None:
+                return False, self.served_step
+        step = int(step)
+        self.note_published(step)
+        if step == self.served_step:
+            return True, step
+        ok = self.reload_step(step)
+        return ok, self.served_step
 
     # -- request path ----------------------------------------------------
 
@@ -429,8 +476,9 @@ class ScorerServer:
             t_dev = time.perf_counter()
             reg.observe("serve/pad_ms", (t_dev - t0) * 1000.0,
                         bounds=LATENCY_BUCKETS_MS)
-            raw = self._scorer.score_batch(table, batch)[:n]
-            raw = raw.cpu().numpy()
+            with self._score_lock:
+                raw = self._scorer.score_batch(table, batch)[:n]
+                raw = raw.cpu().numpy()
             reg.observe("serve/device_ms",
                         (time.perf_counter() - t_dev) * 1000.0,
                         bounds=LATENCY_BUCKETS_MS)
@@ -464,11 +512,17 @@ class ScorerServer:
     def _warmup(self) -> None:
         """Score one all-real batch at every [B rung, L rung] shape a
         flush can pad to, and, on the packed wire, every flat rung a
-        flush of that shape can encode to, before the first request."""
+        flush of that shape can encode to. Stops early (leaving the
+        server not warmed) once ``close`` has begun."""
         cfg = self._build_cfg
         t0 = time.monotonic()
+        with self._table_lock:
+            table = self._table
+            vmap = self._vocab_map
         for B in self._b_ladder:
             for L in self._l_rungs:
+                if self._closed:
+                    return
                 ids = np.arange(L, dtype=np.int64) % cfg.vocabulary_size
                 block = ParsedBlock(
                     labels=np.zeros(1, dtype=np.float32),
@@ -478,23 +532,40 @@ class ScorerServer:
                     fields=(np.zeros(L, dtype=np.int32)
                             if cfg.model_type == "ffm" else None))
                 batch = make_device_batch(block, cfg, batch_size=B)
-                if self._vocab_map is not None:
-                    batch = self._vocab_map.remap(batch)
-                self._scorer.score_batch(self._table, batch).cpu()
-                if self._scorer.wire.packed:
-                    for P in flat_rungs(B, L):
-                        self._scorer.score_packed_shape(
-                            self._table, B, L, P).cpu()
+                if vmap is not None:
+                    batch = vmap.remap(batch)
+                with self._score_lock:
+                    self._scorer.score_batch(table, batch).cpu()
+                    if self._scorer.wire.packed:
+                        for P in flat_rungs(B, L):
+                            self._scorer.score_packed_shape(
+                                table, B, L, P).cpu()
         self._logger.info(
             "warmed %d serve shapes (B rungs %s x L rungs %s, wire %s) "
             "in %.1fs", len(self._b_ladder) * len(self._l_rungs),
             list(self._b_ladder), list(self._l_rungs),
             self._scorer.wire.describe(), time.monotonic() - t0)
 
+    def _warmup_bg(self) -> None:
+        """The background warmup thread: warm the ladder, then flip
+        ready. A failure leaves the server alive and never ready
+        (counted and logged): the fleet routes around it."""
+        try:
+            self._warmup()
+        except Exception:  # noqa: BLE001 - surfaced as state
+            self._reg.count("serve/warmup_errors")
+            self._logger.exception(
+                "serve warmup failed; the server stays not ready")
+            return
+        if not self._closed:
+            self._warmed.set()
+
     def is_ready(self) -> bool:
-        """Not mid-reload, not shutting down, admission queue below the
-        shed depth (the constructor returns only after warmup)."""
-        return (not self._reloading.is_set() and not self._closed
+        """The proxy-facing readiness bit: warmed, not mid-reload, not
+        shutting down, admission queue below the shed depth. Distinct
+        from alive (an answering process) by design."""
+        return (self._warmed.is_set() and not self._reloading.is_set()
+                and not self._closed
                 and self._q.qsize() < self._shed_depth)
 
     def stats(self) -> dict:
@@ -502,13 +573,18 @@ class ScorerServer:
         c = self._reg.snapshot()["counters"]
         lat = self._reg.histogram("serve/request_latency_ms",
                                   bounds=LATENCY_BUCKETS_MS)
+        with self._table_lock:
+            table_device = self._table.device
         return {
             "status": "ok",
             "alive": True,
             "ready": self.is_ready(),
-            "device": str(self.device),
+            # The table's device: the card with its index ("cuda:0").
+            "device": str(table_device),
             "kernel": resolved_kernel(self.device, self._scorer.spec),
             "wire": self._scorer.wire.describe(),
+            "warmed": self._warmed.is_set(),
+            "warmup_errors": int(c.get("serve/warmup_errors", 0)),
             "reloading": self._reloading.is_set(),
             "served_step": self.served_step,
             "published_step": self._published_step,
@@ -519,6 +595,9 @@ class ScorerServer:
             "flush_errors": int(c.get("serve/flush_errors", 0)),
             "reloads": int(c.get("serve/reloads", 0)),
             "reload_failures": int(c.get("serve/reload_failures", 0)),
+            # This process's fm_score launches: a fleet replica's are
+            # its server's alone.
+            "kernel_launches": fm_kernel.launches,
             "latency_p50_ms": lat.quantile(0.5),
             "latency_p99_ms": lat.quantile(0.99),
             "uptime_seconds": time.time() - self._start_time,
@@ -526,7 +605,7 @@ class ScorerServer:
 
     def close(self) -> None:
         """Drain and stop: no new submissions, every queued request
-        flushed, the dispatcher and reload threads joined.
+        flushed, the warmup, dispatcher and reload threads joined.
         Idempotent."""
         with self._submit_lock:
             if self._closed:
@@ -537,6 +616,8 @@ class ScorerServer:
             self._q.put(_STOP)
         if self._watcher is not None:
             self._watcher.stop()
+        if self._warmup_thread is not None:
+            self._warmup_thread.join()
         self._dispatcher.join()
         self._logger.info("scorer server closed after %d flushes",
                           self._flushes)

@@ -456,7 +456,7 @@ def train(cfg: FmConfig, device=None,
     accumulator filled with ``adagrad_init``. Both are updated in
     place."""
     device = resolve_device(device)
-    spec = ModelSpec.from_config(cfg)  # refuses unported model values
+    spec = ModelSpec.from_config(cfg)
     check_train_supported(cfg)
     offload = cfg.lookup == "host"
     if offload and init_state is not None:

@@ -7,8 +7,8 @@ not pass in silence: each entry point (``train``, ``predict``,
 ``serve``) logs every key of ``IGNORED_KEYS`` that is set away from its
 default, naming the item, unless the caller says the key takes effect
 there (``in_effect``). Keys the port refuses outright raise
-``NotImplementedError`` elsewhere (``models/fm.check_supported``,
-``train.check_train_supported``, the serve server).
+``NotImplementedError`` elsewhere (``train.check_train_supported``,
+the data pipeline).
 """
 
 from __future__ import annotations

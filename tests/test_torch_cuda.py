@@ -66,6 +66,11 @@ Tolerances:
   column misses rtol 1e-5 there too); an admit train on the card against the
   CPU at the step's tolerance, both kernels launched every step, the
   same slot map.
+- the serving fleet: a 2-replica ``FleetSupervisor`` on the card (two
+  replica processes, each with its CUDA context and table) whose
+  proxied bodies equal an in-process ScorerServer's byte for byte (the
+  forward kernel's scores, to the bit, formatted), and whose replicas'
+  ``/healthz`` name ``cuda:0``, the CUDA kernel and its launches.
 """
 
 import numpy as np
@@ -1013,3 +1018,96 @@ def test_bwd_kernel_repeats_to_the_bit(card, K):
         again = fm_kernel.fm_batch_scores_bwd(params, idx, vals, g, True)
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
+
+
+def _free_port_block(n):
+    """Below the ephemeral range: a replica restarted on a port there can
+    fail to bind it while an outgoing connection's TIME_WAIT holds it."""
+    import socket
+    from fast_tffm_tpu_torch.serve.fleet import ephemeral_port_range
+    rng = np.random.default_rng()
+    top = min(ephemeral_port_range()[0], 32768)
+    for _ in range(200):
+        base = int(rng.integers(10000, top - n))
+        socks = []
+        try:
+            for port in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError("no block of free ports")
+
+
+def test_fleet_on_the_card_equals_an_in_process_server(card, tmp_path):
+    import urllib.request
+    from fast_tffm_tpu_torch.checkpoint import write_published
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
+    from fast_tffm_tpu_torch.scoring import format_scores
+    from fast_tffm_tpu_torch.serve.fleet import FleetSupervisor
+    from fast_tffm_tpu_torch.serve.server import ScorerServer
+    base = _free_port_block(3)
+    path = tmp_path / "fleet.cfg"
+    path.write_text(f"""[General]
+vocabulary_size = 50000
+factor_num = 16
+model_file = {tmp_path / "fm"}
+
+[Serve]
+serve_port = {base}
+serve_proxy_port = {base + 2}
+serve_replicas = 2
+serve_max_batch = 64
+serve_max_wait_ms = 1
+serve_health_poll_seconds = 0.1
+""")
+    cfg = load_config(str(path))
+    rng = np.random.default_rng(31)
+    table = (rng.normal(size=(cfg.num_rows, cfg.row_dim)) * 0.1
+             ).astype(np.float32)
+    save_checkpoint_from_numpy(cfg, table, None, 10)
+    write_published(cfg.model_file + ".ckpt", 10)
+    lines = []
+    for _ in range(300):
+        ids = rng.integers(0, cfg.vocabulary_size, int(rng.integers(0, 40)))
+        lines.append("1 " + " ".join(f"{i}:{rng.random():.3f}"
+                                     for i in ids))
+    spans = [(int(lo), int(n)) for lo, n in zip(
+        rng.integers(0, len(lines) - 64, 40), rng.integers(1, 65, 40))]
+    server = ScorerServer(cfg, device=card, watch=False)
+    try:
+        want = [format_scores(server.score_lines(
+            lines[lo:lo + n], timeout=60).scores).encode()
+            for lo, n in spans]
+    finally:
+        server.close()
+    sup = FleetSupervisor(cfg, str(path))
+    try:
+        sup.start()
+        assert sup.wait_ready(2, timeout=300)
+        got = []
+        for lo, n in spans:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{sup.proxy_port}/score",
+                data=("\n".join(lines[lo:lo + n]) + "\n").encode(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                got.append((resp.status, resp.read(),
+                            resp.headers["X-FM-Step"],
+                            resp.headers["X-FM-Replica"]))
+        health = [r.probe(timeout=30) for r in sup.replicas]
+    finally:
+        sup.stop()
+    assert [g[1] for g in got] == want
+    assert {(g[0], g[2]) for g in got} == {(200, "10")}
+    assert {g[3] for g in got} == {"0", "1"}
+    for h in health:
+        assert h["device"] == "cuda:0" and h["kernel"] == "cuda"
+        assert h["kernel_launches"] > 0 and h["flushes"] > 0
+    assert all(r.exited() for r in sup.replicas)

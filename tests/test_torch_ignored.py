@@ -14,6 +14,7 @@ import torch
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
 from fast_tffm_tpu_torch.predict import predict
+from fast_tffm_tpu_torch.serve.fleet import FleetSupervisor
 from fast_tffm_tpu_torch.serve.server import ScorerServer
 from fast_tffm_tpu_torch.tools import fmckpt
 from fast_tffm_tpu_torch.train import train
@@ -120,6 +121,23 @@ def test_serve_logs_ignored_keys(tmp_path, port_log):
     finally:
         server.close()
     _assert_logged(port_log)
-    with pytest.raises(NotImplementedError, match="item A9"):
-        ScorerServer(dataclasses.replace(cfg, serve_reload_mode="external"),
-                     device="cpu", watch=False)
+    # A fleet replica's server (external reloads) logs them the same.
+    port_log.clear()
+    replica_cfg = dataclasses.replace(cfg, serve_reload_mode="external",
+                                      serve_port=7170, serve_replicas=3)
+    server = ScorerServer(replica_cfg, device="cpu", watch=False)
+    try:
+        assert server.score_lines(["1 3:1"], timeout=30).step == 2
+    finally:
+        server.close()
+    _assert_logged(port_log)
+
+
+def test_fleet_supervisor_logs_ignored_keys(tmp_path, port_log):
+    cfg = _cfg(str(tmp_path), serve_port=7170, **SET)
+    sup = FleetSupervisor(cfg, str(tmp_path / "unused.cfg"), replicas=2,
+                          device="cpu")
+    assert [r.port for r in sup.replicas] == [7170, 7171]
+    assert sup.replicas[0].command()[-2:] == ["--device", "cpu"]
+    sup.stop()  # never started: nothing to drain
+    _assert_logged(port_log)

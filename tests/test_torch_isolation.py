@@ -79,7 +79,10 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.vocab.sketch",
                  "fast_tffm_tpu_torch.vocab.table",
                  "fast_tffm_tpu_torch.tools.fmckpt",
-                 "fast_tffm_tpu_torch.serve.server"):
+                 "fast_tffm_tpu_torch.serve.server",
+                 "fast_tffm_tpu_torch.serve.proxy",
+                 "fast_tffm_tpu_torch.serve.fleet",
+                 "fast_tffm_tpu_torch.serve.replica"):
         assert name in out["imported"]
 
 
@@ -96,3 +99,22 @@ def test_no_jax_import_statements_in_port_sources():
                     hits.append(f"{path}:{n}: {line.strip()}")
     assert len(paths) > 15
     assert hits == []
+
+
+def test_port_thread_names_carry_their_own_prefix():
+    """The reference's leak checks count live threads named ``fm-*``
+    (``fm-serve``, ``fm-fleet``, ``fm-proxy``, ``fm-build``); under xdist
+    a port file can share a worker with a reference file, so no port
+    thread takes that prefix."""
+    pattern = re.compile(r"""["'](fmt?-[^"']*)""")
+    names = []
+    for root, _, files in os.walk(os.path.join(REPO, "fast_tffm_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    names += pattern.findall(fh.read())
+    threads = set(names)
+    assert {"fmt-serve-http", "fmt-serve-reload", "fmt-serve-dispatch",
+            "fmt-serve-warmup", "fmt-fleet-health", "fmt-fleet-reload",
+            "fmt-proxy-http", "fmt-proxy-shadow"} <= threads
+    assert [n for n in threads if n.startswith("fm-")] == []

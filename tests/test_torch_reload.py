@@ -5,7 +5,14 @@ hot-swaps each newly published step (fast_tffm_tpu_torch/serve/).
 - ``ReloadWatcher.next_wait`` gives the JAX package's jittered sequence
   for a seed.
 - With no pointer the server refuses to start, naming the port's
-  ``fmckpt publish``; ``serve_reload_mode = external`` is refused (A9).
+  ``fmckpt publish``, in either reload mode.
+- ``serve_reload_mode = external`` (a fleet replica): the watcher
+  records the pointer but never reloads; ``POST /reload`` meets the JAX
+  front end's contract (``fast_tffm_tpu/serve/frontend.py``,
+  ``server.py:external_reload``): an empty body resolves the pointer,
+  the step already served is a no-op (200), a missing or torn step is a
+  503 with the old step serving, a non-integer body a 400, and the
+  server is not ready for the length of a reload.
 - A reload under concurrent HTTP clients swaps the table, and every
   response body equals the port's batch predict lines for the step its
   ``X-FM-Step`` names, byte for byte; ``/healthz`` counts the reload.
@@ -19,6 +26,7 @@ import os
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -101,7 +109,8 @@ def test_server_refuses_to_start_without_a_pointer(model):
                        match="fast_tffm_tpu_torch.tools.fmckpt publish"):
         ScorerServer(model["cfg"], device="cpu")
     cfg = dataclasses.replace(model["cfg"], serve_reload_mode="external")
-    with pytest.raises(NotImplementedError, match="item A9"):
+    with pytest.raises(FileNotFoundError,
+                       match="fast_tffm_tpu_torch.tools.fmckpt publish"):
         ScorerServer(cfg, device="cpu")
 
 
@@ -242,3 +251,66 @@ def test_canary_pointer_falls_back_to_published(model):
         assert server.served_step == 5 and read_published(directory) == 3
     finally:
         server.close()
+
+
+def _post_reload(port, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/reload",
+                                 data=body.encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_post_reload_meets_the_jax_contract(model):
+    cfg, lines, predicted = model["cfg"], model["lines"], model["predicted"]
+    cfg = dataclasses.replace(cfg, serve_reload_mode="external")
+    directory = cfg.model_file + ".ckpt"
+    write_published(directory, 3)
+    server = ScorerServer(cfg, device="cpu")
+    httpd = make_http_server(server, 0)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    port = httpd.server_address[1]
+    ready_during = []
+    load_step = server._load_step
+
+    def observed_load(step):
+        ready_during.append((server.is_ready(), server.stats()["ready"]))
+        load_step(step)
+
+    server._load_step = observed_load
+    try:
+        write_published(directory, 5)
+        deadline = time.monotonic() + 30
+        while server.published_step != 5:
+            assert time.monotonic() < deadline, "the watcher never polled"
+            time.sleep(0.01)
+        time.sleep(0.2)  # four more polls: none reloads
+        assert server.served_step == 3 and server.stats()["reloads"] == 0
+        replies = [_post_reload(port, body)
+                   for body in ("3", "", " 5\n", "five", "7")]
+        truncate_checkpoint(cfg.model_file, step=3)
+        replies.append(_post_reload(port, "3"))
+        status, body, step = _post(port, "\n".join(lines[:6]) + "\n")
+        stats = _healthz(port)
+    finally:
+        httpd.shutdown()
+        http_thread.join(timeout=30)
+        httpd.server_close()
+        server.close()
+    codes = [code for code, _ in replies]
+    assert codes == [200, 200, 200, 400, 503, 503]
+    assert [json.loads(b) for _, b in replies[:3]] == [
+        {"ok": True, "step": 3}, {"ok": True, "step": 5},
+        {"ok": True, "step": 5}]
+    assert b"five" in replies[3][1]
+    assert [json.loads(b) for _, b in replies[4:]] == [
+        {"ok": False, "step": 5}, {"ok": False, "step": 5}]
+    # One load for the pointer's step 5, one each for the failed 7 and 3.
+    assert ready_during == [(False, False)] * 3
+    assert (status, step) == (200, "5")
+    assert body == "".join(predicted[5][:6]).encode()
+    assert stats["served_step"] == 5 and stats["ready"]
+    assert stats["reloads"] == 1 and stats["reload_failures"] == 2

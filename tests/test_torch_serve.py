@@ -28,6 +28,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -42,6 +43,7 @@ from fast_tffm_tpu_torch.__main__ import main
 from fast_tffm_tpu_torch.config import load_config
 from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
 from fast_tffm_tpu_torch.predict import predict
+from fast_tffm_tpu_torch.scoring import format_scores
 from fast_tffm_tpu_torch.serve.frontend import make_http_server
 from fast_tffm_tpu_torch.serve.server import ScorerServer
 from fast_tffm_tpu_torch.tools import fmckpt
@@ -195,11 +197,56 @@ def test_server_refuses_oversized_and_scores_empty(slice_run):
         server.close()
 
 
+@pytest.mark.parametrize("fail", [False, True], ids=["warms", "fails"])
+def test_background_warmup_is_alive_before_ready(slice_run, monkeypatch,
+                                                 fail):
+    """``warmup="background"`` (the serve entry point's): the server
+    answers alive and not ready while the ladder warms, ready once it is
+    warm; a warmup that fails leaves it alive, never ready, with
+    ``serve/warmup_errors`` counted."""
+    from fast_tffm_tpu_torch.scoring import CompiledScorer
+    gate = threading.Event()
+    score_batch = CompiledScorer.score_batch
+
+    def gated(self, table, batch):
+        if threading.current_thread().name == "fmt-serve-warmup":
+            assert gate.wait(60)
+            if fail:
+                raise RuntimeError("warmup broke")
+        return score_batch(self, table, batch)
+
+    monkeypatch.setattr(CompiledScorer, "score_batch", gated)
+    server = ScorerServer(slice_run["cfg"], device="cpu", watch=False,
+                          warmup="background")
+    try:
+        before = server.stats()
+        gate.set()
+        deadline = time.monotonic() + 60
+        while not (server.is_ready() or server.stats()["warmup_errors"]):
+            assert time.monotonic() < deadline, "warmup never ended"
+            time.sleep(0.01)
+        after = server.stats()
+        res = server.score_lines(slice_run["lines"][:5], timeout=30)
+    finally:
+        server.close()
+    assert before["alive"] and not before["ready"] and not before["warmed"]
+    assert after["alive"] and after["ready"] is not fail
+    assert after["warmed"] is not fail
+    assert after["warmup_errors"] == int(fail)
+    # Requests score either way: readiness only steers the proxy.
+    assert format_scores(res.scores) == "".join(slice_run["score_lines"][:5])
+
+
 @pytest.mark.parametrize("argv", [[], ["predict"],
                                   ["train", "x.cfg", "--device"],
                                   ["serve", "x.cfg", "--device"],
                                   ["serve", "x.cfg", "--device", "tpu"],
-                                  ["predict", "x.cfg", "extra"]])
+                                  ["predict", "x.cfg", "extra"],
+                                  ["serve", "x.cfg", "--replicas"],
+                                  ["serve", "x.cfg", "--replicas", "two"],
+                                  ["serve", "x.cfg", "--replicas", "0"],
+                                  ["serve", "x.cfg", "--replicas", "2", "x"],
+                                  ["train", "x.cfg", "--replicas", "2"]])
 def test_bad_argv_exits_2(argv):
     assert main(argv) == 2
 
@@ -229,31 +276,75 @@ def test_entry_points_raise_without_a_card(slice_run):
 
 @pytest.mark.parametrize("change,item", [
     (dict(lookup="host"), "serving requires lookup = device"),
-    (dict(serve_replicas=2, serve_port=7070), "A9"),
 ])
 def test_unported_config_values_raise(slice_run, change, item, tmp_path):
     cfg = dataclasses.replace(slice_run["cfg"], **change)
-    if change.get("lookup") == "host":
-        # Offload predict is ported and prints the device lookup's
-        # bytes; serving refuses it with the JAX package's ValueError.
-        predict(dataclasses.replace(cfg, score_path=str(tmp_path)),
-                device="cpu")
-        with open(tmp_path / "in.txt.score") as fh:
-            assert fh.read() == "".join(slice_run["score_lines"])
-        with pytest.raises(ValueError, match=item):
-            ScorerServer(cfg, device="cpu")
-        return
-    for call in (lambda: predict(cfg, device="cpu"),
-                 lambda: ScorerServer(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # Offload predict is ported and prints the device lookup's bytes;
+    # serving refuses it with the JAX package's ValueError.
+    predict(dataclasses.replace(cfg, score_path=str(tmp_path)),
+            device="cpu")
+    with open(tmp_path / "in.txt.score") as fh:
+        assert fh.read() == "".join(slice_run["score_lines"])
+    with pytest.raises(ValueError, match=item):
+        ScorerServer(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("rest,item", [(["dist_train", "worker", "0"], "A10"),
-                                       (["--replicas", "2"], "A9")])
+@pytest.mark.parametrize("change", [
+    dict(serve_replicas=2, serve_port=7070),
+    dict(serve_replicas=3, serve_port=7070, serve_reload_mode="external",
+         serve_canary_fraction=0.25),
+])
+def test_fleet_config_values_predict_and_serve(slice_run, change, tmp_path):
+    """The fleet's keys leave predict and a replica's ScorerServer as
+    they are: the same lines, the same bodies."""
+    cfg = dataclasses.replace(slice_run["cfg"], **change)
+    predict(dataclasses.replace(cfg, score_path=str(tmp_path)),
+            device="cpu")
+    with open(tmp_path / "in.txt.score") as fh:
+        assert fh.read() == "".join(slice_run["score_lines"])
+    server = ScorerServer(cfg, device="cpu", watch=False)
+    try:
+        res = server.score_lines(slice_run["lines"][:9], timeout=30)
+    finally:
+        server.close()
+    assert res.step == STEP
+    assert format_scores(res.scores) == "".join(
+        slice_run["score_lines"][:9])
+
+
+@pytest.mark.parametrize("rest,item", [(["dist_train", "worker", "0"], "A10")])
 def test_unported_argv_raises(slice_run, rest, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["serve", slice_run["cfg_path"], "--device", "cpu", *rest])
+
+
+@pytest.mark.parametrize("in_cfg,rest,want", [
+    (1, [], ("serve", None)),
+    (1, ["--replicas", "1"], ("serve", None)),
+    (1, ["--replicas", "2"], ("fleet", 2)),
+    (3, [], ("fleet", 3)),
+    (3, ["--replicas", "1"], ("serve", None)),
+    (3, ["--replicas", "4"], ("fleet", 4)),
+])
+def test_serve_argv_picks_the_server_or_the_fleet(slice_run, monkeypatch,
+                                                  tmp_path, in_cfg, rest,
+                                                  want):
+    """``serve`` runs the single server unless ``--replicas N`` (N >= 2)
+    or ``serve_replicas`` > 1 asks for a fleet, as ``run_tffm.py``."""
+    from fast_tffm_tpu_torch.serve import fleet, frontend
+    calls = []
+    monkeypatch.setattr(frontend, "run_serve", lambda cfg, device=None:
+                        calls.append(("serve", None, device)) or 0)
+    monkeypatch.setattr(fleet, "run_fleet",
+                        lambda cfg, path, replicas=None, device=None:
+                        calls.append(("fleet", replicas, device)) or 0)
+    cfg_path = str(tmp_path / "fleet.cfg")
+    with open(slice_run["cfg_path"]) as fh:
+        text = fh.read().replace("serve_port = 0", "serve_port = 7070")
+    with open(cfg_path, "w") as fh:
+        fh.write(text + f"serve_replicas = {in_cfg}\n")
+    assert main(["serve", cfg_path, "--device", "cpu", *rest]) == 0
+    assert calls == [want + ("cpu",)]
 
 
 def _admit_step(cfg, step, lines, seed):
