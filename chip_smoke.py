@@ -12,7 +12,8 @@ Criteo-shaped lines it generates itself; then, on the same lines,
 config #3's FFM and config #4's order-3 FM, and config #2's model again
 on the packed wire, and config #2's model in the stream run mode, and
 config #5's width with the table offloaded to the host, and config #2's
-model in vocabulary admit mode:
+model in vocabulary admit mode, and config #2's model trained and
+predicted by two ranks over a row-sharded table (``dist_train``):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: the three kernel libraries, one nvcc each, and the C++ parser
@@ -45,17 +46,16 @@ model in vocabulary admit mode:
    requests of 1-256 lines whose bodies must equal the predict file's
    lines byte for byte and carry the published step in ``X-FM-Step``,
    one malformed request (400), /healthz;
-6. train: ``python -m fast_tffm_tpu_torch train`` (in process) as two
-   commands on one model directory with ``save_steps = 8``, over 131,072
-   lines whose labels come from a planted logistic model, validating on
-   16,384 more: run A (``epoch_num = 1``) saves at steps 8 and 16 and
-   its final save at 16 writes the epoch override; run B (``epoch_num
-   = 2``) must restore step 16, resume at epoch 1/2 and end at step 32,
-   saving at 24 and 32. ``fmckpt`` must then list exactly steps 16, 24
-   and 32, all verifying in full. Both kernels must launch, the mean
-   loss must fall, the validation AUC must clear a floor derived from
-   the planted model, and predict of the trained model (step 32) must
-   reach the same AUC. Then both kernels against their plain versions
+6. train: ``python -m fast_tffm_tpu_torch train`` (in process), one
+   epoch (run A) with ``save_steps = 8`` over 131,072 lines whose labels
+   come from a planted logistic model, validating on 16,384 more: it
+   saves at steps 8 and 16 and its final save at 16 writes the epoch
+   override. ``fmckpt`` must then list exactly steps 8 and 16, both
+   verifying in full. Both kernels must launch, the mean loss must fall
+   over the epoch, the validation AUC must clear a floor derived from
+   the planted model, and predict of the trained model (step 16) must
+   reach the same AUC. (No resumed second epoch here: the offload,
+   stream and admit phases each resume a step.) Then both kernels against their plain versions
    on one of the stream's Zipf-skewed batches (fm_score with L2 warm, as
    in the step; fm_score_bwd also with the numeric fields' slots zeroed,
    which takes its hottest rows away), the median time of one step on
@@ -63,18 +63,18 @@ model in vocabulary admit mode:
    profiler trace, and the card's idle share computed from them. The
    train and predict commands stream their batches through the C++
    builder (the parallel data plane);
-7. hot reload: step 16 published and served while client threads post
-   blocks of validation lines; step 32 is published under that load,
+7. hot reload: step 8 published and served while client threads post
+   blocks of validation lines; step 16 is published under that load,
    and every response must be a 200 whose body equals the predict lines
    of the step its ``X-FM-Step`` names, byte for byte; /healthz must
    count one reload and no failure;
    fleet: ``serve --replicas 3`` in process (a ``FleetSupervisor`` with
    a 0.2 s health poll on a free block of ports) over the same model
    directory: three replica processes on the card behind the failover
-   proxy, step 16 published first; every replica's /healthz must name
+   proxy, step 8 published first; every replica's /healthz must name
    ``cuda:0`` and the CUDA kernel; 4 client threads post blocks of 1-256
    validation lines through the proxy; replica 1 is SIGKILLed mid-burst
-   and must respawn (a new pid) and the fleet return to 3 ready; step 32
+   and must respawn (a new pid) and the fleet return to 3 ready; step 16
    is published under load and reloaded replica by replica, while a
    sampler of the proxy's /healthz must read at least one ready replica
    every time. Every response must be a 200 whose body equals the
@@ -86,9 +86,9 @@ model in vocabulary admit mode:
    kill-to-ready, the stagger's seconds, the proxied p50/p99 beside
    phase 5's single server, the retries absorbed and the replicas'
    fm_score launches;
-8. quarantine: the newest step (32) is torn with ``truncate_checkpoint``;
-   a restore must walk back to step 24 and leave ``corrupt-32/`` holding
-   ``QUARANTINE`` and ``manifest-32.json``, and publishing step 32 must
+8. quarantine: the newest step (16) is torn with ``truncate_checkpoint``;
+   a restore must walk back to step 8 and leave ``corrupt-16/`` holding
+   ``QUARANTINE`` and ``manifest-16.json``, and publishing step 16 must
    fail with the pointer untouched;
 9. train with ``dedup = host``: one epoch (reduced depth) through ``python
    -m fast_tffm_tpu_torch train`` on host-deduped batches, which must
@@ -202,7 +202,26 @@ model in vocabulary admit mode:
    cold row 0; run B's: its unseen ids there), with the cold row's share
    of their slots; the remap's ms a batch, each barrier's seconds and
    reset's ms, the sidecar's bytes;
-15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+15. ``dist_train`` (config #2's model, two ranks on cuda:0 over gloo,
+   each a process with its CUDA context and a [ckpt_rows/2, 17] shard
+   of the table and of its accumulator): ``python -m fast_tffm_tpu_torch
+   train <cfg> dist_train worker <i>`` for both ranks (subprocesses that
+   write their kernels' launch counts), one epoch of the train phase's
+   lines (each rank its byte range), one periodic save, validation on
+   its 16,384 lines split alike. Each worker's log must name ``cuda:0``,
+   both kernels must launch in both workers, the two logs carry the same
+   losses, which fall, the validation AUC clears the floor and lies
+   within 0.03 of run A's over the same lines, the workers step every
+   line once, and the chief's checkpoint verifies in full with
+   ``fmckpt``. The 2-rank predict leaves one merged score file and no
+   part, equal within 2e-6 to a single-process predict of the same
+   step. A second run's worker 1 is SIGKILLed a few steps into epoch 1:
+   the survivor must exit non-zero naming process 1
+   (``WorkerLostError``) within ``collective_timeout_seconds`` plus the
+   lease's staleness. Its line (correctness-run figures, not a
+   benchmark): the phase's seconds, each worker's loop examples/s and
+   step ms, the export's seconds, the launches, the detection seconds;
+16. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
 train loop (the snapshot), the final save with ``wait``, the background
@@ -253,7 +272,11 @@ GENERIC_LINES = 32768             # the generic path's check: a prefix
 GENERIC_BAD = (101, 5000, 17777, 25000, 32000)   # planted bad lines
 VAL_LINES = 16384
 TRAIN_BATCH = 8192
-TRAIN_EPOCHS = 2                  # run A takes the first, run B the second
+TRAIN_EPOCHS = 2                  # the offload phase: run A takes the first,
+#                                   run B the second
+SERVED_STEPS = (8, 16)            # the train phase's periodic and final
+#                                   saves: the steps the reload, fleet and
+#                                   quarantine phases serve, reload and tear
 TRAIN_LR = 0.1
 SAVE_STEPS = 8                    # half an epoch of TRAIN_LINES
 SERVE_STEP = 1                    # the step the random table is written at
@@ -1187,9 +1210,9 @@ def write_train_data():
 def train_phase(torch, device, card, data):
     """``python -m fast_tffm_tpu_torch train`` (in process) at config
     #2's width on Criteo-shaped lines with planted labels (``data``, from
-    write_train_data), as run A (one epoch) and run B (resumed to two)
-    on one model directory; then ``fmckpt`` over it, and predict of the
-    newest step over the validation lines."""
+    write_train_data), one epoch (run A) with a periodic save at step 8;
+    then ``fmckpt`` over it, and predict of the newest step over the
+    validation lines."""
     import io
     import re
     import numpy as np
@@ -1205,51 +1228,48 @@ def train_phase(torch, device, card, data):
     # its margin over chance.
     bayes_auc = exact_auc(val_logits, val_labels)
     auc_floor = 0.5 + 0.5 * (bayes_auc - 0.5)
-    cfg_paths = [write_train_cfg(wd, 1), write_train_cfg(wd, TRAIN_EPOCHS)]
-    cfg = load_config(cfg_paths[-1])
+    cfg_path = write_train_cfg(wd, 1)
+    cfg = load_config(cfg_path)
 
     fm_kernel.launches = 0
     fm_kernel.bwd_launches = 0
-    run_s = []
     with CheckpointTimes() as times:
-        for path in cfg_paths:
-            t0 = time.perf_counter()
-            rc = cli(["train", path])
-            run_s.append(time.perf_counter() - t0)
-            check(rc == 0, f"train entry point ({path}) returned {rc}")
-    train_s = sum(run_s)
+        t0 = time.perf_counter()
+        rc = cli(["train", cfg_path])
+        train_s = time.perf_counter() - t0
+        check(rc == 0, f"train entry point ({cfg_path}) returned {rc}")
     fwd_launches, bwd_launches = fm_kernel.launches, fm_kernel.bwd_launches
     with open(cfg.log_file) as fh:
         log = fh.read()
-    check("restored checkpoint at step 16" in log and
-          "resuming interrupted epoch schedule at epoch 1/2" in log,
-          "run B did not restore step 16 and resume at epoch 1/2")
     plane = [int(n) for n in re.findall(
         r"host data plane: (\d+) parallel batch-build workers", log)]
     losses, rates, aucs, done = read_train_log(cfg.log_file)
-    steps = TRAIN_EPOCHS * -(-TRAIN_LINES // TRAIN_BATCH)
-    check([n for n, _ in done] == [steps // 2, steps],
-          f"the runs ended at steps {done}, not {steps // 2} and {steps}")
-    val_batches = TRAIN_EPOCHS * -(-VAL_LINES // TRAIN_BATCH)
+    steps = -(-TRAIN_LINES // TRAIN_BATCH)
+    check([n for n, _ in done] == [steps],
+          f"the run ended at steps {done}, not {steps}")
+    val_batches = -(-VAL_LINES // TRAIN_BATCH)
     check(bwd_launches == steps and fwd_launches == steps + val_batches,
           f"train launched fm_score {fwd_launches} and fm_score_bwd "
           f"{bwd_launches} times for {steps} steps and {val_batches} "
           "validation batches")
-    check(sorted(losses) == list(range(TRAIN_EPOCHS)) and len(rates) == steps
-          and all(np.isfinite(v).all() for v in losses.values()),
+    check(sorted(losses) == [0] and len(rates) == steps
+          and np.isfinite(losses[0]).all(),
           f"train log losses: {losses}, {len(rates)} rates")
-    mean_loss = [float(np.mean(losses[e])) for e in range(TRAIN_EPOCHS)]
-    check(mean_loss[-1] < mean_loss[0],
-          f"mean loss did not fall: {mean_loss}")
-    check(len(aucs) == TRAIN_EPOCHS and aucs[-1] > auc_floor,
+    half = steps // 2
+    half_loss = [float(np.mean(losses[0][:half])),
+                 float(np.mean(losses[0][half:]))]
+    check(half_loss[-1] < half_loss[0],
+          f"mean loss did not fall over the epoch: {half_loss}")
+    check(len(aucs) == 1 and aucs[-1] > auc_floor,
           f"validation AUC {aucs} not above {auc_floor} (planted model's "
           f"AUC {bayes_auc})")
 
-    # The checkpoint directory as the operator's tool shows it.
+    # The checkpoint directory as the operator's tool shows it: the
+    # final save at 16 writes the epoch override onto the periodic save.
     directory = cfg.model_file + ".ckpt"
     state = fmckpt.scan(directory)
-    check([s["step"] for s in state["steps"]] == [16, 24, 32]
-          and [s["epoch"] for s in state["steps"]] == [1, 1, 2]
+    check([s["step"] for s in state["steps"]] == list(SERVED_STEPS)
+          and [s["epoch"] for s in state["steps"]] == [0, 1]
           and not state["orphans"] and not state["quarantined"],
           f"fmckpt ls: {state}")
     ls_out, verify_out = io.StringIO(), io.StringIO()
@@ -1258,15 +1278,16 @@ def train_phase(torch, device, card, data):
     rc = fmckpt.cmd_verify(directory, mode="full", out=verify_out)
     verify_s = time.perf_counter() - t0
     print(ls_out.getvalue() + verify_out.getvalue(), end="", flush=True)
-    check(rc == 0 and verify_out.getvalue().count(": OK (full check") == 3,
+    check(rc == 0 and verify_out.getvalue().count(": OK (full check")
+          == len(SERVED_STEPS),
           f"fmckpt verify --mode full: {verify_out.getvalue()}")
     commits = committed_steps_in_log(cfg.log_file)
-    check([c["step"] for c in commits] == [8, 16, 24, 32],
+    check([c["step"] for c in commits] == list(SERVED_STEPS),
           f"committed steps in the log: {commits}")
 
     fm_kernel.launches = 0
     t0 = time.perf_counter()
-    rc = cli(["predict", cfg_paths[-1]])
+    rc = cli(["predict", cfg_path])
     predict_s = time.perf_counter() - t0
     predict_launches = fm_kernel.launches
     check(rc == 0, f"predict of the trained model returned {rc}")
@@ -1286,19 +1307,19 @@ def train_phase(torch, device, card, data):
     # loop's rate is the examples over the sum of the windows (the
     # periodic saves' pauses fall inside them).
     loop_eps = steps * TRAIN_BATCH / sum(TRAIN_BATCH / r for r in rates)
-    examples = TRAIN_EPOCHS * TRAIN_LINES
+    examples = TRAIN_LINES
     periodic = [t for t in times.saves if not t["wait"]]
     final = [t for t in times.saves if t["wait"]]
     row = {"phase": "train", "card": card, "lines": TRAIN_LINES,
            "validation_lines": VAL_LINES, "batch_size": TRAIN_BATCH,
-           "epochs": TRAIN_EPOCHS, "steps": steps,
+           "epochs": 1, "steps": steps,
            "learning_rate": TRAIN_LR, "save_steps": SAVE_STEPS,
-           "generate_seconds": gen_s,
-           "entry_seconds": train_s, "run_seconds": run_s,
+           "generate_seconds": gen_s, "entry_seconds": train_s,
            "examples_per_s_end_to_end": examples / train_s,
            "examples_per_s_train_log": [e for _, e in done],
            "examples_per_s_loop": loop_eps,
-           "epoch_mean_loss": mean_loss, "validation_auc": aucs,
+           "epoch_mean_loss": [float(np.mean(losses[0]))],
+           "half_epoch_mean_loss": half_loss, "validation_auc": aucs,
            "planted_auc": bayes_auc, "auc_floor": auc_floor,
            "predict_exact_auc": predict_auc,
            "predict_entry_seconds": predict_s,
@@ -1317,8 +1338,8 @@ def train_phase(torch, device, card, data):
            "host_data_plane_workers": plane,
            **resident,
            # Idle share of the card while the loop runs, from the
-           # resident step time and the loop's rate, and over both train
-           # commands (validation, saves and exports included); then
+           # resident step time and the loop's rate, and over the train
+           # command (validation, saves and export included); then
            # the same from the profiler's kernel time per step.
            "device_idle_share_loop":
                1.0 - step_ms / 1e3 * loop_eps / TRAIN_BATCH,
@@ -1332,7 +1353,7 @@ def train_phase(torch, device, card, data):
 
 
 def reload_phase(torch, cfg, lines, device, card):
-    """Hot reload at full width: serve step 16, publish step 32 while
+    """Hot reload at full width: serve step 8, publish step 16 while
     client threads post, and hold every response to the predict lines of
     the step it names."""
     import dataclasses
@@ -1342,9 +1363,10 @@ def reload_phase(torch, cfg, lines, device, card):
     from fast_tffm_tpu_torch.serve.frontend import make_http_server
     from fast_tffm_tpu_torch.serve.server import ScorerServer
     from fast_tffm_tpu_torch.tools import fmckpt
+    old, new = (str(s) for s in SERVED_STEPS)
     fm_kernel.launches = 0
     expected, load_s = {}, {}
-    for step in (16, 32):
+    for step in SERVED_STEPS:
         step_cfg = dataclasses.replace(
             cfg, score_path=os.path.join(WORK, f"reload{step}"))
         t0 = time.perf_counter()
@@ -1355,8 +1377,8 @@ def reload_phase(torch, cfg, lines, device, card):
         with open(os.path.join(step_cfg.score_path, "val.txt.score")) as fh:
             expected[step] = fh.read().splitlines(keepends=True)
     torch.cuda.empty_cache()
-    check(fmckpt.main(["publish", cfg.model_file, "16"]) == 0,
-          "fmckpt publish of step 16 failed")
+    check(fmckpt.main(["publish", cfg.model_file, old]) == 0,
+          f"fmckpt publish of step {old} failed")
     server = ScorerServer(cfg, device=device)
     httpd = make_http_server(server, 0)
     http_thread = threading.Thread(target=httpd.serve_forever,
@@ -1394,9 +1416,9 @@ def reload_phase(torch, cfg, lines, device, card):
                 time.monotonic() < deadline and not failures:
             time.sleep(0.01)
         t_flip = time.perf_counter()
-        check(fmckpt.main(["publish", cfg.model_file, "32"]) == 0,
-              "fmckpt publish of step 32 failed")
-        while server.served_step != 32 and time.monotonic() < deadline:
+        check(fmckpt.main(["publish", cfg.model_file, new]) == 0,
+              f"fmckpt publish of step {new} failed")
+        while server.served_step != SERVED_STEPS[1] and time.monotonic() < deadline:
             time.sleep(0.005)
         flip_to_swap_s = time.perf_counter() - t_flip
         swapped.set()
@@ -1412,19 +1434,21 @@ def reload_phase(torch, cfg, lines, device, card):
     launches = fm_kernel.launches
     check(launches > 0, "the reload leg never launched fm_score")
     check(not failures, f"reload clients failed: {failures[:3]}")
-    check(server.served_step == 32, "the server never swapped to step 32")
+    check(server.served_step == SERVED_STEPS[1],
+          f"the server never swapped to step {new}")
     seen = {}
     for lo, n, status, body, step, after in results:
         check(status == 200, f"reload answered {status}: {body[:200]}")
-        check(step in ("16", "32") and (step == "32" or not after),
+        check(step in (old, new) and (step == new or not after),
               f"X-FM-Step {step} (sent after the swap: {after})")
         check(body == "".join(expected[int(step)][lo:lo + n]).encode(),
               f"body for lines [{lo}, {lo + n}) differs from step {step}'s "
               "predict lines")
         seen[step] = seen.get(step, 0) + 1
-    check(set(seen) == {"16", "32"}, f"responses by step: {seen}")
+    check(set(seen) == {old, new}, f"responses by step: {seen}")
     check(health["reloads"] == 1 and health["reload_failures"] == 0
-          and health["served_step"] == health["published_step"] == 32
+          and health["served_step"] == health["published_step"]
+          == SERVED_STEPS[1]
           and health["flush_errors"] == 0, f"/healthz: {health}")
     row = {"phase": "reload", "card": card, "requests": len(results),
            "responses_by_step": seen, "clients": RELOAD_CLIENTS,
@@ -1500,9 +1524,9 @@ def wait_for(cond, what, timeout=FLEET_TIMEOUT):
 def fleet_phase(train_cfg_path, lines, expected, serve_row, card):
     """``serve --replicas 3`` at config #2's width, in process: a
     FleetSupervisor on phase 7's model directory spawns three replica
-    processes on the card behind its failover proxy. Step 16 published
+    processes on the card behind its failover proxy. Step 8 published
     first; client threads post blocks of validation lines through the
-    proxy; replica 1 is SIGKILLed mid-burst and must respawn; step 32 is
+    proxy; replica 1 is SIGKILLed mid-burst and must respawn; step 16 is
     published under load and reloaded replica by replica. Every response
     a 200 whose body equals the predict lines of its step."""
     import signal
@@ -1510,6 +1534,7 @@ def fleet_phase(train_cfg_path, lines, expected, serve_row, card):
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.serve.fleet import FleetSupervisor
     from fast_tffm_tpu_torch.tools import fmckpt
+    old, new = (str(s) for s in SERVED_STEPS)
     t_phase = time.perf_counter()
     base = free_port_block(FLEET_REPLICAS + 1)
     proxy_port = base + FLEET_REPLICAS
@@ -1525,8 +1550,8 @@ serve_health_poll_seconds = {FLEET_HEALTH_POLL_SECONDS}
 serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
 """))
     cfg = load_config(cfg_path)
-    check(fmckpt.main(["publish", cfg.model_file, "16"]) == 0,
-          "fmckpt publish of step 16 failed")
+    check(fmckpt.main(["publish", cfg.model_file, old]) == 0,
+          f"fmckpt publish of step {old} failed")
     results, lock, failures = [], threading.Lock(), []
     stop_clients, stop_sampling = threading.Event(), threading.Event()
     samples, clients, sampler = [], [], None
@@ -1575,7 +1600,7 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
         first = [r.probe(timeout=30) for r in sup.replicas]
         for i, h in enumerate(first):
             check(h is not None and h["device"] == "cuda:0"
-                  and h["kernel"] == "cuda" and h["served_step"] == 16,
+                  and h["kernel"] == "cuda" and h["served_step"] == SERVED_STEPS[0],
                   f"replica {i} /healthz: {h}")
         clients = [threading.Thread(target=client, args=(k,),
                                     name=f"smoke-fleet-{k}")
@@ -1599,18 +1624,18 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
         sampler = threading.Thread(target=sample, name="smoke-sampler")
         sampler.start()
         t_pub = time.perf_counter()
-        check(fmckpt.main(["publish", cfg.model_file, "32"]) == 0,
-              "fmckpt publish of step 32 failed")
+        check(fmckpt.main(["publish", cfg.model_file, new]) == 0,
+              f"fmckpt publish of step {new} failed")
 
         def reloaded():
             rows = [r.probe(timeout=30) for r in sup.replicas]
-            return all(h and h["served_step"] == 32 and h["ready"]
+            return all(h and h["served_step"] == SERVED_STEPS[1] and h["ready"]
                        for h in rows)
 
-        wait_for(reloaded, "every replica serving step 32")
+        wait_for(reloaded, f"every replica serving step {new}")
         stagger_s = time.perf_counter() - t_pub
-        wait_for(lambda: any(r[4] == "32" for r in list(results)),
-                 "a response on step 32")
+        wait_for(lambda: any(r[4] == new for r in list(results)),
+                 f"a response on step {new}")
         stop_clients.set()
         for th in clients:
             th.join(timeout=FLEET_TIMEOUT)
@@ -1639,13 +1664,14 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
     by_step, by_replica = {}, {}
     for lo, n, status, body, step, replica, _ms in results:
         check(status == 200, f"the proxy answered {status}: {body[:200]}")
-        check(step in ("16", "32"), f"X-FM-Step {step}")
+        check(step in (old, new), f"X-FM-Step {step}")
         check(body == "".join(expected[int(step)][lo:lo + n]).encode(),
               f"fleet body for lines [{lo}, {lo + n}) differs from step "
               f"{step}'s predict lines")
         by_step[step] = by_step.get(step, 0) + 1
         by_replica[replica] = by_replica.get(replica, 0) + 1
-    check(set(by_step) == {"16", "32"}, f"responses by step: {by_step}")
+    check(set(by_step) == {old, new},
+          f"responses by step: {by_step}")
     check(stats.get("fleet/deaths", 0) >= 1
           and stats.get("fleet/restarts", 0) >= 1
           and stats.get("fleet/reloads", 0) >= 2
@@ -1655,7 +1681,8 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
         check(h is not None and h["device"] == "cuda:0"
               and h["kernel"] == "cuda" and h["flushes"] > 0
               and h["kernel_launches"] > 0 and h["flush_errors"] == 0
-              and h["served_step"] == 32, f"replica {i} /healthz: {h}")
+              and h["served_step"] == SERVED_STEPS[1],
+              f"replica {i} /healthz: {h}")
     lat = np.array([r[-1] for r in results])
     retries = int(stats.get("proxy/retries", 0))
     row = {"phase": "fleet", "card": card, "replicas": FLEET_REPLICAS,
@@ -1706,18 +1733,20 @@ def healthz_status(port):
 
 
 def quarantine_phase(cfg, card):
-    """Tear the newest step; restore must walk back to 24 and quarantine
-    32; publishing 32 must then fail and leave the pointer as it was."""
+    """Tear the newest step (16); restore must walk back to 8 and
+    quarantine 16; publishing 16 must then fail and leave the pointer as
+    it was."""
     from fast_tffm_tpu_torch.checkpoint import (CheckpointState,
                                                 read_published)
     from fast_tffm_tpu_torch.testing.faults import truncate_checkpoint
     from fast_tffm_tpu_torch.tools import fmckpt
     from fast_tffm_tpu_torch.train import checkpoint_template
+    old, new = (str(s) for s in SERVED_STEPS)
     directory = cfg.model_file + ".ckpt"
     before = read_published(directory)
     victim = truncate_checkpoint(cfg.model_file)
     check(victim is not None and os.path.dirname(victim).endswith(
-        os.sep + "32"), f"truncate_checkpoint tore {victim}")
+        os.sep + new), f"truncate_checkpoint tore {victim}")
     ckpt = CheckpointState(cfg.model_file, verify=cfg.ckpt_verify,
                            adagrad_init=cfg.adagrad_init)
     t0 = time.perf_counter()
@@ -1726,19 +1755,19 @@ def quarantine_phase(cfg, card):
     finally:
         ckpt.close()
     restore_s = time.perf_counter() - t0
-    qdir = os.path.join(directory, "corrupt-32")
-    check(restored is not None and restored["step"] == 24,
+    qdir = os.path.join(directory, "corrupt-" + new)
+    check(restored is not None and restored["step"] == SERVED_STEPS[0],
           f"restore walked back to {restored and restored['step']}")
     check(os.path.isfile(os.path.join(qdir, "QUARANTINE")) and
-          os.path.isfile(os.path.join(qdir, "manifest-32.json")),
-          f"corrupt-32/ holds {os.listdir(qdir)}")
+          os.path.isfile(os.path.join(qdir, f"manifest-{new}.json")),
+          f"corrupt-{new}/ holds {os.listdir(qdir)}")
     del restored
-    rc = fmckpt.main(["publish", cfg.model_file, "32"])
+    rc = fmckpt.main(["publish", cfg.model_file, new])
     after = read_published(directory)
     check(rc == 1 and after == before,
           f"publish of the torn step: rc {rc}, pointer {before} -> {after}")
     row = {"phase": "quarantine", "card": card, "torn_file": victim,
-           "restored_step": 24, "walk_back_restore_seconds": restore_s,
+           "restored_step": SERVED_STEPS[0], "walk_back_restore_seconds": restore_s,
            "publish_rc": rc, "pointer": after}
     emit(row)
     return row
@@ -3997,6 +4026,641 @@ def admit_phase(torch, device, card, data, train_row):
     return row, fwd_rows, bwd_rows
 
 
+DIST_WORKERS = 2                  # ranks of the dist phase, both on cuda:0
+DIST_SAVE_STEPS = 10              # one periodic save in the epoch's ~16
+DIST_HEARTBEAT_SECONDS = 1.0      # lease stale after 4 s
+DIST_COLLECTIVE_TIMEOUT = 20.0
+DIST_AUC_TOL = 0.03               # tests/test_multiprocess.py's contract
+DIST_PREDICT_ATOL = 2e-6          # merged vs single-process predict
+DIST_RUN_TIMEOUT = 420            # seconds for one command's processes
+DIST_STEP_SEED = SEED + 30        # the step check's starting table
+DIST_LOSS_RTOL = 1e-5             # 2-rank step vs one process: the loss
+DIST_STATE_RTOL = 1e-4            # ... and the table and accumulator rows
+DIST_STATE_ATOL = 1e-6
+
+# One rank of a dist command in a subprocess: the entry point ``python -m
+# fast_tffm_tpu_torch`` calls, with both kernels' launch counts written
+# to a JSON file when it returns (each rank is a process of its own).
+DIST_RANK = r"""
+import json, sys
+from fast_tffm_tpu_torch.__main__ import main
+from fast_tffm_tpu_torch.ops import fm_kernel
+out_path, argv = sys.argv[1], sys.argv[2:]
+rc = main(argv)
+with open(out_path, "w") as fh:
+    json.dump({"rc": rc, "fm_score": fm_kernel.launches,
+               "fm_score_bwd": fm_kernel.bwd_launches}, fh)
+sys.exit(rc)
+"""
+
+
+# One rank of the dist phase's step check, a subprocess on cuda:0 beside
+# the other rank: joins the group of ``cfg_path``, reads its byte range of
+# the UNPADDED train lines as fixed-shape batches (the bucket probed as
+# train probes it, no shuffle), counts its lines and batches, and takes
+# two sharded train steps from ``init_sharded_state(seed)``: the first
+# global step and the last (a rank whose shard ran dry steps the filler,
+# as train's lockstep epoch does). The kernel wrappers' inputs in the
+# first step are captured as the step gave them: the global [W·U, D] row
+# block, ``local_idx`` offset by rank·U, vals and g. Writes the batches,
+# losses, the rows the steps touched in this rank's shard, whether every
+# other row kept its starting value, and the launch counts to ``out``.
+DIST_STEP_RANK = r"""
+import sys
+import numpy as np
+import torch
+from fast_tffm_tpu_torch.config import load_config
+from fast_tffm_tpu_torch.data.pipeline import (batch_iterator, empty_batch,
+                                               probe_uniq_bucket)
+from fast_tffm_tpu_torch.models import fm
+from fast_tffm_tpu_torch.ops import fm_kernel
+from fast_tffm_tpu_torch.parallel.distributed import init_from_cluster
+from fast_tffm_tpu_torch.parallel.sharded import (init_sharded_state,
+                                                  make_mesh)
+out_path, cfg_path, train_path, rank, seed = sys.argv[1:6]
+rank, seed = int(rank), int(seed)
+cfg = load_config(cfg_path)
+world = len(cfg.worker_hosts)
+init_from_cluster(cfg, "worker", rank)
+mesh = make_mesh(cfg, rank, world)
+spec = fm.ModelSpec.from_config(cfg, num_processes=world)
+dev = torch.device("cuda:0")
+ub = probe_uniq_bucket(cfg, [train_path])
+first = last = None
+count = lines = 0
+for b in batch_iterator(cfg, [train_path], training=False, epochs=1,
+                        shard_index=rank, num_shards=world,
+                        fixed_shape=True, uniq_bucket=ub, raw_ids=False):
+    first = b if first is None else first
+    last, count, lines = b, count + 1, lines + b.num_real
+counts = mesh.all_gather_host(np.array([count, lines], np.int64),
+                              "smoke/counts")
+final = (last if count == int(counts[:, 0].max())
+         else empty_batch(cfg, uniq_bucket=ub))
+table, acc = init_sharded_state(cfg, mesh, seed, dev)
+table0 = table.clone()
+captured = {}
+real_fwd, real_bwd = fm_kernel._scores, fm_kernel.fm_batch_scores_bwd
+
+
+def capture_fwd(params, local_idx, vals):
+    captured["fwd"] = [t.clone() for t in (params, local_idx, vals)]
+    return real_fwd(params, local_idx, vals)
+
+
+def capture_bwd(params, local_idx, vals, g, need_dx):
+    captured["bwd"] = [t.clone() for t in (params, local_idx, vals, g)]
+    captured["need_dx"] = need_dx
+    return real_bwd(params, local_idx, vals, g, need_dx)
+
+
+out = {"counts": counts, "uniq_bucket": ub}
+fm_kernel.launches = fm_kernel.bwd_launches = 0
+for s, b in enumerate((first, final)):
+    args = fm.batch_args(b, dev)
+    args["uniq_ids"] = b.uniq_ids
+    if s == 0:
+        fm_kernel._scores = capture_fwd
+        fm_kernel.fm_batch_scores_bwd = capture_bwd
+    try:
+        table, acc, loss, _ = fm.sharded_train_step_body(
+            spec, mesh, table, acc, **args)
+    finally:
+        fm_kernel._scores = real_fwd
+        fm_kernel.fm_batch_scores_bwd = real_bwd
+    out[f"loss{s}"] = float(loss)
+    for k in ("labels", "weights", "uniq_ids", "local_idx", "vals"):
+        out[f"b{s}/{k}"] = torch.from_numpy(getattr(b, k))
+torch.cuda.synchronize()
+out["launches"] = [fm_kernel.launches, fm_kernel.bwd_launches]
+ids = np.unique(mesh.all_gather_host(np.concatenate(
+    [first.uniq_ids, final.uniq_ids]), "smoke/ids"))
+ids = torch.from_numpy(ids[(ids >= mesh.lo) & (ids < mesh.hi)]
+                       .astype(np.int64)).to(dev)
+out["ids"] = ids.cpu()
+out["table_rows"] = table[ids - mesh.lo].cpu()
+out["acc_rows"] = acc[ids - mesh.lo].cpu()
+rest = torch.ones(mesh.rows_per_rank, dtype=torch.bool, device=dev)
+rest[ids - mesh.lo] = False
+out["rest_unchanged"] = bool(torch.equal(table[rest], table0[rest])) and \
+    bool((acc[rest] == cfg.adagrad_init).all())
+out["fwd"] = [t.cpu() for t in captured["fwd"]]
+out["bwd"] = [t.cpu() for t in captured["bwd"]]
+out["need_dx"] = captured["need_dx"]
+torch.save(out, out_path)
+torch.distributed.destroy_process_group()
+"""
+
+
+def write_even_shards(src, dst, ranks):
+    """``src``'s lines into ``dst`` with each rank's share of lines (the
+    file cut in ``ranks`` equal runs of lines) padded to one byte size by
+    trailing spaces on its last line, so that each rank's byte range
+    (``shard_byte_range``) holds exactly its run: every rank's epoch is
+    whole batches, as run A's is. An uneven cut leaves one rank a final
+    batch of a single example, and the loss being each batch's weighted
+    mean (in both packages) gives that one example a full step, which
+    costs the model most of its AUC (ROADMAP.md §C). Returns the lines a
+    rank holds."""
+    with open(src) as fh:
+        lines = fh.read().splitlines()
+    n = len(lines) // ranks
+    check(n * ranks == len(lines), f"{len(lines)} lines over {ranks} ranks")
+    parts = [lines[r * n:(r + 1) * n] for r in range(ranks)]
+    sizes = [sum(len(ln.encode()) + 1 for ln in p) for p in parts]
+    for p, size in zip(parts, sizes):
+        p[-1] += " " * (max(sizes) - size)
+    with open(dst, "w") as fh:
+        for p in parts:
+            fh.write("\n".join(p) + "\n")
+    return n
+
+
+def write_dist_cfg(wd, data_wd, tag, epochs, save_steps, port, name=None):
+    """A config #2 train config for a 2-rank ``dist_train`` over the
+    train lines as ``write_even_shards`` wrote them into ``wd`` and
+    ``data_wd``'s validation lines, its rendezvous on ``port`` (free,
+    below the ephemeral range). ``batch_size`` is a rank's: the global batch,
+    the ranks' batches together, is the train phase's 8,192, so the
+    epoch takes run A's 16 steps and its AUC compares."""
+    hosts = ",".join(f"localhost:{port - 1000 + i}"
+                     for i in range(DIST_WORKERS))
+    path = os.path.join(wd, name or f"dist_{tag}.cfg")
+    with open(path, "w") as fh:
+        fh.write(f"""[General]
+vocabulary_size = {VOCAB}
+hash_feature_id = True
+factor_num = {FACTORS}
+model_file = {os.path.join(wd, 'model_' + tag, 'fm_model')}
+[Train]
+train_files = {os.path.join(wd, 'train_even.txt')}
+validation_files = {os.path.join(data_wd, 'val.txt')}
+epoch_num = {epochs}
+batch_size = {TRAIN_BATCH // DIST_WORKERS}
+learning_rate = {TRAIN_LR}
+loss_type = logistic
+log_steps = 1
+save_steps = {save_steps}
+[Predict]
+predict_files = {os.path.join(data_wd, 'val.txt')}
+score_path = {os.path.join(wd, 'score_' + tag)}
+[Cluster]
+worker_hosts = {hosts}
+heartbeat_seconds = {DIST_HEARTBEAT_SECONDS}
+collective_timeout_seconds = {DIST_COLLECTIVE_TIMEOUT}
+cluster_connect_timeout_seconds = 120
+""")
+    return path
+
+
+def start_dist(wd, mode, cfg_path, tag):
+    """The ranks of one dist command, started together; (processes,
+    their log paths, their launch-count JSON paths)."""
+    procs, logs, outs = [], [], []
+    for i in range(DIST_WORKERS):
+        logs.append(os.path.join(wd, f"{tag}_{mode}{i}.log"))
+        outs.append(os.path.join(wd, f"{tag}_{mode}{i}.json"))
+        with open(logs[-1], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_RANK, outs[-1], mode, cfg_path,
+                 "dist_train", "worker", str(i)], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=ROOT), stdout=fh,
+                stderr=subprocess.STDOUT))
+    return procs, logs, outs
+
+
+def start_step_check(wd, data_wd, port):
+    """The step check's ranks (``DIST_STEP_RANK``), started together on
+    the unpadded train lines; (processes, log paths, result paths,
+    config path)."""
+    cfg_path = write_dist_cfg(wd, data_wd, "step", 1, 0, port,
+                              name="dist_step.cfg")
+    procs, logs, outs = [], [], []
+    for i in range(DIST_WORKERS):
+        logs.append(os.path.join(wd, f"step{i}.log"))
+        outs.append(os.path.join(wd, f"step{i}.pt"))
+        with open(logs[-1], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_STEP_RANK, outs[-1], cfg_path,
+                 os.path.join(data_wd, "train.txt"), str(i),
+                 str(DIST_STEP_SEED)], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=ROOT), stdout=fh,
+                stderr=subprocess.STDOUT))
+    return procs, logs, outs, cfg_path
+
+
+def close_enough(got, want, rtol, atol):
+    """(every element within atol + rtol·|want|, the largest |error|)."""
+    err = (got - want).abs()
+    return (bool((err <= atol + rtol * want.abs()).all()),
+            float(err.max()) if err.numel() else 0.0)
+
+
+def dist_step_check(h, torch, device):
+    """The step check's verdict, from ``start_step_check``'s ranks: their
+    two sharded steps held against the single-process ``train_step_body``
+    on the concatenated global batch (``local_idx`` offset by rank·U) on
+    the card, from the same starting table — the loss at rtol 1e-5, the
+    touched rows of table and accumulator at rtol 1e-4 / atol 1e-6, every
+    other row unchanged; the captured kernel inputs equal to that global
+    batch's rows; and both kernels against their plain versions on each
+    rank's captured inputs. Also reports how the unpadded byte-range split
+    fell: each rank's lines and batches and the last global step's weight
+    (the short step ROADMAP.md §C describes). Returns (row, forward
+    kernel rows, backward kernel rows)."""
+    import numpy as np
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.parallel.sharded import (ProcessMesh,
+                                                      init_sharded_state,
+                                                      offset_local_idx)
+    t0 = time.perf_counter()
+    procs, logs, outs, cfg_path = h["step"]
+    try:
+        rcs = [p.wait(timeout=DIST_RUN_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0] * len(procs):
+        for path in logs:
+            with open(path) as fh:
+                print(fh.read()[-4000:], flush=True)
+    check(rcs == [0] * len(procs), f"dist step check: ranks exited {rcs}")
+    res = [torch.load(p, weights_only=False) for p in outs]
+    cfg = load_config(cfg_path)
+    W = DIST_WORKERS
+    counts = res[0]["counts"]
+    check(all(np.array_equal(r["counts"], counts) for r in res)
+          and int(counts[:, 1].sum()) == TRAIN_LINES,
+          f"the unpadded split's (batches, lines) per rank: {counts}")
+    ub = int(res[0]["uniq_bucket"])
+    spec = port_fm.ModelSpec.from_config(cfg, num_processes=W)
+    table = torch.cat([init_sharded_state(
+        cfg, ProcessMesh(rank=r, size=W, rows=cfg.ckpt_rows),
+        DIST_STEP_SEED, device)[0] for r in range(W)])
+    acc = torch.full_like(table, cfg.adagrad_init)
+
+    def global_args(s):
+        out = {}
+        for k in ("labels", "weights", "uniq_ids", "local_idx", "vals"):
+            parts = [r[f"b{s}/{k}"] for r in res]
+            if k == "local_idx":
+                parts = [offset_local_idx(p, i, ub)
+                         for i, p in enumerate(parts)]
+            out[k] = torch.cat(parts).to(device)
+        return out
+
+    first = global_args(0)
+    gids = first["uniq_ids"].long()
+    for r, rr in enumerate(res):
+        params, local, vals = (t.to(device) for t in rr["fwd"])
+        check(torch.equal(params, table.index_select(0, gids))
+              and torch.equal(local, offset_local_idx(
+                  rr["b0/local_idx"], r, ub).to(device))
+              and torch.equal(vals, rr["b0/vals"].to(device)),
+              f"rank {r}'s forward kernel got other inputs than the global "
+              f"batch's [{W}·{ub}, {table.shape[1]}] row block and its "
+              f"offset local_idx")
+        check(all(torch.equal(a, b) for a, b in zip(rr["bwd"][:3], rr["fwd"]))
+              and not rr["need_dx"], f"rank {r}'s backward kernel got "
+              f"other inputs than its forward")
+        check(rr["launches"] == [2, 2],
+              f"rank {r} launched (fm_score, fm_score_bwd) "
+              f"{rr['launches']} times in two steps")
+    losses, loss_err, weights = [], 0.0, []
+    for s in range(2):
+        args = first if s == 0 else global_args(s)
+        weights.append(float(args["weights"].sum()))
+        table, acc, loss, _ = port_fm.train_step_body(spec, table, acc,
+                                                      **args)
+        losses.append(float(loss))
+        for r, rr in enumerate(res):
+            err = abs(rr[f"loss{s}"] - losses[-1])
+            loss_err = max(loss_err, err)
+            check(err <= DIST_LOSS_RTOL * abs(losses[-1]),
+                  f"step {s}: rank {r}'s loss {rr[f'loss{s}']} against the "
+                  f"single-process step's {losses[-1]}")
+    del first
+    state_err = 0.0
+    for r, rr in enumerate(res):
+        ids = rr["ids"].to(device)
+        for key, want in (("table_rows", table), ("acc_rows", acc)):
+            ok, err = close_enough(rr[key].to(device),
+                                   want.index_select(0, ids),
+                                   DIST_STATE_RTOL, DIST_STATE_ATOL)
+            state_err = max(state_err, err)
+            check(ok, f"rank {r}'s {key} after two steps differ from the "
+                      f"single-process step's by {err}")
+        check(rr["rest_unchanged"], f"rank {r} changed rows no step touched")
+    touched = sum(len(rr["ids"]) for rr in res)
+    del table, acc
+    torch.cuda.empty_cache()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    fwd_rows, bwd_rows = [], []
+    for r, rr in enumerate(res):
+        params, local, vals, g = (t.to(device) for t in rr["bwd"])
+        fwd_rows.append(fwd_kernel_row(torch, params, local, vals, None,
+                                       batch=f"dist_rank{r}"))
+        bwd_rows += bwd_kernel_rows(torch, params, local, vals, g, flush,
+                                    need_dx_cases=(False,),
+                                    batch=f"dist_rank{r}")
+    del flush
+    row = {"lines_per_rank_unpadded": counts[:, 1].tolist(),
+           "batches_per_rank_unpadded": counts[:, 0].tolist(),
+           "uniq_bucket": ub, "step_weights": weights,
+           "last_step_weight": weights[-1], "step_losses": losses,
+           "loss_max_abs_err": loss_err, "state_max_abs_err": state_err,
+           "touched_rows": touched,
+           "step_check_seconds": time.perf_counter() - t0,
+           "step_fm_score_launches": [rr["launches"][0] for rr in res],
+           "step_fm_score_bwd_launches": [rr["launches"][1] for rr in res]}
+    print(f"dist step check: 2-rank step vs single-process step on the "
+          f"global batch, loss err {loss_err:.3g}, rows err {state_err:.3g} "
+          f"over {touched} touched rows; unpadded split: lines "
+          f"{row['lines_per_rank_unpadded']}, batches "
+          f"{row['batches_per_rank_unpadded']}, the last global step "
+          f"weighs {weights[-1]:g} of {weights[0]:g} and takes a full "
+          f"step", flush=True)
+    return row, fwd_rows, bwd_rows
+
+
+def finish_dist(procs, logs, outs, what):
+    """Wait for every rank (bounded); returns (logs' text, launches)."""
+    try:
+        rcs = [p.wait(timeout=DIST_RUN_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for path in logs:
+        with open(path) as fh:
+            texts.append(fh.read())
+    if rcs != [0] * len(procs):
+        for t in texts:
+            print(t[-4000:], flush=True)
+    check(rcs == [0] * len(procs), f"{what}: ranks exited {rcs}")
+    launches = []
+    for path in outs:
+        with open(path) as fh:
+            launches.append(json.load(fh))
+    return texts, launches
+
+
+def wait_log(path, pattern, procs, what, timeout=DIST_RUN_TIMEOUT):
+    """Wait until the log at ``path`` matches ``pattern`` while every
+    process of ``procs`` runs."""
+    import re
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(path) as fh:
+            if re.search(pattern, fh.read()):
+                return
+        check(all(p.poll() is None for p in procs)
+              and time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def kill_run(procs, logs):
+    """SIGKILL worker 1 of the kill run a few steps into its epoch 1 (loss
+    lines land at the epoch barrier: the chief's validation line marks
+    epoch 1's start); returns (the survivor's exit code, seconds from the
+    kill to its exit, the WorkerLostError line or None)."""
+    import re
+    import signal
+    wait_log(logs[0], "epoch 0 validation AUC", procs,
+             "the kill run's epoch 0")
+    time.sleep(0.5)
+    check(procs[1].poll() is None, "worker 1 exited before the kill")
+    procs[1].send_signal(signal.SIGKILL)
+    t_kill = time.perf_counter()
+    budget = DIST_COLLECTIVE_TIMEOUT + 4 * DIST_HEARTBEAT_SECONDS
+    try:
+        rc0 = procs[0].wait(timeout=budget + 30)
+    except subprocess.TimeoutExpired:
+        rc0 = None
+    detect_s = time.perf_counter() - t_kill
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    with open(logs[0]) as fh:
+        lost = re.search(r"WorkerLostError: .*process 1 \(", fh.read())
+    return rc0, detect_s, budget, lost
+
+
+def dist_start(data):
+    """Start phase 15's two dist runs (``dist_finish`` completes the
+    phase): run A, two ranks on cuda:0 training one epoch of the train
+    phase's lines, and the kill run, whose worker 1 a background thread
+    SIGKILLs in its epoch 1. They run beside the phases in between: their
+    card work is their first ~25 s, and the rest is run A's chief writing
+    its ``.npz``."""
+    from fast_tffm_tpu_torch.config import load_config
+    data_wd = data[0]
+    wd = os.path.join(WORK, "dist")
+    os.makedirs(wd)
+    h = {"wd": wd, "data_wd": data_wd, "t0": time.perf_counter(),
+         "kill_result": []}
+    h["per_rank"] = write_even_shards(os.path.join(data_wd, "train.txt"),
+                                      os.path.join(wd, "train_even.txt"),
+                                      DIST_WORKERS)
+    # One block of free ports for the three jobs' rendezvous: the kill
+    # run starts with run A, and the predict starts while run A's chief
+    # still holds its port.
+    port = free_port_block(4)
+    h["cfg_path"] = write_dist_cfg(wd, data_wd, "a", 1, DIST_SAVE_STEPS,
+                                   port)
+    h["cfg"] = load_config(h["cfg_path"])
+    kill_cfg = write_dist_cfg(wd, data_wd, "kill", 3, 0, port + 1)
+    h["predict_cfg"] = write_dist_cfg(wd, data_wd, "a", 1, DIST_SAVE_STEPS,
+                                      port + 2, name="dist_a_predict.cfg")
+    h["train_a"] = start_dist(wd, "train", h["cfg_path"], "a")
+    h["kill"] = start_dist(wd, "train", kill_cfg, "kill")
+    h["step"] = start_step_check(wd, data_wd, port + 3)
+
+    def killer():
+        try:
+            h["kill_result"].append(kill_run(*h["kill"][:2]))
+        except BaseException as e:  # noqa: BLE001 - dist_finish raises it
+            h["kill_result"].append(e)
+
+    h["killer"] = threading.Thread(target=killer, name="smoke-dist-kill",
+                                   daemon=True)
+    h["killer"].start()
+    return h
+
+
+def dist_stop(h):
+    """Stop every process of the dist runs (a no-op once finished)."""
+    if h is None:
+        return
+    for p in h["train_a"][0] + h["kill"][0] + h["step"][0]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    h["killer"].join(timeout=60)
+
+
+def dist_finish(h, torch, device, card, train_row):
+    """Phase 15, started by ``dist_start``: ``python -m
+    fast_tffm_tpu_torch train|predict <cfg> dist_train worker <i>`` with
+    two ranks on cuda:0 (two processes, each with its CUDA context and a
+    [ckpt_rows/2, 17] table shard and accumulator, talking over gloo) at
+    config #2's width: one epoch of the train phase's lines (each rank
+    its byte range, one periodic save), the validation lines split
+    alike; the 2-rank predict of its final step against a single-process
+    predict of the same step; and the kill run's survivor."""
+    import io
+    import re
+    import numpy as np
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.tools import fmckpt
+    t_visible = time.perf_counter()
+    wd, cfg, cfg_path = h["wd"], h["cfg"], h["cfg_path"]
+    train_a, per_rank, t0 = h["train_a"], h["per_rank"], h["t0"]
+    try:
+        h["killer"].join(timeout=DIST_RUN_TIMEOUT)
+        check(h["kill_result"] and not isinstance(h["kill_result"][0],
+                                                  BaseException),
+              f"the kill run failed: {h['kill_result']}")
+        rc0, detect_s, budget, lost = h["kill_result"][0]
+        check(rc0 not in (None, 0) and lost is not None
+              and detect_s <= budget,
+              f"the survivor exited {rc0} after {detect_s:.1f}s (budget "
+              f"{budget}s), naming process 1: {lost is not None}")
+        # The final step is durable before the chief logs the final AUC
+        # and starts its export.
+        wait_log(train_a[1][0], r"final validation AUC", train_a[0],
+                 "the dist train's final save")
+        directory = cfg.model_file + ".ckpt"
+        verify_out = io.StringIO()
+        t1 = time.perf_counter()
+        verify_rc = fmckpt.cmd_verify(directory, mode="full",
+                                      out=verify_out)
+        verify_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        plogs, plaunches = finish_dist(
+            *start_dist(wd, "predict", h["predict_cfg"], "a"),
+            "dist predict")
+        predict_s = time.perf_counter() - t1
+        single_cfg = os.path.join(wd, "single.cfg")
+        with open(cfg_path) as fh:
+            text = fh.read()
+        score_dir = cfg.score_path
+        with open(single_cfg, "w") as fh:
+            fh.write(re.sub(r"\[Cluster\].*", "", text, flags=re.S).replace(
+                f"score_path = {score_dir}",
+                f"score_path = {score_dir}_single"))
+        t1 = time.perf_counter()
+        check(cli(["predict", single_cfg]) == 0,
+              "single-process predict failed")
+        single_s = time.perf_counter() - t1
+        logs, launches = finish_dist(*train_a, "dist train")
+        train_s = time.perf_counter() - t0
+        step_row, fwd_rows, bwd_rows = dist_step_check(h, torch, device)
+    finally:
+        dist_stop(h)
+    for i, text in enumerate(logs):
+        check(f"multi-process training: rank {i} of {DIST_WORKERS} on "
+              f"cuda:0" in text, f"worker {i}'s log names no cuda:0")
+        check(launches[i]["fm_score"] > 0 and launches[i]["fm_score_bwd"] > 0,
+              f"worker {i} launched fm_score {launches[i]['fm_score']} and "
+              f"fm_score_bwd {launches[i]['fm_score_bwd']} times")
+    steps = [[(int(s), float(v)) for s, v in re.findall(
+        r"step (\d+) epoch \d+ loss ([0-9.]+)", t)] for t in logs]
+    check(steps[0] == steps[1] and len(steps[0]) >= 4,
+          f"the workers' step losses differ: {steps}")
+    losses = [v for _, v in steps[0]]
+    half = len(losses) // 2
+    check(np.mean(losses[half:]) < np.mean(losses[:half]),
+          f"the loss did not fall: {losses}")
+    m = re.search(r"final validation AUC ([0-9.]+) over (\d+)", logs[0])
+    check(m is not None and int(m.group(2)) == VAL_LINES,
+          "no final validation AUC over every validation line in worker "
+          "0's log")
+    auc = float(m.group(1))
+    run_a_auc = train_row["validation_auc"][0]
+    check(auc > train_row["auc_floor"]
+          and abs(auc - run_a_auc) <= DIST_AUC_TOL,
+          f"2-worker validation AUC {auc} against run A's {run_a_auc} "
+          f"(tolerance {DIST_AUC_TOL}) and the floor "
+          f"{train_row['auc_floor']}")
+    workers = []
+    for text in logs:
+        w = re.search(r"worker (\d) of \d: (\d+) steps, (\d+) local "
+                      r"examples, loop ([0-9.]+) local examples/sec, "
+                      r"([0-9.]+) ms a step, export ([0-9.]+)s", text)
+        check(w is not None, "a worker's summary line is missing")
+        workers.append({"worker": int(w.group(1)), "steps": int(w.group(2)),
+                        "local_examples": int(w.group(3)),
+                        "loop_examples_per_s": float(w.group(4)),
+                        "step_ms": float(w.group(5)),
+                        "export_seconds": float(w.group(6))})
+    check([w["local_examples"] for w in workers]
+          == [per_rank] * DIST_WORKERS,
+          f"the workers stepped {[w['local_examples'] for w in workers]} "
+          f"examples, not {per_rank} each")
+    check(os.path.isfile(cfg.model_file + ".npz"),
+          "the chief wrote no .npz export")
+    state = fmckpt.scan(directory)
+    final_step = steps[0][-1][0]
+    saved = [DIST_SAVE_STEPS, final_step]
+    check([s["step"] for s in state["steps"]] == saved,
+          f"fmckpt ls of the chief's checkpoint: {state}")
+    check(verify_rc == 0 and verify_out.getvalue().count(": OK (full check")
+          == len(saved), f"fmckpt verify --mode full: {verify_out.getvalue()}")
+    check(all(p["fm_score"] > 0 for p in plaunches),
+          f"predict ranks launched fm_score {plaunches}")
+    check(sorted(os.listdir(score_dir)) == ["val.txt.score"],
+          f"score directory after the merge: {os.listdir(score_dir)}")
+    merged = np.loadtxt(os.path.join(score_dir, "val.txt.score"))
+    single = np.loadtxt(os.path.join(score_dir + "_single", "val.txt.score"))
+    check(merged.shape == single.shape == (VAL_LINES,),
+          f"{merged.shape} merged scores, {single.shape} single")
+    predict_err = float(np.abs(merged - single).max())
+    check(predict_err <= DIST_PREDICT_ATOL,
+          f"merged predict differs from single-process by {predict_err}")
+    row = {"phase": "dist", "card": card, "workers": DIST_WORKERS,
+           "backend": "gloo", "lines": TRAIN_LINES,
+           "validation_lines": VAL_LINES,
+           "batch_size_per_rank": TRAIN_BATCH // DIST_WORKERS,
+           "note": "correctness-run figures, not a benchmark",
+           "seconds": time.perf_counter() - t0,
+           "visible_seconds": time.perf_counter() - t_visible,
+           "train_seconds": train_s, "predict_seconds": predict_s,
+           "single_predict_seconds": single_s,
+           "fmckpt_verify_full_seconds": verify_s,
+           "steps": final_step, "losses": losses,
+           "validation_auc": auc, "run_a_auc": run_a_auc,
+           "auc_gap": abs(auc - run_a_auc),
+           "predict_max_abs_err": predict_err,
+           "workers_figures": workers,
+           "fm_score_launches": [w["fm_score"] for w in launches],
+           "fm_score_bwd_launches": [w["fm_score_bwd"] for w in launches],
+           "predict_fm_score_launches": [p["fm_score"] for p in plaunches],
+           "kill_exit_code": rc0, "kill_detect_seconds": detect_s,
+           "kill_budget_seconds": budget,
+           "kill_message": lost.group(0)[:200], **step_row}
+    print(f"dist: {DIST_WORKERS} workers on cuda:0 (gloo), "
+          f"{row['seconds']:.1f}s for the phase, {row['visible_seconds']:.1f}s"
+          f" of it after the phases it ran beside (correctness run, not a "
+          f"benchmark); loop examples/s "
+          f"{[w['loop_examples_per_s'] for w in workers]}, step ms "
+          f"{[w['step_ms'] for w in workers]}, export "
+          f"{workers[0]['export_seconds']:.2f}s; fm_score launches "
+          f"{row['fm_score_launches']}, fm_score_bwd "
+          f"{row['fm_score_bwd_launches']}; AUC {auc:.6f} vs run A "
+          f"{run_a_auc:.6f}; predict max err {predict_err:.3g}; killed "
+          f"worker 1 detected in {detect_s:.1f}s (rc {rc0})", flush=True)
+    emit(row)
+    return row, fwd_rows, bwd_rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -4054,6 +4718,7 @@ def main(argv) -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    dist = None
     free = shutil.disk_usage(WORK).free
     print(f"free bytes under {WORK}: {free}", flush=True)
     check(free >= MIN_FREE_BYTES, f"{free} bytes free under {WORK}; the "
@@ -4131,6 +4796,8 @@ def main(argv) -> int:
         del reload_lines
         quarantine_row = quarantine_phase(train_cfg, smi)
         shutil.rmtree(os.path.dirname(train_cfg.model_file))  # disk for 9
+        # 15 starts here: the dist runs go on beside phases 9-11
+        dist = dist_start(train_data)
 
         # 9. train with dedup = host
         host_row, fwd_host_rows, bwd_host_rows = host_dedup_phase(
@@ -4148,6 +4815,11 @@ def main(argv) -> int:
         ffm_row["generate_seconds"] = ffm_data_s
         order3_row = model_leg(torch, device, smi, train_data[0], "order3",
                                train_row)
+        # 15. dist_train: two ranks on the card, the table row-sharded
+        dist_row, fwd_dist_rows, bwd_dist_rows = dist_finish(
+            dist, torch, device, smi, train_row)
+        kernel_rows += fwd_dist_rows
+        bwd_rows += bwd_dist_rows
         # 12. the stream run mode, its watermark and the gated publish
         for name in os.listdir(train_data[0]):  # disk for the phase
             if name.startswith("model"):
@@ -4165,6 +4837,7 @@ def main(argv) -> int:
         kernel_rows += fwd_admit_rows
         bwd_rows += bwd_admit_rows
     finally:
+        dist_stop(dist)
         shutil.rmtree(WORK, ignore_errors=True)
 
     head = next(r for r in kernel_rows if r["batch"] == "uniform" and
@@ -4190,7 +4863,9 @@ def main(argv) -> int:
                      + stream_row["fm_score_launches"]
                      + stream_row["serve_launches"]
                      + offload_row["fm_score_launches"]
-                     + admit_row["fm_score_launches"]),
+                     + admit_row["fm_score_launches"]
+                     + sum(dist_row["fm_score_launches"])
+                     + sum(dist_row["predict_fm_score_launches"])),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4212,7 +4887,9 @@ def main(argv) -> int:
         "stream_train_launches": stream_row["fm_score_launches"],
         "stream_serve_launches": stream_row["serve_launches"],
         "offload_launches": offload_row["fm_score_launches"],
-        "admit_launches": admit_row["fm_score_launches"]}, {
+        "admit_launches": admit_row["fm_score_launches"],
+        "dist_train_launches": dist_row["fm_score_launches"],
+        "dist_predict_launches": dist_row["predict_fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
@@ -4221,13 +4898,15 @@ def main(argv) -> int:
                      + packed_train_row["fm_score_bwd_launches"]
                      + stream_row["fm_score_bwd_launches"]
                      + offload_row["fm_score_bwd_launches"]
-                     + admit_row["fm_score_bwd_launches"]),
+                     + admit_row["fm_score_bwd_launches"]
+                     + sum(dist_row["fm_score_bwd_launches"])),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
         "stream_train_launches": stream_row["fm_score_bwd_launches"],
         "offload_launches": offload_row["fm_score_bwd_launches"],
         "admit_launches": admit_row["fm_score_bwd_launches"],
+        "dist_train_launches": dist_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -4268,7 +4947,7 @@ def main(argv) -> int:
                        "train_packed": packed_train_row,
                        "train_ffm": ffm_row, "train_order3": order3_row,
                        "stream": stream_row, "offload": offload_row,
-                       "admit": admit_row,
+                       "admit": admit_row, "dist": dist_row,
                        "kernel_offload": offload_rows, **kernels}, fh,
                       indent=1)
     emit(kernels)

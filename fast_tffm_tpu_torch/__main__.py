@@ -2,7 +2,9 @@
 surface of ``run_tffm.py``:
 
     python -m fast_tffm_tpu_torch train   <cfg> [--device cuda|cpu]
+                                                [dist_train worker <i>]
     python -m fast_tffm_tpu_torch predict <cfg> [--device cuda|cpu]
+                                                [dist_train worker <i>]
     python -m fast_tffm_tpu_torch serve   <cfg> [--device cuda|cpu]
                                                 [--replicas N]
 
@@ -22,8 +24,15 @@ are in torch's format, not the JAX package's: give the two packages
 different model_files
 (``models/convert.save_checkpoint_from_numpy`` carries a JAX model
 across). They run on the CUDA card unless ``--device cpu`` asks for the
-CPU; without a card they raise. ``dist_train`` roles are not ported
-yet (ROADMAP.md, queue A).
+CPU; without a card they raise.
+
+``train|predict <cfg> dist_train worker <i>`` runs rank i of the
+cluster the config's ``[Cluster] worker_hosts`` lists: one process per
+entry, started alike, training one model in lockstep with the table
+row-sharded over them (rank 0 hosts the rendezvous at worker_hosts[0]'s
+port + 1000; ranks sharing one card talk over gloo). ``dist_train ps
+<i>`` explains that there are no parameter servers and exits 0;
+``serve`` takes no role.
 """
 
 from __future__ import annotations
@@ -49,10 +58,40 @@ def main(argv=None) -> int:
             print("--device wants cuda or cpu", file=sys.stderr)
             return _usage()
         device, rest = rest[1], rest[2:]
-    if rest[:1] == ["dist_train"]:
+    if mode == "serve" and rest[:1] == ["dist_train"]:
+        print("serve takes no dist_train role: the scorer is "
+              "single-process; a multi-replica fleet is "
+              "`serve <cfg> --replicas N`", file=sys.stderr)
+        return _usage()
+    job_name = task_index = None
+    if mode != "serve" and rest == ["--join"]:
+        if mode != "train":
+            print("--join is a train mode: a replacement worker joins a "
+                  "running elastic = grow training cluster",
+                  file=sys.stderr)
+            return _usage()
         raise NotImplementedError(
-            "multi-process dist_train is not ported to "
-            "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A10)")
+            "train --join (elastic grow) is not ported to "
+            "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A10, its "
+            "second slice: elastic membership and multi-process streams)")
+    if mode != "serve" and rest:
+        if len(rest) != 3 or rest[0] != "dist_train":
+            return _usage()
+        job_name = rest[1]
+        try:
+            task_index = int(rest[2])
+        except ValueError:
+            print(f"dist_train task index must be an integer, got "
+                  f"{rest[2]!r}", file=sys.stderr)
+            return _usage()
+        if job_name == "ps":
+            print("fast_tffm_tpu has no parameter servers: the table is "
+                  "row-sharded across the device mesh. Launch worker "
+                  "roles only.", file=sys.stderr)
+            return 0
+        if job_name != "worker":
+            return _usage()
+        rest = []
     replicas = None
     if mode == "serve" and rest[:1] == ["--replicas"]:
         try:
@@ -69,11 +108,12 @@ def main(argv=None) -> int:
     cfg = apply_env_overrides(load_config(cfg_path))
     if mode == "train":
         from fast_tffm_tpu_torch.train import train
-        train(cfg, device=device)
+        train(cfg, device=device, job_name=job_name, task_index=task_index)
         return 0
     if mode == "predict":
         from fast_tffm_tpu_torch.predict import predict
-        predict(cfg, device=device)
+        predict(cfg, device=device, job_name=job_name,
+                task_index=task_index)
         return 0
     n = replicas if replicas is not None else cfg.serve_replicas
     if n > 1:

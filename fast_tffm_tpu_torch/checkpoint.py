@@ -37,9 +37,19 @@ carries a JAX-trained model across.
 ``restore_partial`` (the offload predict path, lookup.py) loads the
 table alone; the accumulator is never read.
 
-Not ported, each waiting for its ROADMAP.md item: multi-process
-broadcasts (A10), and the telemetry counters and ``health:
-ckpt_fallback`` event (A11).
+Multi-process (``dist_train``; ``mesh``, a parallel.sharded.ProcessMesh):
+the step files keep this one format. A save gathers the ranks' row
+shards to the chief in 64 MB chunks (each rank sends one chunk at a
+time), and only the chief writes the step, the manifest, the sidecars
+and the pointers; a restore loads each rank's own rows of the stored
+``[ckpt_rows, D]`` arrays (memory-mapped), so a step saved by N ranks
+restores on any power-of-two count, 1 included. Every decision rides a
+chief broadcast under the deadline guard: which step to restore
+(``_broadcast_int``), whether every rank loaded it (``_all_agree``),
+the epoch override and the sidecars, and whether a save writes.
+
+Not ported: the telemetry counters and ``health: ckpt_fallback`` event
+(ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.utils.logging import get_logger
@@ -511,7 +522,7 @@ _LOAD_ERRORS = (ValueError, KeyError, TypeError, OSError, RuntimeError,
 
 class CheckpointState:
     """Manages checkpoints under ``<model_file>.ckpt/`` for one writer
-    process.
+    process (with a ``mesh``, the chief writes for every rank).
 
     Saves are asynchronous, as the JAX package's orbax saves are:
     ``save`` copies the table and accumulator into host buffers
@@ -542,7 +553,8 @@ class CheckpointState:
 
     def __init__(self, model_file: str, max_to_keep: int = 3,
                  retry: Optional[RetryPolicy] = None,
-                 verify: str = "size", adagrad_init: float = 0.1):
+                 verify: str = "size", adagrad_init: float = 0.1,
+                 mesh=None):
         if verify not in CKPT_VERIFY_MODES:
             raise ValueError(f"unknown ckpt_verify mode {verify!r} "
                              f"(want one of {CKPT_VERIFY_MODES})")
@@ -555,7 +567,36 @@ class CheckpointState:
         self._writer: Optional[threading.Thread] = None
         self._writer_error: Optional[BaseException] = None
         self._swept = False
+        # parallel.sharded.ProcessMesh of a multi-process run, or None.
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.chief = self.mesh is None or self.mesh.rank == 0
         os.makedirs(self.directory, exist_ok=True)
+
+    # -- multi-process decisions ----------------------------------------
+    def _broadcast_int(self, value: int) -> int:
+        """The chief's value on every rank (identity on one process):
+        every step decision goes through here, so ranks never diverge
+        onto different steps and pair mismatched collectives."""
+        if self.mesh is None:
+            return int(value)
+        return int(self.mesh.broadcast_object(
+            int(value), "checkpoint/step_decision"))
+
+    def _broadcast_json(self, obj, label: str):
+        """The chief's JSON-able value on every rank."""
+        if self.mesh is None:
+            return obj
+        return self.mesh.broadcast_object(obj, label)
+
+    def _all_agree(self, flag: bool) -> bool:
+        """True only when every rank reports ``flag`` (identity on one
+        process). A restore's success is a per-rank fact; branching on
+        it without agreement would desynchronise the collectives."""
+        if self.mesh is None:
+            return bool(flag)
+        flags = self.mesh.all_gather_host(np.asarray([int(bool(flag))]),
+                                          "checkpoint/restore_agree")
+        return bool(flags.all())
 
     # -- save -------------------------------------------------------------
 
@@ -606,6 +647,10 @@ class CheckpointState:
         leaves the digit namespace before the new sidecars land, so no
         instant pairs the old arrays with the new slot map)."""
         step = int(step)
+        if self.mesh is not None:
+            return self._save_sharded(step, table, acc, vocabulary_size,
+                                      force, wait, epoch,
+                                      rewrite_stale_metadata)
         if from_state and not wait:
             raise ValueError(
                 "a from_state save writes the caller's own tensors, which "
@@ -643,10 +688,96 @@ class CheckpointState:
             self._writer = threading.Thread(
                 target=self._write_step,
                 args=(meta, stream_state, vocab_state, arrays, replace),
-                name="ckpt-writer", daemon=True)
+                name="fmt-ckpt-writer", daemon=True)
             self._writer.start()
         if wait:
             self._join_writer()
+
+    def _save_sharded(self, step: int, table: torch.Tensor,
+                      acc: torch.Tensor, vocabulary_size: int, force: bool,
+                      wait: bool, epoch: int,
+                      rewrite_stale_metadata: bool) -> None:
+        """A multi-process save of this rank's ``[rows_per_rank, D]``
+        shards (the same skip and epoch-correction rules as ``save``,
+        decided by the chief and broadcast): the shards are gathered
+        into the chief's stored-layout buffers, and the chief's writer
+        thread writes the step. ``wait``: every rank returns once the
+        step is durable."""
+        decision, err = "write", None
+        if self.chief:
+            try:
+                self._join_writer()
+                steps = list_step_dirs(self.directory)
+                if not force and steps and step <= steps[-1]:
+                    decision = "skip"
+                elif step in steps:
+                    decision = "meta"
+            except Exception as e:  # every rank raises it below
+                decision, err = "error", f"{type(e).__name__}: {e}"
+        decision, err = self._broadcast_json([decision, err],
+                                             "checkpoint/save_decision")
+        if decision == "error":
+            raise RuntimeError(f"checkpoint save of step {step} refused "
+                               f"by the chief: {err}")
+        if decision == "skip":
+            return
+        if decision == "meta":
+            if self.chief and rewrite_stale_metadata:
+                _atomic_write_text(self._epoch_sidecar(step),
+                                   str(int(epoch)))
+        else:
+            if self.chief:
+                if not self._swept:
+                    self._sweep_litter()
+                self._prune_fresh_step(step)
+            self._snapshot_sharded(table, acc, int(vocabulary_size))
+            if self.chief:
+                meta = {"format": STEP_FORMAT, "step": step,
+                        "epoch": int(epoch), "vocab": int(vocabulary_size)}
+                self._writer = threading.Thread(
+                    target=self._write_step,
+                    args=(meta, None, None, self._buffers, False),
+                    name="fmt-ckpt-writer", daemon=True)
+                self._writer.start()
+        if wait:
+            ok, err = True, None
+            if self.chief:
+                try:
+                    self._join_writer()
+                except Exception as e:
+                    ok, err = False, e
+            if not self._all_agree(ok):
+                if err is not None:
+                    raise err
+                raise RuntimeError(
+                    f"checkpoint step {step} failed to write on the chief")
+
+    def _snapshot_sharded(self, table: torch.Tensor, acc: torch.Tensor,
+                          vocabulary_size: int) -> None:
+        """Every rank's shards into the chief's stored-layout buffers,
+        a chunk of at most 64 MB per rank at a time: only the chief
+        holds the whole table."""
+        mesh = self.mesh
+        n = mesh.rows_per_rank
+        for name, t in (("table", table), ("acc", acc)):
+            d = int(t.shape[1])
+            if tuple(t.shape) != (n, d):
+                raise ValueError(f"{name} shard of shape {tuple(t.shape)}; "
+                                 f"want [{n}, D]")
+            if self.chief:
+                shape = (mesh.rows, d)
+                buf = self._buffers.get(name)
+                if buf is None or tuple(buf.shape) != shape:
+                    buf = torch.empty(shape, dtype=torch.float32)
+                    self._buffers[name] = buf
+            chunk = max(1, (64 << 20) // (d * 4))
+            for a in range(0, n, chunk):
+                b = min(a + chunk, n)
+                piece = t[a:b].detach().to("cpu", torch.float32).contiguous()
+                parts = mesh.gather_to_chief(piece, f"checkpoint/{name}")
+                if self.chief:
+                    for r, part in enumerate(parts):
+                        buf[r * n + a:r * n + b].copy_(part)
 
     def _write_step_sidecars(self, step: int, stream_state: Optional[dict],
                              vocab_state: Optional[dict]) -> None:
@@ -1008,11 +1139,18 @@ class CheckpointState:
         is verified against its manifest first, and one that fails —
         or fails to load — is quarantined while restore walks back. An
         EXPLICIT step is verified but never quarantined or walked past:
-        the caller asked for those exact bytes."""
+        the caller asked for those exact bytes.
+
+        Multi-process (``mesh``): the arrays are this rank's rows
+        ``[lo, hi)`` of the stored ``[ckpt_rows, D]`` layout; the chief
+        picks, verifies and quarantines, and every rank loads the step
+        the chief broadcast."""
         self.wait_until_finished()
         if step is not None:
             self._check_format(step)
-            reason = self.verify_step(step)
+            reason = self._broadcast_json(
+                self.verify_step(step) if self.chief else None,
+                "checkpoint/verify")
             if reason is not None:
                 raise ValueError(
                     f"checkpoint step {step} at {self.directory} "
@@ -1021,8 +1159,9 @@ class CheckpointState:
                     "automatically — inspect it with `python -m "
                     "fast_tffm_tpu_torch.tools.fmckpt verify`.")
             restored, err = self._attempt_restore(step, template)
-            if err is not None:
-                self._raise_restore_error(step, err)
+            if not self._all_agree(err is None):
+                self._raise_restore_error(step, err or RuntimeError(
+                    f"restore of step {step} failed on another process"))
             return self._apply_sidecars(step, restored)
         return self._restore_newest_intact(template)
 
@@ -1036,18 +1175,32 @@ class CheckpointState:
 
     def _restore_newest_intact(self, template
                                ) -> Optional[Dict[str, Any]]:
+        """The self-healing walk-back: the chief picks, verifies and
+        quarantines; every decision is broadcast, and every rank loads
+        the agreed step."""
         quarantined = 0
         first_err: Optional[Tuple[int, BaseException]] = None
         while True:
-            cand, nq = self._pick_intact_step()
-            quarantined += nq
+            cand, refusal = -1, None
+            if self.chief:
+                try:
+                    cand, nq = self._pick_intact_step()
+                    quarantined += nq
+                except ValueError as e:  # a step in another format
+                    if self.mesh is None:
+                        raise
+                    refusal = str(e)
+            cand, refusal = self._broadcast_json([cand, refusal],
+                                                 "checkpoint/step_decision")
+            if refusal is not None:
+                raise ValueError(refusal)
             if cand < 0:
                 if first_err is not None:
                     # Every remaining candidate failed to LOAD: surface
                     # the newest step's error (on a config mismatch it
                     # is the diagnosis for every step).
                     self._raise_restore_error(*first_err)
-                if quarantined:
+                if self._broadcast_int(1 if quarantined else 0):
                     # Never turn "every checkpoint failed integrity"
                     # into a silent fresh start over hours of
                     # quarantined-but-recoverable state.
@@ -1061,17 +1214,26 @@ class CheckpointState:
                         "elsewhere to start fresh.")
                 return None
             restored, err = self._attempt_restore(cand, template)
-            if err is None:
+            # A load's success is a per-rank fact: agree before branching.
+            if self._all_agree(err is None):
                 return self._apply_sidecars(cand, restored)
+            if err is None:
+                err = RuntimeError(
+                    f"restore of step {cand} failed on another process")
             if first_err is None:
                 first_err = (cand, err)
             # Walk past a load failure only when an OLDER step remains:
             # quarantining the last step on (say) a config mismatch
             # would turn a loud error into a silent fresh start.
-            if not any(t != cand for t in list_step_dirs(self.directory)):
+            has_more = 0
+            if self.chief and any(t != cand
+                                  for t in list_step_dirs(self.directory)):
+                has_more = 1
+            if not self._broadcast_int(has_more):
                 self._raise_restore_error(cand, err)
-            self.quarantine_step(
-                cand, f"restore failed: {type(err).__name__}: {err}")
+            if self.chief:
+                self.quarantine_step(
+                    cand, f"restore failed: {type(err).__name__}: {err}")
             quarantined += 1
 
     def _attempt_restore(self, s: int, template
@@ -1079,7 +1241,9 @@ class CheckpointState:
                                     Optional[BaseException]]:
         """One load of step ``s`` to the CPU, transient-IO retries
         included: (restored, None) or (None, error). The load stays on
-        the CPU so that no CUDA error can pass for a torn file."""
+        the CPU so that no CUDA error can pass for a torn file. With a
+        mesh the arrays are memory-mapped and only this rank's rows are
+        read."""
         names = ARRAYS if template is None else tuple(
             n for n in ARRAYS if n in template)
         step_dir = os.path.join(self.directory, str(s))
@@ -1095,6 +1259,7 @@ class CheckpointState:
                 t = retry_io(torch.load,
                              os.path.join(step_dir, name + ".pt"),
                              map_location="cpu", weights_only=True,
+                             mmap=self.mesh is not None,
                              policy=self._retry, op="checkpoint_restore")
                 if not isinstance(t, torch.Tensor) or t.dim() != 2 or \
                         t.dtype != torch.float32 or \
@@ -1113,7 +1278,10 @@ class CheckpointState:
                         raise ValueError(
                             f"{name} is stored as {list(t.shape)}; this "
                             f"config's layout is {want}")
-                out[name] = t[:num_rows]
+                if self.mesh is not None:
+                    out[name] = t[self.mesh.lo:self.mesh.hi].clone()
+                else:
+                    out[name] = t[:num_rows]
             return out, None
         except _LOAD_ERRORS as e:
             return None, e
@@ -1123,13 +1291,18 @@ class CheckpointState:
         """Overlay a same-step epoch-correction sidecar (see save())
         and attach the step's stream watermark and vocab admission
         payload: a walk-back to an older step resumes at that step's
-        older position with its own slot map."""
-        override = read_epoch_override(self.directory, step)
+        older position with its own slot map. Multi-process: the chief
+        reads them and broadcasts, so a read error on one host can never
+        give ranks different epochs or positions."""
+        side = None
+        if self.chief:
+            side = [read_epoch_override(self.directory, step),
+                    read_watermark(self.directory, step),
+                    read_vocab_sidecar(self.directory, step)]
+        override, restored["stream"], restored["vocab_admission"] = \
+            self._broadcast_json(side, "checkpoint/epoch_override")
         if override is not None:
             restored["epoch"] = override
-        restored["stream"] = read_watermark(self.directory, step)
-        restored["vocab_admission"] = read_vocab_sidecar(self.directory,
-                                                         step)
         return restored
 
     def _raise_restore_error(self, s, e) -> None:

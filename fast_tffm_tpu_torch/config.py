@@ -6,7 +6,8 @@ loader (unknown keys raise ``KeyError: unknown config key``, with a
 "(this key belongs in [X])" hint for a known key in the wrong section),
 so one config file loads in both packages. Comments below describe each
 knob as the JAX package implements it; the port serves a subset and
-refuses the rest (``models/fm.ModelSpec.from_config``).
+refuses the rest (``train.check_train_supported`` and ``__main__.py``;
+keys it accepts without effect are logged: ``utils/ignored.py``).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Host input pipeline: text files -> padded [B, L] batches.
 
-The single-process subset of ``fast_tffm_tpu/data/pipeline.py``:
+The port of ``fast_tffm_tpu/data/pipeline.py`` (its telemetry aside):
 
 - ``batch_iterator`` routes each input to one of three paths, by the
   JAX package's own predicate (``_fast_path_eligible``):
@@ -22,10 +22,19 @@ The single-process subset of ``fast_tffm_tpu/data/pipeline.py``:
   and ``chip_smoke.py`` hold the C++ stream against;
 - ``prefetch``: one background thread, ``depth`` batches ahead.
 
+Multi-process input (``dist_train``): each worker reads its byte range
+of every file (``shard_byte_range``: a line belongs to the range its
+first byte falls in), on every route; ``fixed_shape`` batches have one
+L and one U (``uniq_bucket``, measured by ``probe_uniq_bucket``) on
+every rank, and a batch whose unique ids would overflow the bucket
+closes early (the spill: the serial C++ builder's budget close, the
+generic path's ``UniqOverflow`` requeue; fixed-shape input never takes
+the parallel plane), counted in
+``SpillStats``; ``empty_batch`` is the filler of a rank whose shard ran
+dry.
+
 There is no Python fallback: when the C++ library cannot be built,
-``batch_iterator`` raises (data/cparser.py). Not ported yet: sharded
-byte ranges (``num_shards > 1``), ``fixed_shape`` and the fixed unique
-bucket (``uniq_bucket``) with its spill protocol (ROADMAP.md A10); the
+``batch_iterator`` raises (data/cparser.py). Not ported yet: the
 pipeline telemetry (A11).
 
 ``vocab_mode = admit`` (vocab/table.py): ``batch_iterator`` and
@@ -71,6 +80,52 @@ from fast_tffm_tpu_torch.utils.retry import (RetryPolicy, open_with_retry,
 
 # (path, 1-based line number) of one input line.
 Source = Tuple[str, int]
+
+
+class UniqOverflow(ValueError):
+    """A batch's unique-id count exceeds the fixed unique bucket; the
+    caller must spill (emit a prefix of the batch and requeue the rest)."""
+
+
+@dataclasses.dataclass
+class SpillStats:
+    """Spill accounting of fixed-U (multi-process) input: a batch whose
+    unique ids exceed ``uniq_bucket`` closes early with fewer real
+    examples — correct, but it costs throughput, so train logs these
+    counts per epoch and feeds them to ``train.adapt_uniq_bucket``."""
+    batches: int = 0            # batches emitted
+    spilled_batches: int = 0    # closed early on the unique-row budget
+    real_examples: int = 0      # non-padding examples emitted
+    capacity: int = 0           # batches * batch_size
+    max_uniq: int = 0           # the densest batch's unique-row count
+
+    def count(self, num_real: int, batch_size: int,
+              spilled: bool, num_uniq: int = 0) -> None:
+        self.batches += 1
+        self.spilled_batches += int(spilled)
+        self.real_examples += num_real
+        self.capacity += batch_size
+        self.max_uniq = max(self.max_uniq, num_uniq)
+
+    @property
+    def spill_fraction(self) -> float:
+        return self.spilled_batches / self.batches if self.batches else 0.0
+
+    @property
+    def fill_fraction(self) -> float:
+        return (self.real_examples / self.capacity if self.capacity
+                else 1.0)
+
+    def describe(self) -> str:
+        return (f"{self.batches} batches, {self.real_examples} examples "
+                f"(fill {self.fill_fraction:.1%}), "
+                f"{self.spilled_batches} spilled "
+                f"({self.spill_fraction:.1%})")
+
+
+# Above this spilled-batch fraction an undersized uniq_bucket visibly
+# degrades the pipeline, and train warns with the fix.
+SPILL_WARN_FRACTION = 0.1
 
 
 def require_bounded_examples(cfg: FmConfig, context: str) -> None:
@@ -228,8 +283,9 @@ def make_device_batch(block: ParsedBlock, cfg: FmConfig,
                       batch_size: int = 0,
                       weights: Optional[np.ndarray] = None,
                       raw_ids: bool = True,
-                      dedup: Callable = first_occurrence_unique
-                      ) -> DeviceBatch:
+                      dedup: Callable = first_occurrence_unique,
+                      fixed_shape: bool = False,
+                      uniq_bucket: int = 0) -> DeviceBatch:
     """CSR block -> padded DeviceBatch: B = ``batch_size`` (or
     cfg.batch_size) examples, L = the smallest ``bucket_ladder`` rung
     that holds the longest example. ``raw_ids`` (the default: serving
@@ -238,20 +294,41 @@ def make_device_batch(block: ParsedBlock, cfg: FmConfig,
     the C++ ``dedup_ids_fast``, equal array for array) fills
     ``uniq_ids`` to the smallest ``_uniq_ladder`` rung with a pad slot
     and ``local_idx`` indexes it. ``weights`` (a sidecar's, per real
-    example) default to 1.0."""
+    example) default to 1.0.
+
+    ``fixed_shape`` (multi-process lockstep, host dedup only) pins L to
+    the ladder top and U to ``uniq_bucket`` (or the ladder top), so
+    every rank's batches have one shape; a block whose unique ids do not
+    fit the bucket raises ``UniqOverflow`` (the spill protocol)."""
     B = batch_size or cfg.batch_size
     n_real = block.batch_size
     if n_real > B:
         raise ValueError(f"block of {n_real} examples exceeds batch_size {B}")
+    if raw_ids and fixed_shape:
+        raise ValueError("raw_ids (dedup=device) has no fixed-U protocol; "
+                         "multi-process mode needs dedup=host")
     sizes = block.sizes
     max_l = int(sizes.max()) if n_real else 1
-    L = _ladder_fit(max(max_l, 1), cfg.bucket_ladder)
+    ladder = cfg.bucket_ladder
+    L = ladder[-1] if fixed_shape else _ladder_fit(max(max_l, 1), ladder)
+    if max_l > L:
+        raise ValueError(f"example with {max_l} features exceeds the fixed "
+                         f"bucket {L}; raise bucket_ladder or "
+                         "max_features_per_example")
 
     if raw_ids:
         uniq_ids, inverse, pad_slot = None, block.ids, cfg.pad_id
     else:
         uniq, inverse = dedup(block.ids)
-        U = _ladder_fit(len(uniq) + 1, _uniq_ladder(B, L))
+        uladder = _uniq_ladder(B, L)
+        if fixed_shape:
+            U = uniq_bucket or uladder[-1]
+            if len(uniq) + 1 > U:
+                raise UniqOverflow(
+                    f"{len(uniq)} unique ids exceed the fixed unique "
+                    f"bucket {U} (one slot is reserved for padding)")
+        else:
+            U = _ladder_fit(len(uniq) + 1, uladder)
         uniq_ids = np.full(U, cfg.pad_id, dtype=np.int32)
         uniq_ids[:len(uniq)] = uniq
         pad_slot = U - 1  # always a pad_id slot by construction
@@ -294,38 +371,83 @@ def epoch_file_order(files: List[str], shuffle: bool, seed: int,
     return out
 
 
-def _iter_file_chunks(path: str, retry: Optional[RetryPolicy] = None,
-                      chunk_bytes: int = 4 << 20) -> Iterator[bytes]:
-    """The byte chunks of ``path`` — the JAX package's
-    ``_iter_owned_chunks`` for the one shard a single process owns.
+def shard_byte_range(path: str, shard_index: int,
+                     num_shards: int) -> Tuple[int, int]:
+    """This shard's byte range of ``path``: worker i owns every line
+    whose first byte falls in [size*i/N, size*(i+1)/N), so each worker
+    reads ~1/N of every file."""
+    size = os.path.getsize(path)
+    return (size * shard_index // num_shards,
+            size * (shard_index + 1) // num_shards)
+
+
+def _iter_owned_chunks(path: str, start: int = 0, end: Optional[int] = None,
+                       retry: Optional[RetryPolicy] = None,
+                       chunk_bytes: int = 4 << 20) -> Iterator[bytes]:
+    """Byte chunks that together hold exactly the lines owned by the
+    byte range [start, end) of ``path`` (``end`` None: to EOF).
+    Ownership is by a line's first byte: the line straddling ``start``
+    belongs to the previous range (skipped by scanning from start-1 to
+    the first newline; adjacent ranges agree on that newline, so every
+    line is owned once), and the line straddling ``end`` is read to its
+    end. Only the final chunk at EOF may lack a trailing newline.
+
     ``retry`` wraps the open and each chunk read in the transient-IO
     retry loop; every attempt seeks back to the chunk's start first, as
     a partial buffered read advances the position before it raises."""
     fh = (open(path, "rb") if retry is None else
           open_with_retry(path, "rb", policy=retry, op="data_open"))
-    with fh:
-        while True:
-            if retry is None:
-                b = fh.read(chunk_bytes)
-            else:
-                pos0 = fh.tell()
 
-                def attempt() -> bytes:
-                    fh.seek(pos0)
-                    return fh.read(chunk_bytes)
-                b = retry_io(attempt, policy=retry, op="data_read")
+    def read(n: int) -> bytes:
+        if retry is None:
+            return fh.read(n)
+        pos0 = fh.tell()
+
+        def attempt() -> bytes:
+            fh.seek(pos0)
+            return fh.read(n)
+        return retry_io(attempt, policy=retry, op="data_read")
+
+    with fh:
+        pos = start
+        if start > 0:
+            fh.seek(start - 1)
+            while True:  # skip to the byte after the first newline
+                b = read(chunk_bytes)
+                if not b:
+                    return  # EOF before any owned line
+                i = b.find(b"\n")
+                if i >= 0:
+                    pos = fh.tell() - len(b) + i + 1
+                    fh.seek(pos)
+                    break
+        if end is not None and pos >= end:
+            return  # the first owned line starts past the range
+        while True:
+            b = read(chunk_bytes)
             if not b:
                 return
+            if end is not None and pos + len(b) >= end:
+                # The boundary falls in this chunk: emit through the
+                # first newline at offset >= end-1 (the last owned
+                # line's terminator) and stop.
+                cut = b.find(b"\n", max(end - 1 - pos, 0))
+                if cut >= 0:
+                    yield b[:cut + 1]
+                    return
             yield b
+            pos += len(b)
 
 
-def _iter_file_lines(path: str, retry: Optional[RetryPolicy] = None
-                     ) -> Iterator[str]:
-    """Decoded lines of ``path``. Lines split on newlines before they are
-    decoded, so a multibyte character across a chunk boundary survives;
-    a final line without its newline still counts."""
+def _iter_range_lines(path: str, start: int = 0, end: Optional[int] = None,
+                      retry: Optional[RetryPolicy] = None
+                      ) -> Iterator[str]:
+    """Decoded lines owned by [start, end) of ``path``. Lines split on
+    newlines before they are decoded, so a multibyte character across a
+    chunk boundary survives; a final line without its newline still
+    counts."""
     tail = b""
-    for chunk in _iter_file_chunks(path, retry=retry):
+    for chunk in _iter_owned_chunks(path, start, end, retry=retry):
         parts = (tail + chunk if tail else chunk).split(b"\n")
         tail = parts.pop()
         for raw in parts:
@@ -334,15 +456,69 @@ def _iter_file_lines(path: str, retry: Optional[RetryPolicy] = None
         yield tail.decode("utf-8")
 
 
+def _owned_start_line_index(path: str, start: int,
+                            retry: Optional[RetryPolicy] = None) -> int:
+    """The 0-based line index of the first line owned by a byte range
+    beginning at ``start``: the newline count before that line, by a
+    memchr-speed scan. It aligns weight sidecars, and the line numbers
+    of errors, with a byte-range shard. Memoized per file version
+    (size, mtime and inode in the key)."""
+    if start <= 0:
+        return 0
+    st = os.stat(path)
+    return _owned_start_line_index_for(path, start, st.st_size,
+                                       st.st_mtime_ns, st.st_ino, retry)
+
+
+@functools.lru_cache(maxsize=512)
+def _owned_start_line_index_for(path: str, start: int, _size: int,
+                                _mtime_ns: int, _ino: int,
+                                retry: Optional[RetryPolicy] = None
+                                ) -> int:
+    n = 0
+    with (open(path, "rb") if retry is None else
+          open_with_retry(path, "rb", policy=retry,
+                          op="sidecar_align")) as fh:
+        # Newlines strictly before start-1, then the boundary: the
+        # newline at or after start-1 ends the previous owner's line.
+        remaining = start - 1
+        while remaining > 0:
+            b = fh.read(min(4 << 20, remaining))
+            if not b:
+                return n
+            n += b.count(b"\n")
+            remaining -= len(b)
+        while True:
+            b = fh.read(4 << 20)
+            if not b:
+                return n  # EOF before a newline: nothing more is owned
+            if b.find(b"\n") >= 0:
+                return n + 1
+
+
+def _shard_range(path: str, shard_index: int, num_shards: int,
+                 retry: Optional[RetryPolicy]) -> Tuple[int, Optional[int],
+                                                        int]:
+    """(start, end, lines before start) of this shard of ``path``; the
+    whole file, ``end`` None, for one shard."""
+    if num_shards <= 1:
+        return 0, None, 0
+    start, end = shard_byte_range(path, shard_index, num_shards)
+    return start, end, _owned_start_line_index(path, start, retry)
+
+
 def _iter_lines(files: Sequence[str], weight_files: Sequence[str],
                 keep_empty: bool = False,
                 retry: Optional[RetryPolicy] = None,
-                file_marks: Optional[FileMarks] = None
+                file_marks: Optional[FileMarks] = None,
+                shard_index: int = 0, num_shards: int = 1
                 ) -> Iterator[Tuple[str, float, Source]]:
     """``(line, weight, (path, lineno))`` for every example-producing
-    line (every line under ``keep_empty``). Weight files are
-    line-parallel sidecars: a missing weight line or a bad weight fails
-    loudly instead of training with a wrong weight."""
+    line (every line under ``keep_empty``) of this shard's byte range of
+    each file (``shard_byte_range``). Weight files are line-parallel
+    sidecars, aligned with a shard by skipping the lines before its
+    range: a missing weight line or a bad weight fails loudly instead
+    of training with a wrong weight."""
     if weight_files:
         if len(weight_files) != len(files):
             raise ValueError(
@@ -350,11 +526,20 @@ def _iter_lines(files: Sequence[str], weight_files: Sequence[str],
                 f"after glob expansion ({len(weight_files)} sidecars vs "
                 f"{len(files)} files)")
         for path, wpath in zip(files, weight_files):
+            start, end, n_skip = _shard_range(path, shard_index,
+                                              num_shards, retry)
             wfh = (open(wpath) if retry is None else
                    open_with_retry(wpath, policy=retry, op="sidecar_open"))
             with wfh:
-                lineno = 0
-                for line in _iter_file_lines(path, retry=retry):
+                for i in range(n_skip):
+                    if not wfh.readline():
+                        raise ValueError(
+                            f"weight file {wpath} is shorter than its "
+                            f"data file {path}: ended at line {i} while "
+                            f"skipping to this shard's start ({n_skip})")
+                lineno = n_skip
+                for line in _iter_range_lines(path, start, end,
+                                              retry=retry):
                     wline = wfh.readline()
                     lineno += 1
                     if not wline:
@@ -378,8 +563,11 @@ def _iter_lines(files: Sequence[str], weight_files: Sequence[str],
             # keep_empty: one example per line, so the count yielded is
             # the example offset.
             file_marks.start_file(path, yielded)
-        for lineno, line in enumerate(_iter_file_lines(path, retry=retry),
-                                      1):
+        start, end, base = _shard_range(path, shard_index, num_shards,
+                                        retry)
+        for lineno, line in enumerate(
+                _iter_range_lines(path, start, end, retry=retry),
+                base + 1):
             # strip() pinned to the libsvm separator set, as the C++
             # builder counts blank lines.
             if line.strip(WHITESPACE) or keep_empty:
@@ -411,15 +599,15 @@ def _attach_block_source(e: ParseError,
     return ParseError(f"{path} line {lineno}: {m.group(2)}")
 
 
-def _attach_stream_source(e: ParseError,
-                          file_spans: Sequence[Tuple[int, str]]
+def _attach_stream_source(e: ParseError, file_spans: Sequence[tuple]
                           ) -> ParseError:
     """Rewrite a builder-stream ParseError ("line N: ..." where N counts
     every line fed to the builder) with the owning file's path and line
-    number; ``file_spans`` holds ``(lines_before, path)`` per file fed.
-    The span map is searched, not the current file assumed: a threaded
-    builder reports an error when batch consumption reaches it, which
-    can be while a later file is feeding."""
+    number; ``file_spans`` holds ``(lines_before, path)`` per file fed,
+    or ``(lines_before, path, lines_before_range)`` for a byte-range
+    shard of it. The span map is searched, not the current file
+    assumed: a threaded builder reports an error when batch consumption
+    reaches it, which can be while a later file is feeding."""
     m = _LINE_MSG.match(str(e))
     if not m or not file_spans:
         return e
@@ -430,8 +618,9 @@ def _attach_stream_source(e: ParseError,
             owner = span
         else:
             break
-    base, path = owner
-    return ParseError(f"{path} line {n - base}: {m.group(2)}")
+    base, path = owner[0], owner[1]
+    offset = owner[2] if len(owner) > 2 else 0
+    return ParseError(f"{path} line {n - base + offset}: {m.group(2)}")
 
 
 def _host_cpus() -> int:
@@ -453,13 +642,17 @@ def resolve_host_threads(cfg: FmConfig) -> int:
 
 
 def host_parallel_workers(cfg: FmConfig,
-                          weight_files: Sequence[str] = ()) -> int:
+                          weight_files: Sequence[str] = (),
+                          fixed_shape: bool = False) -> int:
     """The worker count the data plane actually uses for these inputs:
     ``resolve_host_threads`` where a parallel route exists (the C++
     fast path, or the tolerant generic path without weight files), else
-    1 — the same predicate ``batch_iterator`` routes on."""
+    1 — the same predicate ``batch_iterator`` routes on. ``fixed_shape``
+    input always takes a serial route: its spill composes batches in
+    sequence (the serial builder's budget close, the generic path's
+    requeue)."""
     workers = resolve_host_threads(cfg)
-    if workers <= 1:
+    if workers <= 1 or fixed_shape:
         return 1
     if _fast_path_eligible(cfg, weight_files):
         return workers
@@ -476,16 +669,19 @@ def _worker_feed_threads(workers: int) -> int:
 
 
 def _make_builder(cfg: FmConfig, B: int, raw_ids: bool, keep_empty: bool,
-                  num_threads: int = 0) -> cparser.BatchBuilder:
+                  num_threads: int = 0, uniq_bucket: int = 0
+                  ) -> cparser.BatchBuilder:
     """The one BatchBuilder construction, shared by the serial fast path
-    and the parallel plane's per-worker builders."""
+    and the parallel plane's per-worker builders. ``uniq_bucket`` > 0
+    (fixed-shape input, serial builder only) caps a batch's unique rows:
+    the builder closes a batch early rather than exceed it (the spill)."""
     return cparser.BatchBuilder(
         B, effective_L_cap(cfg), cfg.vocabulary_size,
         hash_feature_id=cfg.hash_feature_id,
         field_aware=cfg.model_type == "ffm", field_num=cfg.field_num,
         raw_ids=raw_ids, keep_empty=keep_empty,
         max_features_per_example=cfg.max_features_per_example,
-        num_threads=num_threads)
+        max_uniq=uniq_bucket, num_threads=num_threads)
 
 
 class _BatchEmitter:
@@ -496,20 +692,27 @@ class _BatchEmitter:
     make every ``host_threads`` setting give one stream."""
 
     def __init__(self, cfg: FmConfig, B: int, shuffle: bool,
-                 seed: Optional[int]):
+                 seed: Optional[int], fixed_shape: bool = False,
+                 uniq_bucket: int = 0,
+                 stats: Optional[SpillStats] = None):
         self.cfg = cfg
         self.B = B
         self.shuffle = shuffle
+        self.fixed_shape = fixed_shape
+        self.uniq_bucket = uniq_bucket
+        self.stats = stats
         self.pyrng = random.Random(cfg.seed if seed is None else seed)
         self.nprng = np.random.default_rng(self.pyrng.getrandbits(64))
         self.window: List[DeviceBatch] = []
         self.window_cap = (max(2, cfg.queue_size // B) if shuffle
                            else 1)
 
-    def emit_drain(self, out) -> Iterator[DeviceBatch]:
+    def emit_drain(self, out, spilled: bool = False
+                   ) -> Iterator[DeviceBatch]:
         """Emit one builder ``finish()`` tuple and drain it through the
-        bounded shuffle window (a passthrough when shuffle is off)."""
-        batch = self._emit(*out)
+        bounded shuffle window (a passthrough when shuffle is off).
+        ``spilled``: the builder closed it early on the unique budget."""
+        batch = self._emit(*out, spilled=spilled)
         if self.shuffle:
             self.window.append(batch)
             if len(self.window) >= self.window_cap:
@@ -522,10 +725,14 @@ class _BatchEmitter:
         while self.window:
             yield self.window.pop(self.pyrng.randrange(len(self.window)))
 
-    def _emit(self, n, labels, uniq, li, vals, fields,
-              max_nnz) -> DeviceBatch:
+    def _emit(self, n, labels, uniq, li, vals, fields, max_nnz,
+              spilled: bool = False) -> DeviceBatch:
         cfg, B = self.cfg, self.B
-        L = _ladder_fit(max(max_nnz, 1), cfg.bucket_ladder)
+        if self.stats is not None:
+            self.stats.count(n, B, spilled,
+                             num_uniq=_num_uniq(uniq, cfg.pad_id))
+        L = (li.shape[1] if self.fixed_shape
+             else _ladder_fit(max(max_nnz, 1), cfg.bucket_ladder))
         if L < li.shape[1]:
             li = np.ascontiguousarray(li[:, :L])
             vals = np.ascontiguousarray(vals[:, :L])
@@ -535,8 +742,13 @@ class _BatchEmitter:
             uniq_ids = None
         else:
             # The builder's uniq already holds the reserved pad slot
-            # (index 0), so it is fitted as it is.
-            U = _ladder_fit(len(uniq), _uniq_ladder(B, L))
+            # (index 0), so it is fitted as it is; a fixed shape takes
+            # the bucket (the builder kept within it) or the ladder top.
+            uladder = _uniq_ladder(B, L)
+            if self.fixed_shape:
+                U = self.uniq_bucket or uladder[-1]
+            else:
+                U = _ladder_fit(len(uniq), uladder)
             uniq_ids = np.full(U, cfg.pad_id, dtype=np.int32)
             uniq_ids[:len(uniq)] = uniq
         weights = np.zeros(B, np.float32)
@@ -681,7 +893,9 @@ class _GroupScanner:
 
     def __init__(self, files: Sequence[str], B: int, keep_empty: bool,
                  retry: Optional[RetryPolicy],
-                 file_marks: Optional[FileMarks] = None):
+                 file_marks: Optional[FileMarks] = None,
+                 shard_index: int = 0, num_shards: int = 1):
+        self._si, self._ns = shard_index, num_shards
         self._files = list(files)
         self._fi = 0
         self._chunks: Optional[Iterator[bytes]] = None
@@ -692,7 +906,7 @@ class _GroupScanner:
         self._retry = retry
         self._file_marks = file_marks
         self.lines = 0  # stream lines consumed into groups so far
-        self.file_spans: List[Tuple[int, str]] = []
+        self.file_spans: List[tuple] = []
 
     def next_group(self) -> Optional[_Group]:
         while True:
@@ -737,12 +951,15 @@ class _GroupScanner:
             # Lines before this file: those consumed into groups plus
             # the complete lines still buffered (all from earlier files).
             base = self.lines + self._buf.count(b"\n", self._pos)
-            self.file_spans.append((base, path))
+            start, end, offset = _shard_range(path, self._si, self._ns,
+                                              self._retry)
+            self.file_spans.append((base, path, offset))
             if self._file_marks is not None:
                 # keep_empty (the only file_marks mode): lines are
                 # examples.
                 self._file_marks.start_file(path, base)
-            self._chunks = _iter_file_chunks(path, retry=self._retry)
+            self._chunks = _iter_owned_chunks(path, start, end,
+                                              retry=self._retry)
 
 
 class _FastWorkerState:
@@ -787,7 +1004,8 @@ def _parallel_fast_batch_iterator(cfg: FmConfig, files: List[str], B: int,
                                   n_epochs: int, shuffle: bool,
                                   seed: Optional[int], raw_ids: bool,
                                   keep_empty: bool, workers: int,
-                                  file_marks: Optional[FileMarks] = None
+                                  file_marks: Optional[FileMarks] = None,
+                                  shard_index: int = 0, num_shards: int = 1
                                   ) -> Iterator[DeviceBatch]:
     """Parallel host data plane: parse, hash, dedup and pack fan out over
     ``workers`` pool threads, each owning its own C++ BatchBuilder, over
@@ -809,7 +1027,8 @@ def _parallel_fast_batch_iterator(cfg: FmConfig, files: List[str], B: int,
         for epoch in range(n_epochs):
             scanner = _GroupScanner(
                 epoch_file_order(files, shuffle, file_seed, epoch), B,
-                keep_empty, retry, file_marks=file_marks)
+                keep_empty, retry, file_marks=file_marks,
+                shard_index=shard_index, num_shards=num_shards)
             order: collections.deque = collections.deque()
             scan_done = False
             while True:
@@ -836,18 +1055,26 @@ def _parallel_fast_batch_iterator(cfg: FmConfig, files: List[str], B: int,
 def _fast_batch_iterator(cfg: FmConfig, bb: cparser.BatchBuilder,
                          files: List[str], B: int, n_epochs: int,
                          shuffle: bool, seed: Optional[int],
-                         file_marks: Optional[FileMarks] = None
+                         file_marks: Optional[FileMarks] = None,
+                         shard_index: int = 0, num_shards: int = 1,
+                         fixed_shape: bool = False, uniq_bucket: int = 0,
+                         stats: Optional[SpillStats] = None
                          ) -> Iterator[DeviceBatch]:
-    """Chunked C++ fast path: raw file bytes stream straight into the
-    BatchBuilder; Python never touches a line. Shuffle is a
-    window-of-batches pick plus a within-batch row permutation
-    (``_BatchEmitter``), the mixing radius of a ``queue_size``-line
-    shuffle queue at batch granularity."""
-    emitter = _BatchEmitter(cfg, B, shuffle, seed)
+    """Chunked C++ fast path: raw file bytes (this shard's byte ranges,
+    ``shard_byte_range``) stream straight into the BatchBuilder; Python
+    never touches a line. Shuffle is a window-of-batches pick plus a
+    within-batch row permutation (``_BatchEmitter``), the mixing radius
+    of a ``queue_size``-line shuffle queue at batch granularity. With a
+    fixed ``uniq_bucket`` the builder caps each batch's unique rows: a
+    too-dense batch closes early with fewer than B examples (the spill)
+    and the shapes stay fixed."""
+    emitter = _BatchEmitter(cfg, B, shuffle, seed, fixed_shape, uniq_bucket,
+                            stats)
     tail = b""
     fed_lines = 0  # complete lines fed to the builder so far: mirrors
-    # the builder's own line counter
-    file_spans: List[Tuple[int, str]] = []  # (lines_before, path)
+    # the builder's own line counter (a spilled line is fed again but
+    # counted once on both sides)
+    file_spans: List[tuple] = []  # (lines_before, path, range offset)
 
     def feed_all(data: bytes) -> Iterator[DeviceBatch]:
         nonlocal tail, fed_lines
@@ -858,7 +1085,10 @@ def _fast_batch_iterator(cfg: FmConfig, bb: cparser.BatchBuilder,
             off += consumed
             if not full:
                 break
-            yield from emitter.emit_drain(bb.finish())
+            out = bb.finish()
+            # "Full" at B examples, or at a line that would exceed the
+            # unique budget: the latter closes the batch short.
+            yield from emitter.emit_drain(out, spilled=out[0] < B)
         tail = data[off:]  # unconsumed partial line, fed again next chunk
 
     retry = RetryPolicy.from_config(cfg)
@@ -866,12 +1096,15 @@ def _fast_batch_iterator(cfg: FmConfig, bb: cparser.BatchBuilder,
     try:
         for epoch in range(n_epochs):
             for path in epoch_file_order(files, shuffle, file_seed, epoch):
+                start, end, offset = _shard_range(path, shard_index,
+                                                  num_shards, retry)
                 tail = b""
-                file_spans.append((fed_lines, path))
+                file_spans.append((fed_lines, path, offset))
                 if file_marks is not None:
                     # keep_empty: lines fed before this file = examples.
                     file_marks.start_file(path, fed_lines)
-                for chunk in _iter_file_chunks(path, retry=retry):
+                for chunk in _iter_owned_chunks(path, start, end,
+                                                retry=retry):
                     yield from feed_all(tail + chunk if tail else chunk)
                 if tail:  # final line missing its newline
                     yield from feed_all(tail + b"\n")
@@ -881,16 +1114,6 @@ def _fast_batch_iterator(cfg: FmConfig, bb: cparser.BatchBuilder,
             yield from emitter.flush_window()
     except ParseError as e:
         raise _attach_stream_source(e, file_spans) from None
-
-
-def check_stream_supported(cfg: FmConfig) -> None:
-    """Refuse the stream options this port does not have yet, naming
-    the ROADMAP.md item that brings each."""
-    if cfg.uniq_bucket:
-        raise NotImplementedError(
-            f"uniq_bucket = {cfg.uniq_bucket} (the fixed unique bucket of "
-            "multi-process input) is not ported to fast_tffm_tpu_torch "
-            "yet (ROADMAP.md, queue A, item A10)")
 
 
 def _fast_path_eligible(cfg: FmConfig, weight_files: Sequence[str]) -> bool:
@@ -938,6 +1161,8 @@ def batch_iterator(cfg: FmConfig, files: Sequence[str],
                    seed: Optional[int] = None,
                    keep_empty: bool = False,
                    fixed_shape: bool = False,
+                   uniq_bucket: int = 0,
+                   stats: Optional[SpillStats] = None,
                    raw_ids: bool = True,
                    bad_lines: Optional[BadLineTracker] = None,
                    file_marks: Optional[FileMarks] = None,
@@ -951,8 +1176,8 @@ def batch_iterator(cfg: FmConfig, files: Sequence[str],
         training=training, weight_files=weight_files,
         shard_index=shard_index, num_shards=num_shards, epochs=epochs,
         batch_size=batch_size, seed=seed, keep_empty=keep_empty,
-        fixed_shape=fixed_shape, raw_ids=raw_ids, bad_lines=bad_lines,
-        file_marks=file_marks))
+        fixed_shape=fixed_shape, uniq_bucket=uniq_bucket, stats=stats,
+        raw_ids=raw_ids, bad_lines=bad_lines, file_marks=file_marks))
 
 
 def _batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
@@ -964,6 +1189,8 @@ def _batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
                          seed: Optional[int] = None,
                          keep_empty: bool = False,
                          fixed_shape: bool = False,
+                         uniq_bucket: int = 0,
+                         stats: Optional[SpillStats] = None,
                          raw_ids: bool = True,
                          bad_lines: Optional[BadLineTracker] = None,
                          file_marks: Optional[FileMarks] = None
@@ -981,14 +1208,17 @@ def _batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
     one is made per iteration. ``file_marks``: the per-file offset
     ledger of a single in-order keep_empty pass.
 
-    ``fixed_shape`` and ``num_shards > 1`` raise NotImplementedError
-    (ROADMAP.md A10)."""
-    check_stream_supported(cfg)
-    if fixed_shape or num_shards > 1 or shard_index:
-        raise NotImplementedError(
-            "fixed_shape and sharded input (num_shards > 1) are not "
-            "ported to fast_tffm_tpu_torch yet (ROADMAP.md, queue A, "
-            "item A10)")
+    ``shard_index`` / ``num_shards``: this worker reads its byte range of
+    every file (``shard_byte_range``). ``fixed_shape`` (multi-process
+    lockstep; host dedup only) pins L to the ladder top and U to
+    ``uniq_bucket`` (or ``cfg.uniq_bucket``, or the ladder top): a batch
+    whose unique ids would overflow it closes early with fewer real
+    examples and the rest opens the next batch (the spill), counted in
+    ``stats`` (a ``SpillStats``)."""
+    if raw_ids and fixed_shape:
+        raise ValueError("raw_ids (dedup=device) has no fixed-U protocol; "
+                         "multi-process mode needs dedup=host")
+    uniq_bucket = uniq_bucket or cfg.uniq_bucket
     if weight_files:
         files, weight_files = expand_paired_files(files, weight_files)
     else:
@@ -1005,20 +1235,26 @@ def _batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
                 "no shuffle, and no weight sidecars (the per-file "
                 "example-offset ledger is only meaningful for an "
                 "in-order one-example-per-line pass)")
-    workers = host_parallel_workers(cfg, weight_files)
+    workers = host_parallel_workers(cfg, weight_files, fixed_shape)
+    shard = dict(shard_index=shard_index, num_shards=num_shards)
+    shape = dict(shard, fixed_shape=fixed_shape, uniq_bucket=uniq_bucket,
+                 stats=stats)
     if _fast_path_eligible(cfg, weight_files):
         if workers > 1:
             yield from _parallel_fast_batch_iterator(
                 cfg, files, B, n_epochs, shuffle, seed, raw_ids,
-                keep_empty, workers, file_marks=file_marks)
+                keep_empty, workers, file_marks=file_marks, **shard)
         else:
+            bb = _make_builder(cfg, B, raw_ids, keep_empty,
+                               uniq_bucket=uniq_bucket if fixed_shape
+                               else 0)
             yield from _fast_batch_iterator(
-                cfg, _make_builder(cfg, B, raw_ids, keep_empty), files, B,
-                n_epochs, shuffle, seed, file_marks=file_marks)
+                cfg, bb, files, B, n_epochs, shuffle, seed,
+                file_marks=file_marks, **shape)
         return
     yield from _generic_batch_iterator(
         cfg, files, weight_files, B, n_epochs, shuffle, seed, keep_empty,
-        raw_ids, bad_lines, file_marks, workers)
+        raw_ids, bad_lines, file_marks, workers, **shape)
 
 
 def _generic_batch_iterator(cfg: FmConfig, files: List[str],
@@ -1028,14 +1264,21 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
                             raw_ids: bool,
                             bad_lines: Optional[BadLineTracker],
                             file_marks: Optional[FileMarks],
-                            workers: int) -> Iterator[DeviceBatch]:
+                            workers: int, shard_index: int = 0,
+                            num_shards: int = 1, fixed_shape: bool = False,
+                            uniq_bucket: int = 0,
+                            stats: Optional[SpillStats] = None
+                            ) -> Iterator[DeviceBatch]:
     """The generic path: lines through a ``queue_size`` reservoir
     (shuffle on), B at a time into a C++ block parse and
     ``make_device_batch``. Under a tolerant policy each bad line is
     recorded in the tracker (whose breaker may raise) and dropped, or
     under ``keep_empty`` kept as a zero-feature example; with
     ``workers`` > 1 each chunk's parse and build runs on the pool, and
-    batches come back in submit order."""
+    batches come back in submit order. With ``fixed_shape`` a chunk
+    whose unique ids overflow ``uniq_bucket`` spills: the longest
+    prefix of examples that fits is emitted and the rest returns to the
+    head of the queue, counted once by the tracker."""
     retry = RetryPolicy.from_config(cfg)
     rng = random.Random(cfg.seed if seed is None else seed)
     tracker = bad_lines
@@ -1044,8 +1287,11 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
         tracker = BadLineTracker.from_config(cfg)
         own_tracker = tracker is not None
 
-    def parse_chunk(chunk):
-        """One chunk of (line, weight, source) -> (block, weights)."""
+    def parse_chunk(chunk, precounted: int = 0):
+        """One chunk of (line, weight, source) -> (surviving chunk,
+        block, weights). ``precounted``: the chunk's first this-many
+        items went through the tracker already (a spill's requeued
+        tail), so they neither count nor record again."""
         lines = [c[0] for c in chunk]
         if tracker is None:
             try:
@@ -1056,21 +1302,34 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
         else:
             bads: List[Tuple[int, str, str]] = []
             block = _salvage_block(lines, cfg, keep_empty, bads)
-            tracker.count_ok(len(lines) - len(bads))
-            for i, raw, msg in bads:
+            fresh = [b for b in bads if b[0] >= precounted]
+            tracker.count_ok(len(lines) - precounted - len(fresh))
+            for i, raw, msg in fresh:
                 path, lineno = chunk[i][2]
                 tracker.record(path, lineno, raw, _strip_line_prefix(msg))
             if bads and not keep_empty:
                 badset = {i for i, _, _ in bads}
                 chunk = [c for i, c in enumerate(chunk) if i not in badset]
-        return block, np.array([c[1] for c in chunk], dtype=np.float32)
+        return chunk, block, np.array([c[1] for c in chunk],
+                                      dtype=np.float32)
+
+    def batch_of(block, w) -> DeviceBatch:
+        return make_device_batch(block, cfg, B, weights=w, raw_ids=raw_ids,
+                                 dedup=cparser.dedup_ids_fast,
+                                 fixed_shape=fixed_shape,
+                                 uniq_bucket=uniq_bucket)
 
     def build(chunk) -> Optional[DeviceBatch]:
-        block, w = parse_chunk(chunk)
+        _, block, w = parse_chunk(chunk)
         if tracker is not None and block.batch_size == 0:
             return None  # every line of the chunk was bad
-        return make_device_batch(block, cfg, B, weights=w, raw_ids=raw_ids,
-                                 dedup=cparser.dedup_ids_fast)
+        return batch_of(block, w)
+
+    def counted(batch: DeviceBatch, spilled: bool) -> DeviceBatch:
+        if stats is not None:
+            stats.count(batch.num_real, B, spilled,
+                        num_uniq=_num_uniq(batch.uniq_ids, cfg.pad_id))
+        return batch
 
     # The tolerant generic path fans out: a bad line drops from the
     # parsed block and never shifts the B-line chunk boundaries, so each
@@ -1093,31 +1352,60 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
             if kind == "error":
                 raise val
             if val is not None:
-                yield val
+                yield counted(val, False)
 
     file_seed = cfg.seed if seed is None else seed
     try:
         for epoch in range(n_epochs):
             pending: List[Tuple[str, float, Source]] = []
             buf: List[Tuple[str, float, Source]] = []
+            # How many front items of ``pending`` went through the
+            # tracker already (a spill's requeued tail).
+            requeued = [0]
 
             def flush_batches(done: bool) -> Iterator[DeviceBatch]:
                 while len(pending) >= B or (done and pending):
                     chunk = pending[:B]
                     del pending[:B]
+                    k = min(requeued[0], len(chunk))
+                    requeued[0] -= k
                     if pool is not None:
                         pool_order.append(pool.submit(chunk))
                         yield from pool_drain(pool.depth)
                         continue
-                    out = build(chunk)
-                    if out is not None:
-                        yield out
+                    chunk, block, w = parse_chunk(chunk, precounted=k)
+                    if tracker is not None and block.batch_size == 0:
+                        continue  # every line of the chunk was bad
+                    try:
+                        yield counted(batch_of(block, w), False)
+                    except UniqOverflow:
+                        # The spill: the longest prefix of examples
+                        # that fits the budget; the tail reopens the
+                        # queue.
+                        m = _uniq_prefix_examples(block, uniq_bucket)
+                        if m == 0:
+                            raise ValueError(
+                                "single example exceeds uniq_bucket "
+                                f"{uniq_bucket}; raise it (or set 0 "
+                                "for auto)") from None
+                        pending[0:0] = chunk[m:]
+                        if tracker is not None:
+                            requeued[0] += len(chunk) - m
+                        # The head's lines were validated above: parse
+                        # them again without the tracker.
+                        head = [c[0] for c in chunk[:m]]
+                        head_block = (
+                            _salvage_block(head, cfg, keep_empty, [])
+                            if tracker is not None
+                            else _parse_block(head, cfg, keep_empty))
+                        yield counted(batch_of(head_block, w[:m]), True)
 
             for item in _iter_lines(
                     epoch_file_order(files, shuffle and not weight_files,
                                      file_seed, epoch),
                     weight_files, keep_empty=keep_empty, retry=retry,
-                    file_marks=file_marks):
+                    file_marks=file_marks, shard_index=shard_index,
+                    num_shards=num_shards):
                 if shuffle:
                     buf.append(item)
                     if len(buf) >= max(cfg.queue_size, B):
@@ -1138,6 +1426,98 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
             pool.close()
         if own_tracker:
             tracker.close()
+
+
+def _num_uniq(uniq_ids: Optional[np.ndarray], pad_id: int) -> int:
+    """Real unique rows of a host-deduped uniq array (pad_id slots are
+    fill); 0 for a raw-ids batch. The one counting rule of both paths'
+    SpillStats, which ``train.adapt_uniq_bucket`` compares."""
+    if uniq_ids is None:
+        return 0
+    return int((uniq_ids != pad_id).sum())
+
+
+def _uniq_prefix_examples(block: ParsedBlock, uniq_bucket: int) -> int:
+    """The most leading examples whose id union fits the unique bucket
+    (one slot reserved for padding): the generic path's spill point."""
+    if block.batch_size == 0:
+        return 0
+    _, first_pos = np.unique(block.ids, return_index=True)
+    # The example owning each first occurrence -> new uniques per example.
+    ex = np.searchsorted(block.poses, first_pos, side="right") - 1
+    cum = np.cumsum(np.bincount(ex, minlength=block.batch_size))
+    return int(np.searchsorted(cum, uniq_bucket - 1, side="right"))
+
+
+def probe_uniq_bucket(cfg: FmConfig, files: Sequence[str],
+                      batch_size: Optional[int] = None) -> int:
+    """The fixed unique-row bucket of multi-process input, measured from
+    the data instead of the worst case (the ladder top, next_pow2(B*L)):
+    one batch each from the head, middle and tail of the first, last
+    and largest files is parsed (every process reads the same bytes, so
+    all agree without a collective), and the result is the next power
+    of two >= 2x the most unique ids seen (>= 64, > the per-example
+    cap, <= the ladder top). A denser batch the probe missed spills."""
+    B = batch_size or cfg.batch_size
+    files = expand_files(files)
+    top = _uniq_ladder(B, effective_L_cap(cfg))[-1]
+    retry = RetryPolicy.from_config(cfg)
+    # A tolerant policy must not die in the probe on a line the sweep
+    # would skip: the density estimate ignores bad lines.
+    tolerant = cfg.bad_line_policy != "error"
+    cand = sorted({files[0], files[-1], max(files, key=os.path.getsize)})
+    u_max = 0
+    got_lines = False
+    for path in cand:
+        size = retry_io(os.path.getsize, path, policy=retry,
+                        op="probe_stat")
+        for start in sorted({0, size // 3, 2 * size // 3}):
+            lines: List[str] = []
+            for line in _iter_range_lines(path, start, size, retry=retry):
+                if line.strip(WHITESPACE):
+                    lines.append(line)
+                if len(lines) >= B:
+                    break
+            if not lines:
+                continue
+            got_lines = True
+            try:
+                block = (_salvage_block(lines[:B], cfg, False, [])
+                         if tolerant else _parse_block(lines[:B], cfg))
+            except ParseError as e:
+                raise ParseError(f"{path} (uniq-bucket probe near byte "
+                                 f"{start}): "
+                                 f"{_strip_line_prefix(str(e))}") from None
+            u_max = max(u_max, len(np.unique(block.ids)))
+    if not got_lines:
+        return min(1 << 10, top)
+    b = 64
+    while b < 2 * (u_max + 2) or b <= cfg.max_features_per_example:
+        b *= 2
+    return min(b, top)
+
+
+def uniq_bucket_top(cfg: FmConfig, batch_size: Optional[int] = None) -> int:
+    """The worst-case unique bucket (the ladder top): the ceiling of
+    train's epoch-boundary raise."""
+    return _uniq_ladder(batch_size or cfg.batch_size,
+                        effective_L_cap(cfg))[-1]
+
+
+def empty_batch(cfg: FmConfig, batch_size: Optional[int] = None,
+                uniq_bucket: int = 0) -> DeviceBatch:
+    """An all-padding fixed-shape batch (num_real 0, zero weights): the
+    filler a rank whose shard ran dry feeds while its peers finish;
+    every term it adds to a loss, a gradient or a regularizer is zero.
+    ``uniq_bucket`` must be the live batches'."""
+    fields = (np.zeros(0, np.int32) if cfg.model_type == "ffm" else None)
+    block = ParsedBlock(labels=np.zeros(0, np.float32),
+                        poses=np.zeros(1, np.int32),
+                        ids=np.zeros(0, np.int32),
+                        vals=np.zeros(0, np.float32), fields=fields)
+    return make_device_batch(block, cfg, batch_size or 0, raw_ids=False,
+                             fixed_shape=True,
+                             uniq_bucket=uniq_bucket or cfg.uniq_bucket)
 
 
 def _salvage_block(lines: Sequence[str], cfg: FmConfig, keep_empty: bool,
@@ -1185,7 +1565,6 @@ def _plain_batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
                                batch_size: Optional[int],
                                seed: Optional[int], keep_empty: bool
                                ) -> Iterator[DeviceBatch]:
-    check_stream_supported(cfg)
     files = expand_files(files)
     B = batch_size or cfg.batch_size
     n_epochs = epochs if epochs is not None else (cfg.epoch_num if training
@@ -1214,7 +1593,7 @@ def _plain_batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
         lines: List[str] = []
         sources: List[Source] = []
         for path in epoch_file_order(files, shuffle, file_seed, epoch):
-            for lineno, line in enumerate(_iter_file_lines(path), 1):
+            for lineno, line in enumerate(_iter_range_lines(path), 1):
                 if not (keep_empty or line.strip(WHITESPACE)):
                     continue
                 lines.append(line)

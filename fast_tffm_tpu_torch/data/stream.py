@@ -40,8 +40,8 @@ batch to physical rows before it joins the ready deque, as the epoch
 pipeline does.
 
 Not ported yet: the multi-worker lockstep (ledger broadcast, watermark
-exchange and merge, the fixed unique bucket probe: ROADMAP.md A10) and
-the stream telemetry counters and gauges (A11).
+exchange and merge, the fixed unique bucket probe: ROADMAP.md A10, its
+second slice) and the stream telemetry counters and gauges (A11).
 """
 
 from __future__ import annotations
@@ -424,7 +424,6 @@ class StreamSource:
     def __init__(self, cfg: FmConfig, tracker: StreamTracker,
                  stop=None, raw_ids: bool = True, workers: int = 1,
                  bad_lines: Optional[BadLineTracker] = None, vocab=None):
-        pl.check_stream_supported(cfg)
         self._vocab = vocab
         # The BUILD-side config: every parser and builder below mods ids
         # into the hashed space under admit mode.

@@ -22,13 +22,23 @@ package; no Pallas kernel was involved). A 2nd-order FM scores through
 ``ops/fm_kernel.fm_batch_scores``: the CUDA kernels for tensors on the
 card (forward, and in training the hand-written backward), their plain
 versions for tensors on the CPU. The ``kernel`` key is accepted and
-ignored: on the card an order-2 FM always runs the kernels. ``dedup``
-resolves as the JAX package resolves it on one device (``auto`` →
-``device``, or ``host`` with ``lookup = host``, whose backend gathers
-by the host-side unique): ``device`` steps take raw-ids batches and run
-the unique on the card, ``host`` steps take the pipeline's host-deduped
-batches (``uniq_ids`` set), whose U is a ladder rung the host picked, so
-the step never waits for the card to learn it.
+ignored (each entry point logs a ``kernel`` set to ``xla`` or
+``pallas`` as having no effect: utils/ignored.py): on the card an
+order-2 FM always runs the kernels. ``dedup`` resolves as the JAX
+package resolves it (``auto`` → ``device`` on one process with ``lookup
+= device``; ``host`` with ``lookup = host``, whose backend gathers by the
+host-side unique, and on more than one process, whose sharded step needs
+the host-side unique contract): ``device`` steps take raw-ids batches
+and run the unique on the card, ``host`` steps take the pipeline's
+host-deduped batches (``uniq_ids`` set), whose U is a ladder rung the
+host picked, so the step never waits for the card to learn it.
+
+Multi-process (``dist_train``; parallel/sharded.py):
+``sharded_train_step_body`` is ``train_step_body`` on the global batch
+of the ranks' local batches, over a row-sharded table, and
+``sharded_score_body`` its forward; each rank scores its local batch
+through the same ``_scores`` (the CUDA kernels on the card: the sharded
+form of the JAX package's ``fm_batch_scores_pallas`` wrapper).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
@@ -62,12 +73,18 @@ class ModelSpec:
     dedup: str = "device"    # "device" or "host"; never "auto"
 
     @classmethod
-    def from_config(cls, cfg: FmConfig) -> "ModelSpec":
+    def from_config(cls, cfg: FmConfig,
+                    num_processes: int = 1) -> "ModelSpec":
+        """``num_processes``: the job's process count (train and predict
+        pass theirs; every other caller runs one process)."""
         dedup = cfg.dedup
         if dedup == "auto":
-            # The offload backend gathers by the host-side unique
-            # (config.py refuses an explicit dedup = device there).
-            dedup = "device" if cfg.lookup == "device" else "host"
+            # Device dedup where it applies: one process with the table
+            # on the card. The offload backend gathers by the host-side
+            # unique (config.py refuses an explicit dedup = device
+            # there), and the sharded step exchanges its rows.
+            dedup = ("device" if num_processes == 1
+                     and cfg.lookup == "device" else "host")
         return cls(model_type=cfg.model_type, order=cfg.order,
                    factor_num=cfg.factor_num, field_num=cfg.field_num,
                    vocabulary_size=cfg.vocabulary_size,
@@ -161,16 +178,19 @@ def loss_and_scores(spec: ModelSpec, gathered: torch.Tensor,
                     labels: torch.Tensor, weights: torch.Tensor,
                     uniq_ids: torch.Tensor, local_idx: torch.Tensor,
                     vals: torch.Tensor,
-                    fields: Optional[torch.Tensor] = None
+                    fields: Optional[torch.Tensor] = None,
+                    weight_sum: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted-mean data loss + batch-active L2 reg. Zero-weight padding
-    examples drop out of both value and gradient."""
+    examples drop out of both value and gradient. ``weight_sum``: the
+    normaliser, when these examples are a rank's part of a global batch
+    (the global batch's weight; default this batch's)."""
     scores = _scores(spec, gathered, local_idx, vals, fields)
     per = _per_example_loss(spec, scores, labels)
     # Double where for the all-padding filler batch (sum(w) = 0): the
     # divisor is 1 there, so neither the value nor the gradient of the
     # branch not taken divides 0 by 0.
-    wsum = weights.sum()
+    wsum = weights.sum() if weight_sum is None else weight_sum
     nonzero = wsum > 0.0
     den = torch.where(nonzero, wsum, torch.ones_like(wsum))
     data_loss = torch.where(nonzero, (per * weights).sum() / den,
@@ -211,14 +231,16 @@ def sparse_adagrad_apply(table: torch.Tensor, acc: torch.Tensor,
 def grad_body(spec: ModelSpec, gathered: torch.Tensor,
               labels: torch.Tensor, weights: torch.Tensor,
               uniq_ids: torch.Tensor, local_idx: torch.Tensor,
-              vals: torch.Tensor, fields: Optional[torch.Tensor] = None
+              vals: torch.Tensor, fields: Optional[torch.Tensor] = None,
+              weight_sum: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Loss, scores and the gradient with respect to the gathered
     ``[U, D]`` rows, padding rows masked to zero."""
     with torch.enable_grad():
         rows = gathered.detach().requires_grad_(True)
         loss, scores = loss_and_scores(spec, rows, labels, weights,
-                                       uniq_ids, local_idx, vals, fields)
+                                       uniq_ids, local_idx, vals, fields,
+                                       weight_sum=weight_sum)
         (grad,) = torch.autograd.grad(loss, rows)
     live = (uniq_ids < spec.vocabulary_size).to(grad.dtype)[:, None]
     return loss.detach(), scores.detach(), grad * live
@@ -251,6 +273,98 @@ def train_step_body(spec: ModelSpec, table: torch.Tensor,
     table, acc = sparse_adagrad_apply(table, acc, uniq_ids, grad,
                                       spec.learning_rate)
     return table, acc, loss, scores
+
+
+def _global_rows(spec: ModelSpec, mesh, table: torch.Tensor,
+                 uniq_ids, extra: Optional[torch.Tensor] = None):
+    """The row exchange's first half: the ranks' ``uniq_ids`` (a host
+    array or CPU tensor of the one fixed U) all-gathered into the global
+    unique axis, and its ``[W·U, D]`` rows from their owners' shards.
+    Returns ``(global ids on the table's device, rows, U, summed
+    extra)``."""
+    ids = np.asarray(uniq_ids.numpy() if torch.is_tensor(uniq_ids)
+                     else uniq_ids, dtype=np.int32)
+    gids = torch.from_numpy(
+        mesh.all_gather_host(ids, "step/uniq_ids").reshape(-1)
+        .astype(np.int64)).to(table.device)
+    rows, total = mesh.gather_rows(table, gids, extra)
+    return gids, rows, len(ids), total
+
+
+def sharded_train_step_body(spec: ModelSpec, mesh, table: torch.Tensor,
+                            acc: torch.Tensor, labels: torch.Tensor,
+                            weights: torch.Tensor, local_idx: torch.Tensor,
+                            vals: torch.Tensor, uniq_ids,
+                            fields: Optional[torch.Tensor] = None):
+    """One step of ``train_step_body`` on the global batch — the ranks'
+    local batches concatenated — over the row-sharded ``table`` and
+    ``acc`` (this rank's ``[rows_per_rank, D]`` shards of a
+    ``parallel.sharded.ProcessMesh``, updated in place). Every rank
+    calls it at the same step with a fixed-shape, host-deduped local
+    batch: ``uniq_ids`` on the host (they are all-gathered there), the
+    other arrays on the table's device.
+
+    The ranks' row blocks come from their owners (``_global_rows``);
+    this rank's examples score through ``_scores`` on its own block
+    (``local_idx`` offset by rank·U) against the global batch's weight,
+    and its regulariser covers its own slots, so its gradient is its
+    part of the global one; an all-reduce sums the parts (the loss with
+    them), and each owner applies ``sparse_adagrad_apply``'s update to
+    its rows over the concatenated (ids, gradients): every rank's block
+    adds its squared gradients to the accumulator in slot order, then
+    every slot's update reads the summed accumulator. Returns ``(table,
+    acc, global loss, local scores)``."""
+    from fast_tffm_tpu_torch.parallel.sharded import offset_local_idx
+    gids, rows, U, wsum = _global_rows(spec, mesh, table, uniq_ids,
+                                       extra=weights.sum())
+    own = torch.zeros_like(gids, dtype=torch.bool)
+    own[mesh.rank * U:(mesh.rank + 1) * U] = True
+    # Slots of other ranks count as padding here: masked out of this
+    # rank's regulariser and gradient (their owners add them).
+    reg_ids = torch.where(own, gids, torch.full_like(gids,
+                                                     spec.vocabulary_size))
+    loss, scores, grad = grad_body(
+        spec, rows, labels, weights, reg_ids,
+        offset_local_idx(local_idx, mesh.rank, U), vals, fields,
+        weight_sum=wsum)
+    n, d = grad.shape
+    gbuf = torch.empty((n + 1, d), dtype=grad.dtype, device=grad.device)
+    gbuf[:n] = grad
+    gbuf[n] = 0.0
+    gbuf[n, 0] = loss
+    mesh.all_reduce_(gbuf, "step/row_grads")
+    grad, loss = gbuf[:n], gbuf[n, 0]
+    with torch.no_grad():
+        mine = mesh.owned(gids)
+        blocks = []
+        for r in range(mesh.size):
+            m = mine[r * U:(r + 1) * U]
+            blocks.append((gids[r * U:(r + 1) * U][m] - mesh.lo,
+                           grad[r * U:(r + 1) * U][m]))
+        # Slot order: rank 0's block first. Within a block the ids are
+        # unique (pad slots carry zero gradients), so each index_add_
+        # adds every row once and the result repeats to the bit.
+        for rows_r, g in blocks:
+            acc.index_add_(0, rows_r, torch.square(g))
+        for rows_r, g in blocks:
+            upd = (-spec.learning_rate * g) * torch.rsqrt(
+                acc.index_select(0, rows_r))
+            table.index_add_(0, rows_r, upd)
+    return table, acc, loss, scores
+
+
+def sharded_score_body(spec: ModelSpec, mesh, table: torch.Tensor,
+                       local_idx: torch.Tensor, vals: torch.Tensor,
+                       uniq_ids, fields: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The sharded forward: the global row block from the owners, then
+    this rank's local batch through ``_scores`` (a 2nd-order FM through
+    the CUDA forward kernel on the card). A collective: every rank calls
+    it with a batch of the one fixed shape."""
+    from fast_tffm_tpu_torch.parallel.sharded import offset_local_idx
+    _, rows, U, _ = _global_rows(spec, mesh, table, uniq_ids)
+    return _scores(spec, rows, offset_local_idx(local_idx, mesh.rank, U),
+                   vals, fields)
 
 
 def _unpack_wire(spec: ModelSpec, L: int, uniq_ids, lengths, flat_idx,

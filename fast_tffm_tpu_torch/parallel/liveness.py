@@ -1,0 +1,448 @@
+"""Compute-plane liveness: heartbeat leases and the collective deadline
+guard — the port's counterpart of ``fast_tffm_tpu/parallel/liveness.py``
+(the lease and the guard; elastic recovery is not ported yet).
+
+Every lockstep step is a collective, so one dead or wedged rank would
+park every peer inside it. Two layers close that gap:
+
+- ``HeartbeatLease``: each process rewrites a small lease file in a
+  shared rendezvous directory (``<model_file>.hb/``, the shared
+  filesystem checkpoints already assume) every ``heartbeat_seconds``
+  from a daemon thread (``fmt-heartbeat``), so a rank blocked in a
+  collective still renews and only a killed, stopped or crashed one
+  goes stale (``STALE_FACTOR`` intervals). Between renewals the thread
+  logs a ``worker lost`` warning once per stale peer and runs the
+  deadline check.
+- ``guarded_collective(fn, *args)``: every blocking collective runs
+  under it. A collective that raises (a killed peer resets gloo's
+  connections within seconds) becomes a ``WorkerLostError`` naming the
+  peers the lease table shows dead, once a transport-shaped error has
+  had a staleness window to show them. A collective that blocks (a
+  stopped peer keeps its sockets open) is caught by the lease thread:
+  past ``collective_timeout_seconds`` with stale peers it logs the
+  diagnosis as a ``WorkerLostError`` line, writes every thread's stack
+  beside the leases (``<model_file>.hb/worker-<i>.stacks``) and exits
+  the process with ``EXIT_WORKER_LOST`` — a bounded, named failure
+  instead of a hang.
+
+The staleness and deadline math is clock-injectable, so tests run it on
+fake clocks. Join tickets, grow plans and the reform rendezvous wait for
+ROADMAP.md A10's second slice; the protocol trace waits for A11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import faulthandler
+import json
+import os
+import socket
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from fast_tffm_tpu_torch.utils.logging import get_logger
+
+# A lease is stale once it is this many heartbeat intervals old: one of
+# scheduling jitter, one of shared-filesystem lag and margin — a live
+# but slow worker must not read as dead, and a dead one must go stale
+# well inside any sane collective_timeout_seconds.
+STALE_FACTOR = 4.0
+
+# The exit code of a process whose blocked collective passed its
+# deadline with stale peers (the JAX package's).
+EXIT_WORKER_LOST = 86
+
+
+class WorkerLostError(RuntimeError):
+    """A collective failed or expired and the liveness table names dead
+    peers. ``lost`` carries their lease info; empty when the deadline
+    fired with every peer still heartbeating."""
+
+    def __init__(self, message: str, lost: Sequence["PeerInfo"] = ()):
+        super().__init__(message)
+        self.lost: Tuple["PeerInfo", ...] = tuple(lost)
+
+
+@dataclasses.dataclass(frozen=True)
+class PeerInfo:
+    """One row of the liveness table."""
+    process_index: int
+    host: str = "?"
+    pid: int = -1
+    age_seconds: Optional[float] = None  # None = lease never written
+
+    def describe(self) -> str:
+        age = ("no lease on disk" if self.age_seconds is None
+               else f"last heartbeat {self.age_seconds:.1f}s ago")
+        return f"process {self.process_index} ({self.host}, {age})"
+
+
+class HeartbeatLease:
+    """One process's lease in the shared rendezvous directory, and the
+    read side of every peer's.
+
+    ``renew()`` atomically rewrites ``worker-<i>.hb`` with a wall-clock
+    stamp (``clock``; wall time, since staleness compares one process's
+    stamp with another's clock). ``start()`` renews on a daemon thread
+    every ``heartbeat_seconds`` and checks the peers and the collective
+    deadline between renewals. ``members``: the expected membership
+    (process indices)."""
+
+    def __init__(self, directory: str, process_index: int,
+                 members: Sequence[int], heartbeat_seconds: float = 5.0,
+                 host: Optional[str] = None, pid: Optional[int] = None,
+                 stale_after: Optional[float] = None,
+                 clock: Callable[[], float] = time.time):
+        self.directory = directory
+        self.process_index = int(process_index)
+        self.members: Tuple[int, ...] = tuple(sorted(members))
+        self.heartbeat_seconds = float(heartbeat_seconds)
+        self.stale_after = (float(stale_after) if stale_after is not None
+                            else STALE_FACTOR * self.heartbeat_seconds)
+        self.host = host if host is not None else socket.gethostname()
+        self.pid = int(pid if pid is not None else os.getpid())
+        self._clock = clock
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._reported_lost: set = set()  # one warning per episode
+        os.makedirs(self.directory, exist_ok=True)
+
+    # -- write side ------------------------------------------------------
+    def lease_path(self, process_index: int) -> str:
+        return os.path.join(self.directory, f"worker-{process_index}.hb")
+
+    def renew(self) -> None:
+        """Atomic lease rewrite; never raises into the renew loop (a
+        transient filesystem error costs one beat, which the stale
+        margin absorbs)."""
+        path = self.lease_path(self.process_index)
+        tmp = f"{path}.tmp.{self.pid}"
+        try:
+            with open(tmp, "w", encoding="utf-8") as fh:
+                json.dump({"process_index": self.process_index,
+                           "host": self.host, "pid": self.pid,
+                           "time": self._clock()}, fh)
+            os.replace(tmp, path)
+        except OSError:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+    # -- read side -------------------------------------------------------
+    def read(self, process_index: int) -> Optional[Dict]:
+        """A peer's lease record, or None (missing, torn or garbled all
+        read as "never heard from", the safe direction)."""
+        try:
+            with open(self.lease_path(process_index),
+                      encoding="utf-8") as fh:
+                rec = json.load(fh)
+            float(rec["time"])
+            return rec
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+
+    def peer_info(self, process_index: int,
+                  now: Optional[float] = None) -> PeerInfo:
+        rec = self.read(process_index)
+        if rec is None:
+            return PeerInfo(process_index)
+        now = self._clock() if now is None else now
+        return PeerInfo(process_index, host=str(rec.get("host", "?")),
+                        pid=int(rec.get("pid", -1)),
+                        age_seconds=max(0.0, now - float(rec["time"])))
+
+    def stale_peers(self, now: Optional[float] = None) -> List[PeerInfo]:
+        """Members other than us whose lease is older than
+        ``stale_after``, or missing: the diagnosis the guard names."""
+        now = self._clock() if now is None else now
+        out = []
+        for p in self.members:
+            if p == self.process_index:
+                continue
+            info = self.peer_info(p, now=now)
+            if info.age_seconds is None or \
+                    info.age_seconds > self.stale_after:
+                out.append(info)
+        return out
+
+    def live_members(self, now: Optional[float] = None) -> List[int]:
+        """Members with a fresh lease, us included."""
+        stale = {i.process_index for i in self.stale_peers(now=now)}
+        return [p for p in self.members if p not in stale]
+
+    # -- renew / monitor thread -----------------------------------------
+    def check_peers(self) -> List[PeerInfo]:
+        """One monitor tick: a ``worker lost`` warning for every member
+        newly gone stale (one per staleness episode; a peer whose lease
+        resumes re-arms). Returns the newly lost peers."""
+        if self.read(self.process_index) is None:
+            # Our own lease, renewed this tick, is unreadable: the
+            # directory is broken, not the peers; skip the tick.
+            return []
+        stale = self.stale_peers()
+        stale_ids = {i.process_index for i in stale}
+        fresh = [i for i in stale
+                 if i.process_index not in self._reported_lost]
+        self._reported_lost &= stale_ids  # recovered peers re-arm
+        for info in fresh:
+            self._reported_lost.add(info.process_index)
+            get_logger().warning("worker lost (heartbeat monitor): %s",
+                                 info.describe())
+        return fresh
+
+    def start(self) -> "HeartbeatLease":
+        if self._thread is None and self.heartbeat_seconds > 0:
+            self.renew()  # the lease exists before anyone looks for it
+
+            def loop():
+                while not self._stop.wait(self.heartbeat_seconds):
+                    self.renew()
+                    try:
+                        self.check_peers()
+                        check_deadline()
+                    except Exception:  # noqa: BLE001 - the monitor
+                        # outlives a bad tick; staleness is evaluated
+                        # again next interval
+                        pass
+            self._thread = threading.Thread(target=loop,
+                                            name="fmt-heartbeat",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self, remove: bool = True) -> None:
+        """Stop renewing; ``remove`` drops our lease file and sweeps
+        stale leases of dead members, so a clean exit leaves no ghosts
+        for the next run. A fresh peer lease is never touched."""
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+            self._thread = None
+        if not remove:
+            return
+        try:
+            os.remove(self.lease_path(self.process_index))
+        except OSError:
+            pass
+        try:
+            names = os.listdir(self.directory)
+        except OSError:
+            return
+        now = self._clock()
+        for n in names:
+            if not (n.startswith("worker-") and n.endswith(".hb")):
+                continue
+            try:
+                idx = int(n[len("worker-"):-len(".hb")])
+            except ValueError:
+                continue
+            if idx == self.process_index:
+                continue
+            info = self.peer_info(idx, now=now)
+            if info.age_seconds is None or \
+                    info.age_seconds > self.stale_after:
+                try:
+                    os.remove(os.path.join(self.directory, n))
+                except OSError:
+                    pass
+
+
+def lease_dir(cfg) -> str:
+    """The rendezvous directory of a run: ``<model_file>.hb/``, beside
+    the checkpoint directory on the same shared filesystem."""
+    return os.path.abspath(cfg.model_file) + ".hb"
+
+
+@dataclasses.dataclass
+class _GuardState:
+    lease: Optional[HeartbeatLease]
+    timeout_seconds: float
+    # (label, started monotonic) of the collective blocking the calling
+    # thread; None between collectives. A tuple assignment, atomic under
+    # the GIL, read by the monitor thread.
+    in_flight: Optional[Tuple[str, float]] = None
+    # When a guarded collective last completed (or the guard was armed):
+    # the lockstep runs one every step, so none completing within the
+    # deadline also catches a hang in an unguarded sync point.
+    last_progress: float = 0.0
+    # The escalation of the monitor's hang verdict; tests inject a
+    # recorder instead of exiting.
+    escalate: Callable[[str], None] = None  # type: ignore[assignment]
+    warned_slow: bool = False
+
+
+_GUARD: Optional[_GuardState] = None
+
+
+def install_guard(lease: Optional[HeartbeatLease], timeout_seconds: float,
+                  escalate: Optional[Callable[[str], None]] = None
+                  ) -> Optional[_GuardState]:
+    """Arm ``guarded_collective`` for this process (train and predict
+    call it once the cluster is up). Returns the previous state for
+    ``restore_guard``."""
+    global _GUARD
+    prev = _GUARD
+    _GUARD = _GuardState(lease=lease, timeout_seconds=float(timeout_seconds),
+                         last_progress=time.monotonic(),
+                         escalate=escalate or _default_escalate)
+    return prev
+
+
+def restore_guard(prev: Optional[_GuardState]) -> None:
+    global _GUARD
+    _GUARD = prev
+
+
+def current_guard() -> Optional[_GuardState]:
+    return _GUARD
+
+
+def guarded_collective(fn: Callable, *args, label: str = "collective",
+                       **kwargs):
+    """Run a blocking collective under the process's deadline guard.
+    Without a guard (one process) this is a plain call. Armed: the call
+    runs inline, marked in flight for the monitor's deadline check; a
+    raise is re-raised, except when the lease table shows dead peers —
+    then a ``WorkerLostError`` naming them, with the original error as
+    its cause; a call still blocked past ``collective_timeout_seconds``
+    with stale peers is escalated by the monitor thread."""
+    state = _GUARD
+    if state is None:
+        return fn(*args, **kwargs)
+    state.in_flight = (label, time.monotonic())
+    try:
+        return fn(*args, **kwargs)
+    except WorkerLostError:
+        raise
+    except Exception as e:
+        _convert_if_peers_lost(state.lease, label, e)
+        raise
+    finally:
+        state.in_flight = None
+        state.last_progress = time.monotonic()
+        state.warned_slow = False
+
+
+def check_deadline(state: Optional[_GuardState] = None,
+                   now: Optional[float] = None) -> Optional[str]:
+    """One monitor tick of the collective deadline. Past
+    ``collective_timeout_seconds`` (the collective in flight, or since
+    the last one completed): with stale peers, log the diagnosis, dump
+    the stacks and escalate (by default log the ``WorkerLostError``
+    line and exit ``EXIT_WORKER_LOST``: the blocked thread can never
+    raise); with none, one ``collective slow`` warning (a slow save or
+    storage stall must not kill a healthy cluster). Returns "escalated",
+    "slow" or None."""
+    state = state if state is not None else _GUARD
+    if state is None or state.timeout_seconds <= 0:
+        return None
+    now = time.monotonic() if now is None else now
+    snap = state.in_flight
+    if snap is not None:
+        label, started = snap
+        waited = now - started
+    else:
+        label = "no guarded collective completing"
+        waited = now - state.last_progress
+    if waited <= state.timeout_seconds:
+        return None
+    lease = state.lease
+    lost = lease.stale_peers() if lease is not None else []
+    if not lost:
+        if not state.warned_slow:
+            state.warned_slow = True
+            get_logger().warning(
+                "collective slow: '%s' waited %.1fs, past "
+                "collective_timeout_seconds=%gs, with every peer still "
+                "heartbeating", label, waited, state.timeout_seconds)
+        return "slow"
+    _dump_stacks(lease, label)
+    who = "; ".join(i.describe() for i in lost)
+    message = (f"WorkerLostError: '{label}' exceeded "
+               f"collective_timeout_seconds={state.timeout_seconds:g}s; "
+               f"peers that stopped heartbeating: {who}. The blocked "
+               "thread cannot be unblocked from Python; exiting "
+               f"{EXIT_WORKER_LOST}.")
+    state.escalate(message)
+    return "escalated"
+
+
+def _default_escalate(message: str) -> None:
+    get_logger().critical(message)
+    for h in get_logger().handlers:
+        try:
+            h.flush()
+        except Exception:  # noqa: BLE001 - nothing left to do with a
+            pass           # broken handler on the way out
+    os._exit(EXIT_WORKER_LOST)
+
+
+def _await_staleness(lease: Optional[HeartbeatLease]) -> List[PeerInfo]:
+    """Stale peers per the lease table, polled for up to one staleness
+    window: a peer killed a moment ago needs that long to go visibly
+    stale."""
+    if lease is None:
+        return []
+    deadline = time.monotonic() + lease.stale_after + lease.heartbeat_seconds
+    while True:
+        stale = lease.stale_peers()
+        if stale or time.monotonic() >= deadline:
+            return stale
+        time.sleep(min(0.05, max(lease.heartbeat_seconds / 4, 0.01)))
+
+
+# Error text that smells of the transport failing (a dead peer's reset
+# through gloo), as against a semantic error of the collective itself:
+# only those are worth a staleness window's wait.
+_TRANSPORT_ERROR_MARKERS = (
+    "connection", "unavailable", "socket", "gloo", "transport",
+    "deadline", "aborted", "cancelled", "coordination", "heartbeat",
+    "peer", "barrier", "timed out", "timeout", "closed", "reset",
+    "broken pipe",
+)
+
+
+def _looks_like_transport_error(cause: BaseException) -> bool:
+    text = f"{type(cause).__name__}: {cause}".lower()
+    return any(m in text for m in _TRANSPORT_ERROR_MARKERS)
+
+
+def _convert_if_peers_lost(lease: Optional[HeartbeatLease], label: str,
+                           cause: BaseException) -> None:
+    """Raise WorkerLostError from ``cause`` when the lease table blames
+    a dead peer; return otherwise (the caller re-raises the original).
+    A transport-shaped error gets the staleness grace; any other error
+    one immediate check."""
+    if lease is not None and not _looks_like_transport_error(cause):
+        lost = lease.stale_peers()
+    else:
+        lost = _await_staleness(lease)
+    if not lost:
+        return
+    who = "; ".join(i.describe() for i in lost)
+    get_logger().error("worker lost during '%s': %s (%s: %s)", label, who,
+                       type(cause).__name__, str(cause)[:200])
+    raise WorkerLostError(
+        f"collective '{label}' failed and the liveness table names "
+        f"dead peers: {who}", lost=lost) from cause
+
+
+def _dump_stacks(lease: Optional[HeartbeatLease], label: str) -> None:
+    """Every thread's stack, appended to ``worker-<i>.stacks`` beside
+    the leases: where each thread was parked when the deadline passed.
+    Best effort."""
+    if lease is None:
+        return
+    try:
+        path = os.path.join(lease.directory,
+                            f"worker-{lease.process_index}.stacks")
+        with open(path, "a", encoding="utf-8") as fh:
+            fh.write(f"\n==== collective '{label}' deadline expired at "
+                     f"{time.time():.3f} ====\n")
+            fh.flush()
+            faulthandler.dump_traceback(file=fh, all_threads=True)
+    except Exception:  # noqa: BLE001 - forensics must never mask the
+        pass           # diagnosis about to be logged

@@ -1,5 +1,5 @@
 """Batch predict — the port's counterpart of ``fast_tffm_tpu/predict.py``
-(single device).
+(one device, or one device per rank of a ``dist_train`` job).
 
 Restores the table of the newest intact checkpoint step under
 ``<model_file>.ckpt/`` (checkpoint.py; the accumulator is not read),
@@ -24,8 +24,16 @@ step) triple), and the sweep remaps through it; a caller-held table has
 no slot map and is refused. Under ``vocab_mode = fixed`` a step that
 carries a vocab sidecar is refused (``refuse_fixed_mode_admit_step``).
 
-Not ported yet: the mesh and multi-process sweeps with their part
-files (ROADMAP.md A10).
+``dist_train worker <i>`` (more than one ``worker_hosts`` entry): the
+process joins the cluster as rank i, restores its row shard of the
+step, reads its byte range of every predict file, and scores it through
+the sharded forward in lockstep (``parallel.sharded.
+lockstep_score_batches``: a rank whose shard ran dry scores filler);
+each rank writes its scores of each file as a part file, and the
+chief's ``PartMerger`` merges them into the one ``.score`` file per
+input, one line per input line, blank lines included. ``lookup = host``
+and ``vocab_mode = admit`` are single-process here, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -40,29 +48,46 @@ import torch
 from fast_tffm_tpu_torch.checkpoint import (CheckpointState, load_vocab_map,
                                             refuse_fixed_mode_admit_step)
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.data.pipeline import expand_files
+from fast_tffm_tpu_torch.data.pipeline import (FileMarks, batch_iterator,
+                                               expand_files,
+                                               probe_uniq_bucket,
+                                               require_bounded_examples)
 from fast_tffm_tpu_torch.lookup import make_score_backend
-from fast_tffm_tpu_torch.scoring import (CompiledScorer, ScoreWriter,
-                                         score_sweep)
+from fast_tffm_tpu_torch.metrics import sigmoid
+from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
+                                           sharded_score_body)
+from fast_tffm_tpu_torch.parallel import distributed as dist_mod
+from fast_tffm_tpu_torch.parallel.liveness import (HeartbeatLease,
+                                                   WorkerLostError,
+                                                   install_guard, lease_dir,
+                                                   restore_guard)
+from fast_tffm_tpu_torch.parallel.sharded import (ProcessMesh,
+                                                  lockstep_score_batches,
+                                                  make_mesh, place_table)
+from fast_tffm_tpu_torch.scoring import (CompiledScorer, PartMerger,
+                                         ScoreDemux, ScoreWriter,
+                                         score_sweep, scrub_stale_parts)
 from fast_tffm_tpu_torch.train import check_restored_vocab, checkpoint_template
-from fast_tffm_tpu_torch.utils.device import resolve_device
+from fast_tffm_tpu_torch.utils.device import indexed, resolve_device
 from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy
 
 
 def load_table(cfg: FmConfig, device: torch.device,
-               step: Optional[int] = None, with_step: bool = False):
+               step: Optional[int] = None, with_step: bool = False,
+               mesh: Optional[ProcessMesh] = None):
     """Restore the table from the newest intact checkpoint step — or,
     with an explicit ``step``, those exact verified bytes (the serving
     process's hot reload; restore verifies an explicit step and raises
-    instead of walking past it) — onto ``device``, as ``[num_rows, D]``.
-    The copy to the card is complete when this returns.
-    ``with_step=True`` returns ``(table, step)``."""
+    instead of walking past it) — onto ``device``, as ``[num_rows, D]``
+    (with a ``mesh``, this rank's row shard). The copy to the card is
+    complete when this returns. ``with_step=True`` returns ``(table,
+    step)``."""
     ckpt = CheckpointState(cfg.model_file,
                            retry=RetryPolicy.from_config(cfg),
                            verify=cfg.ckpt_verify,
-                           adagrad_init=cfg.adagrad_init)
+                           adagrad_init=cfg.adagrad_init, mesh=mesh)
     try:
         restored = ckpt.restore(step=step,
                                 template=checkpoint_template(cfg,
@@ -85,14 +110,32 @@ def _score_out_path(cfg: FmConfig, path: str) -> str:
 
 
 def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
-            device=None) -> List[str]:
+            device=None, job_name: Optional[str] = None,
+            task_index: Optional[int] = None) -> List[str]:
     """Run batch prediction; returns the score files written. ``device``
     defaults to the card (utils/device.py); ``table`` defaults to the
     newest intact checkpoint step's (``load_table``). With ``lookup =
-    host`` a given ``table`` is a CPU tensor and stays on the host."""
+    host`` a given ``table`` is a CPU tensor and stays on the host.
+    ``job_name`` / ``task_index``: the ``dist_train worker <i>`` argv
+    (the multi-process sweep; ``table``, if given, is the dense
+    ``[num_rows, D]`` one, of which each rank keeps its rows)."""
     device = resolve_device(device)
     logger = get_logger(log_file=cfg.log_file or None)
+    rank, size = 0, 1
+    if job_name is not None:
+        if len(cfg.worker_hosts) > 1:
+            if cfg.lookup == "host":
+                raise ValueError("lookup = host predict is single-process")
+            if cfg.vocab_mode == "admit":
+                raise ValueError(
+                    "vocab_mode = admit predict is single-process (the "
+                    "slot map is host state; see the train-side "
+                    "restriction)")
+        rank, size = dist_mod.init_from_cluster(cfg, job_name,
+                                                task_index or 0)
     log_ignored_keys(cfg, logger)
+    if size > 1:
+        return _predict_cluster(cfg, table, device, logger, rank, size)
     admit = cfg.vocab_mode == "admit"
     if admit and table is not None:
         raise ValueError(
@@ -154,3 +197,118 @@ def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
                 len(written), n_examples,
                 n_examples / seconds if seconds > 0 else 0.0)
     return written
+
+
+def _predict_cluster(cfg: FmConfig, table: Optional[torch.Tensor],
+                     device: torch.device, logger, rank: int,
+                     size: int) -> List[str]:
+    """The multi-process sweep under the heartbeat lease and the
+    deadline guard: a dead peer raises ``WorkerLostError`` naming it (no
+    recovery: predict is cheap to run again)."""
+    lease = None
+    lost = False
+    if cfg.heartbeat_seconds > 0:
+        lease = HeartbeatLease(lease_dir(cfg), process_index=rank,
+                               members=range(size),
+                               heartbeat_seconds=cfg.heartbeat_seconds
+                               ).start()
+    guard_prev = install_guard(lease, cfg.collective_timeout_seconds)
+    try:
+        return _predict_multiprocess(cfg, table, device, logger,
+                                     make_mesh(cfg, rank, size))
+    except WorkerLostError as e:
+        lost = True
+        logger.error("WorkerLostError: %s", e)
+        raise
+    finally:
+        if lease is not None:
+            lease.stop()
+        restore_guard(guard_prev)
+        if not lost:
+            dist_mod.shutdown()
+
+
+def _predict_multiprocess(cfg: FmConfig, table: Optional[torch.Tensor],
+                          device: torch.device, logger,
+                          mesh: ProcessMesh) -> List[str]:
+    """One continuous sharded sweep: every rank scores its byte range of
+    all files through ``sharded_score_body`` in lockstep, cuts its
+    ordered scores into per-file part files (``ScoreDemux``, written by
+    a ``ScoreWriter`` with a ``.done`` marker each), and the chief's
+    ``PartMerger`` merges each file's parts as their markers land.
+    Three barriers: the stale-part scrub, the parts written, the merge
+    done."""
+    require_bounded_examples(cfg, "multi-process predict")
+    device = indexed(device)
+    dist_mod.share_host_threads(cfg, device, mesh.size)
+    p, P = mesh.rank, mesh.size
+    logger.info("multi-process predict: rank %d of %d on %s", p, P, device)
+    directory = os.path.abspath(cfg.model_file) + ".ckpt"
+    if table is None:
+        table, step = load_table(cfg, device, with_step=True, mesh=mesh)
+        # The existence probe reads the shared directory alike on every
+        # rank: all refuse together.
+        refuse_fixed_mode_admit_step(cfg, directory, step)
+    else:
+        table = place_table(cfg, mesh, table, device)
+    spec = ModelSpec.from_config(cfg, num_processes=P)
+    files = expand_files(cfg.predict_files)
+    if not files:
+        logger.warning("predict_files is empty; nothing to score")
+        return []
+    os.makedirs(cfg.score_path, exist_ok=True)
+    out_paths = [_score_out_path(cfg, f) for f in files]
+    # One bucket for the sweep: the probe reads the same bytes on every
+    # rank.
+    ub = cfg.uniq_bucket or probe_uniq_bucket(cfg, files)
+    marks = FileMarks()
+    it = batch_iterator(cfg, files, training=False, epochs=1,
+                        keep_empty=True, shard_index=p, num_shards=P,
+                        fixed_shape=True, uniq_bucket=ub, raw_ids=False,
+                        file_marks=marks)
+    if p == 0:
+        stale = scrub_stale_parts(out_paths)
+        if stale:
+            logger.warning(
+                "removed %d stale part file(s) from a prior predict sweep "
+                "into %s (first: %s)", len(stale), cfg.score_path, stale[0])
+    mesh.barrier("predict/clean_barrier")
+    writer = ScoreWriter(logger)
+    merger = PartMerger(out_paths, P, logger) if p == 0 else None
+    t0 = time.perf_counter()
+    n_local = 0
+
+    def on_file(path: str, raw: np.ndarray) -> None:
+        vals = sigmoid(raw) if cfg.loss_type == "logistic" else raw
+        part = f"{_score_out_path(cfg, path)}.part{p}"
+        writer.submit(part, vals, marker=f"{part}.done")
+
+    def score_fn(table, batch):
+        args = batch_args(batch, device)
+        del args["labels"], args["weights"]
+        args["uniq_ids"] = batch.uniq_ids
+        return sharded_score_body(spec, mesh, table, **args)
+
+    demux = ScoreDemux(marks, on_file)
+    try:
+        with torch.no_grad():
+            for batch, local in lockstep_score_batches(cfg, it, mesh,
+                                                       score_fn, table, ub):
+                demux.consume(local[:batch.num_real])
+                n_local += batch.num_real
+        demux.finalize()
+        writer.close()  # every part and marker of this rank is on disk
+        mesh.barrier("predict/parts_barrier")
+        if merger is not None:
+            merger.finish()
+        # The chief read and deleted every part before anyone returns.
+        mesh.barrier("predict/merge_barrier")
+    finally:
+        writer.close(raise_error=False)
+        if merger is not None:
+            merger.stop()
+    seconds = time.perf_counter() - t0
+    logger.info("predict sweep (rank %d of %d): %d files, %d local "
+                "examples, %.0f examples/s", p, P, len(out_paths), n_local,
+                n_local / seconds if seconds > 0 else 0.0)
+    return out_paths

@@ -1,6 +1,6 @@
 """The scorer handle both inference surfaces share, the score-line
 format, and the cross-file scoring sweep — the port's counterpart of
-``fast_tffm_tpu/scoring.py`` (single process).
+``fast_tffm_tpu/scoring.py``.
 
 ``CompiledScorer`` keeps the JAX name: batch predict (predict.py) and
 the serving process (serve/server.py) score every batch through it, so
@@ -27,17 +27,26 @@ by a ``FileMarks`` ledger; one ``ChunkedFetcher`` for the whole sweep,
 so the copy of file N's scores to the host overlaps the scoring of
 file N+1; ``ScoreDemux`` cuts the ordered scores back into per-file
 arrays as each file's last example lands; the caller hands those to a
-``ScoreWriter`` thread, so the disk write overlaps the rest. The
-multi-process sweep (``scrub_stale_parts``, ``PartMerger``) waits for
-ROADMAP.md A10.
+``ScoreWriter`` thread, so the disk write overlaps the rest.
+
+The multi-process sweep (predict.py, ``dist_train``): each rank writes
+its byte range's scores of each file as ``<out>.part<i>`` and then a
+``.done`` marker; the chief's ``PartMerger`` thread concatenates a
+file's parts in rank order as soon as all its markers exist (byte
+ranges are contiguous, so rank order is line order) and deletes them;
+``scrub_stale_parts`` first removes the parts a crashed earlier sweep
+left in the same ``score_path``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import glob
+import os
 import queue
 import threading
+import time
 from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -156,10 +165,15 @@ class ScoreWriter:
                 dead = self._error is not None
             if dead:
                 continue  # keep unblocking producers; write no more
-            out_path, vals = job
+            out_path, vals, marker = job
             try:
                 with open(out_path, "w") as fh:
                     fh.write(format_scores(vals))
+                if marker is not None:
+                    # Only once the file is complete and closed: the
+                    # chief's merge keys on the marker.
+                    with open(marker, "w"):
+                        pass
                 self._logger.info("wrote %d scores to %s", len(vals),
                                   out_path)
             except BaseException as e:  # raised by submit() / close()
@@ -167,12 +181,15 @@ class ScoreWriter:
                     if self._error is None:  # keep the first failure
                         self._error = e
 
-    def submit(self, out_path: str, vals: np.ndarray) -> None:
+    def submit(self, out_path: str, vals: np.ndarray,
+               marker: Optional[str] = None) -> None:
+        """Queue ``vals`` for ``out_path``; ``marker``, an empty file
+        created once the scores are written (a part file's ``.done``)."""
         with self._lock:
             err = self._error
         if err is not None:
             raise err
-        self._q.put((out_path, vals))
+        self._q.put((out_path, vals, marker))
 
     def close(self, raise_error: bool = True) -> None:
         if not self._closed:
@@ -290,3 +307,114 @@ def score_sweep(cfg: FmConfig, table: Optional[torch.Tensor],
     finally:
         fetcher.close()
     return n_examples
+
+
+def scrub_stale_parts(out_paths: Sequence[str]) -> List[str]:
+    """Remove the ``<out>.part*`` files (parts and ``.done`` markers,
+    any rank) a crashed earlier multi-process sweep left into the same
+    ``score_path``: the merger polls markers from its start, so a stale
+    set would merge the old run's scores. The caller scrubs before any
+    rank writes a part, and a barrier follows. Returns the removed
+    paths."""
+    removed: List[str] = []
+    for out_path in out_paths:
+        for stale in sorted(glob.glob(glob.escape(out_path) + ".part*")):
+            os.remove(stale)
+            removed.append(stale)
+    return removed
+
+
+# The merge thread polls the shared filesystem for part markers this
+# often.
+_MERGE_POLL_SECONDS = 0.05
+
+# After the parts-done barrier every marker is durable: one still
+# missing this long after is a fault, raised by name.
+_MERGE_GRACE_SECONDS = 300.0
+
+
+class PartMerger:
+    """The multi-process chief's merge thread (``fmt-part-merger``): as
+    each file's ``num_parts`` parts become complete (their ``.done``
+    markers appear), it concatenates them in rank order into the final
+    ``.score`` file, in file order, and deletes them, so the merge of
+    file N overlaps the scoring of file N+1. ``finish()`` (after the
+    parts-done barrier) waits out the rest, bounded per marker, and
+    re-raises a merge error; ``stop()`` is the error path's teardown."""
+
+    def __init__(self, out_paths: Sequence[str], num_parts: int, logger):
+        self._outs = list(out_paths)
+        self._P = num_parts
+        self._logger = logger
+        self._stop = threading.Event()
+        self._done_barrier = threading.Event()
+        self._error: Optional[BaseException] = None  # read after join
+        self.merged: List[str] = []  # read after join
+        self._thread = threading.Thread(target=self._run,
+                                        name="fmt-part-merger", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            for out_path in self._outs:
+                if not self._wait_parts(out_path):
+                    return
+                self._merge_one(out_path)
+        except BaseException as e:  # raised by finish()
+            self._error = e
+
+    def _wait_parts(self, out_path: str) -> bool:
+        missing = [f"{out_path}.part{i}.done" for i in range(self._P)]
+        deadline = None
+        while True:
+            missing = [m for m in missing if not os.path.exists(m)]
+            if not missing:
+                return True
+            if self._stop.is_set():
+                return False
+            if self._done_barrier.is_set():
+                if deadline is None:
+                    deadline = time.monotonic() + _MERGE_GRACE_SECONDS
+                elif time.monotonic() > deadline:
+                    raise FileNotFoundError(
+                        f"predict part marker(s) never appeared after "
+                        f"the parts-done barrier: {missing[:3]}")
+            self._stop.wait(_MERGE_POLL_SECONDS)
+
+    def _merge_one(self, out_path: str) -> None:
+        n = 0
+        # Bounded chunks: a whole part read at once would hold a
+        # multi-GB string on the chief for a billion-line predict.
+        with open(out_path, "wb") as out_fh:
+            for i in range(self._P):
+                with open(f"{out_path}.part{i}", "rb") as fh:
+                    while True:
+                        chunk = fh.read(8 << 20)
+                        if not chunk:
+                            break
+                        n += chunk.count(b"\n")
+                        out_fh.write(chunk)
+        for i in range(self._P):
+            os.remove(f"{out_path}.part{i}")
+            os.remove(f"{out_path}.part{i}.done")
+        self.merged.append(out_path)
+        self._logger.info("wrote %d scores to %s (merged %d parts)", n,
+                          out_path, self._P)
+
+    def finish(self) -> List[str]:
+        """After the parts-done barrier: join the thread, re-raise its
+        error, and return the merged files in order."""
+        self._done_barrier.set()
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        if len(self.merged) != len(self._outs):
+            raise RuntimeError(
+                f"part merger finished {len(self.merged)}/"
+                f"{len(self._outs)} files — merge thread exited early")
+        return list(self.merged)
+
+    def stop(self) -> None:
+        """Error-path teardown: the thread exits at its next poll."""
+        self._stop.set()
+        self._thread.join(timeout=5.0)

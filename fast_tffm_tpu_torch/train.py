@@ -1,10 +1,12 @@
-"""Training — the single-process, single-device subset of
-``fast_tffm_tpu/train.py`` (``train`` → ``_train_session`` on one device):
-FM of order 2 and higher, and field-aware FM, with the table on the
-device or, with ``lookup = host``, outside it, and ids mod into the
-table or, with ``vocab_mode = admit``, admitted into it.
+"""Training — the port of ``fast_tffm_tpu/train.py`` (``train`` →
+``_train_session``) without elastic membership: FM of order 2 and
+higher, and field-aware FM, with the table on the device or, with
+``lookup = host``, outside it, and ids mod into the table or, with
+``vocab_mode = admit``, admitted into it; one process, or the ranks of
+a ``dist_train`` job with the table row-sharded over them.
 
     python -m fast_tffm_tpu_torch train <cfg> [--device cuda|cpu]
+                                        [dist_train worker <i>]
 
 At start the newest intact step of ``<model_file>.ckpt/`` is restored
 (checkpoint.py; a torn newer step is quarantined and walked past): the
@@ -72,10 +74,27 @@ save carries the payload as ``vocab-<step>.json.gz``; a resume loads it,
 and a restored step without one starts admission fresh over a
 cold-started table. A fixed-mode resume of an admit step is refused.
 
+``dist_train worker <i>`` (``train(job_name=, task_index=)``, more
+than one ``worker_hosts`` entry; parallel/): rank i of one synchronous
+job. The table and the accumulator are row-sharded over the ranks
+(``init_sharded_state``, or the restored rows of a step in the one
+checkpoint layout); each rank reads its byte range of every file as
+fixed-shape, host-deduped batches (one probed ``uniq_bucket``, adapted
+between epochs from the job-wide spill counts); every step all-gathers
+the ranks' exhaustion and preemption flags, a dry rank steps all-padding
+filler, and ``sharded_train_step_body`` exchanges the rows and their
+gradients; validation (``evaluate_distributed``) scores each rank's
+shard in lockstep and merges the AUC histograms; saves gather the shards
+to the chief, which alone writes; the chief logs validation and writes
+the ``.npz`` export, gathered chunk by chunk (``_chief_finalize``). The
+heartbeat lease and the collective deadline guard turn a dead peer into
+``WorkerLostError`` naming it.
+
 Not ported yet, each refused with the ROADMAP.md item that brings it:
-multi-process and elastic training, multi-worker streams and the fixed
-unique bucket (A10). The observability keys are accepted, ignored and
-logged (utils/ignored.py: A11).
+elastic training and multi-process streams (A10, its second slice). The
+observability keys are accepted, ignored and logged (utils/ignored.py:
+A11); admit mode and ``lookup = host`` across processes are refused as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,11 +112,14 @@ from fast_tffm_tpu_torch.checkpoint import (CheckpointState,
                                             write_gate_baseline)
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.badlines import BadLineTracker
-from fast_tffm_tpu_torch.data.pipeline import (batch_iterator,
-                                               check_stream_supported,
+from fast_tffm_tpu_torch.data.pipeline import (SPILL_WARN_FRACTION,
+                                               SpillStats, batch_iterator,
+                                               empty_batch,
                                                gil_bound_iteration,
                                                host_parallel_workers,
-                                               prefetch)
+                                               prefetch, probe_uniq_bucket,
+                                               require_bounded_examples,
+                                               uniq_bucket_top)
 from fast_tffm_tpu_torch.data.stream import (DONE, IDLE, WATERMARK_FORMAT,
                                              StreamPrefetcher, StreamSource,
                                              StreamTracker, stream_workers)
@@ -105,13 +127,24 @@ from fast_tffm_tpu_torch.lookup import (make_offload_backend,
                                         make_offload_train_step)
 from fast_tffm_tpu_torch.metrics import StreamingAUC
 from fast_tffm_tpu_torch.models.convert import save_npz
-from fast_tffm_tpu_torch.models.fm import (ModelSpec, init_accumulator,
-                                           init_table,
+from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
+                                           init_accumulator, init_table,
                                            packed_train_step_body,
+                                           sharded_score_body,
+                                           sharded_train_step_body,
                                            train_step_body)
 from fast_tffm_tpu_torch.obs.quality import PublishGate, QualityStats
+from fast_tffm_tpu_torch.parallel import distributed as dist_mod
+from fast_tffm_tpu_torch.parallel.liveness import (HeartbeatLease,
+                                                   WorkerLostError,
+                                                   install_guard, lease_dir,
+                                                   restore_guard)
+from fast_tffm_tpu_torch.parallel.sharded import (ProcessMesh,
+                                                  init_sharded_state,
+                                                  lockstep_score_batches,
+                                                  make_mesh, place_table)
 from fast_tffm_tpu_torch.scoring import CompiledScorer
-from fast_tffm_tpu_torch.utils.device import resolve_device
+from fast_tffm_tpu_torch.utils.device import indexed, resolve_device
 from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
 from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
@@ -130,32 +163,35 @@ LOG_BUFFER_MAX = 1024
 
 def check_train_supported(cfg: FmConfig) -> None:
     """Refuse what this port cannot train yet, naming the ROADMAP.md
-    item that brings each; a silently ignored key would give another
-    result than the JAX package's."""
-    check_stream_supported(cfg)
-    if cfg.vocab_mode == "admit" and bool(cfg.ps_hosts or cfg.worker_hosts):
+    item that brings each, and what the JAX package refuses itself; a
+    silently ignored key would give another result than the JAX
+    package's."""
+    multi = len(cfg.worker_hosts) > 1
+    if cfg.vocab_mode == "admit" and multi:
+        # The JAX package's own refusal (fast_tffm_tpu/train.py).
         raise ValueError(
             "vocab_mode = admit is single-process: the slot map is host "
             "state, and lockstep workers would need a chief-broadcast "
-            "admission protocol to agree on it (ROADMAP.md A10). Run "
-            "admit-mode training on one process.")
-    if cfg.lookup == "host" and bool(cfg.ps_hosts or cfg.worker_hosts):
+            "admission protocol to agree on it. Run admit-mode training "
+            "on one process.")
+    if cfg.lookup == "host" and multi:
         # The JAX package's design position: multi-host scale uses the
-        # row-sharded mesh (lookup = device), which waits for A10 here.
+        # row-sharded mesh (lookup = device).
         raise ValueError(
             "lookup = host is single-process by design: multi-host scale "
             "uses the row-sharded mesh (lookup = device) — see "
             "BASELINE.md's multi-host beyond-HBM design note")
     refusals = (
-        (bool(cfg.ps_hosts or cfg.worker_hosts),
-         "ps_hosts / worker_hosts (dist_train)", "A10"),
-        (cfg.elastic != "off", f"elastic = {cfg.elastic}", "A10"),
+        (cfg.elastic != "off", f"elastic = {cfg.elastic}"),
+        (multi and cfg.run_mode == "stream",
+         "run_mode = stream across processes (dist_train)"),
     )
-    for refused, what, item in refusals:
+    for refused, what in refusals:
         if refused:
             raise NotImplementedError(
                 f"{what} is not ported to fast_tffm_tpu_torch yet "
-                f"(ROADMAP.md, queue A, item {item})")
+                "(ROADMAP.md, queue A, item A10, its second slice: elastic "
+                "membership and multi-process streams)")
 
 
 def checkpoint_template(cfg: FmConfig, acc: bool = True
@@ -246,6 +282,57 @@ def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
     return auc.result(), n
 
 
+def evaluate_distributed(cfg: FmConfig, table: torch.Tensor, files,
+                         mesh: ProcessMesh, uniq_bucket: int = 0,
+                         max_batches: Optional[int] = None,
+                         weight_files=(),
+                         bad_lines: Optional[BadLineTracker] = None,
+                         preempt=None) -> Tuple[float, int]:
+    """Multi-process AUC: every rank scores its own byte-range shard of
+    ``files`` through the sharded score (``sharded_score_body``) in
+    lockstep (``lockstep_score_batches``; ``preempt`` rides its window
+    flags), then the ranks' binned-AUC histograms are all-gathered and
+    merged: no score set crosses ranks. Returns the same ``(auc,
+    n_examples)`` on every rank; weight files weight it as in
+    ``evaluate``. ``max_batches`` caps real batches per shard.
+    ``uniq_bucket``: the caller's probed value (0 probes, the same
+    bytes on every rank). The publish gate's quality sums, which ride
+    this all-gather in the JAX package, wait with the multi-process
+    stream (ROADMAP.md A10, its second slice)."""
+    spec = ModelSpec.from_config(cfg, num_processes=mesh.size)
+    device = table.device
+    auc = StreamingAUC()
+    n = 0
+    ub = uniq_bucket or cfg.uniq_bucket or probe_uniq_bucket(cfg, files)
+    it = batch_iterator(cfg, files, training=False, epochs=1,
+                        weight_files=weight_files, shard_index=mesh.rank,
+                        num_shards=mesh.size, fixed_shape=True,
+                        uniq_bucket=ub, raw_ids=False, bad_lines=bad_lines)
+
+    def score_fn(table, batch):
+        args = batch_args(batch, device)
+        del args["labels"], args["weights"]
+        args["uniq_ids"] = batch.uniq_ids
+        return sharded_score_body(spec, mesh, table, **args)
+
+    with torch.no_grad():
+        for batch, local in lockstep_score_batches(
+                cfg, it, mesh, score_fn, table, ub,
+                max_batches=max_batches, preempt=preempt):
+            nr = batch.num_real
+            auc.update(local[:nr], batch.labels[:nr], batch.weights[:nr])
+            n += nr
+    bins = auc.num_bins
+    payload = np.concatenate([auc.pos, auc.neg,
+                              np.asarray([n], np.float64)])
+    vals = mesh.all_gather_host(payload,
+                                "validation/auc_merge").sum(axis=0)
+    merged = StreamingAUC(num_bins=bins)
+    merged.pos[:] = vals[:bins]
+    merged.neg[:] = vals[bins:2 * bins]
+    return merged.result(), int(round(vals[2 * bins]))
+
+
 class _Stepper:
     """What one train session steps: the table and accumulator (updated
     in place) or the offload backend ``lookup`` that holds them, the
@@ -256,10 +343,15 @@ class _Stepper:
                  encoder: WireEncoder, device: torch.device,
                  table: Optional[torch.Tensor], acc: Optional[torch.Tensor],
                  step: int, logger, lookup=None,
-                 vocab: Optional[VocabRuntime] = None):
+                 vocab: Optional[VocabRuntime] = None,
+                 mesh: Optional[ProcessMesh] = None):
         self.cfg, self.spec, self.encoder = cfg, spec, encoder
         self.device, self.logger = device, logger
         self.table, self.acc = table, acc
+        # Multi-process: this rank's row shards of a ProcessMesh.
+        self.mesh = mesh
+        self.local_examples = 0
+        self.loop_seconds = 0.0  # in the epoch loops
         self.lookup = lookup
         self.vocab = vocab
         self._offload_step = (None if lookup is None else
@@ -281,7 +373,12 @@ class _Stepper:
             batch = self.vocab.ensure_current(batch)
         wb = self.encoder.encode_train(batch)
         args = self.encoder.device_put(wb, self.device)
-        if self._offload_step is not None:
+        if self.mesh is not None:
+            # The row exchange all-gathers the ids on the host.
+            args["uniq_ids"] = wb.args["uniq_ids"]
+            self.table, self.acc, self.loss, _ = sharded_train_step_body(
+                self.spec, self.mesh, self.table, self.acc, **args)
+        elif self._offload_step is not None:
             self.loss, _ = self._offload_step(**args)
         elif wb.packed:
             self.table, self.acc, self.loss, _ = packed_train_step_body(
@@ -297,7 +394,11 @@ class _Stepper:
         self.h2d_bytes += wb.wire_bytes
         self.logical_bytes += wb.logical_bytes
         self.global_step += 1
-        self.timer.tick(batch.num_real)
+        self.local_examples += batch.num_real
+        # The rate estimate counts the global batch (each rank's local
+        # examples times the ranks), as the JAX package logs it.
+        self.timer.tick(batch.num_real * (self.mesh.size if self.mesh
+                                          else 1))
         log_steps = self.cfg.log_steps
         if log_steps and self.global_step % log_steps == 0:
             self._log_buffer.append((self.global_step, epoch, self.loss,
@@ -349,7 +450,12 @@ class _Stepper:
             return self.table
         return self.lookup.state()[0][:self.cfg.num_rows]
 
-    def evaluate(self, files, **kwargs) -> Tuple[float, int]:
+    def evaluate(self, files, preempt=None, uniq_bucket: int = 0,
+                 **kwargs) -> Tuple[float, int]:
+        if self.mesh is not None:
+            return evaluate_distributed(self.cfg, self.table, files,
+                                        self.mesh, uniq_bucket=uniq_bucket,
+                                        preempt=preempt, **kwargs)
         return evaluate(self.cfg, self.table, files, backend=self.lookup,
                         vocab=self.vocab, **kwargs)
 
@@ -444,20 +550,76 @@ class _Publisher:
 
 
 def train(cfg: FmConfig, device=None,
-          init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-          ) -> torch.Tensor:
+          init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          job_name: Optional[str] = None,
+          task_index: Optional[int] = None) -> torch.Tensor:
     """Train per ``cfg``; returns the final table ``[num_rows, D]``
     (with ``lookup = host``, on the host: a view of the backend's
-    page-locked state). ``device`` defaults to the card
-    (utils/device.py). A checkpoint under ``<model_file>.ckpt/`` is
-    resumed; without one the run starts from ``init_state``, a ``(table,
-    acc)`` pair (models/convert.py ``state_from_numpy``; device lookup
-    only), or else from a table drawn from ``cfg.seed`` and an
-    accumulator filled with ``adagrad_init``. Both are updated in
-    place."""
+    page-locked state; in a multi-process run, this rank's row shard).
+    ``device`` defaults to the card (utils/device.py). A checkpoint
+    under ``<model_file>.ckpt/`` is resumed; without one the run starts
+    from ``init_state``, a ``(table, acc)`` pair (models/convert.py
+    ``state_from_numpy``; device lookup only), or else from a table
+    drawn from ``cfg.seed`` and an accumulator filled with
+    ``adagrad_init``. Both are updated in place.
+
+    ``job_name`` / ``task_index``: the ``dist_train worker <i>`` argv.
+    With more than one ``worker_hosts`` entry this process joins the
+    cluster as rank i (parallel/distributed.py), the table and the
+    accumulator are row-sharded over the ranks (parallel/sharded.py),
+    each rank reads its byte range of the input, and the ranks step in
+    lockstep. The heartbeat lease (``heartbeat_seconds`` > 0) and the
+    collective deadline guard run for the whole session: a peer that
+    dies makes the survivors raise ``WorkerLostError`` naming it, or
+    exit ``EXIT_WORKER_LOST`` if a collective blocks past
+    ``collective_timeout_seconds``."""
     device = resolve_device(device)
-    spec = ModelSpec.from_config(cfg)
     check_train_supported(cfg)
+    logger = get_logger(log_file=cfg.log_file or None)
+    shard_index, num_shards = 0, 1
+    if job_name is not None:
+        shard_index, num_shards = dist_mod.init_from_cluster(
+            cfg, job_name, task_index or 0)
+    lease = None
+    guard_prev = None
+    guarded = False
+    lost = False
+    try:
+        if num_shards > 1:
+            if cfg.heartbeat_seconds > 0:
+                lease = HeartbeatLease(
+                    lease_dir(cfg), process_index=shard_index,
+                    members=range(num_shards),
+                    heartbeat_seconds=cfg.heartbeat_seconds).start()
+            guard_prev = install_guard(lease,
+                                       cfg.collective_timeout_seconds)
+            guarded = True
+        return _train_session(cfg, device, init_state, logger,
+                              shard_index, num_shards)
+    except WorkerLostError as e:
+        # Fail fast with the diagnosis (elastic recovery: ROADMAP.md
+        # A10's second slice); the group is not torn down, its peers are gone.
+        lost = True
+        logger.error("WorkerLostError: %s", e)
+        raise
+    finally:
+        if lease is not None:
+            lease.stop()
+        if guarded:
+            restore_guard(guard_prev)
+        if num_shards > 1 and not lost:
+            dist_mod.shutdown()
+
+
+def _train_session(cfg: FmConfig, device: torch.device,
+                   init_state: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                   logger, shard_index: int, num_shards: int
+                   ) -> torch.Tensor:
+    """One training session: restore, the epoch (or stream) loop, the
+    final save and the export. ``num_shards`` > 1: the multi-process
+    arm, as rank ``shard_index``."""
+    multi = num_shards > 1
+    spec = ModelSpec.from_config(cfg, num_processes=num_shards)
     offload = cfg.lookup == "host"
     if offload and init_state is not None:
         raise ValueError(
@@ -465,13 +627,40 @@ def train(cfg: FmConfig, device=None,
             "(lookup.init_host_state) or restores it; init_state is a "
             "lookup = device start")
     stream_mode = cfg.run_mode == "stream"
-    logger = get_logger(log_file=cfg.log_file or None)
     # slo_min_auc takes effect in a publishing stream run with
     # validation files (it switches the quality sweep on there).
     log_ignored_keys(cfg, logger, in_effect=(
         ("slo_min_auc",) if stream_mode and cfg.validation_files
         and cfg.publish_interval_seconds > 0 else ()))
-    host_workers = host_parallel_workers(cfg, cfg.weight_files)
+    mesh = None
+    uniq_bucket = val_bucket = 0
+    if multi:
+        if spec.dedup == "device":
+            # Unreachable through dedup = auto (host on more than one
+            # process); an explicit config gets the JAX package's error.
+            raise ValueError(
+                "dedup = device is single-device only: multi-process "
+                "paths rely on the host-side unique contract (fixed-U "
+                "buckets, the row exchange's global unique axis)")
+        require_bounded_examples(cfg, "multi-process training")
+        device = indexed(device)
+        dist_mod.share_host_threads(cfg, device, num_shards)
+        mesh = make_mesh(cfg, shard_index, num_shards)
+        logger.info(
+            "multi-process training: rank %d of %d on %s, table rows "
+            "[%d, %d) of %d (gloo)", mesh.rank, mesh.size, device,
+            mesh.lo, mesh.hi, mesh.rows)
+        # Fixed-shape batches need one U for the whole job; the probe
+        # reads the same bytes on every rank, so all agree without a
+        # collective.
+        uniq_bucket = cfg.uniq_bucket or probe_uniq_bucket(cfg,
+                                                           cfg.train_files)
+        logger.info("fixed unique-row bucket: %d", uniq_bucket)
+        if cfg.validation_files:
+            val_bucket = cfg.uniq_bucket or probe_uniq_bucket(
+                cfg, cfg.validation_files)
+    host_workers = host_parallel_workers(cfg, cfg.weight_files,
+                                         fixed_shape=multi)
     if host_workers > 1 and not stream_mode:
         logger.info(
             "host data plane: %d parallel batch-build workers "
@@ -488,7 +677,7 @@ def train(cfg: FmConfig, device=None,
     ckpt = CheckpointState(cfg.model_file,
                            retry=RetryPolicy.from_config(cfg),
                            verify=cfg.ckpt_verify,
-                           adagrad_init=cfg.adagrad_init)
+                           adagrad_init=cfg.adagrad_init, mesh=mesh)
     # One run-scoped tracker (None under bad_line_policy = error): the
     # breaker and the quarantine dedupe see every epoch's streams.
     bad_tracker = BadLineTracker.from_config(cfg)
@@ -515,11 +704,16 @@ def train(cfg: FmConfig, device=None,
             logger.info("offload lookup [pinned-host (%s)]: table [%d, %d] "
                         "outside HBM (%.2f GB + accumulator)", lk.mode,
                         lk.rows, lk.dim, lk.rows * lk.dim * 4 / 2**30)
+        elif mesh is not None:
+            table, acc = _initial_shards(cfg, mesh, device, restored,
+                                         init_state, ckpt.directory)
         else:
             table, acc = _initial_state(cfg, device, restored, init_state,
                                         ckpt.directory)
-        # The offload step gathers by the host's uniq ids: padded-wide.
-        wire = resolve_wire(cfg, backend=lk, train=True)
+        # The offload step gathers by the host's uniq ids, and the
+        # lockstep exchanges the padded rows: padded-wide.
+        wire = resolve_wire(cfg, backend=lk, multi_process=multi,
+                            train=True)
         encoder = WireEncoder(wire, pad_id=cfg.pad_id)
         logger.info("wire format: %s%s", wire.describe(),
                     " (flat CSR, unpacked on the device)" if wire.packed
@@ -532,8 +726,9 @@ def train(cfg: FmConfig, device=None,
         publisher = _Publisher(cfg, ckpt, bad_tracker, logger)
 
         # Preemption: SIGTERM/SIGINT set a flag the loop drains at the
-        # next step boundary, and the final save below is the
-        # preemption save.
+        # next step boundary (multi-process: the flag rides the step
+        # flags all-gather, so every rank stops at the same step), and
+        # the final save below is the preemption save.
         preempted: list = []
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
@@ -543,7 +738,7 @@ def train(cfg: FmConfig, device=None,
                 pass
 
         st = _Stepper(cfg, spec, encoder, device, table, acc, global_step,
-                      logger, lookup=lk, vocab=vocab)
+                      logger, lookup=lk, vocab=vocab, mesh=mesh)
         if fresh_over_restore:
             # Every row, the cold row 0 included, still holds the lost
             # mapping's trained weights: cold-start them all, so no id
@@ -554,6 +749,7 @@ def train(cfg: FmConfig, device=None,
                         "admission state", cfg.vocabulary_size)
         completed_epochs = start_epoch
         last_periodic_save = (None, None)  # (step, epoch) of the latest
+        last_val = None  # (auc, n) of the last validation of this table
         stopping = False
         stream_watermark = None
         if stream_mode:
@@ -563,24 +759,52 @@ def train(cfg: FmConfig, device=None,
         epoch_schedule = (range(0) if stream_mode
                           else range(start_epoch, cfg.epoch_num))
         for epoch in epoch_schedule:
+            epoch_stats = SpillStats()
             it = prefetch(batch_iterator(cfg, cfg.train_files,
                                          training=True,
                                          weight_files=cfg.weight_files,
+                                         shard_index=shard_index,
+                                         num_shards=num_shards,
                                          epochs=1, seed=cfg.seed + epoch,
+                                         fixed_shape=multi,
+                                         uniq_bucket=uniq_bucket,
+                                         stats=epoch_stats,
                                          raw_ids=spec.dedup == "device",
                                          bad_lines=bad_tracker,
                                          vocab=vocab),
                           depth=cfg.prefetch_depth,
                           gil_bound=gil_bound_iteration(cfg,
                                                         cfg.weight_files))
+            t_loop = time.perf_counter()
             try:
-                for batch in it:
+                while True:
+                    batch = next(it, None)
+                    if mesh is not None:
+                        # Lockstep: byte-range shards give ranks batch
+                        # counts that differ, and every step is a
+                        # collective, so the ranks agree each step on
+                        # exhaustion and preemption and a dry rank
+                        # steps all-padding filler (zero weight: zero
+                        # loss and gradient) until every rank is dry.
+                        flags = mesh.all_gather_host(
+                            np.asarray([batch is None, bool(preempted)],
+                                       np.int32), "train/step_flags")
+                        if flags[:, 1].any():
+                            preempted.append(signal.SIGTERM)
+                        elif flags[:, 0].all():
+                            break
+                        elif batch is None:
+                            batch = empty_batch(cfg,
+                                                uniq_bucket=uniq_bucket)
+                    elif batch is None:
+                        break
                     if preempted:
                         stopping = True
                         logger.info(
                             "preemption signalled; saving and exiting")
                         break
                     st.step(batch, epoch)
+                    last_val = None  # the table moved
                     if cfg.save_steps and \
                             st.global_step % cfg.save_steps == 0:
                         # Asynchronous: the snapshot is complete when
@@ -592,12 +816,36 @@ def train(cfg: FmConfig, device=None,
                                               completed_epochs)
             finally:
                 it.close()
+                st.loop_seconds += time.perf_counter() - t_loop
             st.flush_log()  # the epoch barrier: one fetch for its lines
             if bad_tracker is not None and bad_tracker.bad:
                 logger.info("bad-line policy through epoch %d: %s",
                             epoch, bad_tracker.describe())
+            if epoch_stats.spilled_batches or (multi and
+                                               epoch_stats.batches):
+                logger.info("epoch %d input: %s", epoch,
+                            epoch_stats.describe())
+                if epoch_stats.spill_fraction > SPILL_WARN_FRACTION:
+                    logger.warning(
+                        "uniq_bucket %d is undersized for this data: "
+                        "%.0f%% of batches closed early on the unique-row "
+                        "budget; raise uniq_bucket (or set 0 to re-probe) "
+                        "to recover effective batch size", uniq_bucket,
+                        100 * epoch_stats.spill_fraction)
             if stopping:  # a preemption-cut epoch is NOT completed
                 break
+            if mesh is not None and epoch + 1 < cfg.epoch_num:
+                # The job-wide spill counts decide the next epoch's
+                # bucket on every rank alike (a local decision would
+                # give the ranks different shapes).
+                tot = mesh.all_gather_host(
+                    np.asarray([epoch_stats.spilled_batches,
+                                epoch_stats.batches, epoch_stats.max_uniq],
+                               np.int64), "train/spill_stats")
+                uniq_bucket = adapt_uniq_bucket(
+                    cfg, uniq_bucket, int(tot[:, 0].sum()),
+                    int(tot[:, 1].sum()), logger,
+                    max_uniq=int(tot[:, 2].max()))
             # The epoch boundary is a barrier point: the next epoch and
             # the validation sweep below run on the refreshed slot map.
             st.vocab_barrier(f"epoch {epoch}")
@@ -607,9 +855,14 @@ def train(cfg: FmConfig, device=None,
                                      max_batches=cfg.validation_max_batches
                                      or None,
                                      weight_files=cfg.validation_weight_files,
-                                     bad_lines=bad_tracker)
-                logger.info("epoch %d validation AUC %.6f over %d "
-                            "examples", epoch, auc, n)
+                                     bad_lines=bad_tracker,
+                                     uniq_bucket=val_bucket,
+                                     **({"preempt": lambda: bool(preempted)}
+                                        if mesh is not None else {}))
+                last_val = (auc, n)
+                if ckpt.chief:
+                    logger.info("epoch %d validation AUC %.6f over %d "
+                                "examples", epoch, auc, n)
         global_step = st.global_step
         if st.loss is not None:
             st.loss_val = float(st.loss)
@@ -645,19 +898,28 @@ def train(cfg: FmConfig, device=None,
                                  bad_lines=bad_tracker)
             logger.info("final validation AUC %.6f over %d examples",
                         auc, n)
-        table = st.host_table()
-        nbytes = cfg.num_rows * cfg.row_dim * 4
-        if nbytes > EXPORT_NPZ_MAX_BYTES:
-            logger.info(
-                "skipping dense .npz export: table is %.1f GB > %.1f GB "
-                "threshold; use the checkpoint at %s.ckpt",
-                nbytes / 2**30, EXPORT_NPZ_MAX_BYTES / 2**30,
-                cfg.model_file)
+        if mesh is not None:
+            t_exp = _chief_finalize(cfg, st, mesh, logger, last_val,
+                                    val_bucket, bad_tracker)
+            table = st.table
         else:
-            save_npz(table, cfg.model_file + ".npz", cfg)
+            table = st.host_table()
+            t0 = time.perf_counter()
+            if _export_allowed(cfg, logger):
+                save_npz(table, cfg.model_file + ".npz", cfg)
+            t_exp = time.perf_counter() - t0
         logger.info("wire %s: h2d_bytes = %d over %d steps, against %d "
                     "in the padded layout", wire.describe(), st.h2d_bytes,
                     global_step - restored_step, st.logical_bytes)
+        if mesh is not None:
+            steps = global_step - restored_step
+            loop = st.loop_seconds
+            logger.info(
+                "worker %d of %d: %d steps, %d local examples, loop %.0f "
+                "local examples/sec, %.3f ms a step, export %.2fs",
+                mesh.rank, mesh.size, steps, st.local_examples,
+                st.local_examples / loop if loop > 0 else 0.0,
+                1e3 * loop / steps if steps else 0.0, t_exp)
         logger.info("training done: %d steps, final loss %.6f, %.0f "
                     "examples/sec", global_step, st.loss_val,
                     st.timer.total_examples_per_sec)
@@ -670,6 +932,106 @@ def train(cfg: FmConfig, device=None,
         ckpt.close()
         if bad_tracker is not None:
             bad_tracker.close()
+
+
+def _export_allowed(cfg: FmConfig, logger) -> bool:
+    """The dense ``.npz`` export's size gate (the JAX package's): over
+    ``EXPORT_NPZ_MAX_BYTES`` the checkpoint is the model, which
+    ``logger`` (None: no line) says."""
+    nbytes = cfg.num_rows * cfg.row_dim * 4
+    if nbytes > EXPORT_NPZ_MAX_BYTES:
+        if logger is not None:
+            logger.info(
+                "skipping dense .npz export: table is %.1f GB > %.1f GB "
+                "threshold; use the checkpoint at %s.ckpt",
+                nbytes / 2**30, EXPORT_NPZ_MAX_BYTES / 2**30,
+                cfg.model_file)
+        return False
+    return True
+
+
+def _chief_finalize(cfg: FmConfig, st: _Stepper, mesh: ProcessMesh,
+                    logger, last_val, val_bucket: int,
+                    bad_tracker: Optional[BadLineTracker]) -> float:
+    """The multi-process epilogue: the final validation AUC through the
+    sharded score (when the last epoch did not validate this table
+    already; only histograms cross ranks), then the size-gated dense
+    export, assembled chunk by chunk on the chief (the others hold one
+    chunk at a time), and a closing barrier. Returns the export's
+    seconds."""
+    if cfg.validation_files:
+        if last_val is None:  # e.g. a preemption cut the epoch short
+            last_val = evaluate_distributed(
+                cfg, st.table, cfg.validation_files, mesh,
+                uniq_bucket=val_bucket,
+                max_batches=cfg.validation_max_batches or None,
+                weight_files=cfg.validation_weight_files,
+                bad_lines=bad_tracker)
+        if mesh.rank == 0:
+            logger.info("final validation AUC %.6f over %d examples",
+                        *last_val)
+    t0 = time.perf_counter()
+    chief = mesh.rank == 0
+    if _export_allowed(cfg, logger if chief else None):
+        out = (np.empty((cfg.num_rows, cfg.row_dim), np.float32)
+               if chief else None)
+        n = mesh.rows_per_rank
+        chunk = max(1, (64 << 20) // (cfg.row_dim * 4))
+        for a in range(0, n, chunk):
+            b = min(a + chunk, n)
+            piece = st.table[a:b].detach().to("cpu").contiguous()
+            parts = mesh.gather_to_chief(piece, "finalize/export_chunk")
+            if chief:
+                for r, part in enumerate(parts):
+                    lo = r * n + a
+                    hi = min(lo + (b - a), cfg.num_rows)
+                    if hi > lo:
+                        out[lo:hi] = part[:hi - lo].numpy()
+        if chief:
+            save_npz(torch.from_numpy(out), cfg.model_file + ".npz", cfg)
+    mesh.barrier("finalize/sync")
+    return time.perf_counter() - t0
+
+
+# Shrink threshold: halve the bucket only when the epoch's densest batch
+# used under this fraction of it, so the halved bucket still holds that
+# batch with headroom and the shrink cannot itself cause spills.
+SHRINK_FILL_FRACTION = 0.35
+
+
+def adapt_uniq_bucket(cfg: FmConfig, uniq_bucket: int, spilled: int,
+                      batches: int, logger, max_uniq: int = 0) -> int:
+    """The next epoch's fixed unique-row bucket from this epoch's
+    job-wide counts: doubled (up to the ladder top) while the spill
+    fraction stays above SPILL_WARN_FRACTION; halved (never below 64 or
+    the per-example cap) after a spill-free epoch whose densest batch
+    filled under SHRINK_FILL_FRACTION of it. Deterministic in its
+    inputs, which every rank gets alike (train all-gathers them). An
+    explicit ``uniq_bucket`` config is never overridden."""
+    if cfg.uniq_bucket or not batches:
+        return uniq_bucket
+    if spilled / batches > SPILL_WARN_FRACTION:
+        top = uniq_bucket_top(cfg)
+        if uniq_bucket >= top:
+            return uniq_bucket
+        new_bucket = min(uniq_bucket * 2, top)
+        logger.info(
+            "raising uniq_bucket %d -> %d for the next epoch (%.0f%% of "
+            "batches spilled on the unique-row budget this epoch)",
+            uniq_bucket, new_bucket, 100 * spilled / batches)
+        return new_bucket
+    half = uniq_bucket // 2
+    if (spilled == 0 and max_uniq
+            and max_uniq <= uniq_bucket * SHRINK_FILL_FRACTION
+            and half >= 64 and half > cfg.max_features_per_example):
+        logger.info(
+            "lowering uniq_bucket %d -> %d for the next epoch (densest "
+            "batch used %d unique rows, %.0f%% fill — recovering "
+            "gather/scatter width from an oversized probe or an earlier "
+            "raise)", uniq_bucket, half, max_uniq,
+            100 * max_uniq / uniq_bucket)
+        return half
+    return uniq_bucket
 
 
 def _stream_state(watermark: Optional[dict]) -> dict:
@@ -906,3 +1268,24 @@ def _initial_state(cfg: FmConfig, device: torch.device, restored,
             f"got {tuple(table.shape)} on {table.device} and "
             f"{tuple(acc.shape)} on {acc.device}")
     return table, acc
+
+
+def _initial_shards(cfg: FmConfig, mesh: ProcessMesh, device: torch.device,
+                    restored, init_state, directory: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's ``(table, acc)`` row shards on ``device``: the
+    restored checkpoint's rows, else ``init_state``'s (a dense pair,
+    placed), else a fresh sharded draw (``init_sharded_state``)."""
+    if restored is not None:
+        if init_state is not None:
+            raise ValueError(
+                f"init_state was given, but {directory} holds a "
+                "checkpoint to resume; point model_file elsewhere to "
+                "start from init_state")
+        return (restored["table"].to(device).contiguous(),
+                restored["acc"].to(device).contiguous())
+    if init_state is None:
+        return init_sharded_state(cfg, mesh, cfg.seed, device)
+    table, acc = init_state
+    return (place_table(cfg, mesh, table, device),
+            place_table(cfg, mesh, acc, device, fill=cfg.adagrad_init))

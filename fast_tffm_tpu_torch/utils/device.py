@@ -25,3 +25,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     return dev
+
+
+def indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means (``cuda:0``), so that the logs of
+    processes sharing a card name it."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

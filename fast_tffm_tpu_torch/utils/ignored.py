@@ -4,11 +4,14 @@ that brings each lands.
 The port loads every ``FmConfig`` key the JAX package loads, so one
 config file serves both. A key whose subsystem is not ported yet must
 not pass in silence: each entry point (``train``, ``predict``,
-``serve``) logs every key of ``IGNORED_KEYS`` that is set away from its
-default, naming the item, unless the caller says the key takes effect
-there (``in_effect``). Keys the port refuses outright raise
-``NotImplementedError`` elsewhere (``train.check_train_supported``,
-the data pipeline).
+``serve``, the fleet supervisor) logs every key of ``IGNORED_KEYS``
+that is set away from its default, naming the item, unless the caller
+says the key takes effect there (``in_effect``). ``kernel`` is logged
+with a message of its own when set to ``xla`` or ``pallas``: no item
+will port it, since the port has one route per model (a 2nd-order FM
+runs the CUDA kernels on the card and their plain versions on the CPU;
+FFM and order > 2 run torch ops). Keys the port refuses outright raise
+elsewhere (``train.check_train_supported`` and ``__main__.py``).
 """
 
 from __future__ import annotations
@@ -50,10 +53,29 @@ def ignored_keys_set(cfg: FmConfig):
             if getattr(cfg, key) != getattr(defaults, key)]
 
 
+# ``kernel`` values the port has no route for (``auto``, the default,
+# is what the port does anyway).
+NO_EFFECT_KERNELS = ("xla", "pallas")
+
+
+def kernel_key_message(cfg: FmConfig):
+    """The line a ``kernel`` set to ``xla`` or ``pallas`` is logged
+    with, or None."""
+    if cfg.kernel not in NO_EFFECT_KERNELS:
+        return None
+    return (f"kernel = {cfg.kernel!r} has no effect in fast_tffm_tpu_torch "
+            "and no ROADMAP.md item will give it one: a 2nd-order FM runs "
+            "the hand-written CUDA kernels on the card and their plain "
+            "PyTorch versions on the CPU; FFM and order > 2 run torch ops")
+
+
 def log_ignored_keys(cfg: FmConfig, logger, in_effect=()) -> None:
-    """One log line per ignored key ``cfg`` sets, naming its item;
-    the keys in ``in_effect`` take effect in the caller's run and are
-    not logged."""
+    """One log line per ignored key ``cfg`` sets, naming its item, and
+    the ``kernel`` line; the keys in ``in_effect`` take effect in the
+    caller's run and are not logged."""
+    msg = kernel_key_message(cfg)
+    if msg is not None:
+        logger.info("%s", msg)
     for key, value, item, what in ignored_keys_set(cfg):
         if key in in_effect:
             continue

@@ -305,9 +305,9 @@ def _check_payload(cfg, payload: Dict[str, object]) -> Dict[str, object]:
 
 class VocabRuntime(VocabMap):
     """The training-side runtime: VocabMap + the sketch, the candidate
-    buffer, and the barrier. Single-process by design (the slot map is
-    host state; multi-worker admission needs a chief-decided broadcast
-    — ROADMAP.md A10)."""
+    buffer, and the barrier. Single-process by design, as in the JAX
+    package, which refuses admit mode with more than one process (the
+    slot map is host state)."""
 
     def __init__(self, capacity: int, pad_id: int, threshold: float,
                  decay: float, sketch: CountMinSketch):

@@ -23,8 +23,9 @@ waits for the copy's event before it reads them.
 
 ``resolve_wire`` keeps the JAX package's downgrades (the mesh,
 multi-process lockstep and the offload train step need the padded
-layout): the offload train step (lookup.py) runs padded-wide with a
-warning; the port refuses the other two paths today (ROADMAP.md A10).
+layout): the offload train step (lookup.py) and the multi-process
+lockstep (``dist_train``, whose row exchange ships the padded host-deduped
+batch) run padded-wide with a warning; the port has no in-process mesh.
 An offload scorer's encoder (``host_uniq``) withholds a packed batch's
 uniq ids for the backend's gather (``WireBatch.host_uniq``). The memory
 ledger's ``wire_buffers`` entry waits for A11.
@@ -115,8 +116,7 @@ def resolve_wire(cfg: FmConfig, mesh=None, backend=None,
     """The one resolution of the wire knobs for a dispatch path. Paths
     that need the padded layout — mesh sharding, multi-process lockstep,
     the offload train step — resolve to padded-wide with a warning, as
-    in the JAX package; the port has the offload one (the mesh and
-    lockstep paths wait for A10)."""
+    in the JAX package (the port has the last two)."""
     spec = WireSpec(cfg.wire_format, cfg.wire_dtypes)
     if not spec.packed:
         return spec

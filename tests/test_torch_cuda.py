@@ -71,6 +71,13 @@ Tolerances:
   proxied bodies equal an in-process ScorerServer's byte for byte (the
   forward kernel's scores, to the bit, formatted), and whose replicas'
   ``/healthz`` name ``cuda:0``, the CUDA kernel and its launches.
+- ``dist_train``: two ranks on cuda:0 (processes over gloo,
+  tests/torch_dist_ranks.py) take 4 sharded steps of an FM, an FFM and
+  an order-3 FM (rank 1 steps the filler in the last), held against the
+  single-process host-dedup step on the card on their concatenated batch
+  (``local_idx`` offset per rank): the loss, the gathered table and
+  accumulator at the step's rtol 1e-4 / atol 1e-6, the sharded scores at
+  rtol 1e-5 / atol 1e-6.
 """
 
 import numpy as np
@@ -1111,3 +1118,62 @@ serve_health_poll_seconds = 0.1
         assert h["device"] == "cuda:0" and h["kernel"] == "cuda"
         assert h["kernel_launches"] > 0 and h["flushes"] > 0
     assert all(r.exited() for r in sup.replicas)
+
+
+def test_two_rank_sharded_step_on_the_card(card, tmp_path):
+    """Two ranks on cuda:0 (two processes over gloo, each with its CUDA
+    context and row shard) take 4 sharded steps of an FM (the CUDA
+    kernels), an FFM and an order-3 FM, rank 1 stepping the filler in
+    the last; held against the single-process
+    host-dedup step on the card on the concatenated global batch
+    (``local_idx`` offset into the concatenated unique axis): the loss
+    and the post-step table and accumulator at the step's rtol 1e-4 /
+    atol 1e-6, and the sharded scores at rtol 1e-5 / atol 1e-6."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_dist_ranks as ranks
+    from fast_tffm_tpu_torch.parallel.sharded import offset_local_idx
+    wd = str(tmp_path)
+    ranks.write_step_inputs(wd)
+    results = ranks.run_ranks("step", wd, device=card.type)
+    for name, kw in ranks.step_cases():
+        cfg = FmConfig(**kw)
+        spec = port_fm.ModelSpec.from_config(cfg, num_processes=2)
+        init = np.load(os.path.join(wd, f"{name}-init.npz"))
+        rows = cfg.ckpt_rows
+        table = torch.zeros((rows, cfg.row_dim), device=card)
+        table[:cfg.num_rows] = torch.from_numpy(init["table"]).to(card)
+        acc = torch.full((rows, cfg.row_dim), cfg.adagrad_init, device=card)
+        U = len(results[0][f"{name}/b0/uniq_ids"])
+
+        def glob(s, keys):
+            out = {}
+            for k in keys:
+                key = f"{name}/b{s}/{k}"
+                if key in results[0]:
+                    parts = [r[key] for r in results]
+                    if k == "local_idx":
+                        parts = [offset_local_idx(p, i, U)
+                                 for i, p in enumerate(parts)]
+                    out[k] = torch.from_numpy(np.concatenate(parts)).to(card)
+            return out
+
+        for s in range(ranks.STEPS):
+            args = glob(s, ("labels", "weights", "uniq_ids", "local_idx",
+                            "vals", "fields"))
+            table, acc, loss, _ = port_fm.train_step_body(
+                spec, table, acc, **args)
+            for r in results:
+                np.testing.assert_allclose(float(r[f"{name}/loss{s}"]),
+                                           float(loss), rtol=1e-4)
+        for key, want in (("table", table), ("acc", acc)):
+            got = np.concatenate([r[f"{name}/{key}"] for r in results])
+            np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-6)
+        args = glob(ranks.STEPS, ("uniq_ids", "local_idx", "vals",
+                                  "fields"))
+        with torch.no_grad():
+            want = port_fm.score_body(spec, table, **args).cpu().numpy()
+        got = np.concatenate([r[f"{name}/scores"] for r in results])
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

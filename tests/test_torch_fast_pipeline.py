@@ -271,14 +271,20 @@ def test_no_build_thread_survives(tmp_path):
 
 
 def test_stream_options_still_refused(tmp_path):
-    _, cfg = _cfgs(str(tmp_path))
+    """The sharded and fixed-shape streams are ported (held to the JAX
+    package in tests/test_torch_dist_input.py); what stays refused is
+    what the JAX package refuses: a fixed shape over raw ids, and a
+    FileMarks ledger outside a single in-order keep_empty pass.
+    uniq_bucket on one unsharded stream is inert, as there."""
+    jcfg, cfg = _cfgs(str(tmp_path))
     files = _files(str(tmp_path))
-    for kw in (dict(num_shards=2, shard_index=1), dict(fixed_shape=True)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            next(pipeline.batch_iterator(cfg, files, **kw))
-    with pytest.raises(NotImplementedError, match="A10"):
-        next(pipeline.batch_iterator(
-            dataclasses.replace(cfg, uniq_bucket=512), files))
+    _both(jcfg, cfg, files, num_shards=2, shard_index=1, raw_ids=True)
+    with pytest.raises(ValueError, match="no fixed-U protocol"):
+        next(pipeline.batch_iterator(cfg, files, fixed_shape=True,
+                                     raw_ids=True))
+    _assert_same(list(pipeline.batch_iterator(cfg, files)),
+                 list(pipeline.batch_iterator(
+                     dataclasses.replace(cfg, uniq_bucket=512), files)))
     with pytest.raises(ValueError, match="file_marks requires"):
         next(pipeline.batch_iterator(cfg, files,
                                      file_marks=pipeline.FileMarks()))

@@ -141,3 +141,37 @@ def test_fleet_supervisor_logs_ignored_keys(tmp_path, port_log):
     assert sup.replicas[0].command()[-2:] == ["--device", "cpu"]
     sup.stop()  # never started: nothing to drain
     _assert_logged(port_log)
+
+
+KERNEL_LINE = ("has no effect in fast_tffm_tpu_torch and no ROADMAP.md item "
+               "will give it one: a 2nd-order FM runs the hand-written CUDA "
+               "kernels on the card and their plain PyTorch versions on the "
+               "CPU; FFM and order > 2 run torch ops")
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "auto"])
+def test_every_entry_point_logs_the_kernel_key(tmp_path, port_log, kernel):
+    """``kernel = xla | pallas`` picks a route in the JAX package; the
+    port has one route a model, so train, predict, serve and the fleet
+    each log the key as having no effect (``auto``, what the port does
+    anyway, is not logged), and the run goes on: the order-2 scores are
+    those of ``kernel = auto``."""
+    want = f"kernel = {kernel!r} {KERNEL_LINE}"
+    train(_cfg(str(tmp_path / "t"), kernel=kernel), device="cpu")
+    cfg = _published(str(tmp_path / "p"), kernel=kernel)
+    (path,) = predict(cfg, device="cpu")
+    server = ScorerServer(cfg, device="cpu", watch=False)
+    try:
+        scores = server.score_lines(["1 3:1 5:0.5"], timeout=30).scores
+    finally:
+        server.close()
+    sup = FleetSupervisor(dataclasses.replace(cfg, serve_port=7170),
+                          str(tmp_path / "unused.cfg"), replicas=2,
+                          device="cpu")
+    sup.stop()
+    logged = port_log.text.count(want)
+    assert logged == (0 if kernel == "auto" else 4)
+    auto = _published(str(tmp_path / "a"))
+    (auto_path,) = predict(auto, device="cpu")
+    assert open(path).read() == open(auto_path).read()
+    assert len(scores) == 1

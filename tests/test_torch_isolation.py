@@ -82,7 +82,11 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.serve.server",
                  "fast_tffm_tpu_torch.serve.proxy",
                  "fast_tffm_tpu_torch.serve.fleet",
-                 "fast_tffm_tpu_torch.serve.replica"):
+                 "fast_tffm_tpu_torch.serve.replica",
+                 "fast_tffm_tpu_torch.parallel",
+                 "fast_tffm_tpu_torch.parallel.distributed",
+                 "fast_tffm_tpu_torch.parallel.liveness",
+                 "fast_tffm_tpu_torch.parallel.sharded"):
         assert name in out["imported"]
 
 
@@ -116,5 +120,6 @@ def test_port_thread_names_carry_their_own_prefix():
     threads = set(names)
     assert {"fmt-serve-http", "fmt-serve-reload", "fmt-serve-dispatch",
             "fmt-serve-warmup", "fmt-fleet-health", "fmt-fleet-reload",
-            "fmt-proxy-http", "fmt-proxy-shadow"} <= threads
+            "fmt-proxy-http", "fmt-proxy-shadow", "fmt-heartbeat",
+            "fmt-part-merger", "fmt-ckpt-writer"} <= threads
     assert [n for n in threads if n.startswith("fm-")] == []

@@ -313,9 +313,13 @@ def test_fleet_config_values_predict_and_serve(slice_run, change, tmp_path):
 
 
 @pytest.mark.parametrize("rest,item", [(["dist_train", "worker", "0"], "A10")])
-def test_unported_argv_raises(slice_run, rest, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(["serve", slice_run["cfg_path"], "--device", "cpu", *rest])
+def test_unported_argv_raises(slice_run, rest, item, capsys):
+    """``dist_train`` (ported with ROADMAP.md ``item``) is a train and
+    predict role; serve refuses a role as the JAX CLI does: a message
+    and the usage, exit 2."""
+    assert main(["serve", slice_run["cfg_path"], "--device", "cpu",
+                 *rest]) == 2
+    assert "serve takes no dist_train role" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("in_cfg,rest,want", [

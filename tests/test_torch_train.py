@@ -158,11 +158,25 @@ def test_stream_parse_error_names_file_and_line(tmp_path):
     (dict(uniq_bucket=1024), {}), ({}, dict(num_shards=2)),
     ({}, dict(fixed_shape=True))])
 def test_stream_refuses_unported_modes(kwargs):
+    """The modes ROADMAP.md A10 brought: each stream equals the JAX
+    package's with the same arguments (host-deduped, as multi-process
+    input is), array for array."""
     changes, it_kwargs = kwargs
     cfg = dataclasses.replace(load_config(os.path.join(REPO, "sample.cfg")),
-                              **changes)
-    with pytest.raises(NotImplementedError, match="item A10"):
-        next(batch_iterator(cfg, cfg.train_files, **it_kwargs))
+                              max_features_per_example=64,
+                              bucket_ladder=(8, 16, 32, 64), **changes)
+    jcfg = dataclasses.replace(
+        jax_load_config(os.path.join(REPO, "sample.cfg")),
+        max_features_per_example=64, bucket_ladder=(8, 16, 32, 64),
+        **changes)
+    kw = dict(it_kwargs, raw_ids=False, epochs=1)
+    want = list(jax_batch_iterator(jcfg, jcfg.train_files, **kw))
+    got = list(batch_iterator(cfg, cfg.train_files, **kw))
+    assert len(got) == len(want) > 0
+    for w, g in zip(want, got):
+        assert g.num_real == w.num_real
+        for k in ("labels", "weights", "uniq_ids", "local_idx", "vals"):
+            assert np.array_equal(getattr(w, k), getattr(g, k)), k
 
 
 def _filler(cfg):
@@ -367,6 +381,9 @@ def test_train_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     ("[Train]\nuniq_bucket = 1024\n", "A10"),
 ])
 def test_unported_keys_raise(tmp_path, extra, item):
+    """A key ROADMAP.md ``item`` ported: ``uniq_bucket`` sizes the
+    fixed unique bucket of multi-process input and, on one process, is
+    inert, as in the JAX package: the run trains."""
     path = os.path.join(str(tmp_path), "sample.cfg")
     _write_cfg(str(tmp_path))
     with open(path) as fh:
@@ -375,8 +392,10 @@ def test_unported_keys_raise(tmp_path, extra, item):
     text = text.replace(section, section + "\n" + line, 1)
     with open(path, "w") as fh:
         fh.write(text)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        train(load_config(path), device="cpu")
+    cfg = dataclasses.replace(load_config(path), epoch_num=1)
+    table = train(cfg, device="cpu")
+    assert table.shape == (cfg.num_rows, cfg.row_dim)
+    assert torch.isfinite(table).all()
 
 
 @pytest.mark.parametrize("changes,item", [
@@ -384,9 +403,16 @@ def test_unported_keys_raise(tmp_path, extra, item):
     (dict(elastic="shrink"), "A10"),
 ])
 def test_unported_values_raise(tmp_path, changes, item):
+    """``elastic`` waits for the second slice of ROADMAP.md A10 and
+    raises naming it; ``uniq_bucket`` came with the first and trains
+    (inert on one process, as in the JAX package)."""
     cfg = dataclasses.replace(load_config(_write_cfg(str(tmp_path))),
-                              **changes)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+                              epoch_num=1, **changes)
+    if "uniq_bucket" in changes:
+        assert torch.isfinite(train(cfg, device="cpu")).all()
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"item {item}, its second slice"):
         train(cfg, device="cpu")
 
 
@@ -407,11 +433,25 @@ def test_existing_checkpoint_raises(tmp_path):
     assert not os.path.exists(cfg.model_file + ".npz")
 
 
-def test_dist_train_argv_raises(tmp_path):
+def test_dist_train_argv_raises(tmp_path, capsys):
+    """The ``dist_train`` argv as ``run_tffm.py`` parses it: a task
+    index out of range for ``worker_hosts`` raises (a one-host config
+    has only worker 0, which trains alone), a ``ps`` role explains
+    itself and exits 0, a bad index or role is a usage error, and
+    ``train --join`` raises naming its ROADMAP item."""
     path = _write_cfg(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="out of range"):
         main(["train", path, "--device", "cpu", "dist_train", "worker",
-              "0"])
+              "1"])
+    assert main(["train", path, "--device", "cpu", "dist_train", "ps",
+                 "0"]) == 0
+    assert "no parameter servers" in capsys.readouterr().err
+    for rest in (["dist_train", "worker", "x"], ["dist_train", "chief", "0"],
+                 ["dist_train", "worker"]):
+        assert main(["train", path, "--device", "cpu", *rest]) == 2
+    assert main(["predict", path, "--device", "cpu", "--join"]) == 2
+    with pytest.raises(NotImplementedError, match="item A10"):
+        main(["train", path, "--device", "cpu", "--join"])
 
 
 def test_observability_knobs_are_logged_as_ignored(tmp_path):

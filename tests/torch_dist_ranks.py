@@ -1,0 +1,213 @@
+"""Rank processes for the port's multi-process tests (not a test module).
+
+    python tests/torch_dist_ranks.py <scenario> <rank> <world> <port> <wd>
+                                     [<device>]
+
+Each rank joins a ``world``-rank gloo group whose rendezvous listens on
+``port`` (worker_hosts[0] = localhost:<port - 1000>), runs
+``scenario`` through the port's own modules and writes what it saw to
+``<wd>/<scenario>-rank<rank>.npz``. It imports torch, numpy and the
+port, never jax: the tests hold these results against the JAX package
+in the parent process.
+
+Scenarios:
+- ``step``: for an FM, an FFM and an order-3 FM (``step_cases``), this
+  rank's fixed-shape local batches of ``<wd>/<model>.txt`` (its byte
+  range) through ``STEPS`` sharded train steps from the dense starting
+  state ``<wd>/<model>-init.npz`` (rank 1 stepping the all-padding
+  filler in the last, as a rank whose shard ran dry does), then one
+  sharded score of its next
+  batch; saves the batches, the losses, the post-step shards and the
+  scores. Then the checkpoint's step decisions (``_broadcast_int``,
+  ``_all_agree``) under ``world`` ranks.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+STEPS = 4
+# The last step's rank 1 has run dry: it steps the all-padding filler,
+# so the global batch's weight is rank 0's alone.
+FILLER_STEP = STEPS - 1
+UNIQ_BUCKET = 128
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    """A free TCP port for a rendezvous (its worker port is 1000 below),
+    below the host's ephemeral range: a rank that keeps connecting to a
+    port in that range before its store listens can be handed the same
+    port as its own source port and connect to itself, which holds the
+    port against the store and fails the bring-up."""
+    import random
+    from fast_tffm_tpu_torch.serve.fleet import ephemeral_port_range
+    top = min(ephemeral_port_range()[0], 32768)
+    rng = random.Random()
+    while True:
+        port = rng.randrange(11000, top)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+
+
+def worker_hosts(port: int, world: int) -> str:
+    """The ``worker_hosts`` value whose rendezvous listens on ``port``."""
+    return ",".join(f"localhost:{port - 1000 + i}" for i in range(world))
+
+
+def run_ranks(scenario: str, wd: str, world: int = 2,
+              timeout: float = 120.0, device: str = "cpu") -> list:
+    """Run ``world`` rank processes of ``scenario`` (the parent side);
+    their saved results, rank by rank."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("JAX_PLATFORMS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), scenario, str(r),
+         str(world), str(port), wd, device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        finally:
+            p.kill()
+        outs.append(out.decode(errors="replace"))
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [dict(np.load(os.path.join(wd, f"{scenario}-rank{r}.npz")))
+            for r in range(world)]
+
+
+def step_cases():
+    """(name, config keywords) of the step scenario's models."""
+    base = dict(vocabulary_size=256, factor_num=4, batch_size=32,
+                bucket_ladder=(8, 16), max_features_per_example=16,
+                learning_rate=0.1, factor_lambda=1e-3, bias_lambda=1e-3,
+                shuffle=False, init_value_range=0.1, dedup="host")
+    return [("fm", dict(base)),
+            ("ffm", dict(base, model_type="ffm", field_num=3)),
+            ("order3", dict(base, order=3))]
+
+
+def _lines(name, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = [str(int(rng.random() < 0.45))]
+        k = int(rng.integers(1, 15))
+        # Zipf ids: the hot ones appear on both ranks.
+        ids = np.unique(np.minimum(rng.zipf(1.4, size=k), 255))
+        for fid in ids:
+            v = f"{rng.random() + 0.1:.4f}"
+            toks.append(f"{int(rng.integers(0, 3))}:{fid}:{v}"
+                        if name == "ffm" else f"{fid}:{v}")
+        out.append(" ".join(toks))
+    return out
+
+
+def write_step_inputs(wd: str) -> None:
+    """The step scenario's files: ``<model>.txt`` (600 lines) and the
+    dense starting state ``<model>-init.npz`` of each case."""
+    from fast_tffm_tpu_torch.config import FmConfig
+    for i, (name, kw) in enumerate(step_cases()):
+        with open(os.path.join(wd, f"{name}.txt"), "w") as fh:
+            fh.write("\n".join(_lines(name, 600, 30 + i)) + "\n")
+        cfg = FmConfig(**kw)
+        rng = np.random.default_rng(40 + i)
+        table = rng.uniform(-0.1, 0.1, (cfg.num_rows, cfg.row_dim)
+                            ).astype(np.float32)
+        table[-1] = 0.0
+        np.savez(os.path.join(wd, f"{name}-init.npz"), table=table,
+                 acc=np.full_like(table, cfg.adagrad_init))
+
+
+def _cfg(wd, port, world, **kw):
+    from fast_tffm_tpu_torch.config import FmConfig
+    return FmConfig(worker_hosts=tuple(worker_hosts(port, world).split(",")),
+                    heartbeat_seconds=0.0, collective_timeout_seconds=60.0,
+                    cluster_connect_timeout_seconds=60.0,
+                    model_file=os.path.join(wd, "model", "fm"), **kw)
+
+
+def _step(rank, world, port, wd, device):
+    from fast_tffm_tpu_torch.checkpoint import CheckpointState
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator, empty_batch
+    from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
+                                               sharded_score_body,
+                                               sharded_train_step_body)
+    from fast_tffm_tpu_torch.parallel.distributed import init_from_cluster
+    from fast_tffm_tpu_torch.parallel.sharded import make_mesh, place_table
+    out = {}
+    first = True
+    for name, kw in step_cases():
+        cfg = _cfg(wd, port, world, **kw)
+        if first:
+            init_from_cluster(cfg, "worker", rank)
+            first = False
+        mesh = make_mesh(cfg, rank, world)
+        spec = ModelSpec.from_config(cfg, num_processes=world)
+        init = np.load(os.path.join(wd, f"{name}-init.npz"))
+        table = place_table(cfg, mesh, init["table"], device)
+        acc = place_table(cfg, mesh, init["acc"], device,
+                          fill=cfg.adagrad_init)
+        it = batch_iterator(cfg, [os.path.join(wd, f"{name}.txt")],
+                            training=False, epochs=1, shard_index=rank,
+                            num_shards=world, fixed_shape=True,
+                            uniq_bucket=UNIQ_BUCKET, raw_ids=False)
+        for s in range(STEPS + 1):
+            batch = next(it)
+            if s == FILLER_STEP and rank == 1:
+                batch = empty_batch(cfg, uniq_bucket=UNIQ_BUCKET)
+            for k in ("labels", "weights", "uniq_ids", "local_idx", "vals",
+                      "fields"):
+                v = getattr(batch, k)
+                if v is not None:
+                    out[f"{name}/b{s}/{k}"] = v
+            args = batch_args(batch, device)
+            args["uniq_ids"] = batch.uniq_ids
+            if s < STEPS:
+                table, acc, loss, _ = sharded_train_step_body(
+                    spec, mesh, table, acc, **args)
+                out[f"{name}/loss{s}"] = np.float32(loss.item())
+            else:
+                del args["labels"], args["weights"]
+                with torch.no_grad():
+                    out[f"{name}/scores"] = sharded_score_body(
+                        spec, mesh, table, **args).cpu().numpy()
+        out[f"{name}/table"] = table.cpu().numpy()
+        out[f"{name}/acc"] = acc.cpu().numpy()
+    ckpt = CheckpointState(cfg.model_file, mesh=mesh)
+    out["broadcast_int"] = ckpt._broadcast_int(7 + 10 * rank)
+    out["agree_true"] = ckpt._all_agree(True)
+    out["agree_one_false"] = ckpt._all_agree(rank == 0)
+    ckpt.close()
+    return out
+
+
+def main(argv):
+    scenario, rank, world, port, wd = argv[:5]
+    device = torch.device(argv[5] if len(argv) > 5 else "cpu")
+    rank, world, port = int(rank), int(world), int(port)
+    torch.set_num_threads(1)
+    out = {"step": _step}[scenario](rank, world, port, wd, device)
+    np.savez(os.path.join(wd, f"{scenario}-rank{rank}.npz"), **out)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)
+    sys.exit(main(sys.argv[1:]))
