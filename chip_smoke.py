@@ -221,6 +221,24 @@ predicted by two ranks over a row-sharded table (``dist_train``):
    lease's staleness. Its line (correctness-run figures, not a
    benchmark): the phase's seconds, each worker's loop examples/s and
    step ms, the export's seconds, the launches, the detection seconds;
+   then the elastic leg (``elastic = grow``), started after the phase and
+   run beside phase 12: two ranks of ``train <cfg> dist_train worker
+   <i>`` on cuda:0, two epochs of the padded lines, a periodic save
+   every 8 steps; once step 8 is committed, rank 1 is SIGKILLed (in
+   epoch 0: the save at 16 waits for step 8's write) and ``train <cfg>
+   --join`` started. The survivor must name process 1, reform generation
+   1 alone (a single process: the whole table on the card), restore the
+   last committed step s0 (8, or 16 if its gather beat the kill; epoch 0
+   either way) and train epoch 0 again, then at the epoch boundary save
+   and admit the joiner into slot 1 (generation 2); both restore that
+   step and train epoch 1 as two ranks. Both must end at step s0 + 32 +
+   16 (the exactly-once arithmetic), epoch 2, the
+   validation AUC over the floor, the lease directory holding only
+   generation 2's files, both kernels launched in both processes, and
+   the first step of each post-reform session (the survivor's lone and
+   grown sessions, the joiner's) held against the plain versions on its
+   captured kernel inputs. Its line: kill to detection, detection to
+   recovery, each restore's seconds, ticket to admission, the launches;
 16. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
@@ -4661,6 +4679,337 @@ def dist_finish(h, torch, device, card, train_row):
     return row, fwd_rows, bwd_rows
 
 
+ELASTIC_EPOCHS = 2
+ELASTIC_SAVE_STEPS = 8            # the 2-rank epoch 0 saves at 8 and 16;
+#                                   the kill follows step 8's commit
+ELASTIC_RUN_TIMEOUT = 900         # seconds for the leg's processes
+ELASTIC_LEASE_FILES = ["commit-2.json", "grow-2.json", "reform-2-0",
+                       "reform-2-1"]
+
+# One process of the elastic leg (a rank or the joiner): the entry point
+# with both kernels' launch counts, the sessions it entered (their
+# membership and the counts at their start), each checkpoint restore's
+# seconds, and the inputs of each session's first forward and backward
+# kernel calls (its first train step) written when it returns.
+ELASTIC_RANK = r"""
+import json, sys, time
+import torch
+from fast_tffm_tpu_torch import train as port_train
+from fast_tffm_tpu_torch.__main__ import main
+from fast_tffm_tpu_torch.checkpoint import CheckpointState
+from fast_tffm_tpu_torch.ops import fm_kernel
+out_path, argv = sys.argv[1], sys.argv[2:]
+sessions, restores, captured = [], [], []
+real_session, real_restore = port_train._train_session, \
+    CheckpointState.restore
+real_fwd, real_bwd = fm_kernel._scores, fm_kernel.fm_batch_scores_bwd
+
+
+def session(cfg, device, init_state, logger, shard_index, num_shards,
+            members, *rest):
+    sessions.append({"shard_index": shard_index, "num_shards": num_shards,
+                     "members": list(members),
+                     "launches_at_start": [fm_kernel.launches,
+                                           fm_kernel.bwd_launches]})
+    captured.append({})
+    return real_session(cfg, device, init_state, logger, shard_index,
+                        num_shards, members, *rest)
+
+
+def capture_fwd(params, local_idx, vals):
+    if captured and "fwd" not in captured[-1]:
+        captured[-1]["fwd"] = [t.detach().clone()
+                               for t in (params, local_idx, vals)]
+    return real_fwd(params, local_idx, vals)
+
+
+def capture_bwd(params, local_idx, vals, g, need_dx):
+    if captured and "bwd" not in captured[-1]:
+        captured[-1]["bwd"] = [t.detach().clone()
+                               for t in (params, local_idx, vals, g)]
+        captured[-1]["need_dx"] = need_dx
+    return real_bwd(params, local_idx, vals, g, need_dx)
+
+
+def restore(self, *args, **kwargs):
+    t = time.perf_counter()
+    try:
+        return real_restore(self, *args, **kwargs)
+    finally:
+        restores.append(time.perf_counter() - t)
+
+
+port_train._train_session = session
+CheckpointState.restore = restore
+fm_kernel._scores = capture_fwd
+fm_kernel.fm_batch_scores_bwd = capture_bwd
+rc = main(argv)
+torch.save([{k: ([t.cpu() for t in v] if isinstance(v, list) else v)
+             for k, v in c.items()} for c in captured], out_path + ".pt")
+with open(out_path, "w") as fh:
+    json.dump({"rc": rc, "fm_score": fm_kernel.launches,
+               "fm_score_bwd": fm_kernel.bwd_launches,
+               "sessions": sessions, "restore_seconds": restores}, fh)
+sys.exit(rc)
+"""
+
+
+def start_elastic_proc(wd, tag, argv):
+    """One process of the leg (``ELASTIC_RANK``) logging to
+    ``<wd>/<tag>.log``; (process, log path, result path)."""
+    log, out = os.path.join(wd, f"{tag}.log"), os.path.join(wd, f"{tag}.json")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ELASTIC_RANK, out, *argv], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=fh,
+            stderr=subprocess.STDOUT)
+    return proc, log, out
+
+
+def log_time(path, pattern):
+    """The wall time of the first line of the log at ``path`` matching
+    ``pattern`` (the logger's asctime, local time with milliseconds)."""
+    import re
+    with open(path) as fh:
+        m = re.search(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) .*"
+                      + pattern, fh.read(), re.M)
+    check(m is not None, f"no line matching {pattern!r} in {path}")
+    return time.mktime(time.strptime(m.group(1), "%Y-%m-%d %H:%M:%S")) + \
+        int(m.group(2)) / 1e3
+
+
+def elastic_start(dist_wd):
+    """Start the ``dist`` phase's elastic leg (``elastic_finish``
+    completes it): two ranks of ``python -m fast_tffm_tpu_torch train
+    <cfg> dist_train worker <i>`` on cuda:0 with ``elastic = grow`` over
+    the padded train lines, two epochs, a periodic save every 8 steps; a
+    background thread SIGKILLs rank 1 once step 8 is committed, then
+    starts ``train <cfg> --join``. It runs beside the stream phase, whose
+    card is mostly idle."""
+    from fast_tffm_tpu_torch.config import load_config
+    wd = os.path.join(WORK, "elastic")
+    os.makedirs(wd)
+    shutil.copyfile(os.path.join(dist_wd, "train_even.txt"),
+                    os.path.join(wd, "train_even.txt"))
+    port = free_port_block(4)
+    cfg_path = write_dist_cfg(wd, os.path.join(WORK, "train"), "elastic",
+                              ELASTIC_EPOCHS, ELASTIC_SAVE_STEPS, port)
+    with open(cfg_path, "a") as fh:
+        fh.write("elastic = grow\njoin_timeout_seconds = 600\n")
+    h = {"wd": wd, "cfg_path": cfg_path, "cfg": load_config(cfg_path),
+         "t0": time.perf_counter(), "events": []}
+    h["ranks"] = [start_elastic_proc(wd, f"rank{i}", [
+        "train", cfg_path, "dist_train", "worker", str(i)])
+        for i in range(DIST_WORKERS)]
+
+    def killer():
+        import signal
+        try:
+            procs = [r[0] for r in h["ranks"]]
+            log0 = h["ranks"][0][1]
+            # The save at 16 waits for step 8's write, so the kill lands
+            # in epoch 0: the survivor restores 8 or 16, both epoch 0's.
+            wait_log(log0, f"checkpoint step {ELASTIC_SAVE_STEPS} committed",
+                     procs, "the elastic leg's committed step",
+                     ELASTIC_RUN_TIMEOUT)
+            procs[1].send_signal(signal.SIGKILL)
+            h["t_kill"] = time.time()
+            h["joiner"] = start_elastic_proc(wd, "joiner", [
+                "train", cfg_path, "--join"])
+            h["events"].append("started")
+        except BaseException as e:  # noqa: BLE001 - elastic_finish raises
+            h["events"].append(e)
+
+    h["killer"] = threading.Thread(target=killer, name="smoke-elastic-kill",
+                                   daemon=True)
+    h["killer"].start()
+    return h
+
+
+def elastic_stop(h):
+    """Stop every process of the leg (a no-op once finished)."""
+    if h is None:
+        return
+    h["killer"].join(timeout=60)
+    for proc, _, _ in h["ranks"] + ([h["joiner"]] if "joiner" in h else []):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def elastic_finish(h, torch, device, card, train_row):
+    """The elastic leg's verdict, from ``elastic_start``'s processes: the
+    survivor names process 1, shrinks to generation 1 and trains alone,
+    admits the joiner at the epoch boundary (generation 2), and both end
+    at the exactly-once step s0 + (a single-process pass) + (a 2-rank
+    pass), epoch ``ELASTIC_EPOCHS``, with the validation AUC over the
+    floor and the lease directory holding only generation 2's files;
+    both kernels launched in both processes, and each post-reform
+    session's first step's kernel inputs (the survivor's lone and grown
+    sessions, the joiner's) held against the plain versions. Returns
+    (row, forward kernel rows, backward kernel rows)."""
+    import re
+    from fast_tffm_tpu_torch.tools import fmckpt
+    t_visible = time.perf_counter()
+    wd, cfg = h["wd"], h["cfg"]
+    try:
+        h["killer"].join(timeout=ELASTIC_RUN_TIMEOUT)
+        check(h["events"] == ["started"],
+              f"the elastic leg's kill failed: {h['events']}")
+        procs = [h["ranks"][0], h["joiner"]]
+        deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT
+        rcs = []
+        for proc, _, _ in procs:
+            try:
+                rcs.append(proc.wait(timeout=max(1.0, deadline
+                                                 - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        rc1 = h["ranks"][1][0].wait(timeout=60)
+        texts = []
+        for _, log, _ in h["ranks"] + [h["joiner"]]:
+            with open(log) as fh:
+                texts.append(fh.read())
+        if rcs != [0, 0]:
+            for t in texts:
+                print(t[-4000:], flush=True)
+        check(rcs == [0, 0] and rc1 == -9,
+              f"the elastic leg: survivor and joiner exited {rcs}, the "
+              f"killed rank {rc1}")
+        seconds = time.perf_counter() - h["t0"]
+    finally:
+        elastic_stop(h)
+    surv, _, joiner = texts
+    res = []
+    for _, _, out in procs:
+        with open(out) as fh:
+            res.append(json.load(fh))
+    caps = [torch.load(out + ".pt", weights_only=False)
+            for _, _, out in procs]
+    # The survivor named the dead process, shrank, then grew.
+    lost = re.search(r"worker lost \(collective .*process 1 \(", surv)
+    check(lost is not None and "worker lost" in surv,
+          "the survivor's log names no lost process 1")
+    i_shrink = surv.find("elastic reform generation 1: survivors [0]")
+    i_grow = surv.find("elastic grow generation 2: members [0, 1] "
+                       "(admitted [1])")
+    check(0 <= i_shrink < i_grow,
+          "no shrink to generation 1 then grow to generation 2 in the "
+          "survivor's log")
+    check("join: admitted into generation 2 as rank 1 of 2 (worker slot 1)"
+          in joiner, "the joiner's log shows no admission into slot 1")
+    restores = [int(s) for s in re.findall(r"restored checkpoint at step "
+                                           r"(\d+)", surv)]
+    check(len(restores) == 2, f"the survivor restored {restores}")
+    s0, barrier = restores
+    resumed = re.findall(r"resuming interrupted epoch schedule at epoch "
+                         r"(\d+)/", surv)
+    check(resumed == ["1"], f"the survivor resumed epochs {resumed}: the "
+                            "shrink's restore is epoch 0's")
+    per_pass_one = -(-TRAIN_LINES // (TRAIN_BATCH // DIST_WORKERS))
+    per_pass_two = -(-TRAIN_LINES // TRAIN_BATCH)
+    want = s0 + per_pass_one + (ELASTIC_EPOCHS - 1) * per_pass_two
+    done = [int(re.search(r"training done: (\d+) steps", t).group(1))
+            for t in (surv, joiner)]
+    check(barrier == s0 + per_pass_one and done == [want, want],
+          f"steps: restored {s0}, the barrier at {barrier}, done at {done}; "
+          f"exactly once wants {s0} + {per_pass_one} + "
+          f"{ELASTIC_EPOCHS - 1} x {per_pass_two} = {want}")
+    state = fmckpt.scan(cfg.model_file + ".ckpt")
+    final = state["steps"][-1]
+    check(final["step"] == want and final["epoch"] == ELASTIC_EPOCHS,
+          f"the final checkpoint step {final}")
+    m = re.search(r"final validation AUC ([0-9.]+) over (\d+)", surv)
+    check(m is not None and int(m.group(2)) == VAL_LINES
+          and float(m.group(1)) > train_row["auc_floor"],
+          f"the elastic leg's final validation AUC: "
+          f"{m.group(0) if m else None} (floor {train_row['auc_floor']})")
+    auc = float(m.group(1))
+    left = sorted(os.listdir(cfg.model_file + ".hb"))
+    check(left == ELASTIC_LEASE_FILES,
+          f"the lease directory holds {left}, not generation 2's files")
+    for name, r in (("survivor", res[0]), ("joiner", res[1])):
+        check(r["fm_score"] > 0 and r["fm_score_bwd"] > 0,
+              f"the {name} launched fm_score {r['fm_score']} and "
+              f"fm_score_bwd {r['fm_score_bwd']} times")
+    check([s["num_shards"] for s in res[0]["sessions"]] == [2, 1, 2]
+          and [s["num_shards"] for s in res[1]["sessions"]] == [2],
+          f"sessions: survivor {res[0]['sessions']}, joiner "
+          f"{res[1]['sessions']}")
+    # Both kernels launched in every session, before and after each
+    # reform: the counts at each session's start and at the end rise.
+    marks = [s["launches_at_start"] for s in res[0]["sessions"]] + [
+        [res[0]["fm_score"], res[0]["fm_score_bwd"]]]
+    per_session = [[b - a for a, b in zip(m0, m1)]
+                   for m0, m1 in zip(marks, marks[1:])]
+    check(all(n > 0 for counts in per_session for n in counts),
+          f"the survivor's (fm_score, fm_score_bwd) launches per session: "
+          f"{per_session}")
+    # Each post-reform session's first step, on the card, against the
+    # plain versions.
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    fwd_rows, bwd_rows = [], []
+    for tag, cap in (("elastic_survivor_shrunk", caps[0][1]),
+                     ("elastic_survivor_grown", caps[0][2]),
+                     ("elastic_joiner", caps[1][0])):
+        check("fwd" in cap and "bwd" in cap and not cap["need_dx"],
+              f"{tag}: no kernel inputs captured")
+        params, local, vals, g = (t.to(device) for t in cap["bwd"])
+        check(all(torch.equal(a.to(device), b) for a, b in
+                  zip(cap["fwd"], (params, local, vals))),
+              f"{tag}: the backward got other inputs than the forward")
+        fwd_rows.append(fwd_kernel_row(torch, params, local, vals, None,
+                                       batch=tag))
+        bwd_rows += bwd_kernel_rows(torch, params, local, vals, g, flush,
+                                    need_dx_cases=(False,), batch=tag)
+    del flush
+    t_lost = log_time(h["ranks"][0][1], r"worker lost \(collective")
+    t_recovered = log_time(h["ranks"][0][1], "elastic recovery complete: 1 "
+                           "survivor")
+    t_ticket = log_time(h["joiner"][1], "join: ticket ")
+    t_admitted = log_time(h["joiner"][1], "join: admitted into generation")
+    t_plan = log_time(h["ranks"][0][1], "elastic grow: admitting")
+    t_grown = log_time(h["ranks"][0][1], "elastic recovery complete: 2 "
+                       "member")
+    launches = {
+        "survivor": [res[0]["fm_score"], res[0]["fm_score_bwd"]],
+        "joiner": [res[1]["fm_score"], res[1]["fm_score_bwd"]],
+        "survivor_per_session": per_session}
+    row = {"phase": "dist_elastic", "card": card, "workers": DIST_WORKERS,
+           "backend": "gloo", "elastic": "grow", "lines": TRAIN_LINES,
+           "batch_size_per_rank": TRAIN_BATCH // DIST_WORKERS,
+           "epochs": ELASTIC_EPOCHS,
+           "note": "correctness-run figures, not a benchmark",
+           "seconds": seconds,
+           "visible_seconds": time.perf_counter() - t_visible,
+           "restored_step": s0, "barrier_step": barrier, "final_step": want,
+           "validation_auc": auc, "auc_floor": train_row["auc_floor"],
+           "kill_to_detection_seconds": t_lost - h["t_kill"],
+           "detection_to_recovery_seconds": t_recovered - t_lost,
+           "restore_seconds_survivor": res[0]["restore_seconds"],
+           "restore_seconds_joiner": res[1]["restore_seconds"],
+           "ticket_to_admission_seconds": t_admitted - t_ticket,
+           "grow_plan_to_recovery_seconds": t_grown - t_plan,
+           "fm_score_launches": [res[0]["fm_score"], res[1]["fm_score"]],
+           "fm_score_bwd_launches": [res[0]["fm_score_bwd"],
+                                     res[1]["fm_score_bwd"]],
+           "launches": launches, "lease_files": left}
+    print(f"dist elastic: {card}; kill to detection "
+          f"{row['kill_to_detection_seconds']:.2f}s, detection to recovery "
+          f"{row['detection_to_recovery_seconds']:.2f}s, restores "
+          f"{[round(x, 2) for x in res[0]['restore_seconds']]}s (survivor) "
+          f"{[round(x, 2) for x in res[1]['restore_seconds']]}s (joiner), "
+          f"ticket to admission {row['ticket_to_admission_seconds']:.2f}s; "
+          f"steps {s0} -> {barrier} -> {want}, AUC {auc:.6f}; launches "
+          f"(fm_score, fm_score_bwd) survivor {launches['survivor']}, "
+          f"joiner {launches['joiner']}; {seconds:.1f}s for the leg, "
+          f"{row['visible_seconds']:.1f}s of it after the phase it ran "
+          f"beside", flush=True)
+    emit(row)
+    return row, fwd_rows, bwd_rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -4718,7 +5067,7 @@ def main(argv) -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    dist = None
+    dist = elastic = None
     free = shutil.disk_usage(WORK).free
     print(f"free bytes under {WORK}: {free}", flush=True)
     check(free >= MIN_FREE_BYTES, f"{free} bytes free under {WORK}; the "
@@ -4820,11 +5169,22 @@ def main(argv) -> int:
             dist, torch, device, smi, train_row)
         kernel_rows += fwd_dist_rows
         bwd_rows += bwd_dist_rows
+        # 15b. the elastic leg (kill, shrink, --join, grow) goes on beside
+        # phase 12; disk for it: the dist runs' models
+        for name in os.listdir(dist["wd"]):
+            if name.startswith("model"):
+                shutil.rmtree(os.path.join(dist["wd"], name))
+        elastic = elastic_start(dist["wd"])
         # 12. the stream run mode, its watermark and the gated publish
         for name in os.listdir(train_data[0]):  # disk for the phase
             if name.startswith("model"):
                 shutil.rmtree(os.path.join(train_data[0], name))
         stream_row = stream_phase(torch, device, smi, train_data, train_row)
+        elastic_row, fwd_elastic_rows, bwd_elastic_rows = elastic_finish(
+            elastic, torch, device, smi, train_row)
+        kernel_rows += fwd_elastic_rows
+        bwd_rows += bwd_elastic_rows
+        shutil.rmtree(elastic["wd"])  # disk for phase 13
         # 13. lookup = host: the state in page-locked host memory
         shutil.rmtree(os.path.join(WORK, "stream_phase"))
         offload_row, offload_rows, fwd_offload_rows, bwd_offload_rows = \
@@ -4838,6 +5198,7 @@ def main(argv) -> int:
         bwd_rows += bwd_admit_rows
     finally:
         dist_stop(dist)
+        elastic_stop(elastic)
         shutil.rmtree(WORK, ignore_errors=True)
 
     head = next(r for r in kernel_rows if r["batch"] == "uniform" and
@@ -4865,7 +5226,8 @@ def main(argv) -> int:
                      + offload_row["fm_score_launches"]
                      + admit_row["fm_score_launches"]
                      + sum(dist_row["fm_score_launches"])
-                     + sum(dist_row["predict_fm_score_launches"])),
+                     + sum(dist_row["predict_fm_score_launches"])
+                     + sum(elastic_row["fm_score_launches"])),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4889,7 +5251,8 @@ def main(argv) -> int:
         "offload_launches": offload_row["fm_score_launches"],
         "admit_launches": admit_row["fm_score_launches"],
         "dist_train_launches": dist_row["fm_score_launches"],
-        "dist_predict_launches": dist_row["predict_fm_score_launches"]}, {
+        "dist_predict_launches": dist_row["predict_fm_score_launches"],
+        "dist_elastic_launches": elastic_row["fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
@@ -4899,7 +5262,8 @@ def main(argv) -> int:
                      + stream_row["fm_score_bwd_launches"]
                      + offload_row["fm_score_bwd_launches"]
                      + admit_row["fm_score_bwd_launches"]
-                     + sum(dist_row["fm_score_bwd_launches"])),
+                     + sum(dist_row["fm_score_bwd_launches"])
+                     + sum(elastic_row["fm_score_bwd_launches"])),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
@@ -4907,6 +5271,7 @@ def main(argv) -> int:
         "offload_launches": offload_row["fm_score_bwd_launches"],
         "admit_launches": admit_row["fm_score_bwd_launches"],
         "dist_train_launches": dist_row["fm_score_bwd_launches"],
+        "dist_elastic_launches": elastic_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -4948,6 +5313,7 @@ def main(argv) -> int:
                        "train_ffm": ffm_row, "train_order3": order3_row,
                        "stream": stream_row, "offload": offload_row,
                        "admit": admit_row, "dist": dist_row,
+                       "dist_elastic": elastic_row,
                        "kernel_offload": offload_rows, **kernels}, fh,
                       indent=1)
     emit(kernels)

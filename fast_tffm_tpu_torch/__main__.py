@@ -2,7 +2,8 @@
 surface of ``run_tffm.py``:
 
     python -m fast_tffm_tpu_torch train   <cfg> [--device cuda|cpu]
-                                                [dist_train worker <i>]
+                                                [dist_train worker <i>
+                                                 | --join]
     python -m fast_tffm_tpu_torch predict <cfg> [--device cuda|cpu]
                                                 [dist_train worker <i>]
     python -m fast_tffm_tpu_torch serve   <cfg> [--device cuda|cpu]
@@ -30,9 +31,12 @@ CPU; without a card they raise.
 cluster the config's ``[Cluster] worker_hosts`` lists: one process per
 entry, started alike, training one model in lockstep with the table
 row-sharded over them (rank 0 hosts the rendezvous at worker_hosts[0]'s
-port + 1000; ranks sharing one card talk over gloo). ``dist_train ps
-<i>`` explains that there are no parameter servers and exits 0;
-``serve`` takes no role.
+port + 1000; ranks sharing one card talk over gloo). With ``[Cluster]
+elastic = shrink`` the survivors of a dead worker reform and finish the
+schedule; with ``elastic = grow`` a replacement started as ``train <cfg>
+--join`` is admitted into the dead worker's slot at the next epoch
+boundary. ``dist_train ps <i>`` explains that there are no parameter
+servers and exits 0; ``serve`` takes no role.
 """
 
 from __future__ import annotations
@@ -64,16 +68,14 @@ def main(argv=None) -> int:
               "`serve <cfg> --replicas N`", file=sys.stderr)
         return _usage()
     job_name = task_index = None
+    join = False
     if mode != "serve" and rest == ["--join"]:
         if mode != "train":
             print("--join is a train mode: a replacement worker joins a "
                   "running elastic = grow training cluster",
                   file=sys.stderr)
             return _usage()
-        raise NotImplementedError(
-            "train --join (elastic grow) is not ported to "
-            "fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A10, its "
-            "second slice: elastic membership and multi-process streams)")
+        join, rest = True, []
     if mode != "serve" and rest:
         if len(rest) != 3 or rest[0] != "dist_train":
             return _usage()
@@ -108,7 +110,8 @@ def main(argv=None) -> int:
     cfg = apply_env_overrides(load_config(cfg_path))
     if mode == "train":
         from fast_tffm_tpu_torch.train import train
-        train(cfg, device=device, job_name=job_name, task_index=task_index)
+        train(cfg, device=device, job_name=job_name, task_index=task_index,
+              join=join)
         return 0
     if mode == "predict":
         from fast_tffm_tpu_torch.predict import predict

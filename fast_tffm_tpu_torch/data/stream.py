@@ -41,7 +41,7 @@ pipeline does.
 
 Not ported yet: the multi-worker lockstep (ledger broadcast, watermark
 exchange and merge, the fixed unique bucket probe: ROADMAP.md A10, its
-second slice) and the stream telemetry counters and gauges (A11).
+third slice) and the stream telemetry counters and gauges (A11).
 """
 
 from __future__ import annotations

@@ -25,9 +25,20 @@ park every peer inside it. Two layers close that gap:
   the process with ``EXIT_WORKER_LOST`` — a bounded, named failure
   instead of a hang.
 
-The staleness and deadline math is clock-injectable, so tests run it on
-fake clocks. Join tickets, grow plans and the reform rendezvous wait for
-ROADMAP.md A10's second slice; the protocol trace waits for A11.
+The elastic membership's rendezvous lives here too, all host-only logic
+over files in the same directory (train.py and distributed.py drive
+it): a survivor of a lost peer announces the next cluster generation
+(``announce_reform``) and reforms with the live announcers
+(``reform_members``); a replacement process publishes a join ticket
+(``JoinTicket``, renewed on ``fmt-join-ticket``), the chief plans its
+admission into a free original slot at a safe barrier (``plan_grow``,
+``grow-<g>.json``), the rendezvous settles (``grow_rendezvous_step``)
+and the chief commits the final membership (``commit-<g>.json``); a
+reform's chief sweeps superseded generations (``sweep_lease_dir``).
+
+The staleness, deadline and rendezvous math is clock-injectable, so
+tests run it on fake clocks. The protocol trace waits for ROADMAP.md
+A11.
 """
 
 from __future__ import annotations
@@ -52,6 +63,23 @@ STALE_FACTOR = 4.0
 # The exit code of a process whose blocked collective passed its
 # deadline with stale peers (the JAX package's).
 EXIT_WORKER_LOST = 86
+
+# Elastic reform: once the live set and the announced set agree, the
+# membership must hold still this long before survivors commit to it
+# (the skew between survivors' detections).
+REFORM_SETTLE_SECONDS = 1.0
+
+# The grow rendezvous files, beside the worker leases:
+#   join-<stamp>-<pid>  a replacement process's join ticket, renewed like
+#                       a lease (file name order is the admission order
+#                       when joiners race for slots)
+#   grow-<g>.json       the chief's admission plan for generation g
+#                       (which ticket takes which worker slot)
+#   commit-<g>.json     the chief's final membership for generation g,
+#                       which every party adopts verbatim
+JOIN_PREFIX = "join-"
+GROW_PLAN_PREFIX = "grow-"
+COMMIT_PREFIX = "commit-"
 
 
 class WorkerLostError(RuntimeError):
@@ -87,7 +115,8 @@ class HeartbeatLease:
     stamp with another's clock). ``start()`` renews on a daemon thread
     every ``heartbeat_seconds`` and checks the peers and the collective
     deadline between renewals. ``members``: the expected membership
-    (process indices)."""
+    (original process indices), which each elastic reform replaces so
+    departed workers stop being reported."""
 
     def __init__(self, directory: str, process_index: int,
                  members: Sequence[int], heartbeat_seconds: float = 5.0,
@@ -168,9 +197,47 @@ class HeartbeatLease:
         return out
 
     def live_members(self, now: Optional[float] = None) -> List[int]:
-        """Members with a fresh lease, us included."""
+        """Members with a fresh lease, us included: the shrink reform's
+        source of membership."""
         stale = {i.process_index for i in self.stale_peers(now=now)}
         return [p for p in self.members if p not in stale]
+
+    def fresh(self, process_index: int,
+              now: Optional[float] = None) -> bool:
+        """Whether ``worker-<i>.hb`` is on disk and within the staleness
+        threshold, member or not (the grow rendezvous asks about joiner
+        slots before they are members)."""
+        if process_index == self.process_index:
+            return True
+        info = self.peer_info(process_index, now=now)
+        return (info.age_seconds is not None
+                and info.age_seconds <= self.stale_after)
+
+    # -- elastic reform rendezvous ----------------------------------------
+    def announce_reform(self, generation: int) -> None:
+        """Announce that this process is ready to reform into cluster
+        generation ``generation`` (idempotent; a file per generation, so
+        a later reform never reads an earlier round's announcements)."""
+        path = os.path.join(self.directory,
+                            f"reform-{int(generation)}-{self.process_index}")
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(f"{self.host} {self.pid} {self._clock():.3f}\n")
+
+    def reform_members(self, generation: int) -> List[int]:
+        """The original process indices that announced ``generation``."""
+        prefix = f"reform-{int(generation)}-"
+        try:
+            names = os.listdir(self.directory)
+        except OSError:
+            return []
+        out = []
+        for n in names:
+            if n.startswith(prefix):
+                try:
+                    out.append(int(n[len(prefix):]))
+                except ValueError:
+                    pass
+        return sorted(out)
 
     # -- renew / monitor thread -----------------------------------------
     def check_peers(self) -> List[PeerInfo]:
@@ -254,6 +321,301 @@ def lease_dir(cfg) -> str:
     """The rendezvous directory of a run: ``<model_file>.hb/``, beside
     the checkpoint directory on the same shared filesystem."""
     return os.path.abspath(cfg.model_file) + ".hb"
+
+
+# -- elastic grow: join tickets, admission plans, commits ---------------
+#
+# The shrink's mechanisms run the other way: a replacement process
+# publishes a join ticket, the cluster notices it at a safe barrier (the
+# epoch boundary; train.py), the chief writes a plan giving the ticket a
+# free original worker slot, and both sides rendezvous through the same
+# per-generation announce files into a cluster that includes the joiner.
+# A joiner that dies mid-rendezvous goes stale inside the settle window
+# and the reform commits without it; an announce into a generation the
+# plan never assigned is refused; joiners racing for fewer slots resolve
+# by ticket order.
+
+
+class JoinTicket:
+    """A replacement process's join request: ``join-<stamp>-<pid>`` in
+    the rendezvous directory, renewed on a daemon thread
+    (``fmt-join-ticket``) as a worker lease is, so a joiner that dies
+    stops renewing and is never planned for. The zero-padded
+    millisecond stamp makes file name order the admission order."""
+
+    def __init__(self, directory: str, heartbeat_seconds: float = 5.0,
+                 host: Optional[str] = None, pid: Optional[int] = None,
+                 clock: Callable[[], float] = time.time,
+                 name: Optional[str] = None):
+        self.directory = directory
+        self.heartbeat_seconds = float(heartbeat_seconds)
+        self.host = host if host is not None else socket.gethostname()
+        self.pid = int(pid if pid is not None else os.getpid())
+        self._clock = clock
+        self.name = name or (f"{JOIN_PREFIX}{int(self._clock() * 1e3):016d}"
+                             f"-{self.pid}")
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def path(self) -> str:
+        return os.path.join(self.directory, self.name)
+
+    def renew(self) -> None:
+        """Atomic rewrite, never raising (as ``HeartbeatLease.renew``)."""
+        tmp = f"{self.path}.tmp.{self.pid}"
+        try:
+            with open(tmp, "w", encoding="utf-8") as fh:
+                json.dump({"host": self.host, "pid": self.pid,
+                           "time": self._clock()}, fh)
+            os.replace(tmp, self.path)
+        except OSError:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+    def start(self) -> "JoinTicket":
+        if self._thread is None and self.heartbeat_seconds > 0:
+            self.renew()
+
+            def loop():
+                while not self._stop.wait(self.heartbeat_seconds):
+                    self.renew()
+            self._thread = threading.Thread(target=loop,
+                                            name="fmt-join-ticket",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self, remove: bool = True) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+            self._thread = None
+        if remove:
+            try:
+                os.remove(self.path)
+            except OSError:
+                pass
+
+
+def pending_join_tickets(directory: str, stale_after: float,
+                         now: Optional[float] = None) -> List[str]:
+    """Fresh join ticket names in file name order: the cluster's
+    admission scan. A stale or garbled ticket is a dead joiner, never
+    planned for; an unreadable directory reads as nobody waiting."""
+    try:
+        names = sorted(os.listdir(directory))
+    except OSError:
+        return []
+    now = time.time() if now is None else now
+    out = []
+    for n in names:
+        if not n.startswith(JOIN_PREFIX) or ".tmp." in n:
+            continue
+        try:
+            with open(os.path.join(directory, n), encoding="utf-8") as fh:
+                rec = json.load(fh)
+            age = now - float(rec["time"])
+        except (OSError, ValueError, KeyError, TypeError):
+            continue
+        if age <= stale_after:  # clock skew (age < 0) reads fresh
+            out.append(n)
+    return out
+
+
+def plan_grow(generation: int, members: Sequence[int], capacity: int,
+              tickets: Sequence[str]) -> Optional[Dict]:
+    """The chief's admission decision at a safe barrier: fresh tickets
+    to free ORIGINAL worker slots (the departed workers' indices, so
+    ``worker_hosts`` keeps its meaning), in ticket name order; None when
+    there is nothing to do. Pure: two joiners racing one slot resolve by
+    ticket order, the loser staying pending."""
+    free = sorted(set(range(int(capacity))) - {int(m) for m in members})
+    tickets = sorted(tickets)
+    if not free or not tickets:
+        return None
+    return {"generation": int(generation),
+            "incumbents": sorted(int(m) for m in members),
+            "joiners": {t: s for t, s in zip(tickets, free)}}
+
+
+def _atomic_write_json(path: str, obj) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(obj, fh)
+    os.replace(tmp, path)
+
+
+def grow_plan_path(directory: str, generation: int) -> str:
+    return os.path.join(directory, f"{GROW_PLAN_PREFIX}{int(generation)}.json")
+
+
+def commit_path(directory: str, generation: int) -> str:
+    return os.path.join(directory, f"{COMMIT_PREFIX}{int(generation)}.json")
+
+
+def write_grow_plan(directory: str, plan: Dict) -> str:
+    path = grow_plan_path(directory, plan["generation"])
+    _atomic_write_json(path, plan)
+    return path
+
+
+def write_commit(directory: str, generation: int,
+                 members: Sequence[int]) -> str:
+    path = commit_path(directory, generation)
+    _atomic_write_json(path, {"generation": int(generation),
+                              "members": [int(m) for m in members]})
+    return path
+
+
+def _read_json(path: str) -> Optional[Dict]:
+    try:
+        with open(path, encoding="utf-8") as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None
+
+
+def read_grow_plan(directory: str, generation: int) -> Optional[Dict]:
+    plan = _read_json(grow_plan_path(directory, generation))
+    if (not isinstance(plan, dict) or "incumbents" not in plan
+            or not isinstance(plan.get("joiners"), dict)):
+        return None
+    return plan
+
+
+def read_commit(directory: str, generation: int) -> Optional[List[int]]:
+    rec = _read_json(commit_path(directory, generation))
+    if not isinstance(rec, dict) or "members" not in rec:
+        return None
+    try:
+        return sorted(int(m) for m in rec["members"])
+    except (TypeError, ValueError):
+        return None
+
+
+def grow_plan_for(directory: str, ticket_name: str,
+                  min_generation: int = 0) -> Optional[Dict]:
+    """The newest admission plan naming ``ticket_name``, ignoring
+    generations below ``min_generation`` (a refused joiner raises the
+    floor, so a superseded plan is never acted on twice): what a
+    joiner's wait polls."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return None
+    gens = []
+    for n in names:
+        if n.startswith(GROW_PLAN_PREFIX) and n.endswith(".json"):
+            try:
+                gens.append(int(n[len(GROW_PLAN_PREFIX):-len(".json")]))
+            except ValueError:
+                pass
+    for g in sorted(gens, reverse=True):
+        if g < min_generation:
+            break
+        plan = read_grow_plan(directory, g)
+        if plan is not None and ticket_name in plan["joiners"]:
+            return plan
+    return None
+
+
+def grow_rendezvous_step(lease: HeartbeatLease, plan: Dict,
+                         now_monotonic: float,
+                         join_deadline: float) -> Optional[List[int]]:
+    """One tick of the chief's grow settle loop: the final membership
+    once it is decidable, else None. Decidable once every incumbent has
+    announced the plan's generation and the settle window
+    (``join_deadline``) has fully passed: staleness is the only death
+    signal and it lags a death by the threshold, so the window is never
+    cut short. Then each planned slot is in (announced, with a fresh
+    worker lease) or out (it died mid-rendezvous, and must not wedge the
+    incumbents)."""
+    g = int(plan["generation"])
+    announced = set(lease.reform_members(g))
+    incumbents = [int(i) for i in plan["incumbents"]]
+    if not set(incumbents) <= announced:
+        return None
+    optional = sorted(int(s) for s in plan["joiners"].values())
+    if optional and now_monotonic < join_deadline:
+        return None
+    joined = [s for s in optional if s in announced and lease.fresh(s)]
+    return sorted(set(incumbents) | set(joined))
+
+
+def unexpected_announcers(lease: HeartbeatLease, plan: Dict) -> List[int]:
+    """Announce files for the plan's generation from slots the plan
+    never assigned (a joiner acting on a stale plan, a slot collision):
+    left out of the membership and refused aloud."""
+    g = int(plan["generation"])
+    expected = ({int(i) for i in plan["incumbents"]}
+                | {int(s) for s in plan["joiners"].values()})
+    return sorted(set(lease.reform_members(g)) - expected)
+
+
+def sweep_lease_dir(directory: str, generation: int, members: Sequence[int],
+                    join_stale_after: float = 0.0,
+                    now: Optional[float] = None) -> int:
+    """The reform's litter sweep: announce, plan and commit files of
+    superseded generations, leases of processes outside the membership,
+    dead (stale or garbled) join tickets and temporary files. The
+    current generation's files and fresh tickets (joiners waiting for a
+    later opening) stay. Returns the files removed; never raises."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return 0
+    keep = {int(m) for m in members}
+    fresh_tickets = (set(pending_join_tickets(directory, join_stale_after,
+                                              now=now))
+                     if join_stale_after > 0 else set())
+    removed = 0
+    for n in names:
+        drop = False
+        if ".tmp." in n:
+            drop = True
+        elif n.startswith("reform-"):
+            try:
+                drop = int(n.split("-")[1]) < int(generation)
+            except (IndexError, ValueError):
+                drop = True
+        elif (n.startswith(GROW_PLAN_PREFIX)
+              or n.startswith(COMMIT_PREFIX)) and n.endswith(".json"):
+            prefix = (GROW_PLAN_PREFIX if n.startswith(GROW_PLAN_PREFIX)
+                      else COMMIT_PREFIX)
+            try:
+                drop = int(n[len(prefix):-len(".json")]) < int(generation)
+            except ValueError:
+                drop = True
+        elif n.startswith("worker-") and n.endswith(".hb"):
+            try:
+                drop = int(n[len("worker-"):-len(".hb")]) not in keep
+            except ValueError:
+                drop = True
+        elif n.startswith(JOIN_PREFIX):
+            drop = n not in fresh_tickets
+        if drop:
+            try:
+                os.remove(os.path.join(directory, n))
+                removed += 1
+            except OSError:
+                pass
+    return removed
+
+
+def emit_join_refused(generation: int, slot, reason: str) -> None:
+    """The refusal of a joiner the rendezvous turned away (an announce
+    into a generation it was never planned into, a commit that left it
+    out), logged at once: the refused process idles outside the
+    cluster. The JAX package's ``health: join_refused`` event waits for
+    ROADMAP.md A11."""
+    get_logger().warning(
+        "join refused: generation %d, worker slot %d: %s", int(generation),
+        int(slot) if slot is not None else -1, str(reason)[:200])
 
 
 @dataclasses.dataclass

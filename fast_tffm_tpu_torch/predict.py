@@ -240,7 +240,7 @@ def _predict_multiprocess(cfg: FmConfig, table: Optional[torch.Tensor],
     done."""
     require_bounded_examples(cfg, "multi-process predict")
     device = indexed(device)
-    dist_mod.share_host_threads(cfg, device, mesh.size)
+    dist_mod.share_host_threads(cfg, device, range(mesh.size), mesh.rank)
     p, P = mesh.rank, mesh.size
     logger.info("multi-process predict: rank %d of %d on %s", p, P, device)
     directory = os.path.abspath(cfg.model_file) + ".ckpt"

@@ -53,10 +53,11 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional
 
 from fast_tffm_tpu_torch.checkpoint import read_pointer, read_published
 from fast_tffm_tpu_torch.obs.registry import MetricsRegistry
+from fast_tffm_tpu_torch.parallel.distributed import ephemeral_port_range
 from fast_tffm_tpu_torch.serve.proxy import FleetView, Replica, ScoreProxy
 from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
@@ -74,17 +75,6 @@ _DRAIN_SECONDS = 15.0
 # Budget for one replica's turn of a staggered reload (the reload and
 # its return to ready).
 _RELOAD_STEP_TIMEOUT = 120.0
-
-
-def ephemeral_port_range() -> Tuple[int, int]:
-    """The host's range of local ports for outgoing connections (Linux:
-    ``ip_local_port_range``; the kernel's default where unreadable)."""
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
-            lo, hi = (int(x) for x in fh.read().split())
-        return lo, hi
-    except (OSError, ValueError):
-        return 32768, 60999
 
 
 class RestartPolicy:

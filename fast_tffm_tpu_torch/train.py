@@ -1,12 +1,11 @@
 """Training — the port of ``fast_tffm_tpu/train.py`` (``train`` →
-``_train_session``) without elastic membership: FM of order 2 and
-higher, and field-aware FM, with the table on the device or, with
+``_train_session``): FM of order 2 and higher, and field-aware FM, with the table on the device or, with
 ``lookup = host``, outside it, and ids mod into the table or, with
 ``vocab_mode = admit``, admitted into it; one process, or the ranks of
 a ``dist_train`` job with the table row-sharded over them.
 
     python -m fast_tffm_tpu_torch train <cfg> [--device cuda|cpu]
-                                        [dist_train worker <i>]
+                                        [dist_train worker <i> | --join]
 
 At start the newest intact step of ``<model_file>.ckpt/`` is restored
 (checkpoint.py; a torn newer step is quarantined and walked past): the
@@ -90,11 +89,27 @@ the ``.npz`` export, gathered chunk by chunk (``_chief_finalize``). The
 heartbeat lease and the collective deadline guard turn a dead peer into
 ``WorkerLostError`` naming it.
 
-Not ported yet, each refused with the ROADMAP.md item that brings it:
-elastic training and multi-process streams (A10, its second slice). The
-observability keys are accepted, ignored and logged (utils/ignored.py:
-A11); admit mode and ``lookup = host`` across processes are refused as
-in the JAX package.
+Elastic membership (``[Cluster] elastic``; ``train`` is the elastic
+loop around ``_train_session``, which owns what must outlive a session: the
+lease, the guard, the bad-line tracker). With ``elastic = shrink`` a
+``WorkerLostError`` makes the survivors abandon the group, settle
+generation g+1 in the lease directory and reform at its bumped port
+(parallel/distributed.py), or go on as a lone single process; the
+session is re-entered, restores the last verified step onto the new
+membership's row shards and re-shards the input over the members in
+original index order, so the rest of the schedule runs exactly once.
+``elastic = grow`` adds the healing direction: at every epoch boundary
+but the last the chief scans for join tickets and broadcasts its plan;
+when one admits a joiner into a free original slot, the barrier state is
+saved durably and every member raises ``ClusterGrowth`` together, the
+loop reforms the grown cluster, and the joiner (``train(join=True)``,
+``train <cfg> --join``) restores the same step.
+
+Not ported yet, refused with the ROADMAP.md item that brings it:
+multi-process streams (A10, its third slice). The observability keys
+are accepted, ignored and logged (utils/ignored.py: A11); admit mode
+and ``lookup = host`` across processes are refused as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -135,6 +150,7 @@ from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
                                            train_step_body)
 from fast_tffm_tpu_torch.obs.quality import PublishGate, QualityStats
 from fast_tffm_tpu_torch.parallel import distributed as dist_mod
+from fast_tffm_tpu_torch.parallel import liveness as lv
 from fast_tffm_tpu_torch.parallel.liveness import (HeartbeatLease,
                                                    WorkerLostError,
                                                    install_guard, lease_dir,
@@ -181,17 +197,11 @@ def check_train_supported(cfg: FmConfig) -> None:
             "lookup = host is single-process by design: multi-host scale "
             "uses the row-sharded mesh (lookup = device) — see "
             "BASELINE.md's multi-host beyond-HBM design note")
-    refusals = (
-        (cfg.elastic != "off", f"elastic = {cfg.elastic}"),
-        (multi and cfg.run_mode == "stream",
-         "run_mode = stream across processes (dist_train)"),
-    )
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(
-                f"{what} is not ported to fast_tffm_tpu_torch yet "
-                "(ROADMAP.md, queue A, item A10, its second slice: elastic "
-                "membership and multi-process streams)")
+    if multi and cfg.run_mode == "stream":
+        raise NotImplementedError(
+            "run_mode = stream across processes (dist_train) is not ported "
+            "to fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A10, "
+            "its third slice: multi-process streams)")
 
 
 def checkpoint_template(cfg: FmConfig, acc: bool = True
@@ -298,7 +308,7 @@ def evaluate_distributed(cfg: FmConfig, table: torch.Tensor, files,
     ``uniq_bucket``: the caller's probed value (0 probes, the same
     bytes on every rank). The publish gate's quality sums, which ride
     this all-gather in the JAX package, wait with the multi-process
-    stream (ROADMAP.md A10, its second slice)."""
+    stream (ROADMAP.md A10, its third slice)."""
     spec = ModelSpec.from_config(cfg, num_processes=mesh.size)
     device = table.device
     auc = StreamingAUC()
@@ -549,10 +559,58 @@ class _Publisher:
         return decision
 
 
+class ClusterGrowth(Exception):
+    """The way out of ``_train_session`` at a safe barrier: the chief
+    planned the admission of joiners (``plan``, ``liveness.plan_grow``'s
+    payload) and the barrier state is saved durably, so ``train`` can
+    end the session and reform the grown cluster. Not an error."""
+
+    def __init__(self, plan: dict):
+        super().__init__(f"cluster growth planned: generation "
+                         f"{plan.get('generation')}")
+        self.plan = plan
+
+
+class _GrowContext:
+    """The elastic loop's grow state handed into the session (``elastic =
+    grow``): the current membership and generation, which only the
+    loop's reforms move, and the barrier's admission check.
+    ``capacity`` is the original cluster size: joiners take the
+    original indices of departed workers."""
+
+    def __init__(self, cfg: FmConfig, lease: HeartbeatLease, members,
+                 generation: int):
+        self.lease = lease
+        self.members = tuple(int(m) for m in members)
+        self.generation = int(generation)
+        self.capacity = max(len(cfg.worker_hosts), 1)
+
+    def adopt(self, members, generation: int) -> None:
+        self.members = tuple(int(m) for m in members)
+        self.generation = int(generation)
+
+    def check_barrier(self, mesh: Optional[ProcessMesh]) -> Optional[dict]:
+        """The admission check of every safe barrier: fresh join tickets
+        against free original slots give the next generation's plan, or
+        None. Every member scans and the chief's answer is broadcast, so
+        a ticket appearing mid-scan cannot split the cluster: all raise
+        ``ClusterGrowth`` together or none does."""
+        if len(self.members) >= self.capacity:
+            return None
+        tickets = lv.pending_join_tickets(self.lease.directory,
+                                          self.lease.stale_after)
+        plan = lv.plan_grow(self.generation + 1, self.members,
+                            self.capacity, tickets)
+        if mesh is not None:
+            plan = mesh.broadcast_object(plan, "cluster/grow_decision")
+        return plan
+
+
 def train(cfg: FmConfig, device=None,
           init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
           job_name: Optional[str] = None,
-          task_index: Optional[int] = None) -> torch.Tensor:
+          task_index: Optional[int] = None,
+          join: bool = False) -> torch.Tensor:
     """Train per ``cfg``; returns the final table ``[num_rows, D]``
     (with ``lookup = host``, on the host: a view of the backend's
     page-locked state; in a multi-process run, this rank's row shard).
@@ -569,55 +627,148 @@ def train(cfg: FmConfig, device=None,
     accumulator are row-sharded over the ranks (parallel/sharded.py),
     each rank reads its byte range of the input, and the ranks step in
     lockstep. The heartbeat lease (``heartbeat_seconds`` > 0) and the
-    collective deadline guard run for the whole session: a peer that
-    dies makes the survivors raise ``WorkerLostError`` naming it, or
-    exit ``EXIT_WORKER_LOST`` if a collective blocks past
-    ``collective_timeout_seconds``."""
+    collective deadline guard run for the whole run: a peer that dies
+    makes the survivors raise ``WorkerLostError`` naming it, or exit
+    ``EXIT_WORKER_LOST`` if a collective blocks past
+    ``collective_timeout_seconds``. With ``elastic = shrink | grow`` the
+    survivors reform instead and re-enter the session (the module
+    docstring); ``elastic = grow`` also admits joiners at epoch
+    boundaries. ``join``: this process is such a joiner (``train <cfg>
+    --join``): it rendezvouses into the running cluster first, its
+    worker slot assigned there, then runs as any member."""
     device = resolve_device(device)
     check_train_supported(cfg)
     logger = get_logger(log_file=cfg.log_file or None)
-    shard_index, num_shards = 0, 1
-    if job_name is not None:
+    shard_index, num_shards, generation, members = 0, 1, 0, None
+    lease = None
+    if join:
+        if cfg.elastic != "grow":
+            raise ValueError(
+                "train --join requires elastic = grow in [Cluster]: the "
+                "running cluster only scans for join tickets when grow is "
+                "on")
+        if job_name is not None:
+            raise ValueError(
+                "train --join replaces the dist_train role argv: the worker "
+                "slot is assigned by the running cluster, not the launcher")
+        lease, shard_index, num_shards, members, generation, _ = \
+            dist_mod.join_rendezvous(cfg, logger)
+    elif job_name is not None:
         shard_index, num_shards = dist_mod.init_from_cluster(
             cfg, job_name, task_index or 0)
-    lease = None
+        members = list(range(num_shards))
+    # One run-scoped tracker (None under bad_line_policy = error): its
+    # breaker and quarantine dedupe span every epoch and every reform.
+    bad_tracker = BadLineTracker.from_config(cfg)
     guard_prev = None
     guarded = False
     lost = False
     try:
+        if lease is None and num_shards > 1 and cfg.heartbeat_seconds > 0:
+            lease = HeartbeatLease(
+                lease_dir(cfg), process_index=shard_index,
+                members=range(num_shards),
+                heartbeat_seconds=cfg.heartbeat_seconds).start()
         if num_shards > 1:
-            if cfg.heartbeat_seconds > 0:
-                lease = HeartbeatLease(
-                    lease_dir(cfg), process_index=shard_index,
-                    members=range(num_shards),
-                    heartbeat_seconds=cfg.heartbeat_seconds).start()
             guard_prev = install_guard(lease,
                                        cfg.collective_timeout_seconds)
             guarded = True
-        return _train_session(cfg, device, init_state, logger,
-                              shard_index, num_shards)
-    except WorkerLostError as e:
-        # Fail fast with the diagnosis (elastic recovery: ROADMAP.md
-        # A10's second slice); the group is not torn down, its peers are gone.
-        lost = True
-        logger.error("WorkerLostError: %s", e)
-        raise
+        grow_ctx = (_GrowContext(cfg, lease, members, generation)
+                    if cfg.elastic == "grow" and lease is not None else None)
+        while True:
+            try:
+                return _train_session(cfg, device, init_state, logger,
+                                      shard_index, num_shards, members,
+                                      bad_tracker, grow_ctx)
+            except ClusterGrowth as g:
+                # Every member raises it off the chief's broadcast plan at
+                # the same barrier.
+                generation = int(g.plan["generation"])
+                logger.info(
+                    "elastic grow: admitting joiner(s) %s into cluster "
+                    "generation %d (barrier state saved)",
+                    sorted(int(s) for s in g.plan["joiners"].values()),
+                    generation)
+                # No guarded collective completes during a reform: the
+                # deadline guard would read it as a hang.
+                if guarded:
+                    restore_guard(guard_prev)
+                    guarded = False
+                if shard_index == 0:
+                    # The plan file is what the joiner polls for.
+                    lv.write_grow_plan(lease.directory, g.plan)
+                shard_index, num_shards, members, generation = \
+                    dist_mod.reform_grown_cluster(cfg, lease, generation,
+                                                  g.plan, logger)
+                grow_ctx.adopt(members, generation)
+                incumbents = {int(i) for i in g.plan["incumbents"]}
+                logger.info(
+                    "elastic recovery complete: %d member(s) (admitted %s), "
+                    "input shards re-balanced, resuming from the last "
+                    "verified checkpoint", num_shards,
+                    sorted(set(members) - incumbents) or "nobody")
+            except WorkerLostError as e:
+                if (cfg.elastic == "off" or num_shards <= 1
+                        or lease is None):
+                    # Fail fast with the diagnosis; the group is not torn
+                    # down, its peers are gone.
+                    lost = True
+                    logger.error("WorkerLostError: %s", e)
+                    raise
+                generation += 1
+                logger.warning("worker lost (%s); elastic shrink recovery, "
+                               "cluster generation %d", e, generation)
+                if guarded:
+                    restore_guard(guard_prev)
+                    guarded = False
+                shard_index, num_shards, members = \
+                    dist_mod.reform_shrunken_cluster(cfg, lease, generation,
+                                                     logger)
+                if grow_ctx is not None:
+                    grow_ctx.adopt(members, generation)
+                logger.info(
+                    "elastic recovery complete: %d survivor(s), input shards "
+                    "redistributed, resuming from the last verified "
+                    "checkpoint", num_shards)
+                if num_shards <= 1 and grow_ctx is None:
+                    # A lone survivor has no peer left to watch; stop the
+                    # lease so the next run here starts from a clean
+                    # table (elastic = grow keeps it: joiners and the
+                    # barrier's ticket scan read beside it).
+                    lease.stop()
+                    lease = None
+            # The state a reformed session starts from is the verified
+            # checkpoint's (or, before any save, a fresh draw).
+            init_state = None
+            if num_shards > 1:
+                guard_prev = install_guard(lease,
+                                           cfg.collective_timeout_seconds)
+                guarded = True
     finally:
         if lease is not None:
             lease.stop()
         if guarded:
             restore_guard(guard_prev)
-        if num_shards > 1 and not lost:
+        if not lost:
             dist_mod.shutdown()
+        if bad_tracker is not None:
+            bad_tracker.close()
 
 
 def _train_session(cfg: FmConfig, device: torch.device,
                    init_state: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                   logger, shard_index: int, num_shards: int
-                   ) -> torch.Tensor:
-    """One training session: restore, the epoch (or stream) loop, the
-    final save and the export. ``num_shards`` > 1: the multi-process
-    arm, as rank ``shard_index``."""
+                   logger, shard_index: int, num_shards: int,
+                   members, bad_tracker: Optional[BadLineTracker],
+                   grow_ctx: Optional[_GrowContext]) -> torch.Tensor:
+    """One training session against the current membership: restore,
+    the epoch (or stream) loop, the final save and the export.
+    ``num_shards`` > 1: the multi-process arm, as rank ``shard_index``
+    of ``members`` (original worker indices in rank order; None outside
+    a cluster, a lone survivor's is its own index). Raises
+    ``WorkerLostError`` out of a collective whose peer died and
+    ``ClusterGrowth`` out of an epoch boundary where ``grow_ctx`` plans
+    an admission; everything made here is torn down here, so
+    ``train`` can re-enter."""
     multi = num_shards > 1
     spec = ModelSpec.from_config(cfg, num_processes=num_shards)
     offload = cfg.lookup == "host"
@@ -644,7 +795,6 @@ def _train_session(cfg: FmConfig, device: torch.device,
                 "buckets, the row exchange's global unique axis)")
         require_bounded_examples(cfg, "multi-process training")
         device = indexed(device)
-        dist_mod.share_host_threads(cfg, device, num_shards)
         mesh = make_mesh(cfg, shard_index, num_shards)
         logger.info(
             "multi-process training: rank %d of %d on %s, table rows "
@@ -659,6 +809,9 @@ def _train_session(cfg: FmConfig, device: torch.device,
         if cfg.validation_files:
             val_bucket = cfg.uniq_bucket or probe_uniq_bucket(
                 cfg, cfg.validation_files)
+    if members is not None:
+        dist_mod.share_host_threads(cfg, device, members,
+                                    members[shard_index])
     host_workers = host_parallel_workers(cfg, cfg.weight_files,
                                          fixed_shape=multi)
     if host_workers > 1 and not stream_mode:
@@ -678,9 +831,6 @@ def _train_session(cfg: FmConfig, device: torch.device,
                            retry=RetryPolicy.from_config(cfg),
                            verify=cfg.ckpt_verify,
                            adagrad_init=cfg.adagrad_init, mesh=mesh)
-    # One run-scoped tracker (None under bad_line_policy = error): the
-    # breaker and the quarantine dedupe see every epoch's streams.
-    bad_tracker = BadLineTracker.from_config(cfg)
     prev_handlers = {}
     try:
         restored = ckpt.restore(template=checkpoint_template(cfg))
@@ -863,6 +1013,21 @@ def _train_session(cfg: FmConfig, device: torch.device,
                 if ckpt.chief:
                     logger.info("epoch %d validation AUC %.6f over %d "
                                 "examples", epoch, auc, n)
+            if (grow_ctx is not None
+                    and completed_epochs < cfg.epoch_num):
+                # The epoch boundary is the grow barrier: every member
+                # is here, and all raise together off the chief's plan.
+                # The barrier state is saved durably first (the joiner
+                # restores exactly it). The last epoch never grows.
+                plan = grow_ctx.check_barrier(mesh)
+                if plan is not None:
+                    st.save(ckpt, force=True, wait=True,
+                            epoch=completed_epochs,
+                            rewrite_stale_metadata=_stale_epoch(
+                                last_periodic_save, restored, restored_step,
+                                restored_epoch, st.global_step,
+                                completed_epochs))
+                    raise ClusterGrowth(plan)
         global_step = st.global_step
         if st.loss is not None:
             st.loss_val = float(st.loss)
@@ -875,13 +1040,10 @@ def _train_session(cfg: FmConfig, device: torch.device,
         # this run's last periodic save, or the restored checkpoint
         # when the schedule advanced without a step — the save records
         # the completed count in the epoch_override sidecar.
-        stale = ((last_periodic_save[0] == global_step
-                  and last_periodic_save[1] != completed_epochs)
-                 or (restored is not None
-                     and global_step == restored_step
-                     and completed_epochs != restored_epoch))
         st.save(ckpt, force=True, wait=True, epoch=completed_epochs,
-                rewrite_stale_metadata=stale,
+                rewrite_stale_metadata=_stale_epoch(
+                    last_periodic_save, restored, restored_step,
+                    restored_epoch, global_step, completed_epochs),
                 stream_state=(_stream_state(stream_watermark)
                               if stream_mode else None))
         if stream_mode and cfg.publish_interval_seconds > 0:
@@ -930,8 +1092,19 @@ def _train_session(cfg: FmConfig, device: torch.device,
         # Every exit path settles the in-flight save: an exception
         # between saves must not leave a write half done.
         ckpt.close()
-        if bad_tracker is not None:
-            bad_tracker.close()
+
+
+def _stale_epoch(last_periodic_save, restored, restored_step: int,
+                 restored_epoch: int, step: int, completed_epochs: int
+                 ) -> bool:
+    """Whether a save at ``step`` lands on a step written with another
+    epoch count: this session's last periodic save, or the restored
+    checkpoint when the schedule advanced without a step. The save then
+    records the completed count in the epoch_override sidecar."""
+    return ((last_periodic_save[0] == step
+             and last_periodic_save[1] != completed_epochs)
+            or (restored is not None and step == restored_step
+                and completed_epochs != restored_epoch))
 
 
 def _export_allowed(cfg: FmConfig, logger) -> bool:

@@ -78,6 +78,11 @@ Tolerances:
   (``local_idx`` offset per rank): the loss, the gathered table and
   accumulator at the step's rtol 1e-4 / atol 1e-6, the sharded scores at
   rtol 1e-5 / atol 1e-6.
+- ``elastic = shrink``: two ranks of ``train <cfg> dist_train worker
+  <i>`` on cuda:0, rank 1 SIGKILLed as it begins the step after the
+  first periodic save's; the survivor reforms alone, finishes at the
+  exactly-once step, and its table equals a single-process resume of the
+  same step on the CPU at the step's rtol 1e-4 / atol 1e-6.
 """
 
 import numpy as np
@@ -1177,3 +1182,55 @@ def test_two_rank_sharded_step_on_the_card(card, tmp_path):
             want = port_fm.score_body(spec, table, **args).cpu().numpy()
         got = np.concatenate([r[f"{name}/scores"] for r in results])
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_two_rank_shrink_on_the_card(card, tmp_path):
+    """``elastic = shrink`` on cuda:0: worker 1 of two dies after the
+    first periodic save; the survivor names it, reforms generation 1
+    alone, restores the save and finishes the schedule on the card,
+    launching both kernels; its table equals the same resume on the
+    CPU."""
+    import os
+    import re
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_dist_ranks as ranks
+    from fast_tffm_tpu_torch.checkpoint import CheckpointState
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.models.convert import save_checkpoint_from_numpy
+    from fast_tffm_tpu_torch.train import checkpoint_template, train
+    wd = str(tmp_path)
+    epochs = 2
+    cfg_path = ranks.write_elastic_run(wd, epochs, "shrink")
+    cfg = load_config(cfg_path)
+    argv = ["train", cfg_path, "dist_train", "worker"]
+    procs = {"w0": ranks.spawn_cli(wd, "w0", "keep-steps", argv + ["0"]),
+             "w1": ranks.spawn_cli(wd, "w1",
+                                   f"kill-at-step-{cfg.save_steps + 2}",
+                                   argv + ["1"])}
+    rcs, logs = ranks.wait_all(procs, wd, timeout=600)
+    tails = ranks.log_tails(logs)
+    assert rcs == [0, -9], (rcs, tails)
+    out0 = logs["w0"]
+    assert "rank 0 of 2 on cuda:0" in out0, tails
+    for want in ("process 1", "elastic reform generation 1",
+                 "elastic recovery complete", "training done"):
+        assert want in out0, (want, tails)
+    s0 = int(re.findall(r"restored checkpoint at step (\d+)", out0)[-1])
+    per_pass = -(-ranks.ELASTIC_LINES // ranks.ELASTIC_BATCH)
+    ckpt = CheckpointState(cfg.model_file)
+    start = ckpt.restore(step=s0, template=checkpoint_template(cfg))
+    final = ckpt.restore(template=checkpoint_template(cfg))
+    ckpt.close()
+    assert (s0, int(start["epoch"])) == (cfg.save_steps, 0)
+    assert int(final["step"]) == s0 + epochs * per_pass
+    single = load_config(cfg_path)
+    import dataclasses
+    single = dataclasses.replace(single, worker_hosts=(), elastic="off",
+                                 model_file=os.path.join(wd, "cpu", "fm"))
+    save_checkpoint_from_numpy(single, start["table"].numpy(),
+                               start["acc"].numpy(), s0, epoch=0)
+    want = train(single, device="cpu")
+    np.testing.assert_allclose(final["table"].numpy(),
+                               want[:single.num_rows].numpy(), rtol=1e-4,
+                               atol=1e-6)

@@ -18,6 +18,11 @@ no jax).
 - Liveness: a worker SIGKILLed mid-epoch makes the survivor exit
   non-zero naming it (``WorkerLostError``), within
   ``collective_timeout_seconds`` plus the lease's staleness — no hang.
+
+The predict reuses the train's rendezvous port right after the train:
+the train's store connections may hold it in TIME_WAIT then, which the
+port's bring-up must not read as a listener
+(test_torch_dist_liveness.py holds that alone).
 """
 
 import dataclasses
@@ -93,15 +98,23 @@ def _spawn(mode, cfg_path, i, wd, tag):
 
 
 def _run_both(mode, cfg_path, wd, tag, timeout=180):
+    """Both workers of one command; a failure reports each worker's exit
+    code and its log's tail (a fixture's failure reaches every test that
+    uses it: the tails name the cause)."""
     procs = [_spawn(mode, cfg_path, i, wd, tag) for i in range(2)]
-    try:
-        rcs = [p.wait(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
+    rcs = []
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)  # still running at the deadline
+        finally:
             p.kill()
     logs = [open(os.path.join(wd, f"{tag}{i}.log")).read()
             for i in range(2)]
-    assert rcs == [0, 0], logs[0][-2000:] + logs[1][-2000:]
+    assert rcs == [0, 0], (f"{mode} workers exited {rcs}" + ranks.log_tails(
+        {f"{tag}{i}": text for i, text in enumerate(logs)}, 4000))
     return logs
 
 

@@ -393,6 +393,16 @@ def test_coordinator_address_and_task_index_check():
     for hs in (hosts, ("head",)):
         assert port_dist.coordinator_address(FmConfig(worker_hosts=hs)) == \
             jax_dist.coordinator_address(JaxConfig(worker_hosts=hs))
+        # A reform's address: the generation bumps the port, and the
+        # members' hosts replace the config's (the first hosts the store).
+        for g in (1, 2, 7):
+            for members in (hs[-1:], hs[::-1]):
+                assert port_dist.coordinator_address(
+                    FmConfig(worker_hosts=hs), g, hosts=members) == \
+                    jax_dist.coordinator_address(JaxConfig(worker_hosts=hs),
+                                                 g, hosts=members)
+    assert port_dist.coordinator_address(FmConfig(worker_hosts=hosts), 3,
+                                         hosts=hosts[1:]) == "10.0.0.2:3225"
     with pytest.raises(ValueError, match="out of range"):
         port_dist.init_from_cluster(FmConfig(worker_hosts=hosts), "worker",
                                     2)
@@ -440,3 +450,75 @@ def test_rank_zero_refuses_a_rendezvous_port_in_use(port_log):
                        cluster_connect_timeout_seconds=2.0)
         with pytest.raises(RuntimeError, match="Address already in use"):
             port_dist.init_from_cluster(cfg, "worker", 0)
+
+
+def test_rendezvous_port_after_a_finished_job_is_free(port_log):
+    """A train followed by a predict on one config: the train's rank 0
+    closed its store's connections first, so they sit in TIME_WAIT on
+    the rendezvous port for a minute. The port is free for the next
+    store (a live listener still is not: the test above), and the next
+    2-rank job forms on it at once. (A plain bind refused it, and the
+    predict's bring-up failed after cluster_connect_timeout_seconds.)"""
+    import datetime
+    import os
+    import socket
+    import subprocess
+    import sys
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_dist_ranks import free_port
+    port = free_port()
+    host = "127.0.0.1"
+    client = ("import datetime, time, torch.distributed as d; "
+              f"s = d.TCPStore({host!r}, {port}, 2, is_master=False, "
+              "timeout=datetime.timedelta(seconds=60)); s.get('go'); "
+              "time.sleep(1.5)")
+    peer = subprocess.Popen([sys.executable, "-c", client])
+    try:
+        master = dist.TCPStore(host, port, 2, is_master=True,
+                               timeout=datetime.timedelta(seconds=60),
+                               wait_for_workers=True)
+        master.set("go", "1")
+        time.sleep(0.3)
+        del master  # rank 0 closes first: TIME_WAIT on the port
+    finally:
+        assert peer.wait(timeout=60) == 0
+    with socket.socket() as plain:
+        with pytest.raises(OSError, match="Address already in use"):
+            plain.bind((host, port))
+    port_dist._check_port_free(host, port)
+    store = dist.TCPStore(host, port, 1, is_master=True,
+                          timeout=datetime.timedelta(seconds=10),
+                          wait_for_workers=True)
+    del store
+
+
+def test_rendezvous_port_in_the_ephemeral_range_warns(port_log,
+                                                      monkeypatch):
+    """Every generation's rendezvous port is checked against the host's
+    ephemeral range (the reforms bind generation-bumped ports), once
+    per port."""
+    monkeypatch.setattr(port_dist, "ephemeral_port_range",
+                        lambda: (32768, 60999))
+    monkeypatch.setattr(port_dist, "_WARNED_PORTS", set())
+    assert not port_dist.warn_ephemeral_port(25000)
+    assert port_dist.warn_ephemeral_port(32768)
+    assert port_dist.warn_ephemeral_port(32768)
+    assert port_dist.warn_ephemeral_port(32769)
+    warned = [m for m in port_log if "ephemeral port range" in m]
+    assert len(warned) == 2
+    assert warned[0].startswith("rendezvous port 32768 lies in the host's "
+                                "ephemeral port range 32768-60999")
+    # _join_cluster checks the port it is given, whatever the generation.
+    seen = []
+    monkeypatch.setattr(port_dist, "warn_ephemeral_port", seen.append)
+    monkeypatch.setattr(port_dist, "initialize_with_retry",
+                        lambda *a, **kw: (_ for _ in ()).throw(
+                            RuntimeError("stop")))
+    cfg = FmConfig(worker_hosts=("localhost:31767", "localhost:31768"))
+    for g in (0, 1, 2):
+        with pytest.raises(RuntimeError, match="stop"):
+            port_dist._join_cluster(
+                cfg, port_dist.coordinator_address(cfg, g, cfg.worker_hosts),
+                2, 0)
+    assert seen == [32767, 32768, 32769]

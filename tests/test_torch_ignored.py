@@ -96,7 +96,11 @@ def test_train_logs_ignored_keys(tmp_path, port_log):
     train(_cfg(str(tmp_path), **SET), device="cpu")
     _assert_logged(port_log)
     with pytest.raises(NotImplementedError, match="item A10"):
-        train(_cfg(str(tmp_path), elastic="shrink", **SET), device="cpu")
+        train(dataclasses.replace(
+            _cfg(str(tmp_path), **SET), run_mode="stream", train_files=(),
+            stream_dir=str(tmp_path),
+            worker_hosts=("localhost:1", "localhost:2")),
+            device="cpu", job_name="worker", task_index=0)
 
 
 def test_predict_logs_ignored_keys(tmp_path, port_log):

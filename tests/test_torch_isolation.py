@@ -121,5 +121,6 @@ def test_port_thread_names_carry_their_own_prefix():
     assert {"fmt-serve-http", "fmt-serve-reload", "fmt-serve-dispatch",
             "fmt-serve-warmup", "fmt-fleet-health", "fmt-fleet-reload",
             "fmt-proxy-http", "fmt-proxy-shadow", "fmt-heartbeat",
-            "fmt-part-merger", "fmt-ckpt-writer"} <= threads
+            "fmt-part-merger", "fmt-ckpt-writer",
+            "fmt-join-ticket"} <= threads
     assert [n for n in threads if n.startswith("fm-")] == []

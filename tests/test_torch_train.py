@@ -403,17 +403,14 @@ def test_unported_keys_raise(tmp_path, extra, item):
     (dict(elastic="shrink"), "A10"),
 ])
 def test_unported_values_raise(tmp_path, changes, item):
-    """``elastic`` waits for the second slice of ROADMAP.md A10 and
-    raises naming it; ``uniq_bucket`` came with the first and trains
-    (inert on one process, as in the JAX package)."""
+    """Values ROADMAP.md ``item`` ported: ``uniq_bucket`` (its first
+    slice) and ``elastic`` (its second) act across processes and, on
+    one process, are inert as in the JAX package: the run trains, and
+    an elastic one leaves no lease directory."""
     cfg = dataclasses.replace(load_config(_write_cfg(str(tmp_path))),
                               epoch_num=1, **changes)
-    if "uniq_bucket" in changes:
-        assert torch.isfinite(train(cfg, device="cpu")).all()
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"item {item}, its second slice"):
-        train(cfg, device="cpu")
+    assert torch.isfinite(train(cfg, device="cpu")).all()
+    assert not os.path.exists(cfg.model_file + ".hb")
 
 
 def test_existing_checkpoint_raises(tmp_path):
@@ -438,7 +435,8 @@ def test_dist_train_argv_raises(tmp_path, capsys):
     index out of range for ``worker_hosts`` raises (a one-host config
     has only worker 0, which trains alone), a ``ps`` role explains
     itself and exits 0, a bad index or role is a usage error, and
-    ``train --join`` raises naming its ROADMAP item."""
+    ``train --join`` without ``elastic = grow`` raises naming the knob,
+    as in the JAX package."""
     path = _write_cfg(str(tmp_path))
     with pytest.raises(ValueError, match="out of range"):
         main(["train", path, "--device", "cpu", "dist_train", "worker",
@@ -450,7 +448,7 @@ def test_dist_train_argv_raises(tmp_path, capsys):
                  ["dist_train", "worker"]):
         assert main(["train", path, "--device", "cpu", *rest]) == 2
     assert main(["predict", path, "--device", "cpu", "--join"]) == 2
-    with pytest.raises(NotImplementedError, match="item A10"):
+    with pytest.raises(ValueError, match="requires elastic = grow"):
         main(["train", path, "--device", "cpu", "--join"])
 
 

@@ -2,6 +2,7 @@
 
     python tests/torch_dist_ranks.py <scenario> <rank> <world> <port> <wd>
                                      [<device>]
+    python tests/torch_dist_ranks.py cli <fault> -- <argv of the port's CLI>
 
 Each rank joins a ``world``-rank gloo group whose rendezvous listens on
 ``port`` (worker_hosts[0] = localhost:<port - 1000>), runs
@@ -20,6 +21,16 @@ Scenarios:
   batch; saves the batches, the losses, the post-step shards and the
   scores. Then the checkpoint's step decisions (``_broadcast_int``,
   ``_all_agree``) under ``world`` ranks.
+
+``cli`` runs ``python -m fast_tffm_tpu_torch <argv>`` with faults (a
+comma-separated list) at fixed points, so a test's kill lands at the
+same step on a loaded host: ``kill-at-step-<n>`` SIGKILLs this process
+as it begins its step n + 1 (after step n's periodic save was
+gathered), ``kill-at-announce`` as soon as a joiner has announced its
+generation (its ticket and worker lease left behind, as a dead process
+leaves them); ``keep-steps`` retires no checkpoint step past
+``max_to_keep`` (the test reads the step a survivor restored after the
+run); ``none`` runs the command as it is.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -88,6 +100,93 @@ def run_ranks(scenario: str, wd: str, world: int = 2,
         assert p.returncode == 0, out[-3000:]
     return [dict(np.load(os.path.join(wd, f"{scenario}-rank{r}.npz")))
             for r in range(world)]
+
+
+ELASTIC_CFG = """[General]
+vocabulary_size = 200
+factor_num = 4
+model_file = {wd}/model/fm
+[Train]
+train_files = {wd}/train.txt
+validation_files = {repo}/data/sample_test.txt
+epoch_num = {epochs}
+batch_size = 16
+learning_rate = 0.1
+factor_lambda = 1e-6
+bias_lambda = 1e-6
+init_value_range = 0.01
+log_steps = 4
+save_steps = 12
+max_features_per_example = 32
+bucket_ladder = 8,16,32
+uniq_bucket = 256
+host_threads = 1
+[Cluster]
+worker_hosts = {hosts}
+heartbeat_seconds = 1.0
+collective_timeout_seconds = 60
+cluster_connect_timeout_seconds = 90
+elastic = {elastic}
+join_settle_seconds = 1
+join_timeout_seconds = 180
+"""
+
+# The elastic runs' corpus: the first lines of data/sample_train.txt, a
+# pass of 40 single-process steps at batch 16 (20 a rank at two ranks).
+ELASTIC_LINES = 640
+ELASTIC_BATCH = 16
+
+
+def write_elastic_run(wd: str, epochs: int, elastic: str) -> str:
+    """A 2-worker ``elastic`` config over ``ELASTIC_LINES`` lines in
+    ``wd`` (explicit ``uniq_bucket`` above the vocabulary: no batch
+    spills, so every pass has a fixed step count); returns its path."""
+    with open(os.path.join(REPO, "data", "sample_train.txt")) as fh:
+        lines = fh.read().splitlines()[:ELASTIC_LINES]
+    with open(os.path.join(wd, "train.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    path = os.path.join(wd, "elastic.cfg")
+    with open(path, "w") as fh:
+        fh.write(ELASTIC_CFG.format(
+            wd=wd, repo=REPO, epochs=epochs, elastic=elastic,
+            hosts=worker_hosts(free_port(), 2)))
+    return path
+
+
+def spawn_cli(wd: str, tag: str, faults: str, argv) -> subprocess.Popen:
+    """``python -m fast_tffm_tpu_torch <argv>`` under ``faults`` (the
+    ``cli`` runner), logging to ``<wd>/<tag>.log``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("JAX_PLATFORMS", None)
+    with open(os.path.join(wd, f"{tag}.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "cli", faults, "--",
+             *argv], cwd=wd, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def wait_all(procs, wd: str, timeout: float = 240.0) -> tuple:
+    """Every process's exit code, each wait bounded (a process still
+    running is killed and reads as None); then the logs, by tag."""
+    rcs = []
+    deadline = time.monotonic() + timeout
+    for p in procs.values():
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rcs.append(None)
+    logs = {}
+    for tag in procs:
+        with open(os.path.join(wd, f"{tag}.log")) as fh:
+            logs[tag] = fh.read()
+    return rcs, logs
+
+
+def log_tails(logs: dict, n: int = 3000) -> str:
+    """Each process's log tail, labelled: what a failing test prints."""
+    return "".join(f"\n----- {tag} (last {n} chars) -----\n{text[-n:]}"
+                   for tag, text in logs.items())
 
 
 def step_cases():
@@ -196,7 +295,46 @@ def _step(rank, world, port, wd, device):
     return out
 
 
+def _cli(faults, argv):
+    """The port's CLI with ``faults`` planted (the module docstring)."""
+    import signal
+
+    def die():
+        sys.stdout.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    for fault in faults.split(","):
+        if fault.startswith("kill-at-step-"):
+            from fast_tffm_tpu_torch import train as port_train
+            last = int(fault[len("kill-at-step-"):])
+            real_step = port_train._Stepper.step
+
+            def step(self, batch, epoch):
+                if self.global_step >= last:
+                    die()
+                return real_step(self, batch, epoch)
+            port_train._Stepper.step = step
+        elif fault == "kill-at-announce":
+            from fast_tffm_tpu_torch.parallel import liveness
+            real_announce = liveness.HeartbeatLease.announce_reform
+
+            def announce(self, generation):
+                real_announce(self, generation)
+                die()
+            liveness.HeartbeatLease.announce_reform = announce
+        elif fault == "keep-steps":
+            from fast_tffm_tpu_torch.checkpoint import CheckpointState
+            CheckpointState._delete_old_steps = lambda self: None
+        elif fault != "none":
+            raise ValueError(f"unknown fault {fault!r}")
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    return cli(argv)
+
+
 def main(argv):
+    if argv[0] == "cli":
+        assert argv[2] == "--", argv
+        return _cli(argv[1], argv[3:])
     scenario, rank, world, port, wd = argv[:5]
     device = torch.device(argv[5] if len(argv) > 5 else "cpu")
     rank, world, port = int(rank), int(world), int(port)
