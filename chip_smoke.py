@@ -13,17 +13,19 @@ config #3's FFM and config #4's order-3 FM, and config #2's model again
 on the packed wire, and config #2's model in the stream run mode, and
 config #5's width with the table offloaded to the host, and config #2's
 model in vocabulary admit mode, and config #2's model trained and
-predicted by two ranks over a row-sharded table (``dist_train``):
+predicted by two ranks over a row-sharded table (``dist_train``), in
+epochs and as a stream, both across a kill and a join:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: the three kernel libraries, one nvcc each, and the C++ parser
    library (g++), all started together, with nvcc's register report and
    the parser's build seconds;
    pipeline: the train phase's 131,072 lines (written here) through
-   three streams — the C++ fast path with ``host_threads = 1``, the same
-   path with ``host_threads`` = auto (its worker count printed), and the
-   plain pure-Python stream — which must be equal array for array, each
-   with its lines/s and the host's CPU count; then the generic path (a
+   the C++ fast path with ``host_threads = 1`` and with ``host_threads``
+   = auto (its worker count printed), which must be equal array for
+   array, and the first 32,768 of them also through the plain
+   pure-Python stream, equal to both; each with its lines/s and the
+   host's CPU count; then the generic path (a
    weight sidecar, ``bad_line_policy = skip`` with planted bad lines)
    against its plain expectation;
 3. kernel: each CUDA kernel against its plain PyTorch version at the
@@ -142,7 +144,9 @@ predicted by two ranks over a row-sharded table (``dist_train``):
    accumulator, 7.2 GB of page-locked host state): run A (one epoch,
    final save at 16) and run B (restores 16 into page-locked memory,
    resumes at epoch 1/2, ends at 32) of ``python -m fast_tffm_tpu_torch
-   train`` as subprocesses under a wrapper that writes to JSON the four
+   train`` as subprocesses, started before phase 14 and run beside it
+   (the rest of the phase follows phase 14), under a wrapper that
+   writes to JSON the four
    kernels' launches, the host RSS before and after the backend is built
    and at its peak, the card's peak allocated bytes from then on, and
    whether the state is page-locked. The loss must fall, the AUC clear
@@ -226,10 +230,12 @@ predicted by two ranks over a row-sharded table (``dist_train``):
    <i>`` on cuda:0, two epochs of the padded lines, a periodic save
    every 8 steps; once step 8 is committed, rank 1 is SIGKILLed (in
    epoch 0: the save at 16 waits for step 8's write) and ``train <cfg>
-   --join`` started. The survivor must name process 1, reform generation
-   1 alone (a single process: the whole table on the card), restore the
-   last committed step s0 (8, or 16 if its gather beat the kill; epoch 0
-   either way) and train epoch 0 again, then at the epoch boundary save
+   --join`` started. The survivor must name process 1 (a kill that
+   lands in a save's gather to the chief is abandoned at
+   ``collective_timeout_seconds``), reform generation 1 alone (a single
+   process: the whole table on the card), restore the last committed
+   step s0 (8, or 16 if its gather beat the kill; epoch 0 either way)
+   and train epoch 0 again, then at the epoch boundary save
    and admit the joiner into slot 1 (generation 2); both restore that
    step and train epoch 1 as two ranks. Both must end at step s0 + 32 +
    16 (the exactly-once arithmetic), epoch 2, the
@@ -239,6 +245,30 @@ predicted by two ranks over a row-sharded table (``dist_train``):
    grown sessions, the joiner's) held against the plain versions on its
    captured kernel inputs. Its line: kill to detection, detection to
    recovery, each restore's seconds, ticket to admission, the launches;
+   then the multi-process stream leg (``dist_stream``), started after
+   phase 12 and run beside phases 13-14: the train lines as 4 shards of
+   32,768 lines (8 batches of a rank's 4,096 each; each written in torn
+   appends under a dot name, sealed, then renamed into place with its
+   partner so that both ranks' shards appear in one discovery); shards
+   0-1 staged, then two ranks of ``train <cfg> dist_train worker <i>``
+   on cuda:0 with ``run_mode = stream``, ``elastic = grow``, a gated
+   publish every 2 s at the train phase's AUC floor; once ``published``
+   names step 8, rank 1 is SIGKILLed as both idle in the flags window.
+   The survivor must name process 1, reform generation 1 alone and
+   restore step 8 with its merged watermark; ``train <cfg> --join`` is
+   then started and must be admitted at a publish settle (generation 2,
+   ``input shards re-balanced``); shards 2-3 are staged, then ``STOP``.
+   Both must exit 0 at step 16, the final watermark must cover every
+   byte and line of the 4 shards (each sealed by its ``.done``), the
+   joiner must have stepped shard 3 (ledger index 3 is rank 1's), the
+   final AUC clear
+   the floor and lie within 0.03 of run A's, the lease directory hold
+   generation 2's files, every session launch the forward and each
+   2-rank session one backward a step; both kernels against their plain
+   versions on the lone survivor's first sweep batch and the grown
+   ranks' first step. Its line: kill to detection, detection to
+   recovery, each restore's seconds, ticket to admission, each publish's
+   sweep and each waited save's seconds, the launches;
 16. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases time the checkpoint plane: each periodic save's pause in the
@@ -286,6 +316,7 @@ BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
 BWD_KERNEL_NAMES = ("fm_score_bwd_scale", "fm_score_bwd_kernel",
                     "fm_score_bwd_finish")
 TRAIN_LINES = 131072
+PLAIN_LINES = 32768               # the plain Python stream's check: a prefix
 GENERIC_LINES = 32768             # the generic path's check: a prefix
 GENERIC_BAD = (101, 5000, 17777, 25000, 32000)   # planted bad lines
 VAL_LINES = 16384
@@ -1824,8 +1855,9 @@ def host_cpus():
 
 def pipeline_phase(cfg, parser_build_s, card):
     """The train stream three ways — the C++ fast path serially and over
-    the parallel data plane, and the plain pure-Python stream — equal
-    array for array, each with its lines/s; then the generic path (a
+    the parallel data plane, equal array for array, and on its first
+    PLAIN_LINES lines the plain pure-Python stream, equal to both — each
+    with its lines/s; then the generic path (a
     weight sidecar and planted bad lines under ``bad_line_policy =
     skip``) against the plain expectation built from the pure-Python
     parser and make_device_batch."""
@@ -1843,26 +1875,38 @@ def pipeline_phase(cfg, parser_build_s, card):
         lambda: pl.batch_iterator(serial_cfg, files, **kw))
     parallel, parallel_s = timed_list(
         lambda: pl.batch_iterator(auto_cfg, files, **kw))
-    plain, plain_s = timed_list(
-        lambda: pl.plain_batch_iterator(cfg, files, **kw))
-    check(sum(b.num_real for b in plain) == TRAIN_LINES,
-          "the plain stream lost lines")
-    check_same_stream(plain, serial, "C++ fast path (host_threads = 1)")
-    check_same_stream(plain, parallel,
+    check(sum(b.num_real for b in serial) == TRAIN_LINES,
+          "the C++ fast path lost lines")
+    check_same_stream(serial, parallel,
                       f"C++ fast path (host_threads = {workers})")
-    n_batches = len(plain)
-    del serial, parallel, plain
+    n_batches = len(serial)
+    del serial, parallel
+    # The plain Python stream (~8k lines/s) against both C++ routes on a
+    # prefix of the train lines.
+    gdir = os.path.join(WORK, "pipeline")
+    os.makedirs(gdir)
+    with open(files[0]) as fh:
+        lines = fh.read().splitlines()
+    prefix = os.path.join(gdir, "prefix.txt")
+    with open(prefix, "w") as fh:
+        fh.write("\n".join(lines[:PLAIN_LINES]) + "\n")
+    plain, plain_s = timed_list(
+        lambda: pl.plain_batch_iterator(cfg, [prefix], **kw))
+    check(sum(b.num_real for b in plain) == PLAIN_LINES,
+          "the plain stream lost lines")
+    for what, c in (("host_threads = 1", serial_cfg),
+                    (f"host_threads = {workers}", auto_cfg)):
+        check_same_stream(plain, list(pl.batch_iterator(c, [prefix], **kw)),
+                          f"C++ fast path ({what}) on {PLAIN_LINES} lines")
+    del plain
 
     # The generic path: a prefix of the train lines with planted bad
     # lines and a weight sidecar, not shuffled.
-    with open(files[0]) as fh:
-        lines = fh.read().splitlines()[:GENERIC_LINES]
+    lines = lines[:GENERIC_LINES]
     for i in GENERIC_BAD:
         lines[i] = "1 I1:x C3=v1"
     rng = np.random.default_rng(SEED + 9)
     weights = [f"{w:.3f}" for w in rng.uniform(0.2, 3.0, len(lines))]
-    gdir = os.path.join(WORK, "pipeline")
-    os.makedirs(gdir)
     data, wpath = os.path.join(gdir, "g.txt"), os.path.join(gdir, "g.w")
     with open(data, "w") as fh:
         fh.write("\n".join(lines) + "\n")
@@ -1900,8 +1944,10 @@ def pipeline_phase(cfg, parser_build_s, card):
            "serial_lines_per_s": TRAIN_LINES / serial_s,
            "parallel_workers": workers,
            "parallel_lines_per_s": TRAIN_LINES / parallel_s,
-           "plain_lines_per_s": TRAIN_LINES / plain_s,
-           "serial_over_plain": plain_s / serial_s,
+           "plain_lines": PLAIN_LINES,
+           "plain_lines_per_s": PLAIN_LINES / plain_s,
+           "serial_over_plain": (TRAIN_LINES / serial_s)
+           / (PLAIN_LINES / plain_s),
            "parallel_over_serial": serial_s / parallel_s,
            "generic_lines": GENERIC_LINES,
            "generic_bad_lines_skipped": tracker.bad,
@@ -2411,21 +2457,24 @@ serve_poll_seconds = {RELOAD_POLL_SECONDS}
     return path
 
 
-def write_shard(sd, k, lines, done_times):
+def write_shard(sd, k, lines, done_times, hidden=False):
     """Shard ``k`` in STREAM_APPENDS appends, every cut but the last in
     the middle of a line, then its ``.done`` marker (its wall time kept
-    in ``done_times``)."""
+    in ``done_times``). ``hidden``: the appends go to ``.part-<k>``,
+    which the caller renames into place. Returns the written path."""
     text = ("\n".join(lines) + "\n").encode()
     cuts = [len(text) * i // STREAM_APPENDS
             for i in range(1, STREAM_APPENDS)]
     cuts = [c + 1 if text[c - 1:c] == b"\n" else c for c in cuts]
     path = os.path.join(sd, f"part-{k:05d}")
+    target = os.path.join(sd, f".part-{k:05d}") if hidden else path
     for lo, hi in zip([0] + cuts, cuts + [len(text)]):
-        with open(path, "ab") as fh:
+        with open(target, "ab") as fh:
             fh.write(text[lo:hi])
         time.sleep(0.2)
     open(path + ".done", "w").close()
     done_times[path] = time.time()
+    return target
 
 
 def start_stream_train(wd, cfg_path, run):
@@ -2900,15 +2949,21 @@ sys.exit(rc)
 """
 
 
-def run_offload_train(wd, cfg_path, run):
-    """One offload train command in a subprocess; returns its record."""
+def run_offload_train(wd, cfg_path, run, procs):
+    """One offload train command in a subprocess (appended to ``procs``,
+    so that ``offload_stop`` can end it); returns its record."""
     out_json = os.path.join(wd, f"run{run}.json")
     with open(os.path.join(wd, f"run{run}.out"), "w") as out:
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-c", OFFLOAD_TRAIN, out_json, "train",
              cfg_path], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-            stdout=out, stderr=subprocess.STDOUT,
-            timeout=OFFLOAD_RUN_TIMEOUT)
+            stdout=out, stderr=subprocess.STDOUT)
+        procs.append(proc)
+        try:
+            proc.wait(timeout=OFFLOAD_RUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
         with open(os.path.join(wd, f"run{run}.out")) as fh:
             print(fh.read()[-6000:], flush=True)
@@ -3128,12 +3183,60 @@ def offload_reset_check(torch, np, lu, spec, cfg, pinned, host, batches):
                 worst}
 
 
-def offload_phase(torch, device, card, data, train_row):
+def offload_start(data):
+    """Start the offload phase's two train commands, run A (one epoch)
+    and run B (resumed to two) of ``python -m fast_tffm_tpu_torch train``
+    with ``lookup = host``, one after the other in subprocesses driven by
+    a background thread, so that they run beside the admit phase;
+    ``offload_phase`` checks them and does the rest. Returns the
+    handle."""
+    wd = os.path.join(WORK, "offload")
+    os.makedirs(wd)
+    free = shutil.disk_usage(wd).free
+    check(free >= OFFLOAD_MIN_FREE_BYTES,
+          f"{free} bytes free under {wd}; the offload phase needs "
+          f"{OFFLOAD_MIN_FREE_BYTES}")
+    paths = [write_train_cfg(data[0], epochs, save_steps=0,
+                             leg="offload", model="lookup = host",
+                             vocab=OFFLOAD_VOCAB, factors=OFFLOAD_FACTORS)
+             for epochs in (1, TRAIN_EPOCHS)]
+    h = {"wd": wd, "paths": paths, "recs": [], "run_s": [], "errors": [],
+         "procs": [], "t0": time.perf_counter()}
+
+    def runner():
+        try:
+            for run, path in enumerate(paths):
+                t0 = time.perf_counter()
+                h["recs"].append(run_offload_train(wd, path, run,
+                                                   h["procs"]))
+                h["run_s"].append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 - offload_phase raises
+            h["errors"].append(e)
+
+    h["thread"] = threading.Thread(target=runner, name="smoke-offload-runs",
+                                   daemon=True)
+    h["thread"].start()
+    return h
+
+
+def offload_stop(h):
+    """Stop the offload runs' processes (a no-op once finished)."""
+    if h is None:
+        return
+    for proc in h["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    h["thread"].join(timeout=60)
+
+
+def offload_phase(torch, device, card, train_row, h):
     """``lookup = host`` at config #5's width (2nd-order FM, k = 8, hashed
     ids) with 10^8 rows: a [10^8+1, 9] f32 table and its accumulator,
     7.2 GB of page-locked host state. Run A (one epoch) and run B
     (resumed to two) of ``python -m fast_tffm_tpu_torch train`` in
-    subprocesses; a control run of the device path in process; predict
+    subprocesses (``offload_start``'s handle ``h``: they ran beside the
+    admit phase); a control run of the device path in process; predict
     of step 32 on both wires against device-lookup predict; both offload
     kernels against their plain versions, and both FM kernels on an
     offload batch; the HostOffloadLookup leg. Returns (the phase's row,
@@ -3150,20 +3253,9 @@ def offload_phase(torch, device, card, data, train_row):
     from fast_tffm_tpu_torch.ops import fm_kernel
     from fast_tffm_tpu_torch.ops import offload_kernel as ok
     from fast_tffm_tpu_torch.train import checkpoint_template
-    data_wd = data[0]
-    wd = os.path.join(WORK, "offload")
-    os.makedirs(wd)
-    free = shutil.disk_usage(wd).free
-    check(free >= OFFLOAD_MIN_FREE_BYTES,
-          f"{free} bytes free under {wd}; the offload phase needs "
-          f"{OFFLOAD_MIN_FREE_BYTES}")
-    t_phase = time.perf_counter()
+    wd, paths, t_phase = h["wd"], h["paths"], h["t0"]
+    t_visible = time.perf_counter()
     try:
-        paths = [write_train_cfg(data_wd, epochs, save_steps=0,
-                                 leg="offload", model="lookup = host",
-                                 vocab=OFFLOAD_VOCAB,
-                                 factors=OFFLOAD_FACTORS)
-                 for epochs in (1, TRAIN_EPOCHS)]
         cfg = load_config(paths[-1])
         check(cfg.lookup == "host" and cfg.dedup == "auto",
               f"offload config: lookup {cfg.lookup}, dedup {cfg.dedup}")
@@ -3175,11 +3267,12 @@ def offload_phase(torch, device, card, data, train_row):
 
         # Run A: one epoch and its final save at step 16; run B: restore
         # into page-locked memory, resume at epoch 1/2, end at step 32.
-        recs, run_s = [], []
-        for run, path in enumerate(paths):
-            t0 = time.perf_counter()
-            recs.append(run_offload_train(wd, path, run))
-            run_s.append(time.perf_counter() - t0)
+        h["thread"].join(timeout=2 * OFFLOAD_RUN_TIMEOUT)
+        if h["errors"]:
+            raise h["errors"][0]
+        check(not h["thread"].is_alive() and len(h["recs"]) == 2,
+              "the offload runs did not finish")
+        recs, run_s = h["recs"], h["run_s"]
         with open(cfg.log_file) as fh:
             log = fh.read()
         check(log.count("offload lookup [pinned-host (pinned)]: table "
@@ -3395,6 +3488,7 @@ def offload_phase(torch, device, card, data, train_row):
         del pinned, step, batches
         torch.cuda.empty_cache()
     finally:
+        offload_stop(h)
         shutil.rmtree(wd, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     top = (None if per_kernel is None else
@@ -3408,6 +3502,7 @@ def offload_phase(torch, device, card, data, train_row):
            "lines": TRAIN_LINES, "validation_lines": VAL_LINES,
            "batch_size": TRAIN_BATCH, "steps": 2 * steps,
            "run_seconds": run_s, "phase_seconds": phase_s,
+           "visible_seconds": time.perf_counter() - t_visible,
            "epoch_mean_loss": mean_loss, "validation_auc": aucs,
            "auc_floor": train_row["auc_floor"],
            "examples_per_s_loop": (len(rates) * TRAIN_BATCH
@@ -4553,8 +4648,15 @@ def dist_finish(h, torch, device, card, train_row):
               f"{budget}s), naming process 1: {lost is not None}")
         # The final step is durable before the chief logs the final AUC
         # and starts its export.
-        wait_log(train_a[1][0], r"final validation AUC", train_a[0],
-                 "the dist train's final save")
+        try:
+            wait_log(train_a[1][0], r"final validation AUC", train_a[0],
+                     "the dist train's final save")
+        except SmokeFailure:
+            for log in train_a[1]:
+                with open(log) as fh:
+                    print(f"----- {log} -----\n{fh.read()[-6000:]}",
+                          flush=True)
+            raise
         directory = cfg.model_file + ".ckpt"
         verify_out = io.StringIO()
         t1 = time.perf_counter()
@@ -4686,11 +4788,13 @@ ELASTIC_RUN_TIMEOUT = 900         # seconds for the leg's processes
 ELASTIC_LEASE_FILES = ["commit-2.json", "grow-2.json", "reform-2-0",
                        "reform-2-1"]
 
-# One process of the elastic leg (a rank or the joiner): the entry point
+# One process of an elastic leg (a rank or the joiner): the entry point
 # with both kernels' launch counts, the sessions it entered (their
 # membership and the counts at their start), each checkpoint restore's
-# seconds, and the inputs of each session's first forward and backward
-# kernel calls (its first train step) written when it returns.
+# and save's seconds, and per session the inputs of its first forward
+# kernel call (``first_fwd``: a validation sweep's, in a session that
+# steps nothing) and of its first train step's forward and backward
+# (``fwd``, ``bwd``), written when it returns.
 ELASTIC_RANK = r"""
 import json, sys, time
 import torch
@@ -4699,9 +4803,9 @@ from fast_tffm_tpu_torch.__main__ import main
 from fast_tffm_tpu_torch.checkpoint import CheckpointState
 from fast_tffm_tpu_torch.ops import fm_kernel
 out_path, argv = sys.argv[1], sys.argv[2:]
-sessions, restores, captured = [], [], []
-real_session, real_restore = port_train._train_session, \
-    CheckpointState.restore
+sessions, restores, saves, captured = [], [], [], []
+real_session, real_restore, real_save = port_train._train_session, \
+    CheckpointState.restore, CheckpointState.save
 real_fwd, real_bwd = fm_kernel._scores, fm_kernel.fm_batch_scores_bwd
 
 
@@ -4716,15 +4820,27 @@ def session(cfg, device, init_state, logger, shard_index, num_shards,
                         num_shards, members, *rest)
 
 
+# Copies of a forward's inputs; of a whole table (a raw-ids sweep) only
+# the rows the batch reads, local_idx renumbered into them.
+def kept(params, local_idx, vals):
+    if params.shape[0] > local_idx.numel():
+        rows, idx = torch.unique(local_idx, return_inverse=True)
+        return [params.index_select(0, rows),
+                idx.view_as(local_idx).to(local_idx.dtype), vals.clone()]
+    return [t.detach().clone() for t in (params, local_idx, vals)]
+
+
 def capture_fwd(params, local_idx, vals):
-    if captured and "fwd" not in captured[-1]:
-        captured[-1]["fwd"] = [t.detach().clone()
-                               for t in (params, local_idx, vals)]
+    if captured and "bwd" not in captured[-1]:
+        ins = kept(params, local_idx, vals)
+        captured[-1].setdefault("first_fwd", ins)
+        captured[-1]["last_fwd"] = ins  # the step's, at its backward
     return real_fwd(params, local_idx, vals)
 
 
 def capture_bwd(params, local_idx, vals, g, need_dx):
     if captured and "bwd" not in captured[-1]:
+        captured[-1]["fwd"] = captured[-1].pop("last_fwd")
         captured[-1]["bwd"] = [t.detach().clone()
                                for t in (params, local_idx, vals, g)]
         captured[-1]["need_dx"] = need_dx
@@ -4739,23 +4855,36 @@ def restore(self, *args, **kwargs):
         restores.append(time.perf_counter() - t)
 
 
+def save(self, step, *args, **kwargs):
+    t = time.perf_counter()
+    try:
+        return real_save(self, step, *args, **kwargs)
+    finally:
+        saves.append({"step": int(step), "wait": bool(kwargs.get("wait")),
+                      "seconds": time.perf_counter() - t,
+                      "session": len(sessions) - 1})
+
+
 port_train._train_session = session
 CheckpointState.restore = restore
+CheckpointState.save = save
 fm_kernel._scores = capture_fwd
 fm_kernel.fm_batch_scores_bwd = capture_bwd
 rc = main(argv)
 torch.save([{k: ([t.cpu() for t in v] if isinstance(v, list) else v)
-             for k, v in c.items()} for c in captured], out_path + ".pt")
+             for k, v in c.items() if k != "last_fwd"} for c in captured],
+           out_path + ".pt")
 with open(out_path, "w") as fh:
     json.dump({"rc": rc, "fm_score": fm_kernel.launches,
                "fm_score_bwd": fm_kernel.bwd_launches,
-               "sessions": sessions, "restore_seconds": restores}, fh)
+               "sessions": sessions, "restore_seconds": restores,
+               "saves": saves}, fh)
 sys.exit(rc)
 """
 
 
 def start_elastic_proc(wd, tag, argv):
-    """One process of the leg (``ELASTIC_RANK``) logging to
+    """One process of an elastic leg (``ELASTIC_RANK``) logging to
     ``<wd>/<tag>.log``; (process, log path, result path)."""
     log, out = os.path.join(wd, f"{tag}.log"), os.path.join(wd, f"{tag}.json")
     with open(log, "w") as fh:
@@ -4809,6 +4938,8 @@ def elastic_start(dist_wd):
             log0 = h["ranks"][0][1]
             # The save at 16 waits for step 8's write, so the kill lands
             # in epoch 0: the survivor restores 8 or 16, both epoch 0's.
+            # It may land in that save's gather to the chief, which the
+            # survivor abandons at collective_timeout_seconds.
             wait_log(log0, f"checkpoint step {ELASTIC_SAVE_STEPS} committed",
                      procs, "the elastic leg's committed step",
                      ELASTIC_RUN_TIMEOUT)
@@ -5010,6 +5141,345 @@ def elastic_finish(h, torch, device, card, train_row):
     return row, fwd_rows, bwd_rows
 
 
+DSTREAM_SHARDS = 4                # of 32,768 lines: 8 batches of a rank's
+#                                   4,096 each, so no batch spans two shards
+DSTREAM_FINAL_STEP = 16           # shards 0-1 paired in 8 steps, 2-3 in 8
+DSTREAM_RUN_TIMEOUT = 600         # seconds for any one wait of the leg
+DSTREAM_COLLECTIVE_TIMEOUT = 60.0  # beside phases 13-14 the host is busy;
+#                                   a dead peer is named by the lease
+
+
+def write_dstream_cfg(wd, data_wd, port, auc_floor):
+    """Config #2's model in ``run_mode = stream`` across 2 ranks on
+    cuda:0 (``elastic = grow``): a rank's batch 4,096, publishes every
+    ``STREAM_PUBLISH_SECONDS`` through the gate at ``auc_floor``, no
+    periodic saves (each publish saves)."""
+    hosts = ",".join(f"localhost:{port - 1000 + i}"
+                     for i in range(DIST_WORKERS))
+    path = os.path.join(wd, "dist_stream.cfg")
+    with open(path, "w") as fh:
+        fh.write(f"""[General]
+vocabulary_size = {VOCAB}
+hash_feature_id = True
+factor_num = {FACTORS}
+model_file = {os.path.join(wd, 'model', 'fm_model')}
+[Train]
+run_mode = stream
+stream_dir = {os.path.join(wd, 'stream')}
+stream_poll_seconds = {STREAM_POLL_SECONDS}
+publish_interval_seconds = {STREAM_PUBLISH_SECONDS}
+publish_min_auc = {auc_floor!r}
+validation_files = {os.path.join(data_wd, 'val.txt')}
+batch_size = {TRAIN_BATCH // DIST_WORKERS}
+learning_rate = {TRAIN_LR}
+loss_type = logistic
+log_steps = 1
+save_steps = 0
+[Cluster]
+worker_hosts = {hosts}
+heartbeat_seconds = {DIST_HEARTBEAT_SECONDS}
+collective_timeout_seconds = {DSTREAM_COLLECTIVE_TIMEOUT}
+cluster_connect_timeout_seconds = 120
+elastic = grow
+join_timeout_seconds = {DSTREAM_RUN_TIMEOUT}
+""")
+    return path
+
+
+def stage_shards(sd, ks, shards, done_times):
+    """Shards ``ks`` written in torn appends (``write_shard``) under dot
+    names no reader lists, their ``.done`` markers, then renamed into
+    place one right after the other: both ranks' owned shards appear in
+    one discovery, sealed, so their batches pair step by step."""
+    hidden = [write_shard(sd, k, shards[k], done_times, hidden=True)
+              for k in ks]
+    for path in hidden:
+        head, name = os.path.split(path)
+        os.rename(path, os.path.join(head, name[1:]))
+
+
+def dstream_start(train_data, train_row):
+    """Start the ``dist_stream`` leg (``dstream_finish`` completes it):
+    shards 0-1 of the train lines staged, then two ranks of ``python -m
+    fast_tffm_tpu_torch train <cfg> dist_train worker <i>`` on cuda:0 in
+    ``run_mode = stream`` with ``elastic = grow``. A background thread waits
+    until ``published`` names step 8, SIGKILLs rank 1 while both idle in
+    the flags window, waits for the survivor's recovery (the lone
+    survivor restores step 8), starts ``train <cfg> --join`` and waits
+    for its admission at a publish settle, stages shards 2-3 and, once
+    step 16 is published, writes ``STOP``. It runs beside phases 13-14,
+    whose card is mostly idle."""
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch.config import load_config
+    wd = os.path.join(WORK, "dist_stream")
+    sd = os.path.join(wd, "stream")
+    os.makedirs(sd)
+    with open(os.path.join(train_data[0], "train.txt")) as fh:
+        lines = fh.read().splitlines()
+    per = len(lines) // DSTREAM_SHARDS
+    check(per == 8 * (TRAIN_BATCH // DIST_WORKERS),
+          f"{per} lines a shard: not 8 batches of a rank's")
+    shards = [lines[k * per:(k + 1) * per] for k in range(DSTREAM_SHARDS)]
+    del lines
+    cfg_path = write_dstream_cfg(wd, train_data[0], free_port_block(4),
+                                 train_row["auc_floor"])
+    cfg = load_config(cfg_path)
+    directory = cfg.model_file + ".ckpt"
+    h = {"wd": wd, "cfg_path": cfg_path, "cfg": cfg,
+         "t0": time.perf_counter(), "events": [], "done_times": {},
+         "shard_lines": per}
+    stage_shards(sd, (0, 1), shards, h["done_times"])
+    h["ranks"] = [start_elastic_proc(wd, f"rank{i}", [
+        "train", cfg_path, "dist_train", "worker", str(i)])
+        for i in range(DIST_WORKERS)]
+
+    def published(step):
+        return (ck.read_published(directory) or -1) >= step
+
+    def stage():
+        import signal
+        try:
+            procs = [r[0] for r in h["ranks"]]
+            log0 = h["ranks"][0][1]
+            half = DSTREAM_FINAL_STEP // 2
+            wait_until(lambda: published(half), f"step {half} published",
+                       procs[0], DSTREAM_RUN_TIMEOUT)
+            procs[1].send_signal(signal.SIGKILL)
+            h["t_kill"] = time.time()
+            wait_log(log0, "elastic recovery complete: 1 survivor", procs[:1],
+                     "the survivor's shrink", DSTREAM_RUN_TIMEOUT)
+            h["joiner"] = start_elastic_proc(wd, "joiner", [
+                "train", cfg_path, "--join"])
+            wait_log(log0, "input shards re-balanced",
+                     [procs[0], h["joiner"][0]], "the joiner's admission",
+                     DSTREAM_RUN_TIMEOUT)
+            stage_shards(sd, (2, 3), shards, h["done_times"])
+            wait_until(lambda: published(DSTREAM_FINAL_STEP),
+                       f"step {DSTREAM_FINAL_STEP} published", procs[0],
+                       DSTREAM_RUN_TIMEOUT)
+            open(os.path.join(sd, "STOP"), "w").close()
+            h["events"].append("stopped")
+        except BaseException as e:  # noqa: BLE001 - dstream_finish raises
+            h["events"].append(e)
+
+    h["stager"] = threading.Thread(target=stage, name="smoke-dstream",
+                                   daemon=True)
+    h["stager"].start()
+    return h
+
+
+def dstream_stop(h):
+    """Stop every process of the leg (a no-op once finished)."""
+    if h is None:
+        return
+    h["stager"].join(timeout=60)
+    for proc, _, _ in h["ranks"] + ([h["joiner"]] if "joiner" in h else []):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dstream_finish(h, torch, device, card, train_row):
+    """The ``dist_stream`` leg's verdict, from ``dstream_start``'s
+    processes: the survivor names process 1, reforms alone (generation
+    1) and restores step 8 with the merged watermark, admits the joiner
+    at a publish settle (generation 2); both exit 0 at step 16, the
+    final watermark covers every byte and line of the 4 shards (each
+    sealed), the joiner stepped shard 3 (ledger index 3 is rank 1's),
+    the final AUC clears the floor and lies within 0.03 of run A's; per
+    session of each process its (fm_score, fm_score_bwd) launches, the
+    forward in every session, the backward one a step; both kernels
+    against their plain versions on the post-reform sessions' captured
+    inputs (the lone survivor's first sweep batch, the grown ranks'
+    first step). Returns (row, forward kernel rows, backward kernel
+    rows)."""
+    import re
+    from fast_tffm_tpu_torch import checkpoint as ck
+    from fast_tffm_tpu_torch.tools import fmckpt
+    t_visible = time.perf_counter()
+    wd, cfg = h["wd"], h["cfg"]
+    try:
+        h["stager"].join(timeout=DSTREAM_RUN_TIMEOUT)
+        check(h["events"] == ["stopped"],
+              f"the dist stream leg's staging thread failed: "
+              f"{h['events']}")
+        procs = [h["ranks"][0], h["joiner"]]
+        deadline = time.monotonic() + DSTREAM_RUN_TIMEOUT
+        rcs = []
+        for proc, _, _ in procs:
+            try:
+                rcs.append(proc.wait(timeout=max(1.0, deadline
+                                                 - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        rc1 = h["ranks"][1][0].wait(timeout=60)
+        texts = []
+        for _, log, _ in h["ranks"] + [h["joiner"]]:
+            with open(log) as fh:
+                texts.append(fh.read())
+        if rcs != [0, 0]:
+            for t in texts:
+                print(t[-4000:], flush=True)
+        check(rcs == [0, 0] and rc1 == -9,
+              f"the dist stream leg: survivor and joiner exited {rcs}, the "
+              f"killed rank {rc1}")
+        seconds = time.perf_counter() - h["t0"]
+    finally:
+        dstream_stop(h)
+    surv, _, joiner = texts
+    res = []
+    for _, _, out in procs:
+        with open(out) as fh:
+            res.append(json.load(fh))
+    caps = [torch.load(out + ".pt", weights_only=False)
+            for _, _, out in procs]
+    half = DSTREAM_FINAL_STEP // 2
+    lost = re.search(r"worker lost \(collective .*process 1 \(", surv)
+    check(lost is not None, "the survivor's log names no lost process 1")
+    i_shrink = surv.find("elastic reform generation 1: survivors [0]")
+    i_grow = surv.find("elastic grow generation 2: members [0, 1] "
+                       "(admitted [1])")
+    check(0 <= i_shrink < i_grow and "input shards re-balanced" in surv,
+          "no shrink to generation 1 then grow to generation 2 in the "
+          "survivor's log")
+    check("join: admitted into generation 2 as rank 1 of 2 (worker slot 1)"
+          in joiner, "the joiner's log shows no admission into slot 1")
+    restores = re.findall(r"restored checkpoint at step (\d+)", surv)
+    check(restores == [str(half)] * 2
+          and re.findall(r"restored checkpoint at step (\d+)", joiner)
+          == [str(half)], f"restores: survivor {restores}")
+    done = [re.findall(r"training done: (\d+) steps", t)
+            for t in (surv, joiner)]
+    check(done == [[str(DSTREAM_FINAL_STEP)]] * 2,
+          f"the survivor and the joiner ended at {done}, not step "
+          f"{DSTREAM_FINAL_STEP}")
+    state = fmckpt.scan(cfg.model_file + ".ckpt")
+    final = state["steps"][-1]["step"]
+    check(final == DSTREAM_FINAL_STEP, f"the final checkpoint step {final}")
+    # Exactly once: the final watermark covers every byte and line.
+    wm = ck.read_watermark(cfg.model_file + ".ckpt", final)
+    names = [os.path.basename(f["path"]) for f in wm["files"]]
+    check(names == [f"part-{k:05d}" for k in range(DSTREAM_SHARDS)],
+          f"the final watermark's ledger {names}")
+    for f in wm["files"]:
+        size = os.path.getsize(f["path"])
+        check(f["bytes"] == size and f["lines"] == h["shard_lines"]
+              and not f["dead"] and os.path.exists(f["path"] + ".done"),
+              f"the final watermark's entry {f} against {size} bytes, "
+              f"{h['shard_lines']} lines and a .done marker")
+    inputs = [re.findall(r"stream input: (\d+) batches, (\d+) examples", t)
+              for t in (surv, joiner)]
+    # The sessions that ended cleanly: the survivor's grown one read
+    # shard 2, the joiner's shard 3 (the first session ended in the
+    # kill, the lone one read nothing).
+    one = ("8", str(h["shard_lines"]))
+    check(inputs == [[one], [one]],
+          f"stream input lines: survivor {inputs[0]}, joiner {inputs[1]}")
+    m = re.search(r"final validation AUC ([0-9.]+) over (\d+)", surv)
+    auc = float(m.group(1)) if m else float("nan")
+    run_a_auc = train_row["validation_auc"][0]
+    check(m is not None and int(m.group(2)) == VAL_LINES
+          and auc >= train_row["auc_floor"]
+          and abs(auc - run_a_auc) <= DIST_AUC_TOL,
+          f"the dist stream leg's final validation AUC "
+          f"{m.group(0) if m else None} against run A's {run_a_auc} "
+          f"(tolerance {DIST_AUC_TOL}) and the floor "
+          f"{train_row['auc_floor']}")
+    left = sorted(os.listdir(cfg.model_file + ".hb"))
+    check(left == ELASTIC_LEASE_FILES,
+          f"the lease directory holds {left}, not generation 2's files")
+    check([s["num_shards"] for s in res[0]["sessions"]] == [2, 1, 2]
+          and [s["num_shards"] for s in res[1]["sessions"]] == [2],
+          f"sessions: survivor {res[0]['sessions']}, joiner "
+          f"{res[1]['sessions']}")
+    per_session = []
+    for r in res:
+        marks = [s["launches_at_start"] for s in r["sessions"]] + [
+            [r["fm_score"], r["fm_score_bwd"]]]
+        per_session.append([[b - a for a, b in zip(m0, m1)]
+                            for m0, m1 in zip(marks, marks[1:])])
+    # The forward in every session (steps and sweeps); the backward once
+    # a step: 8 steps in each 2-rank session, none alone (the shards
+    # after the kill arrive once the joiner is in).
+    check(all(f > 0 for sess in per_session for f, _ in sess)
+          and [b for _, b in per_session[0]] == [half, 0, half]
+          and [b for _, b in per_session[1]] == [half],
+          f"(fm_score, fm_score_bwd) launches per session: survivor "
+          f"{per_session[0]}, joiner {per_session[1]}")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    fwd_rows, bwd_rows = [], []
+    lone = caps[0][1]
+    check("first_fwd" in lone, "dstream_survivor_lone: no sweep captured")
+    fwd_rows.append(fwd_kernel_row(
+        torch, *(t.to(device) for t in lone["first_fwd"]), None,
+        batch="dstream_survivor_lone_sweep"))
+    for tag, cap in (("dstream_survivor_grown", caps[0][2]),
+                     ("dstream_joiner", caps[1][0])):
+        check("fwd" in cap and "bwd" in cap and not cap["need_dx"],
+              f"{tag}: no step's kernel inputs captured")
+        params, local, vals, g = (t.to(device) for t in cap["bwd"])
+        check(all(torch.equal(a.to(device), b) for a, b in
+                  zip(cap["fwd"], (params, local, vals))),
+              f"{tag}: the backward got other inputs than the forward")
+        fwd_rows.append(fwd_kernel_row(torch, params, local, vals, None,
+                                       batch=tag))
+        bwd_rows += bwd_kernel_rows(torch, params, local, vals, g, flush,
+                                    need_dx_cases=(False,), batch=tag)
+    del flush
+    log0, logj = h["ranks"][0][1], h["joiner"][1]
+    t_lost = log_time(log0, r"worker lost \(collective")
+    t_recovered = log_time(log0, "elastic recovery complete: 1 survivor")
+    t_ticket = log_time(logj, "join: ticket ")
+    t_admitted = log_time(logj, "join: admitted into generation")
+    sweeps = [(int(a), float(b)) for a, b in re.findall(
+        r"publish quality eval at step (\d+): .*\(([0-9.]+)s\)", surv)]
+    saves = [(sv["step"], sv["seconds"]) for sv in res[0]["saves"]
+             if sv["wait"]]
+    launches = {"survivor": [res[0]["fm_score"], res[0]["fm_score_bwd"]],
+                "joiner": [res[1]["fm_score"], res[1]["fm_score_bwd"]],
+                "survivor_per_session": per_session[0],
+                "joiner_per_session": per_session[1]}
+    row = {"phase": "dist_stream", "card": card, "workers": DIST_WORKERS,
+           "backend": "gloo", "elastic": "grow", "run_mode": "stream",
+           "shards": DSTREAM_SHARDS, "shard_lines": h["shard_lines"],
+           "batch_size_per_rank": TRAIN_BATCH // DIST_WORKERS,
+           "note": "correctness-run figures, not a benchmark",
+           "seconds": seconds,
+           "visible_seconds": time.perf_counter() - t_visible,
+           "final_step": final, "validation_auc": auc,
+           "run_a_auc": run_a_auc, "auc_floor": train_row["auc_floor"],
+           "kill_to_detection_seconds": t_lost - h["t_kill"],
+           "detection_to_recovery_seconds": t_recovered - t_lost,
+           "restore_seconds_survivor": res[0]["restore_seconds"],
+           "restore_seconds_joiner": res[1]["restore_seconds"],
+           "ticket_to_admission_seconds": t_admitted - t_ticket,
+           "publish_sweep_seconds": sweeps,
+           "publish_and_final_save_seconds": saves,
+           "fm_score_launches": [res[0]["fm_score"], res[1]["fm_score"]],
+           "fm_score_bwd_launches": [res[0]["fm_score_bwd"],
+                                     res[1]["fm_score_bwd"]],
+           "launches": launches, "lease_files": left}
+    sweep_s = [x for _, x in sweeps] or [float("nan")]
+    save_s = [x for _, x in saves] or [float("nan")]
+    print(f"dist stream: {card}; kill to detection "
+          f"{row['kill_to_detection_seconds']:.2f}s, detection to recovery "
+          f"{row['detection_to_recovery_seconds']:.2f}s, restores "
+          f"{[round(x, 2) for x in res[0]['restore_seconds']]}s (survivor) "
+          f"{[round(x, 2) for x in res[1]['restore_seconds']]}s (joiner), "
+          f"ticket to admission {row['ticket_to_admission_seconds']:.2f}s; "
+          f"{len(sweeps)} publish sweeps {min(sweep_s):.2f}-"
+          f"{max(sweep_s):.2f}s, {len(saves)} waited saves "
+          f"{min(save_s):.2f}-{max(save_s):.2f}s; steps {half} -> "
+          f"{final}, AUC {auc:.6f} (run A {run_a_auc:.6f}); launches "
+          f"(fm_score, fm_score_bwd) survivor {launches['survivor']}, "
+          f"joiner {launches['joiner']}; {seconds:.1f}s for the leg, "
+          f"{row['visible_seconds']:.1f}s of it after the phases it ran "
+          f"beside", flush=True)
+    emit(row)
+    return row, fwd_rows, bwd_rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -5067,7 +5537,7 @@ def main(argv) -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    dist = elastic = None
+    dist = elastic = dstream = offload = None
     free = shutil.disk_usage(WORK).free
     print(f"free bytes under {WORK}: {free}", flush=True)
     check(free >= MIN_FREE_BYTES, f"{free} bytes free under {WORK}; the "
@@ -5185,20 +5655,31 @@ def main(argv) -> int:
         kernel_rows += fwd_elastic_rows
         bwd_rows += bwd_elastic_rows
         shutil.rmtree(elastic["wd"])  # disk for phase 13
-        # 13. lookup = host: the state in page-locked host memory
         shutil.rmtree(os.path.join(WORK, "stream_phase"))
-        offload_row, offload_rows, fwd_offload_rows, bwd_offload_rows = \
-            offload_phase(torch, device, smi, train_data, train_row)
-        kernel_rows += fwd_offload_rows
-        bwd_rows += bwd_offload_rows
+        # 15c. the multi-process stream (kill, shrink, --join at a publish
+        # settle, grow) goes on beside phases 13-14
+        dstream = dstream_start(train_data, train_row)
+        # 13. lookup = host: its two train commands go on beside phase 14
+        offload = offload_start(train_data)
         # 14. vocab_mode = admit: the slot map, its barriers and sidecar
         admit_row, fwd_admit_rows, bwd_admit_rows = admit_phase(
             torch, device, smi, train_data, train_row)
         kernel_rows += fwd_admit_rows
         bwd_rows += bwd_admit_rows
+        # 13. lookup = host: the runs' checks, then the rest in process
+        offload_row, offload_rows, fwd_offload_rows, bwd_offload_rows = \
+            offload_phase(torch, device, smi, train_row, offload)
+        kernel_rows += fwd_offload_rows
+        bwd_rows += bwd_offload_rows
+        dstream_row, fwd_dstream_rows, bwd_dstream_rows = dstream_finish(
+            dstream, torch, device, smi, train_row)
+        kernel_rows += fwd_dstream_rows
+        bwd_rows += bwd_dstream_rows
     finally:
         dist_stop(dist)
         elastic_stop(elastic)
+        dstream_stop(dstream)
+        offload_stop(offload)
         shutil.rmtree(WORK, ignore_errors=True)
 
     head = next(r for r in kernel_rows if r["batch"] == "uniform" and
@@ -5227,7 +5708,8 @@ def main(argv) -> int:
                      + admit_row["fm_score_launches"]
                      + sum(dist_row["fm_score_launches"])
                      + sum(dist_row["predict_fm_score_launches"])
-                     + sum(elastic_row["fm_score_launches"])),
+                     + sum(elastic_row["fm_score_launches"])
+                     + sum(dstream_row["fm_score_launches"])),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -5252,7 +5734,8 @@ def main(argv) -> int:
         "admit_launches": admit_row["fm_score_launches"],
         "dist_train_launches": dist_row["fm_score_launches"],
         "dist_predict_launches": dist_row["predict_fm_score_launches"],
-        "dist_elastic_launches": elastic_row["fm_score_launches"]}, {
+        "dist_elastic_launches": elastic_row["fm_score_launches"],
+        "dist_stream_launches": dstream_row["fm_score_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
@@ -5263,7 +5746,8 @@ def main(argv) -> int:
                      + offload_row["fm_score_bwd_launches"]
                      + admit_row["fm_score_bwd_launches"]
                      + sum(dist_row["fm_score_bwd_launches"])
-                     + sum(elastic_row["fm_score_bwd_launches"])),
+                     + sum(elastic_row["fm_score_bwd_launches"])
+                     + sum(dstream_row["fm_score_bwd_launches"])),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
@@ -5272,6 +5756,7 @@ def main(argv) -> int:
         "admit_launches": admit_row["fm_score_bwd_launches"],
         "dist_train_launches": dist_row["fm_score_bwd_launches"],
         "dist_elastic_launches": elastic_row["fm_score_bwd_launches"],
+        "dist_stream_launches": dstream_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -5314,6 +5799,7 @@ def main(argv) -> int:
                        "stream": stream_row, "offload": offload_row,
                        "admit": admit_row, "dist": dist_row,
                        "dist_elastic": elastic_row,
+                       "dist_stream": dstream_row,
                        "kernel_offload": offload_rows, **kernels}, fh,
                       indent=1)
     emit(kernels)

@@ -650,7 +650,7 @@ class CheckpointState:
         if self.mesh is not None:
             return self._save_sharded(step, table, acc, vocabulary_size,
                                       force, wait, epoch,
-                                      rewrite_stale_metadata)
+                                      rewrite_stale_metadata, stream_state)
         if from_state and not wait:
             raise ValueError(
                 "a from_state save writes the caller's own tensors, which "
@@ -696,20 +696,23 @@ class CheckpointState:
     def _save_sharded(self, step: int, table: torch.Tensor,
                       acc: torch.Tensor, vocabulary_size: int, force: bool,
                       wait: bool, epoch: int,
-                      rewrite_stale_metadata: bool) -> None:
+                      rewrite_stale_metadata: bool,
+                      stream_state: Optional[dict] = None) -> None:
         """A multi-process save of this rank's ``[rows_per_rank, D]``
         shards (the same skip and epoch-correction rules as ``save``,
         decided by the chief and broadcast): the shards are gathered
         into the chief's stored-layout buffers, and the chief's writer
         thread writes the step. ``wait``: every rank returns once the
-        step is durable."""
+        step is durable. ``stream_state``: the merged watermark (the
+        same payload on every rank), written by the chief as ``save``
+        writes it."""
         decision, err = "write", None
         if self.chief:
             try:
                 self._join_writer()
                 steps = list_step_dirs(self.directory)
                 if not force and steps and step <= steps[-1]:
-                    decision = "skip"
+                    decision = "skip" if step not in steps else "skip-meta"
                 elif step in steps:
                     decision = "meta"
             except Exception as e:  # every rank raises it below
@@ -719,12 +722,16 @@ class CheckpointState:
         if decision == "error":
             raise RuntimeError(f"checkpoint save of step {step} refused "
                                f"by the chief: {err}")
-        if decision == "skip":
+        if decision in ("skip", "skip-meta"):
+            if decision == "skip-meta" and self.chief:
+                self._write_step_sidecars(step, stream_state, None)
             return
         if decision == "meta":
-            if self.chief and rewrite_stale_metadata:
-                _atomic_write_text(self._epoch_sidecar(step),
-                                   str(int(epoch)))
+            if self.chief:
+                if rewrite_stale_metadata:
+                    _atomic_write_text(self._epoch_sidecar(step),
+                                       str(int(epoch)))
+                self._write_step_sidecars(step, stream_state, None)
         else:
             if self.chief:
                 if not self._swept:
@@ -736,7 +743,7 @@ class CheckpointState:
                         "epoch": int(epoch), "vocab": int(vocabulary_size)}
                 self._writer = threading.Thread(
                     target=self._write_step,
-                    args=(meta, None, None, self._buffers, False),
+                    args=(meta, stream_state, None, self._buffers, False),
                     name="fmt-ckpt-writer", daemon=True)
                 self._writer.start()
         if wait:
@@ -1001,7 +1008,13 @@ class CheckpointState:
         manifest-verified committed step (settle its save first: a
         ``wait=True`` save does). Verification runs at the instance's
         ``ckpt_verify`` mode, at least ``size``; on failure the pointer
-        is not moved, a warning names the reason, and None returns."""
+        is not moved, a warning names the reason, and None returns.
+        With a mesh only the chief verifies and writes; the others
+        return None."""
+        if not self.chief:
+            # Multi-process: the chief verifies and repoints; the other
+            # ranks take its verify as passed (as the JAX package does).
+            return None
         mode = self.verify if self.verify != "off" else "size"
         reason = verify_step_dir(self.directory, step, mode)
         if reason is not None:

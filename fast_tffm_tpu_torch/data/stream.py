@@ -1,5 +1,5 @@
-"""Append-only streaming source for ``run_mode = stream`` — the
-single-process subset of ``fast_tffm_tpu/data/stream.py``.
+"""Append-only streaming source for ``run_mode = stream`` — the port of
+``fast_tffm_tpu/data/stream.py``.
 
 Shards ARRIVE in ``stream_dir`` (a directory, or a glob pattern): a feed
 pipeline appends ``part-00017``, seals it, starts ``part-00018``. This
@@ -31,6 +31,16 @@ abstraction:
   accounting), and the generic tolerant path (``bad_line_policy``
   skip/quarantine, or ``max_features_per_example = 0``).
 
+- **Lockstep multi-worker** (``dist_train``): file ownership is by
+  ledger index (``i % num_shards``); the ranks agree on the ledger and
+  on STOP through the chief's discovery, broadcast over the tracker's
+  ``ProcessMesh`` once per driver-loop iteration; the fixed unique
+  bucket is the chief's probe of the sealed files present at startup
+  (``probe_stream_uniq_bucket``), broadcast; the per-rank watermarks
+  merge at every save (``exchange_watermarks``: entry i from its
+  owner). Lockstep batches are fixed-shape (the serial C++ builder
+  with its single-thread feed, or the generic path).
+
 A ``STOP`` marker in the stream directory ends the run once every
 sealed byte is consumed; until then the source reports IDLE.
 
@@ -39,22 +49,23 @@ sealed byte is consumed; until then the source reports IDLE.
 batch to physical rows before it joins the ready deque, as the epoch
 pipeline does.
 
-Not ported yet: the multi-worker lockstep (ledger broadcast, watermark
-exchange and merge, the fixed unique bucket probe: ROADMAP.md A10, its
-third slice) and the stream telemetry counters and gauges (A11).
+Not ported yet: the stream telemetry counters and gauges (ROADMAP.md
+A11).
 """
 
 from __future__ import annotations
 
 import collections
-import dataclasses
 import functools
 import glob as globlib
+import json
 import os
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data import cparser
@@ -86,6 +97,12 @@ QUIET_POLLS = 3
 MAX_POLL_BYTES = 64 << 20
 
 WATERMARK_FORMAT = 1
+
+# Lockstep bound on built but unstepped batches: once this many wait,
+# each iteration's pump runs discovery alone (its collective) until the
+# driver drains some, so a deep sealed backlog is not released into
+# memory at MAX_POLL_BYTES an iteration.
+LOCKSTEP_READY_CAP = 8
 
 
 class _FileState:
@@ -124,13 +141,21 @@ class StreamTracker:
     newline-terminated byte chunks strictly in ledger order. The
     consumed positions (the watermark) live in ``StreamSource``; the
     tracker only knows how far it has READ. Single-threaded: every
-    method runs on the thread that pumps the owning source."""
+    method runs on the thread that pumps the owning source (the
+    prefetch thread, or the lockstep driver's main thread).
+
+    ``shard_index`` / ``num_shards``: this rank owns (reads) the ledger
+    entries ``i % num_shards == shard_index``. ``mesh`` (a
+    parallel.sharded.ProcessMesh) makes the tracker LOCKSTEP: discovery
+    is the chief's, broadcast over the mesh, so every rank appends the
+    same ledger entries in the same order and agrees on STOP."""
 
     def __init__(self, pattern: str, poll_seconds: float,
                  seal_policy: str, retry: Optional[RetryPolicy] = None,
                  bad_lines: Optional[BadLineTracker] = None,
                  watermark: Optional[dict] = None,
-                 clock=time.monotonic):
+                 shard_index: int = 0, num_shards: int = 1,
+                 mesh=None, clock=time.monotonic):
         if os.path.isdir(pattern) or not globlib.has_magic(pattern):
             self.root = pattern
             self._glob = os.path.join(pattern, "*")
@@ -141,6 +166,10 @@ class StreamTracker:
         self.seal_policy = seal_policy
         self.retry = retry
         self.bad_lines = bad_lines
+        self.shard_index = int(shard_index)
+        self.num_shards = max(int(num_shards), 1)
+        self.mesh = mesh
+        self.lockstep = mesh is not None
         self._clock = clock
         self._log = get_logger()
         self.files: List[_FileState] = []
@@ -174,10 +203,21 @@ class StreamTracker:
     def path(self, i: int) -> str:
         return self.files[i].path
 
+    def owned(self, i: int) -> bool:
+        return i % self.num_shards == self.shard_index
+
     @property
     def finished(self) -> bool:
-        """STOP declared and every file fully released."""
-        return self.stop_seen and all(fs.eof for fs in self.files)
+        """STOP declared and every owned file fully released."""
+        return self.stop_seen and all(
+            fs.eof for i, fs in enumerate(self.files) if self.owned(i))
+
+    def broadcast(self, obj, label: str):
+        """The chief's ``obj`` on every rank of a lockstep tracker's mesh
+        (identity otherwise)."""
+        if not self.lockstep:
+            return obj
+        return self.mesh.broadcast_object(obj, label)
 
     # -- discovery --------------------------------------------------------
     def _discover_local(self) -> Tuple[List[str], bool]:
@@ -210,7 +250,18 @@ class StreamTracker:
         return new, stop
 
     def discover(self) -> None:
-        new, stop = self._discover_local()
+        """One discovery round. Lockstep: the chief's view is broadcast
+        (the one collective the stream adds per driver-loop iteration;
+        the caller keeps the cadence)."""
+        if not self.lockstep:
+            new, stop = self._discover_local()
+        else:
+            payload = None
+            if self.mesh.rank == 0:
+                new, stop = self._discover_local()
+                payload = {"new": list(new), "stop": bool(stop)}
+            payload = self.broadcast(payload, "stream/discovery")
+            new, stop = payload["new"], bool(payload["stop"])
         for p in new:
             self._by_path[p] = len(self.files)
             self.files.append(_FileState(p))
@@ -222,16 +273,19 @@ class StreamTracker:
                            "every sealed byte is consumed")
 
     # -- the read plane ---------------------------------------------------
-    def poll(self) -> List[Tuple[int, bytes]]:
-        """One service round: discovery, then tail the head file(s),
-        releasing newline-terminated chunks in strict ledger order.
-        Several sealed files can drain in one round; an unsealed head
-        blocks everything behind it."""
+    def poll(self, read: bool = True) -> List[Tuple[int, bytes]]:
+        """One service round: discovery, then tail the owned head
+        file(s), releasing newline-terminated chunks in strict ledger
+        order. Several sealed files can drain in one round; an unsealed
+        head blocks everything behind it. ``read=False`` runs discovery
+        alone (the lockstep cadence while enough batches wait)."""
         self.discover()
+        if not read:
+            return []
         out: List[Tuple[int, bytes]] = []
         budget = MAX_POLL_BYTES
         for i, fs in enumerate(self.files):
-            if fs.eof:
+            if not self.owned(i) or fs.eof:
                 continue
             chunk = self._service(fs, budget)
             if chunk:
@@ -387,27 +441,6 @@ class StreamTracker:
         return b"".join(parts)
 
 
-@dataclasses.dataclass
-class StreamStats:
-    """What the stream emitted, for the run's ``stream input:`` log
-    line (the JAX package's ``SpillStats``; without a fixed unique
-    bucket no batch spills)."""
-    batches: int = 0
-    real_examples: int = 0
-    capacity: int = 0
-
-    def count(self, num_real: int, batch_size: int) -> None:
-        self.batches += 1
-        self.real_examples += num_real
-        self.capacity += batch_size
-
-    def describe(self) -> str:
-        fill = (self.real_examples / self.capacity if self.capacity
-                else 1.0)
-        return (f"{self.batches} batches, {self.real_examples} examples "
-                f"(fill {fill:.1%}), 0 spilled ({0.0:.1%})")
-
-
 class StreamSource:
     """Arrival-ordered DeviceBatch source over a StreamTracker.
 
@@ -417,13 +450,17 @@ class StreamSource:
     ``workers`` builders, or the generic tolerant path) is chosen once,
     here, by ``stream_workers``' predicate. ``raw_ids``: as
     ``batch_iterator``'s (True for the ``dedup = device`` step).
-    ``vocab``: the run's slot map (``vocab_mode = admit``); batches are
-    built under ``vocab.build_cfg(cfg)`` and remapped before the ready
-    deque."""
+    ``fixed_shape`` / ``uniq_bucket``: the lockstep shape (host dedup,
+    L at the ladder top, U the bucket; a batch whose unique rows would
+    overflow the bucket closes early, the spill, and ``stats`` counts
+    it). ``vocab``: the run's slot map (``vocab_mode = admit``);
+    batches are built under ``vocab.build_cfg(cfg)`` and remapped
+    before the ready deque."""
 
     def __init__(self, cfg: FmConfig, tracker: StreamTracker,
                  stop=None, raw_ids: bool = True, workers: int = 1,
-                 bad_lines: Optional[BadLineTracker] = None, vocab=None):
+                 bad_lines: Optional[BadLineTracker] = None, vocab=None,
+                 fixed_shape: bool = False, uniq_bucket: int = 0):
         self._vocab = vocab
         # The BUILD-side config: every parser and builder below mods ids
         # into the hashed space under admit mode.
@@ -433,13 +470,18 @@ class StreamSource:
         self._stop_cb = stop or (lambda: False)
         self.B = cfg.batch_size
         self.raw_ids = raw_ids
+        self.fixed_shape = fixed_shape
+        self.uniq_bucket = uniq_bucket
         self.bad_lines = bad_lines
-        self.stats = StreamStats()
+        self.stats = pl.SpillStats()
         # Arrival order by design: no shuffle window (cfg.shuffle has
         # no effect here), which also makes the watermark a per-file
         # prefix.
         self._emitter = pl._BatchEmitter(cfg, self.B, shuffle=False,
-                                         seed=cfg.seed)
+                                         seed=cfg.seed,
+                                         fixed_shape=fixed_shape,
+                                         uniq_bucket=uniq_bucket,
+                                         stats=self.stats)
         self._ready: collections.deque = collections.deque()
         self._pos: Dict[int, Tuple[int, int]] = {}  # idx -> (bytes, lines)
         for i, fs in enumerate(tracker.files):
@@ -448,7 +490,8 @@ class StreamSource:
         self._flushed = False
         self._closed = False
         self._fast = pl._fast_path_eligible(cfg, ())
-        self._workers = max(int(workers), 1) if self._fast else 1
+        self._workers = (max(int(workers), 1)
+                         if self._fast and not fixed_shape else 1)
         self._ring = None
         if self._fast:
             if self._workers > 1:
@@ -462,9 +505,11 @@ class StreamSource:
             else:
                 # The serial builder NEEDS the single-thread feed: the
                 # watermark is the exact byte offset at which each
-                # batch closed, which a threaded feed hides (it takes
-                # the whole chunk at once).
-                self._bb = pl._make_builder(cfg, self.B, raw_ids, False, 1)
+                # batch closed (and a spill re-feeds from it), which a
+                # threaded feed hides (it takes the whole chunk at once).
+                self._bb = pl._make_builder(
+                    cfg, self.B, raw_ids, False, 1,
+                    uniq_bucket=uniq_bucket if fixed_shape else 0)
         else:
             self._pending: List[Tuple[str, int, int, int]] = []
             # (line, file_idx, abs_byte_end, abs_lineno)
@@ -497,11 +542,10 @@ class StreamSource:
     def _remap(self, batch):
         return batch if self._vocab is None else self._vocab.remap(batch)
 
-    def _emit(self, out) -> None:
-        for batch in self._emitter.emit_drain(out):
+    def _emit(self, out, spilled: bool = False) -> None:
+        for batch in self._emitter.emit_drain(out, spilled):
             batch = self._remap(batch)
             batch.stream_pos = self._snapshot()
-            self.stats.count(batch.num_real, self.B)
             self._ready.append(batch)
 
     def _note_file_start(self, fi: int) -> None:
@@ -529,8 +573,8 @@ class StreamSource:
                           f"{resume + (n - base)}: {m.group(2)}")
 
     # -- the pump ---------------------------------------------------------
-    def _pump(self) -> None:
-        for fi, data in self.tracker.poll():
+    def _pump(self, read: bool = True) -> None:
+        for fi, data in self.tracker.poll(read=read):
             if not self._fast:
                 self._generic_feed(fi, data)
             elif self._ring is not None:
@@ -572,7 +616,10 @@ class StreamSource:
                 out = self._bb.finish()
             except ParseError as e:
                 raise self._attach_source(e) from None
-            self._emit(out)
+            # Under the fixed unique budget a batch that closed short is
+            # the spill; its next line is still at data[off:] and
+            # re-feeds on the next turn.
+            self._emit(out, spilled=self.fixed_shape and out[0] < self.B)
 
     # -- the ring of builders (host_threads > 1) --------------------------
     def _init_ring(self) -> None:
@@ -720,7 +767,8 @@ class StreamSource:
         if block.batch_size:
             out_batch = self._remap(pl.make_device_batch(
                 block, self.cfg, self.B, raw_ids=self.raw_ids,
-                dedup=cparser.dedup_ids_fast))
+                dedup=cparser.dedup_ids_fast, fixed_shape=self.fixed_shape,
+                uniq_bucket=self.uniq_bucket))
             # EVERY file the chunk touches advances: a batch spanning a
             # file boundary records the earlier files' final positions
             # too (files are consumed in ledger order, so each file's
@@ -728,7 +776,9 @@ class StreamSource:
             for _, fi, byte_end, line_end in take:
                 self._pos[fi] = (byte_end, line_end)
             out_batch.stream_pos = self._snapshot()
-            self.stats.count(out_batch.num_real, self.B)
+            self.stats.count(out_batch.num_real, self.B, False,
+                             num_uniq=pl._num_uniq(out_batch.uniq_ids,
+                                                   self.cfg.pad_id))
             self._ready.append(out_batch)
         if final:
             while self._pending:
@@ -743,7 +793,19 @@ class StreamSource:
     def next_batch(self, block: bool = False):
         """One batch, IDLE or DONE. ``block=True`` (the prefetch
         thread) sleeps between polls and returns DONE promptly once the
-        caller's stop() (preemption) or close() asks."""
+        caller's stop() (preemption) or close() asks.
+
+        A LOCKSTEP tracker's source runs exactly one pump a call (one
+        discovery collective), even with a batch queued or the rank
+        drained, so every rank's collective sequence stays aligned; its
+        read plane pauses while LOCKSTEP_READY_CAP batches wait.
+        Preemption and the exit are the driver's flags all-gather, never
+        decided here."""
+        if self.tracker.lockstep:
+            self._pump(read=len(self._ready) < LOCKSTEP_READY_CAP)
+            if self._ready:
+                return self._ready.popleft()
+            return DONE if self._flushed else IDLE
         if self._stop_cb():
             return DONE
         if not block:
@@ -825,12 +887,96 @@ class StreamPrefetcher:
         self._thread.join(timeout=5.0)
 
 
-def stream_workers(cfg: FmConfig) -> int:
+def stream_workers(cfg: FmConfig, fixed_shape: bool = False) -> int:
     """The builder count the stream source will use: the resolved
     ``host_threads`` where the ring route exists (the C++ fast path: a
-    strict bad-line policy and a bounded per-example cap), else 1."""
+    strict bad-line policy and a bounded per-example cap; not the
+    fixed-shape lockstep input, whose spill re-feed is serial), else
+    1."""
     workers = pl.resolve_host_threads(cfg)
-    if workers <= 1 or not pl._fast_path_eligible(cfg, ()):
+    if workers <= 1 or fixed_shape or not pl._fast_path_eligible(cfg, ()):
         return 1
     return workers
+
+
+def probe_stream_uniq_bucket(cfg: FmConfig, tracker: StreamTracker) -> int:
+    """The fixed unique-row bucket of lockstep stream input: the
+    pipeline's probe (``probe_uniq_bucket``) over the SEALED files
+    present at startup — a ``.done`` marker, a restored sealed flag, or
+    under ``seal_policy`` auto|quiet an mtime past the quiet window —
+    or ``min(1024, uniq_bucket_top)`` when there are none. The chief
+    decides and broadcasts it: no rank probes bytes a writer may still
+    be appending. Every rank calls it once, before the step loop (the
+    discovery inside is collective in lockstep)."""
+    tracker.discover()
+
+    def decide() -> int:
+        quiet_ok = tracker.seal_policy in ("auto", "quiet")
+        quiet = QUIET_POLLS * tracker.poll_seconds
+        candidates = []
+        for fs in tracker.files:
+            try:
+                st = os.stat(fs.path)
+            except OSError:
+                continue
+            # No tracker service has run yet, so fs.sealed alone would
+            # leave every quiet-policy stream on the fallback bucket.
+            if st.st_size > 0 and not fs.dead and (
+                    fs.sealed or os.path.exists(fs.path + DONE_SUFFIX)
+                    or (quiet_ok and time.time() - st.st_mtime >= quiet)):
+                candidates.append(fs.path)
+        if not candidates:
+            return min(1 << 10, pl.uniq_bucket_top(cfg))
+        return pl.probe_uniq_bucket(cfg, candidates)
+
+    if not tracker.lockstep:
+        return decide()
+    val = {"bucket": decide()} if tracker.mesh.rank == 0 else None
+    return int(tracker.broadcast(val, "stream/uniq_bucket")["bucket"])
+
+
+def exchange_watermarks(local: dict, mesh) -> dict:
+    """The merged watermark of a lockstep save point: every rank
+    all-gathers its adopted payload (its length, then its bytes, under
+    the deadline guard) and ``merge_watermark_payloads`` takes ledger
+    entry i from its owner. Every rank returns the same payload, which
+    the chief writes. Identity without a mesh of more than one rank."""
+    if mesh is None or mesh.size <= 1:
+        return local
+    data = json.dumps(local).encode("utf-8")
+    lens = mesh.all_gather_host(np.asarray([len(data)], np.int64),
+                                "stream/watermark_len").reshape(-1)
+    buf = np.zeros(max(int(lens.max()), 1), np.uint8)
+    buf[:len(data)] = np.frombuffer(data, np.uint8)
+    gathered = mesh.all_gather_host(buf, "stream/watermark_merge")
+    payloads = [json.loads(gathered[r, :int(lens[r])].tobytes()
+                           .decode("utf-8"))
+                for r in range(len(lens))]
+    return merge_watermark_payloads(payloads, mesh.size)
+
+
+def merge_watermark_payloads(payloads: Sequence[dict],
+                             num_shards: int) -> dict:
+    """The pure merge behind ``exchange_watermarks``: ledger entry i
+    comes from its owner's payload (``i % num_shards``), the only rank
+    whose positions for that file advance. The loop runs over the
+    LONGEST ledger: a rank that stepped only fillers lately ships a
+    short, maybe empty, list, and iterating the chief's would drop an
+    owner's later entries. An owner with no record of an entry yet
+    (nothing of it stepped) takes it from any payload that has it: the
+    zero position and the discovery flags. The ledger's order is the
+    chief's, so index i names one file in every payload that has it."""
+    merged = {"format": WATERMARK_FORMAT, "files": []}
+    n_files = max(len(p.get("files", ())) for p in payloads)
+    for i in range(n_files):
+        owner_files = payloads[i % num_shards].get("files", ())
+        if i < len(owner_files):
+            merged["files"].append(owner_files[i])
+            continue
+        for p in payloads:
+            files = p.get("files", ())
+            if i < len(files):
+                merged["files"].append(files[i])
+                break
+    return merged
 

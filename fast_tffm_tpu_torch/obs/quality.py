@@ -27,6 +27,10 @@ from fast_tffm_tpu_torch.metrics import sigmoid
 # large but finite loss, not an inf that poisons the mean.
 LOGLOSS_EPS = 1e-7
 
+# Values of ``QualityStats.sums()``: the tail of the multi-process AUC
+# merge payload (train.evaluate_distributed).
+SUMS_WIDTH = 4
+
 
 class QualityStats:
     """Accumulator for the per-publish quality numbers: ``update(scores,
@@ -57,6 +61,21 @@ class QualityStats:
         self.weight_sum += float(w.sum())
         self.pred_sum += float((w * p).sum())
         self.label_sum += float((w * y).sum())
+
+    def sums(self) -> np.ndarray:
+        return np.asarray([self.loss_sum, self.weight_sum,
+                           self.pred_sum, self.label_sum], np.float64)
+
+    def load_sums(self, vals) -> None:
+        """Replace the local sums with the job-wide totals: the tail of
+        the multi-process AUC merge payload."""
+        vals = np.asarray(vals, dtype=np.float64).reshape(-1)
+        if vals.shape[0] != SUMS_WIDTH:
+            raise ValueError(
+                f"quality sums payload must have {SUMS_WIDTH} values, "
+                f"got {vals.shape[0]}")
+        self.loss_sum, self.weight_sum, self.pred_sum, self.label_sum = (
+            float(v) for v in vals)
 
     @property
     def loss(self) -> Optional[float]:

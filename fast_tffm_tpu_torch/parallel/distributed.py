@@ -257,11 +257,25 @@ def retire_distributed_client() -> None:
     store round trip cannot complete with a dead peer. gloo's teardown
     drops the pairs without waiting on a reset peer, and rank 0's store
     goes with the group (the next generation's store is hosted at a
-    bumped port), so torch's ``destroy_process_group`` is enough; a
-    stopped peer never gets here (the deadline guard exits first)."""
+    bumped port), so torch's ``destroy_process_group`` is enough. A
+    group with a collective the deadline guard abandoned
+    (liveness.abandoned_work: a peer that stopped heartbeating but kept
+    its sockets open) is unregistered the same way but never freed:
+    freeing it joins its worker thread, which stays blocked until that
+    peer's sockets close, and a stopped peer's never do."""
     import torch.distributed as dist
+    from fast_tffm_tpu_torch.parallel.liveness import abandoned_work
     if dist.is_available() and dist.is_initialized():
+        if abandoned_work():
+            _keep_forever(dist.group.WORLD)
         dist.destroy_process_group()
+
+
+def _keep_forever(obj) -> None:
+    """One reference to ``obj`` that is never dropped, not even when
+    the interpreter shuts down."""
+    import ctypes
+    ctypes.pythonapi.Py_IncRef(ctypes.py_object(obj))
 
 
 def _await_reform(cfg: FmConfig, lease, generation: int) -> List[int]:

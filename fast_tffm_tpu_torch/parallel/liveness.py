@@ -1,6 +1,6 @@
 """Compute-plane liveness: heartbeat leases and the collective deadline
 guard — the port's counterpart of ``fast_tffm_tpu/parallel/liveness.py``
-(the lease and the guard; elastic recovery is not ported yet).
+(the lease, the guard and the elastic membership's rendezvous).
 
 Every lockstep step is a collective, so one dead or wedged rank would
 park every peer inside it. Two layers close that gap:
@@ -24,6 +24,16 @@ park every peer inside it. Two layers close that gap:
   beside the leases (``<model_file>.hb/worker-<i>.stacks``) and exits
   the process with ``EXIT_WORKER_LOST`` — a bounded, named failure
   instead of a hang.
+- ``guarded_work(start)``: the same for a collective issued
+  asynchronously (the process group's collectives, parallel/sharded.py),
+  waited on in slices by the calling thread. Under an elastic guard
+  (``install_guard(recover=True)``) that thread abandons a collective
+  still pending past the deadline with stale peers and raises the
+  ``WorkerLostError`` itself, for the elastic loop to reform on: a
+  killed peer whose process is slow to die keeps its sockets open as a
+  stopped one does, and gloo does not raise. The abandoned work's group
+  is never destroyed (``abandoned_work``): its worker thread may stay
+  blocked on that peer, and destroying the group would join it.
 
 The elastic membership's rendezvous lives here too, all host-only logic
 over files in the same directory (train.py and distributed.py drive
@@ -44,6 +54,7 @@ A11.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import faulthandler
 import json
 import os
@@ -634,22 +645,37 @@ class _GuardState:
     # recorder instead of exiting.
     escalate: Callable[[str], None] = None  # type: ignore[assignment]
     warned_slow: bool = False
+    # Elastic recovery is on: the thread waiting in ``guarded_work``
+    # abandons a collective the deadline finds blocked on stale peers,
+    # and the monitor leaves that verdict to it.
+    recover: bool = False
+    # The collective in flight is waited on by ``guarded_work``.
+    polling: bool = False
 
 
 _GUARD: Optional[_GuardState] = None
+# Works abandoned by ``guarded_work`` (label, work): their process
+# group must outlive the process (distributed.retire_distributed_client).
+_ABANDONED: List[Tuple[str, object]] = []
+# How long ``guarded_work`` blocks in one wait before it looks at the
+# deadline again.
+WORK_WAIT_SLICE_SECONDS = 0.25
 
 
 def install_guard(lease: Optional[HeartbeatLease], timeout_seconds: float,
-                  escalate: Optional[Callable[[str], None]] = None
-                  ) -> Optional[_GuardState]:
+                  escalate: Optional[Callable[[str], None]] = None,
+                  recover: bool = False) -> Optional[_GuardState]:
     """Arm ``guarded_collective`` for this process (train and predict
-    call it once the cluster is up). Returns the previous state for
-    ``restore_guard``."""
+    call it once the cluster is up). ``recover``: the caller reforms on
+    ``WorkerLostError`` (``elastic = shrink | grow``), so a blocked
+    ``guarded_work`` raises it instead of the process exiting. Returns
+    the previous state for ``restore_guard``."""
     global _GUARD
     prev = _GUARD
     _GUARD = _GuardState(lease=lease, timeout_seconds=float(timeout_seconds),
                          last_progress=time.monotonic(),
-                         escalate=escalate or _default_escalate)
+                         escalate=escalate or _default_escalate,
+                         recover=bool(recover))
     return prev
 
 
@@ -688,6 +714,75 @@ def guarded_collective(fn: Callable, *args, label: str = "collective",
         state.warned_slow = False
 
 
+def guarded_work(start: Callable[[], object], label: str = "collective"
+                 ) -> None:
+    """Run an asynchronous collective under the process's deadline
+    guard: ``start()`` issues it (``async_op=True``) and returns its
+    work, which this thread waits on in slices of
+    ``WORK_WAIT_SLICE_SECONDS`` inside ``guarded_collective``. Under an
+    elastic guard (``recover``), a collective still pending past
+    ``collective_timeout_seconds`` while the lease names stale peers is
+    abandoned: logged, kept in ``abandoned_work``, and a
+    ``WorkerLostError`` raised for the elastic loop."""
+    state = _GUARD
+    if state is None:
+        start().wait()
+        return
+
+    def wait() -> None:
+        work = start()
+        state.polling = True
+        try:
+            while True:
+                try:
+                    work.wait(datetime.timedelta(
+                        seconds=WORK_WAIT_SLICE_SECONDS))
+                    return
+                except RuntimeError:
+                    # A wait that timed out leaves the work pending. A
+                    # completed one (it failed, or it finished as the
+                    # wait timed out) gives its outcome to a plain wait.
+                    if work.is_completed():
+                        work.wait()
+                        return
+                if state.recover:
+                    _abandon_if_lost(state, label, work)
+        finally:
+            state.polling = False
+    guarded_collective(wait, label=label)
+
+
+def _abandon_if_lost(state: _GuardState, label: str, work) -> None:
+    """Past the deadline with stale peers: give ``work`` up and raise
+    ``WorkerLostError`` naming them; return otherwise."""
+    snap = state.in_flight
+    if snap is None or state.timeout_seconds <= 0:
+        return
+    waited = time.monotonic() - snap[1]
+    if waited <= state.timeout_seconds:
+        return
+    lost = state.lease.stale_peers() if state.lease is not None else []
+    if not lost:
+        return
+    _dump_stacks(state.lease, label)
+    _ABANDONED.append((label, work))
+    who = "; ".join(i.describe() for i in lost)
+    get_logger().error(
+        "worker lost during '%s': %s (still pending after %.1fs, past "
+        "collective_timeout_seconds=%gs: abandoned for the elastic "
+        "reform)", label, who, waited, state.timeout_seconds)
+    raise WorkerLostError(
+        f"collective '{label}' still pending past "
+        f"collective_timeout_seconds={state.timeout_seconds:g}s and the "
+        f"liveness table names dead peers: {who}", lost=lost)
+
+
+def abandoned_work() -> List[Tuple[str, object]]:
+    """(label, work) of every collective ``guarded_work`` abandoned in
+    this process."""
+    return list(_ABANDONED)
+
+
 def check_deadline(state: Optional[_GuardState] = None,
                    now: Optional[float] = None) -> Optional[str]:
     """One monitor tick of the collective deadline. Past
@@ -696,8 +791,10 @@ def check_deadline(state: Optional[_GuardState] = None,
     the stacks and escalate (by default log the ``WorkerLostError``
     line and exit ``EXIT_WORKER_LOST``: the blocked thread can never
     raise); with none, one ``collective slow`` warning (a slow save or
-    storage stall must not kill a healthy cluster). Returns "escalated",
-    "slow" or None."""
+    storage stall must not kill a healthy cluster). An elastic guard's
+    ``guarded_work`` in flight raises that verdict itself instead
+    ("abandoning"). Returns "escalated", "abandoning", "slow" or
+    None."""
     state = state if state is not None else _GUARD
     if state is None or state.timeout_seconds <= 0:
         return None
@@ -721,6 +818,8 @@ def check_deadline(state: Optional[_GuardState] = None,
                 "collective_timeout_seconds=%gs, with every peer still "
                 "heartbeating", label, waited, state.timeout_seconds)
         return "slow"
+    if snap is not None and state.recover and state.polling:
+        return "abandoning"
     _dump_stacks(lease, label)
     who = "; ".join(i.describe() for i in lost)
     message = (f"WorkerLostError: '{label}' exceeded "

@@ -31,8 +31,9 @@ Collectives ride torch.distributed's gloo group: host arrays (the ids,
 the lockstep flags) as CPU tensors, the row blocks as tensors on the
 card (the card's torch accepts gloo's all-reduce, all-gather, broadcast
 and gather on CUDA tensors, so nothing is staged by hand). Every
-blocking collective runs under the deadline guard
-(parallel/liveness.py).
+collective is issued asynchronously and waited on under the deadline
+guard (parallel/liveness.py ``guarded_work``), so an elastic job can
+abandon one that a dead peer left pending.
 
 ``lockstep_score_batches`` is the one implementation of the windowed
 lockstep protocol that distributed validation and multi-process predict
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.parallel.liveness import guarded_collective
+from fast_tffm_tpu_torch.parallel.liveness import guarded_work
 
 # Batches agreed on per lockstep round: one flags all-gather covers this
 # many score programs.
@@ -86,17 +87,23 @@ class ProcessMesh:
         import torch.distributed as dist
         t = torch.as_tensor(np.ascontiguousarray(arr))
         out = [torch.empty_like(t) for _ in range(self.size)]
-        guarded_collective(dist.all_gather, out, t,
-                           label=label)
+        guarded_work(lambda: dist.all_gather(out, t, async_op=True), label)
         return torch.stack(out).numpy()
 
     def broadcast_object(self, obj, label: str):
-        """Rank 0's picklable ``obj`` on every rank."""
+        """Rank 0's picklable ``obj`` on every rank: its pickle's length,
+        then its bytes, broadcast from rank 0."""
+        import pickle
+
         import torch.distributed as dist
-        box = [obj]
-        guarded_collective(dist.broadcast_object_list, box, src=0,
-                           label=label)
-        return box[0]
+        blob = pickle.dumps(obj) if self.rank == 0 else b""
+        n = torch.tensor([len(blob)], dtype=torch.int64)
+        guarded_work(lambda: dist.broadcast(n, src=0, async_op=True), label)
+        buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+               if self.rank == 0 else torch.empty(int(n), dtype=torch.uint8))
+        guarded_work(lambda: dist.broadcast(buf, src=0, async_op=True),
+                     label)
+        return obj if self.rank == 0 else pickle.loads(buf.numpy().tobytes())
 
     def barrier(self, label: str) -> None:
         self.all_gather_host(np.zeros(1, np.int32), label)
@@ -105,8 +112,7 @@ class ProcessMesh:
     def all_reduce_(self, t: torch.Tensor, label: str) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place (on the card or the CPU)."""
         import torch.distributed as dist
-        guarded_collective(dist.all_reduce, t,
-                           label=label)
+        guarded_work(lambda: dist.all_reduce(t, async_op=True), label)
         return t
 
     def gather_to_chief(self, t: torch.Tensor, label: str
@@ -116,8 +122,8 @@ class ProcessMesh:
         import torch.distributed as dist
         out = ([torch.empty_like(t) for _ in range(self.size)]
                if self.rank == 0 else None)
-        guarded_collective(dist.gather, t, out, dst=0,
-                           label=label)
+        guarded_work(lambda: dist.gather(t, out, dst=0, async_op=True),
+                     label)
         return out
 
     # -- the row exchange ------------------------------------------------------

@@ -46,7 +46,14 @@ verify and the ``published`` pointer flip; a held publish mints no
 step. A ``STOP`` marker ends the run: the final save carries the
 watermark and, when publishing, a gated exit publish follows (a
 preempted gated run skips it). As in the JAX package,
-``publish_interval_seconds`` is inert in ``run_mode = epochs``.
+``publish_interval_seconds`` is inert in ``run_mode = epochs``. Across
+the ranks of a ``dist_train`` job the stream runs in lockstep: rank r
+reads the ledger's files ``i % W == r`` as fixed-shape batches (the
+chief's probed bucket), the chief's discovery is broadcast, one flags
+all-gather an iteration decides step, filler, idle, drain, preemption
+and the publish (on the chief's clock), the publish sweep merges its
+quality sums into the AUC all-gather, the chief's gate decision is
+broadcast, and every save carries the watermark merged from the ranks.
 
 ``lookup = host`` (lookup.py; BASELINE config #5): the table and the
 accumulator live in page-locked host memory (``make_offload_backend``,
@@ -99,17 +106,18 @@ session is re-entered, restores the last verified step onto the new
 membership's row shards and re-shards the input over the members in
 original index order, so the rest of the schedule runs exactly once.
 ``elastic = grow`` adds the healing direction: at every epoch boundary
-but the last the chief scans for join tickets and broadcasts its plan;
-when one admits a joiner into a free original slot, the barrier state is
-saved durably and every member raises ``ClusterGrowth`` together, the
-loop reforms the grown cluster, and the joiner (``train(join=True)``,
-``train <cfg> --join``) restores the same step.
+but the last (in a stream: at every publish settle that did not hold)
+the chief scans for join tickets and broadcasts its plan; when one
+admits a joiner into a free original slot, the barrier state is saved
+durably and every member raises ``ClusterGrowth`` together, the loop
+reforms the grown cluster, and the joiner (``train(join=True)``,
+``train <cfg> --join``) restores the same step. A stream's re-entered
+session resumes at the restored step's merged watermark, its files
+owned anew under the new membership.
 
-Not ported yet, refused with the ROADMAP.md item that brings it:
-multi-process streams (A10, its third slice). The observability keys
-are accepted, ignored and logged (utils/ignored.py: A11); admit mode
-and ``lookup = host`` across processes are refused as in the JAX
-package.
+The observability keys are accepted, ignored and logged
+(utils/ignored.py: ROADMAP.md A11); admit mode and ``lookup = host``
+across processes are refused as in the JAX package.
 """
 
 from __future__ import annotations
@@ -137,7 +145,10 @@ from fast_tffm_tpu_torch.data.pipeline import (SPILL_WARN_FRACTION,
                                                uniq_bucket_top)
 from fast_tffm_tpu_torch.data.stream import (DONE, IDLE, WATERMARK_FORMAT,
                                              StreamPrefetcher, StreamSource,
-                                             StreamTracker, stream_workers)
+                                             StreamTracker,
+                                             exchange_watermarks,
+                                             probe_stream_uniq_bucket,
+                                             stream_workers)
 from fast_tffm_tpu_torch.lookup import (make_offload_backend,
                                         make_offload_train_step)
 from fast_tffm_tpu_torch.metrics import StreamingAUC
@@ -178,10 +189,8 @@ LOG_BUFFER_MAX = 1024
 
 
 def check_train_supported(cfg: FmConfig) -> None:
-    """Refuse what this port cannot train yet, naming the ROADMAP.md
-    item that brings each, and what the JAX package refuses itself; a
-    silently ignored key would give another result than the JAX
-    package's."""
+    """Refuse what the JAX package refuses itself: admit mode and
+    ``lookup = host`` across processes."""
     multi = len(cfg.worker_hosts) > 1
     if cfg.vocab_mode == "admit" and multi:
         # The JAX package's own refusal (fast_tffm_tpu/train.py).
@@ -197,11 +206,6 @@ def check_train_supported(cfg: FmConfig) -> None:
             "lookup = host is single-process by design: multi-host scale "
             "uses the row-sharded mesh (lookup = device) — see "
             "BASELINE.md's multi-host beyond-HBM design note")
-    if multi and cfg.run_mode == "stream":
-        raise NotImplementedError(
-            "run_mode = stream across processes (dist_train) is not ported "
-            "to fast_tffm_tpu_torch yet (ROADMAP.md, queue A, item A10, "
-            "its third slice: multi-process streams)")
 
 
 def checkpoint_template(cfg: FmConfig, acc: bool = True
@@ -297,7 +301,9 @@ def evaluate_distributed(cfg: FmConfig, table: torch.Tensor, files,
                          max_batches: Optional[int] = None,
                          weight_files=(),
                          bad_lines: Optional[BadLineTracker] = None,
-                         preempt=None) -> Tuple[float, int]:
+                         preempt=None,
+                         collect: Optional[QualityStats] = None
+                         ) -> Tuple[float, int]:
     """Multi-process AUC: every rank scores its own byte-range shard of
     ``files`` through the sharded score (``sharded_score_body``) in
     lockstep (``lockstep_score_batches``; ``preempt`` rides its window
@@ -306,9 +312,12 @@ def evaluate_distributed(cfg: FmConfig, table: torch.Tensor, files,
     n_examples)`` on every rank; weight files weight it as in
     ``evaluate``. ``max_batches`` caps real batches per shard.
     ``uniq_bucket``: the caller's probed value (0 probes, the same
-    bytes on every rank). The publish gate's quality sums, which ride
-    this all-gather in the JAX package, wait with the multi-process
-    stream (ROADMAP.md A10, its third slice)."""
+    bytes on every rank). ``collect`` (obs/quality.QualityStats) is fed
+    each rank's local scores as the AUC is, and its four sums ride the
+    same all-gather payload (float64 on gloo): the publish gate's
+    quality numbers add no collective, and after the merge the collector
+    holds the job-wide totals. Its presence is the config's, so every
+    rank ships one payload width."""
     spec = ModelSpec.from_config(cfg, num_processes=mesh.size)
     device = table.device
     auc = StreamingAUC()
@@ -331,15 +340,22 @@ def evaluate_distributed(cfg: FmConfig, table: torch.Tensor, files,
                 max_batches=max_batches, preempt=preempt):
             nr = batch.num_real
             auc.update(local[:nr], batch.labels[:nr], batch.weights[:nr])
+            if collect is not None:
+                collect.update(local[:nr], batch.labels[:nr],
+                               batch.weights[:nr])
             n += nr
     bins = auc.num_bins
+    extra = (collect.sums() if collect is not None
+             else np.zeros(0, np.float64))
     payload = np.concatenate([auc.pos, auc.neg,
-                              np.asarray([n], np.float64)])
+                              np.asarray([n], np.float64), extra])
     vals = mesh.all_gather_host(payload,
                                 "validation/auc_merge").sum(axis=0)
     merged = StreamingAUC(num_bins=bins)
     merged.pos[:] = vals[:bins]
     merged.neg[:] = vals[bins:2 * bins]
+    if collect is not None:
+        collect.load_sums(vals[2 * bins + 1:])
     return merged.result(), int(round(vals[2 * bins]))
 
 
@@ -485,12 +501,17 @@ class _Stepper:
 class _Publisher:
     """The session's publish gate and quality sweep (the JAX package's
     ``_gate_published`` and ``_publish_decision``): session-scoped, since
-    the exit publish after the final save is gated too."""
+    the exit publish after the final save is gated too. Across ranks
+    (``mesh``) the sweep is ``evaluate_distributed``'s, the chief's gate
+    decision is broadcast, so every rank takes the same arm, and only
+    the chief logs the sweep and writes the baseline."""
 
     def __init__(self, cfg: FmConfig, ckpt: CheckpointState,
-                 bad_tracker: Optional[BadLineTracker], logger):
+                 bad_tracker: Optional[BadLineTracker], logger,
+                 mesh: Optional[ProcessMesh] = None):
         self.cfg, self.ckpt = cfg, ckpt
         self.bad_tracker, self.logger = bad_tracker, logger
+        self.mesh = mesh
         stream_mode = cfg.run_mode == "stream"
         self.gate = PublishGate.from_config(cfg) if stream_mode else None
         # "auto" opts in exactly when the run declared a quality
@@ -517,19 +538,27 @@ class _Publisher:
                 "" if self.gate.baseline is None
                 else f", restored baseline {self.gate.baseline:.6f}")
 
-    def published(self, decision: Optional[dict]) -> None:
-        """Advance and persist the drop baseline after a publish landed:
-        the one baseline write of interval and exit publishes."""
+    def publish(self, step: int, decision: Optional[dict]) -> None:
+        """Repoint ``published`` at the settled ``step`` and advance and
+        persist the drop baseline once the publish landed: the one
+        baseline write of interval and exit publishes. Only the chief
+        verifies, repoints and writes; the other ranks take its verify
+        as passed (as the JAX package does)."""
+        if self.ckpt.publish_step(step) is None and self.ckpt.chief:
+            return
         if self.gate is None or decision is None:
             return
         self.gate.note_published(decision.get("auc"))
-        if self.gate.baseline is not None:
+        if self.gate.baseline is not None and self.ckpt.chief:
             write_gate_baseline(self.ckpt.directory, self.gate.baseline)
 
-    def decide(self, st: "_Stepper") -> Optional[dict]:
+    def decide(self, st: "_Stepper", uniq_bucket: int = 0,
+               preempt=None) -> Optional[dict]:
         """Quality sweep and gate decision for the publish of ``st``'s
         step about to happen; None when no quality loop is configured
-        (publish unconditionally)."""
+        (publish unconditionally). Across ranks ``uniq_bucket`` is the
+        validation files' bucket and ``preempt`` rides the sweep's
+        window flags."""
         if not self.quality_on:
             return None
         cfg = self.cfg
@@ -539,17 +568,24 @@ class _Publisher:
         auc, n = st.evaluate(cfg.validation_files,
                              max_batches=cfg.validation_max_batches or None,
                              weight_files=cfg.validation_weight_files,
-                             bad_lines=self.bad_tracker, collect=stats)
+                             bad_lines=self.bad_tracker, collect=stats,
+                             uniq_bucket=uniq_bucket, preempt=preempt)
         dt_q = time.perf_counter() - t_q
-        self.logger.info(
-            "publish quality eval at step %d: AUC %.6f, loss %s, "
-            "calibration %s over %d examples (%.2fs)", step, auc,
-            "-" if stats.loss is None else f"{stats.loss:.6f}",
-            "-" if stats.calibration is None
-            else f"{stats.calibration:.4f}", n, dt_q)
+        if self.ckpt.chief:
+            self.logger.info(
+                "publish quality eval at step %d: AUC %.6f, loss %s, "
+                "calibration %s over %d examples (%.2fs)", step, auc,
+                "-" if stats.loss is None else f"{stats.loss:.6f}",
+                "-" if stats.calibration is None
+                else f"{stats.calibration:.4f}", n, dt_q)
         if self.gate is None:
             return {"held": False, "auc": float(auc), "examples": int(n)}
         decision = self.gate.decide(float(auc), step)
+        if self.mesh is not None:
+            # The chief decides; every rank applies its decision.
+            decision = self.mesh.broadcast_object(decision,
+                                                  "quality/gate_decision")
+        # n is job-wide already (the sweep's merge).
         decision["examples"] = int(n)
         if decision["held"]:
             self.logger.warning(
@@ -632,10 +668,12 @@ def train(cfg: FmConfig, device=None,
     ``EXIT_WORKER_LOST`` if a collective blocks past
     ``collective_timeout_seconds``. With ``elastic = shrink | grow`` the
     survivors reform instead and re-enter the session (the module
-    docstring); ``elastic = grow`` also admits joiners at epoch
-    boundaries. ``join``: this process is such a joiner (``train <cfg>
-    --join``): it rendezvouses into the running cluster first, its
-    worker slot assigned there, then runs as any member."""
+    docstring), a collective blocked past that deadline on a peer the
+    lease names dead included (liveness.guarded_work); ``elastic = grow`` also admits joiners at epoch
+    boundaries, or a stream's publish settles. ``join``: this process
+    is such a joiner (``train <cfg> --join``): it rendezvouses into the
+    running cluster first, its worker slot assigned there, then runs as
+    any member."""
     device = resolve_device(device)
     check_train_supported(cfg)
     logger = get_logger(log_file=cfg.log_file or None)
@@ -671,7 +709,8 @@ def train(cfg: FmConfig, device=None,
                 heartbeat_seconds=cfg.heartbeat_seconds).start()
         if num_shards > 1:
             guard_prev = install_guard(lease,
-                                       cfg.collective_timeout_seconds)
+                                       cfg.collective_timeout_seconds,
+                                       recover=cfg.elastic != "off")
             guarded = True
         grow_ctx = (_GrowContext(cfg, lease, members, generation)
                     if cfg.elastic == "grow" and lease is not None else None)
@@ -742,7 +781,8 @@ def train(cfg: FmConfig, device=None,
             init_state = None
             if num_shards > 1:
                 guard_prev = install_guard(lease,
-                                           cfg.collective_timeout_seconds)
+                                           cfg.collective_timeout_seconds,
+                                           recover=cfg.elastic != "off")
                 guarded = True
     finally:
         if lease is not None:
@@ -766,9 +806,9 @@ def _train_session(cfg: FmConfig, device: torch.device,
     of ``members`` (original worker indices in rank order; None outside
     a cluster, a lone survivor's is its own index). Raises
     ``WorkerLostError`` out of a collective whose peer died and
-    ``ClusterGrowth`` out of an epoch boundary where ``grow_ctx`` plans
-    an admission; everything made here is torn down here, so
-    ``train`` can re-enter."""
+    ``ClusterGrowth`` out of an epoch boundary or a stream's publish
+    settle where ``grow_ctx`` plans an admission; everything made here
+    is torn down here, so ``train`` can re-enter."""
     multi = num_shards > 1
     spec = ModelSpec.from_config(cfg, num_processes=num_shards)
     offload = cfg.lookup == "host"
@@ -800,12 +840,14 @@ def _train_session(cfg: FmConfig, device: torch.device,
             "multi-process training: rank %d of %d on %s, table rows "
             "[%d, %d) of %d (gloo)", mesh.rank, mesh.size, device,
             mesh.lo, mesh.hi, mesh.rows)
-        # Fixed-shape batches need one U for the whole job; the probe
-        # reads the same bytes on every rank, so all agree without a
-        # collective.
-        uniq_bucket = cfg.uniq_bucket or probe_uniq_bucket(cfg,
-                                                           cfg.train_files)
-        logger.info("fixed unique-row bucket: %d", uniq_bucket)
+        if not stream_mode:
+            # Fixed-shape batches need one U for the whole job; the
+            # probe reads the same bytes on every rank, so all agree
+            # without a collective. (A stream probes the sealed shards
+            # present at startup, chief-decided: _run_stream.)
+            uniq_bucket = cfg.uniq_bucket or probe_uniq_bucket(
+                cfg, cfg.train_files)
+            logger.info("fixed unique-row bucket: %d", uniq_bucket)
         if cfg.validation_files:
             val_bucket = cfg.uniq_bucket or probe_uniq_bucket(
                 cfg, cfg.validation_files)
@@ -873,7 +915,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
         if start_epoch:
             logger.info("resuming interrupted epoch schedule at epoch "
                         "%d/%d", start_epoch, cfg.epoch_num)
-        publisher = _Publisher(cfg, ckpt, bad_tracker, logger)
+        publisher = _Publisher(cfg, ckpt, bad_tracker, logger, mesh=mesh)
 
         # Preemption: SIGTERM/SIGINT set a flag the loop drains at the
         # next step boundary (multi-process: the flag rides the step
@@ -905,7 +947,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
         if stream_mode:
             stopping, stream_watermark, last_periodic_save = _run_stream(
                 cfg, st, ckpt, publisher, restored, bad_tracker,
-                preempted, logger)
+                preempted, logger, grow_ctx=grow_ctx, val_bucket=val_bucket)
         epoch_schedule = (range(0) if stream_mode
                           else range(start_epoch, cfg.epoch_num))
         for epoch in epoch_schedule:
@@ -1044,15 +1086,21 @@ def _train_session(cfg: FmConfig, device: torch.device,
                 rewrite_stale_metadata=_stale_epoch(
                     last_periodic_save, restored, restored_step,
                     restored_epoch, global_step, completed_epochs),
-                stream_state=(_stream_state(stream_watermark)
+                stream_state=(_stream_state(stream_watermark, mesh)
                               if stream_mode else None))
         if stream_mode and cfg.publish_interval_seconds > 0:
-            _exit_publish(cfg, ckpt, publisher, st, stopping, logger)
-        if stream_mode and cfg.validation_files and \
+            decision = _exit_publish(publisher, st, stopping, logger,
+                                     val_bucket, preempted)
+            if decision is not None:
+                # The exit sweep is this table's final validation:
+                # _chief_finalize does not run it again.
+                last_val = (decision["auc"], decision["examples"])
+        if stream_mode and mesh is None and cfg.validation_files and \
                 not publisher.quality_on:
             # Stream mode has no per-epoch sweeps: a validation corpus
             # gets one scored pass here (a publishing stream validated
-            # through the exit publish's sweep).
+            # through the exit publish's sweep; across ranks,
+            # _chief_finalize validates).
             auc, n = st.evaluate(cfg.validation_files,
                                  max_batches=cfg.validation_max_batches
                                  or None,
@@ -1207,22 +1255,43 @@ def adapt_uniq_bucket(cfg: FmConfig, uniq_bucket: int, spilled: int,
     return uniq_bucket
 
 
-def _stream_state(watermark: Optional[dict]) -> dict:
+def _stream_state(watermark: Optional[dict],
+                  mesh: Optional[ProcessMesh]) -> dict:
     """The watermark payload a stream save carries: the one adopted from
-    the last stepped batch (an empty ledger before any)."""
-    return watermark or {"format": WATERMARK_FORMAT, "files": []}
+    the last stepped batch (an empty ledger before any), merged across
+    the ranks of ``mesh`` (a collective: call it at step-deterministic
+    points only)."""
+    return exchange_watermarks(
+        watermark or {"format": WATERMARK_FORMAT, "files": []}, mesh)
 
 
 def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
                 publisher: _Publisher, restored: Optional[dict],
                 bad_tracker: Optional[BadLineTracker], preempted: list,
-                logger) -> Tuple[bool, Optional[dict], tuple]:
+                logger, grow_ctx: Optional[_GrowContext] = None,
+                val_bucket: int = 0) -> Tuple[bool, Optional[dict], tuple]:
     """The online loop of ``run_mode = stream``: poll the stream
     source, step every arriving batch, save with the watermark adopted
     from the last stepped batch, and publish a verified checkpoint
-    every ``publish_interval_seconds``. A prefetch thread builds
-    batches behind the steps. Returns (preempted, the adopted
-    watermark, (step, epoch) of the last save)."""
+    every ``publish_interval_seconds``. Returns (preempted, the adopted
+    watermark, (step, epoch) of the last save).
+
+    One process: a prefetch thread builds batches behind the steps.
+    Across ranks (``st.mesh``) the ranks own the ledger's files by index
+    and run in lockstep: the source is pumped inline on this thread (its
+    discovery broadcast and the flags all-gather must keep one order on
+    every rank, which two threads would not), and every iteration
+    all-gathers ``[has a batch, preempted, done, publish due]``: a
+    preemption anywhere saves and exits everywhere, a job with every
+    rank done and dry drains, a batch anywhere is stepped everywhere (a
+    dry rank steps all-padding filler), and the publish runs on the
+    chief's clock. Every save carries the merged watermark.
+
+    ``grow_ctx`` (``elastic = grow``): the publish settle is the grow
+    barrier; after a publish that did not hold, a planned admission
+    raises ``ClusterGrowth`` on every rank (the lone survivor of a
+    shrink checks it too, on one process)."""
+    mesh = st.mesh
     restored_wm = (restored or {}).get("stream")
     # Seeded from the restored sidecar: a resumed session may save at
     # its restored step before any new batch steps (a publish fires on
@@ -1238,21 +1307,32 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
             "BEGINNING of %s — any stream bytes this model "
             "already trained on will be trained again",
             st.global_step, cfg.stream_dir)
+    # Ownership is agreed under this session's membership: a reformed
+    # session's ranks own the ledger anew from the restored watermark.
     tracker = StreamTracker(
         cfg.stream_dir, cfg.stream_poll_seconds, cfg.seal_policy,
         retry=RetryPolicy.from_config(cfg), bad_lines=bad_tracker,
-        watermark=restored_wm)
-    workers = stream_workers(cfg)
+        watermark=restored_wm,
+        shard_index=mesh.rank if mesh is not None else 0,
+        num_shards=mesh.size if mesh is not None else 1, mesh=mesh)
+    u_bucket = 0
+    if mesh is not None:
+        u_bucket = cfg.uniq_bucket or probe_stream_uniq_bucket(cfg, tracker)
+        logger.info("fixed unique-row bucket: %d", u_bucket)
+    workers = stream_workers(cfg, fixed_shape=mesh is not None)
     if workers > 1:
         logger.info(
             "stream host data plane: %d parallel batch-build "
             "workers (host_threads = %s; sealed line groups "
             "through the bounded ordered ring)",
             workers, cfg.host_threads)
-    source = StreamSource(cfg, tracker, stop=lambda: bool(preempted),
+    source = StreamSource(cfg, tracker,
+                          stop=None if mesh is not None
+                          else (lambda: bool(preempted)),
                           raw_ids=st.spec.dedup == "device",
                           workers=workers, bad_lines=bad_tracker,
-                          vocab=st.vocab)
+                          vocab=st.vocab, fixed_shape=mesh is not None,
+                          uniq_bucket=u_bucket)
     gate = publisher.gate
     publish_every = float(cfg.publish_interval_seconds)
     last_publish = [time.monotonic()]
@@ -1261,10 +1341,12 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
     # interval keeps re-checking at the publish cadence.
     gate_holding = [False]
     risk_pause_logged = [False]  # one retention-pause log per hold
+    sweep_preempt = (lambda: bool(preempted)) if mesh is not None else None
 
     def publish_due() -> bool:
         """Interval elapsed, or retention pressure: periodic saves must
-        never delete the published step from under a scorer."""
+        never delete the published step from under a scorer (across
+        ranks only the chief's answer counts: it rides the flags)."""
         if publish_every <= 0:
             return False
         if time.monotonic() - last_publish[0] >= publish_every:
@@ -1281,7 +1363,7 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
         # snapshot is taken now, and later steps update the table in
         # place (an offload save always waits).
         st.save(ckpt, wait=wait, epoch=0,
-                stream_state=_stream_state(state["watermark"]))
+                stream_state=_stream_state(state["watermark"], mesh))
         state["last_save"] = (st.global_step, 0)
 
     def do_publish() -> None:
@@ -1293,7 +1375,8 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
         # published (table, slot map, step) triple is post-barrier, and
         # the sweep measures exactly what a pass would publish.
         st.vocab_barrier(f"publish step {st.global_step}")
-        decision = publisher.decide(st)
+        decision = publisher.decide(st, uniq_bucket=val_bucket,
+                                    preempt=sweep_preempt)
         gate_holding[0] = bool(decision and decision.get("held"))
         if not gate_holding[0]:
             risk_pause_logged[0] = False
@@ -1302,13 +1385,22 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
             # that step's sidecars (the barrier may have moved the slot
             # map), as a forced save does in the JAX package.
             stream_save(wait=True)
-            if ckpt.publish_step(st.global_step) is not None:
-                publisher.published(decision)
+            publisher.publish(st.global_step, decision)
         last_publish[0] = time.monotonic()
+        if grow_ctx is not None and not gate_holding[0]:
+            # The publish settle is the grow barrier: the save above is
+            # durable with the merged watermark, so a joiner's restore
+            # resumes the stream exactly once from here. A held publish
+            # saved nothing and admits nobody (the hold is the chief's
+            # broadcast decision, so every rank takes this arm alike).
+            plan = grow_ctx.check_barrier(mesh)
+            if plan is not None:
+                raise ClusterGrowth(plan)
 
     def step_once(batch) -> None:
         st.step(batch, 0)
-        # The durable position advances ONLY with stepped batches.
+        # The durable position advances ONLY with stepped batches
+        # (lockstep fillers carry None).
         if batch.stream_pos is not None:
             state["watermark"] = batch.stream_pos
         if not (cfg.save_steps and st.global_step % cfg.save_steps == 0):
@@ -1335,28 +1427,56 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
         logger.info("preemption signalled; saving the stream position "
                     "and exiting")
 
-    pf = StreamPrefetcher(source, depth=cfg.prefetch_depth)
+    t_loop = time.perf_counter()
     try:
-        while True:
-            if preempted:
-                emit_preempted()
-                break
-            # A bounded wait: the publish clock and the preemption check
-            # keep ticking while the stream idles.
-            batch = pf.get(timeout=min(cfg.stream_poll_seconds, 0.5))
-            if batch is DONE:
-                if preempted:
+        if mesh is not None:
+            while True:
+                b = source.next_batch()
+                has = b is not IDLE and b is not DONE
+                flags = mesh.all_gather_host(
+                    np.asarray([has, bool(preempted), b is DONE,
+                                publish_due()], np.int32),
+                    "stream/step_flags")
+                if flags[:, 1].any():
                     emit_preempted()
-                break
-            if batch is IDLE:
-                st.flush_log()
-            else:
-                step_once(batch)
-            if publish_due():
-                do_publish()
+                    break
+                if flags[:, 2].all() and not flags[:, 0].any():
+                    break
+                if flags[:, 0].any():
+                    step_once(b if has else
+                              empty_batch(cfg, uniq_bucket=u_bucket))
+                else:
+                    st.flush_log()
+                    time.sleep(min(cfg.stream_poll_seconds, 0.5))
+                if flags[0, 3]:  # the chief's clock
+                    do_publish()
+        else:
+            pf = StreamPrefetcher(source, depth=cfg.prefetch_depth)
+            try:
+                while True:
+                    if preempted:
+                        emit_preempted()
+                        break
+                    # A bounded wait: the publish clock and the
+                    # preemption check keep ticking while the stream
+                    # idles.
+                    batch = pf.get(timeout=min(cfg.stream_poll_seconds,
+                                               0.5))
+                    if batch is DONE:
+                        if preempted:
+                            emit_preempted()
+                        break
+                    if batch is IDLE:
+                        st.flush_log()
+                    else:
+                        step_once(batch)
+                    if publish_due():
+                        do_publish()
+            finally:
+                pf.close()
     finally:
-        pf.close()
         source.close()
+        st.loop_seconds += time.perf_counter() - t_loop
     st.flush_log()
     if bad_tracker is not None and bad_tracker.bad:
         logger.info("bad-line policy through the stream run: %s",
@@ -1366,25 +1486,28 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
     return state["stopping"], state["watermark"], state["last_save"]
 
 
-def _exit_publish(cfg: FmConfig, ckpt: CheckpointState,
-                  publisher: _Publisher, st: _Stepper, stopping: bool,
-                  logger) -> None:
+def _exit_publish(publisher: _Publisher, st: _Stepper, stopping: bool,
+                  logger, val_bucket: int, preempted: list
+                  ) -> Optional[dict]:
     """The exit publish after the final save: a clean STOP drain, or a
     preemption's durable save, is the freshest state a scorer can
     hot-reload. Gated like every other publish. A PREEMPTED gated run
     skips it: the grace window before SIGKILL has no room for a
-    validation sweep, and the pointer stays on the last passing step."""
+    validation sweep, and the pointer stays on the last passing step.
+    Returns the gate's decision (None without a sweep)."""
     if stopping and publisher.gate is not None:
         logger.info(
             "preempted with a publish gate configured: exit "
             "publish skipped (no quality sweep inside the "
             "grace window); the pointer stays on the last "
             "passing step")
-        return
-    decision = None if stopping else publisher.decide(st)
+        return None
+    decision = None if stopping else publisher.decide(
+        st, uniq_bucket=val_bucket,
+        preempt=(lambda: bool(preempted)) if st.mesh is not None else None)
     if decision is None or not decision.get("held"):
-        if ckpt.publish_step(st.global_step) is not None:
-            publisher.published(decision)
+        publisher.publish(st.global_step, decision)
+    return decision
 
 
 def _restore_vocab(cfg: FmConfig, vocab: Optional[VocabRuntime],

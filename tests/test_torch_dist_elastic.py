@@ -19,9 +19,8 @@ against the JAX package's, on the CPU:
   exactly-once arithmetic, and its table equals the JAX package's
   single-process resume from the same verified step over the same
   lines at rtol 1e-4 / atol 1e-6;
-- the refusals: ``run_mode = stream`` across workers names the next
-  slice, elastic or not; ``train --join`` wants ``elastic = grow`` and
-  no role argv. (``elastic = off`` failing fast is
+- the refusals: ``train --join`` wants ``elastic = grow`` and no role
+  argv. (``elastic = off`` failing fast is
   ``test_torch_dist_cli.py::test_killed_worker_surfaces_as_worker_lost``.)
 """
 
@@ -309,19 +308,6 @@ def test_survivor_of_a_killed_worker_finishes_the_schedule(tmp_path):
     np.testing.assert_allclose(final["table"][:200].numpy(),
                                np.load(cfg.model_file + ".npz")["table"],
                                rtol=0, atol=0)
-
-
-def test_stream_across_workers_names_the_next_slice(tmp_path):
-    hosts = ("localhost:21000", "localhost:21001")
-    for elastic in ("off", "shrink", "grow"):
-        cfg = FmConfig(worker_hosts=hosts, run_mode="stream",
-                       stream_dir=str(tmp_path), elastic=elastic,
-                       publish_interval_seconds=1.0,
-                       model_file=str(tmp_path / "m" / "fm"))
-        with pytest.raises(NotImplementedError,
-                           match="item A10, its third slice: "
-                                 "multi-process streams"):
-            train(cfg, device="cpu", job_name="worker", task_index=0)
 
 
 def test_join_wants_grow_and_no_role(tmp_path):

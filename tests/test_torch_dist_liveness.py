@@ -307,6 +307,142 @@ def test_guard_progress_beat_on_completion(tmp_path, lv, guard_teardown):
     assert st.in_flight is None and st.last_progress > before
 
 
+class _Work:
+    """A torch Work stand-in: pending until ``done`` is set; ``error``
+    makes it complete with that error."""
+
+    def __init__(self, error=None):
+        self.done = threading.Event()
+        self.error = error
+        if error is not None:
+            self.done.set()
+
+    def is_completed(self):
+        return self.done.is_set()
+
+    def wait(self, timeout=None):
+        if not self.done.wait(None if timeout is None
+                              else timeout.total_seconds()):
+            raise RuntimeError("Operation timed out!")
+        if self.error is not None:
+            raise self.error
+        return True
+
+
+def _abandoned_count():
+    return len(port_lv.abandoned_work())
+
+
+def test_guarded_work_without_guard_is_a_plain_wait(guard_teardown):
+    w = _Work()
+    w.done.set()
+    port_lv.guarded_work(lambda: w, label="x")
+    with pytest.raises(ValueError, match="semantic"):
+        port_lv.guarded_work(lambda: _Work(ValueError("semantic")),
+                             label="x")
+
+
+def test_guarded_work_completing_as_a_wait_times_out(tmp_path,
+                                                    guard_teardown):
+    lease = _lease(port_lv, tmp_path, FakeClock())
+    lease.renew()  # peer 1 never writes: stale
+    port_lv.install_guard(lease, 30.0, recover=True)
+
+    class Late(_Work):
+        # Completes just after its first wait has timed out.
+        def wait(self, timeout=None):
+            if timeout is not None and not self.done.is_set():
+                self.done.set()
+                raise RuntimeError("Operation timed out!")
+            return super().wait(timeout)
+
+    port_lv.guarded_work(lambda: Late(), label="checkpoint/table")
+
+
+def test_guarded_work_waits_out_a_slow_collective(tmp_path, guard_teardown):
+    lease = _lease(port_lv, tmp_path, FakeClock())
+    lease.renew()  # peer 1 never writes: stale
+    port_lv.install_guard(lease, 30.0, recover=True)
+    w = _Work()
+    threading.Timer(0.6, w.done.set).start()
+    port_lv.guarded_work(lambda: w, label="checkpoint/table")
+    st = port_lv.current_guard()
+    assert st.in_flight is None and not st.polling
+
+
+def test_guarded_work_converts_a_raise_when_peer_dead(tmp_path,
+                                                      guard_teardown):
+    lease = _lease(port_lv, tmp_path, FakeClock(), hb=0.01)
+    lease.renew()
+    port_lv.install_guard(lease, 30.0, recover=True)
+    err = RuntimeError("Connection closed by peer")
+    with pytest.raises(port_lv.WorkerLostError) as ei:
+        port_lv.guarded_work(lambda: _Work(err), label="checkpoint/table")
+    assert "checkpoint/table" in str(ei.value) and "failed" in str(ei.value)
+    assert ei.value.__cause__ is err
+
+
+def test_elastic_guard_abandons_a_blocked_collective(tmp_path,
+                                                     guard_teardown,
+                                                     port_log):
+    lease = _lease(port_lv, tmp_path, FakeClock())
+    lease.renew()  # peer 1 never writes: stale
+    hits = []
+    port_lv.install_guard(lease, 0.3, escalate=hits.append, recover=True)
+    before = _abandoned_count()
+    w = _Work()
+    seen = []
+
+    def monitor():
+        # The lease thread's tick while the wait is past the deadline.
+        while port_lv.current_guard().in_flight is None:
+            time.sleep(0.005)
+        time.sleep(0.35)
+        seen.append(port_lv.check_deadline())
+    t = threading.Thread(target=monitor)
+    t.start()
+    t0 = time.monotonic()
+    with pytest.raises(port_lv.WorkerLostError) as ei:
+        port_lv.guarded_work(lambda: w, label="checkpoint/table")
+    t.join()
+    assert time.monotonic() - t0 < 5
+    assert "collective 'checkpoint/table' still pending past " \
+        "collective_timeout_seconds=0.3s" in str(ei.value)
+    assert [i.process_index for i in ei.value.lost] == [1]
+    # The monitor left the verdict to the waiting thread: no exit.
+    assert seen == ["abandoning"] and hits == []
+    assert _abandoned_count() == before + 1
+    assert port_lv.abandoned_work()[-1] == ("checkpoint/table", w)
+    assert any("abandoned for the elastic reform" in m for m in port_log)
+    st = port_lv.current_guard()
+    assert st.in_flight is None and not st.polling
+    w.done.set()
+
+
+def test_guard_without_recovery_escalates_a_blocked_work(tmp_path,
+                                                         guard_teardown):
+    lease = _lease(port_lv, tmp_path, FakeClock())
+    lease.renew()
+    hits = []
+    port_lv.install_guard(lease, 0.2, escalate=hits.append)
+    w = _Work()
+    t = threading.Thread(target=lambda: port_lv.guarded_work(
+        lambda: w, label="checkpoint/table"))
+    t.start()
+    deadline = time.monotonic() + 5
+    while port_lv.current_guard().in_flight is None:
+        assert time.monotonic() < deadline
+        time.sleep(0.005)
+    time.sleep(0.5)
+    # elastic = off: the blocked thread waits on, the monitor exits.
+    assert t.is_alive()
+    assert port_lv.check_deadline() == "escalated"
+    assert "checkpoint/table" in hits[0]
+    assert str(port_lv.EXIT_WORKER_LOST) in hits[0]
+    w.done.set()
+    t.join()
+
+
 def test_lease_dir_is_beside_the_checkpoints(tmp_path):
     mf = str(tmp_path / "m" / "fm")
     assert port_lv.lease_dir(FmConfig(model_file=mf)) == \

@@ -95,10 +95,11 @@ def test_ignored_keys_set_lists_keys_away_from_default():
 def test_train_logs_ignored_keys(tmp_path, port_log):
     train(_cfg(str(tmp_path), **SET), device="cpu")
     _assert_logged(port_log)
-    with pytest.raises(NotImplementedError, match="item A10"):
+    # A refusal that stays: admit mode across processes.
+    with pytest.raises(ValueError, match="vocab_mode = admit is "
+                                         "single-process"):
         train(dataclasses.replace(
-            _cfg(str(tmp_path), **SET), run_mode="stream", train_files=(),
-            stream_dir=str(tmp_path),
+            _cfg(str(tmp_path), **SET), vocab_mode="admit",
             worker_hosts=("localhost:1", "localhost:2")),
             device="cpu", job_name="worker", task_index=0)
 

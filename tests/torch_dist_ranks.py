@@ -26,11 +26,24 @@ Scenarios:
 comma-separated list) at fixed points, so a test's kill lands at the
 same step on a loaded host: ``kill-at-step-<n>`` SIGKILLs this process
 as it begins its step n + 1 (after step n's periodic save was
-gathered), ``kill-at-announce`` as soon as a joiner has announced its
+gathered), ``kill-in-save-after-step-<n>`` / ``stop-in-save-after-step-<n>``
+SIGKILL / SIGSTOP it as it enters the gather to the chief of its first
+save past step n, ``kill-at-announce`` as soon as a joiner has announced its
 generation (its ticket and worker lease left behind, as a dead process
 leaves them); ``keep-steps`` retires no checkpoint step past
 ``max_to_keep`` (the test reads the step a survivor restored after the
-run); ``none`` runs the command as it is.
+run); ``record-steps`` writes every stepped batch (its arrays and
+whether it was a lockstep filler) to ``steps-<pid>.npz`` in the working
+directory as the command returns, and every watermark exchange (this
+rank's payload and the merged one) to ``watermarks-<pid>.json``;
+``record-threads`` writes the thread of every host collective
+(``ProcessMesh.all_gather_host`` and ``broadcast_object``, by label) to
+``threads-<pid>.json``; ``none`` runs the command as it is.
+
+The stream runs (``write_stream_run``, ``stage_shard``) are
+``run_mode = stream`` jobs over ``<wd>/stream``, phase-gated: a shard is
+staged in torn appends, then sealed, and the next one waits until the
+published pointer names the step after it.
 """
 
 from __future__ import annotations
@@ -189,6 +202,130 @@ def log_tails(logs: dict, n: int = 3000) -> str:
                    for tag, text in logs.items())
 
 
+STREAM_CFG = """[General]
+vocabulary_size = 200
+factor_num = 4
+model_file = {wd}/model/fm
+[Train]
+run_mode = stream
+stream_dir = {wd}/stream
+stream_poll_seconds = 0.05
+seal_policy = done
+publish_interval_seconds = 0.5
+validation_files = {validation}
+publish_min_auc = {min_auc}
+validation_max_batches = {val_batches}
+batch_size = 16
+learning_rate = 0.1
+factor_lambda = 1e-6
+bias_lambda = 1e-6
+init_value_range = 0.01
+log_steps = 4
+save_steps = {save_steps}
+max_features_per_example = 32
+bucket_ladder = 8,16,32
+uniq_bucket = {uniq_bucket}
+host_threads = 1
+[Cluster]
+worker_hosts = {hosts}
+heartbeat_seconds = 1.0
+collective_timeout_seconds = {collective_timeout}
+cluster_connect_timeout_seconds = 90
+elastic = {elastic}
+join_settle_seconds = 1
+join_timeout_seconds = 180
+"""
+
+# A stream shard of STREAM_SHARD_LINES lines is STREAM_STEPS exact
+# batches of STREAM_BATCH (a rank's batch): no batch spans two shards,
+# so one shard staged at a time gives one step schedule (its owner's
+# batches, the other rank's filler) whatever the membership.
+STREAM_BATCH = 16
+STREAM_STEPS = 4
+STREAM_SHARD_LINES = STREAM_BATCH * STREAM_STEPS
+
+
+def stream_shard_lines(i: int, n: int = STREAM_SHARD_LINES) -> list:
+    """Shard ``i``'s lines: ``n`` lines of data/sample_train.txt from
+    line ``i * 100``."""
+    with open(os.path.join(REPO, "data", "sample_train.txt")) as fh:
+        lines = fh.read().splitlines()
+    return lines[i * 100:i * 100 + n]
+
+
+def write_stream_run(wd: str, elastic: str = "off", min_auc: float = 0.5,
+                     save_steps: int = 4, uniq_bucket: int = 256,
+                     validation: str = "", val_batches: int = 8,
+                     collective_timeout: float = 60) -> str:
+    """A 2-worker stream config over ``<wd>/stream`` (created empty);
+    ``validation`` defaults to data/sample_test.txt, swept
+    ``val_batches`` batches a rank (0: all of it). Returns its path."""
+    os.makedirs(os.path.join(wd, "stream"), exist_ok=True)
+    path = os.path.join(wd, "stream.cfg")
+    with open(path, "w") as fh:
+        fh.write(STREAM_CFG.format(
+            wd=wd, elastic=elastic, min_auc=min_auc, save_steps=save_steps,
+            uniq_bucket=uniq_bucket, val_batches=val_batches,
+            collective_timeout=collective_timeout,
+            validation=validation or os.path.join(REPO, "data",
+                                                  "sample_test.txt"),
+            hosts=worker_hosts(free_port(), 2)))
+    return path
+
+
+def stage_shard(wd: str, i: int, lines: list, pieces: int = 3) -> str:
+    """Write ``<wd>/stream/part-<i>`` in ``pieces`` torn appends (each
+    cut mid-line), then its ``.done`` marker."""
+    path = os.path.join(wd, "stream", f"part-{i:05d}")
+    blob = ("\n".join(lines) + "\n").encode()
+    cuts = [len(blob) * k // pieces + 3 for k in range(1, pieces)]
+    with open(path, "wb") as fh:
+        prev = 0
+        for cut in cuts + [len(blob)]:
+            fh.write(blob[prev:cut])
+            fh.flush()
+            prev = cut
+            time.sleep(0.05)
+    open(path + ".done", "w").close()
+    return path
+
+
+def stop_stream(wd: str) -> None:
+    open(os.path.join(wd, "stream", "STOP"), "w").close()
+
+
+def wait_for(pred, procs: dict, wd: str, what: str,
+             timeout: float = 180.0) -> None:
+    """Poll ``pred()`` until true; fail with the logs if a process in
+    ``procs`` exits first or ``timeout`` passes."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        dead = {t: p.returncode for t, p in procs.items()
+                if p.poll() is not None}
+        if dead or time.monotonic() > deadline:
+            logs = {t: open(os.path.join(wd, f"{t}.log")).read()
+                    for t in procs}
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+            raise AssertionError(f"waiting for {what}: exited {dead}"
+                                 + log_tails(logs))
+        time.sleep(0.05)
+
+
+def published_step(model_file: str) -> int:
+    try:
+        with open(os.path.join(model_file + ".ckpt", "published")) as fh:
+            return int(fh.read().strip())
+    except (OSError, ValueError):
+        return -1
+
+
+def log_has(wd: str, tag: str, text: str) -> bool:
+    with open(os.path.join(wd, f"{tag}.log")) as fh:
+        return text in fh.read()
+
+
 def step_cases():
     """(name, config keywords) of the step scenario's models."""
     base = dict(vocabulary_size=256, factor_num=4, batch_size=32,
@@ -303,6 +440,8 @@ def _cli(faults, argv):
         sys.stdout.flush()
         os.kill(os.getpid(), signal.SIGKILL)
 
+    records = []
+
     for fault in faults.split(","):
         if fault.startswith("kill-at-step-"):
             from fast_tffm_tpu_torch import train as port_train
@@ -314,6 +453,11 @@ def _cli(faults, argv):
                     die()
                 return real_step(self, batch, epoch)
             port_train._Stepper.step = step
+        elif fault.startswith(("kill-in-save-after-step-",
+                               "stop-in-save-after-step-")):
+            _lost_in_save(int(fault.rsplit("-", 1)[1]),
+                          signal.SIGKILL if fault.startswith("kill")
+                          else signal.SIGSTOP)
         elif fault == "kill-at-announce":
             from fast_tffm_tpu_torch.parallel import liveness
             real_announce = liveness.HeartbeatLease.announce_reform
@@ -325,10 +469,94 @@ def _cli(faults, argv):
         elif fault == "keep-steps":
             from fast_tffm_tpu_torch.checkpoint import CheckpointState
             CheckpointState._delete_old_steps = lambda self: None
+        elif fault == "record-steps":
+            _record_steps(records)
+        elif fault == "record-threads":
+            _record_threads(records)
         elif fault != "none":
             raise ValueError(f"unknown fault {fault!r}")
     from fast_tffm_tpu_torch.__main__ import main as cli
-    return cli(argv)
+    try:
+        return cli(argv)
+    finally:
+        for write in records:
+            write()
+
+
+def _lost_in_save(last: int, sig) -> None:
+    """Send this process ``sig`` as it enters the first gather to the
+    chief of the first save past step ``last``: the chief is then in
+    that save's gather on a peer that never sends (SIGKILL closes its
+    connections; SIGSTOP keeps them open, as a killed process that is
+    slow to die does)."""
+    from fast_tffm_tpu_torch import train as port_train
+    from fast_tffm_tpu_torch.parallel.sharded import ProcessMesh
+    real_save = port_train._Stepper.save
+    real_gather = ProcessMesh.gather_to_chief
+    saving = []
+
+    def save(self, *args, **kwargs):
+        if self.global_step > last:
+            saving.append(self.global_step)
+        return real_save(self, *args, **kwargs)
+
+    def gather(self, t, label):
+        if saving and label.startswith("checkpoint/"):
+            sys.stdout.flush()
+            os.kill(os.getpid(), sig)
+        return real_gather(self, t, label)
+    port_train._Stepper.save = save
+    ProcessMesh.gather_to_chief = gather
+
+
+def _record_steps(records: list) -> None:
+    import json
+    from fast_tffm_tpu_torch import train as port_train
+    real_step = port_train._Stepper.step
+    real_exchange = port_train.exchange_watermarks
+    seen = {}
+    merges = []
+
+    def exchange(local, mesh):
+        merged = real_exchange(local, mesh)
+        merges.append([local, merged])
+        return merged
+    port_train.exchange_watermarks = exchange
+
+    def write_merges():
+        with open(f"watermarks-{os.getpid()}.json", "w") as fh:
+            json.dump(merges, fh)
+    records.append(write_merges)
+
+    def step(self, batch, epoch):
+        s = len([k for k in seen if k.endswith("/filler")])
+        seen[f"b{s}/filler"] = np.asarray(batch.stream_pos is None)
+        for k in ("labels", "weights", "uniq_ids", "local_idx", "vals"):
+            seen[f"b{s}/{k}"] = np.asarray(getattr(batch, k))
+        return real_step(self, batch, epoch)
+    port_train._Stepper.step = step
+    records.append(lambda: np.savez(f"steps-{os.getpid()}.npz", **seen))
+
+
+def _record_threads(records: list) -> None:
+    import json
+    import threading
+    from fast_tffm_tpu_torch.parallel.sharded import ProcessMesh
+    seen = []
+    for name in ("all_gather_host", "broadcast_object"):
+        real = getattr(ProcessMesh, name)
+
+        def wrapped(self, *args, _real=real, **kwargs):
+            label = args[-1] if args and isinstance(args[-1], str) \
+                else kwargs.get("label")
+            seen.append([label, threading.current_thread().name])
+            return _real(self, *args, **kwargs)
+        setattr(ProcessMesh, name, wrapped)
+
+    def write():
+        with open(f"threads-{os.getpid()}.json", "w") as fh:
+            json.dump(seen, fh)
+    records.append(write)
 
 
 def main(argv):
