@@ -955,11 +955,20 @@ def predict_phase(torch, cfg, cfg_path, table_cpu, lines, device, card):
           f"predict loaded step {step}, not step {SERVE_STEP}'s table")
     del table
     fm_kernel.launches = 0
+    metrics_path = os.path.join(WORK, "predict.metrics.jsonl")
     t0 = time.perf_counter()
-    rc = cli(["predict", cfg_path, "--device", device.type])
+    with env_vars(FM_METRICS_FILE=metrics_path):
+        rc = cli(["predict", cfg_path, "--device", device.type])
     total_s = time.perf_counter() - t0
     launches = fm_kernel.launches
     check(rc == 0, f"predict entry point returned {rc}")
+    stream = stream_summary(metrics_path)
+    want = {"predict/examples": len(lines), "pipeline/examples": len(lines),
+            "predict/batches": launches}
+    got = {k: stream["counters"].get(k) for k in want}
+    check(got == want and stream["last_event"] == "run_end"
+          and not stream["health"] and not stream["crashes"],
+          f"predict's stream: {got} (want {want}), {stream}")
     with open(os.path.join(cfg.score_path, "criteo.txt.score")) as fh:
         score_lines = fh.read().splitlines(keepends=True)
     check(len(score_lines) == len(lines),
@@ -979,9 +988,55 @@ def predict_phase(torch, cfg, cfg_path, table_cpu, lines, device, card):
            "examples_per_s_end_to_end": len(lines) / total_s,
            "examples_per_s_after_load": len(lines) / (total_s - load_s),
            "launches": launches, "max_err_vs_float64_reference": ref_err,
-           "score_std": float(scores.std())}
+           "score_std": float(scores.std()), "stream_counters": got}
     emit(row)
     return row, score_lines
+
+
+class env_vars:
+    """Set environment variables for a block, then restore them."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def stream_summary(path):
+    """The last run of a metrics stream: its last metrics event's
+    counters and gauges, its health statuses and crash events, and its
+    last event."""
+    from fast_tffm_tpu_torch.obs.sink import read_events
+    run = []
+    for e in read_events(path):
+        if e["event"] == "run_start":
+            run = []
+        run.append(e)
+    metrics = [e for e in run if e["event"] == "metrics"]
+    return {"counters": metrics[-1]["counters"] if metrics else {},
+            "gauges": metrics[-1]["gauges"] if metrics else {},
+            "health": [e.get("status") for e in run
+                       if e["event"] == "health"],
+            "crashes": [e.get("error") for e in run if e["event"] == "crash"],
+            "last_event": run[-1]["event"] if run else None}
+
+
+def get_text(port, path, timeout=60):
+    """(status, content type, body) of one GET."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as resp:
+        return (resp.status, resp.headers["Content-Type"],
+                resp.read().decode())
 
 
 def post(port, body, timeout=120):
@@ -1005,20 +1060,21 @@ def healthz(port):
 
 
 def serve_phase(torch, cfg, lines, score_lines, device, card):
+    """The ``serve`` entry point (``run_serve``, in process, on the main
+    thread) with ``FM_METRICS_FILE`` and ``FM_SERVE_PORT`` set: once it
+    is ready, concurrent requests whose bodies must equal the predict
+    file's lines, one malformed request, /healthz and GET /metrics
+    (Prometheus text, its request counter equal to the requests sent);
+    then SIGTERM, after which the serve stream must end with run_end."""
+    import signal
     import numpy as np
+    from fast_tffm_tpu_torch.config import apply_env_overrides
     from fast_tffm_tpu_torch.ops import fm_kernel
-    from fast_tffm_tpu_torch.serve.frontend import make_http_server
-    from fast_tffm_tpu_torch.serve.server import ScorerServer
-    fm_kernel.launches = 0
-    t0 = time.perf_counter()
-    server = ScorerServer(cfg, device=device)
-    startup_s = time.perf_counter() - t0
-    warm_launches = fm_kernel.launches
-    httpd = make_http_server(server, 0)
-    http_thread = threading.Thread(target=httpd.serve_forever,
-                                   name="smoke-http", daemon=True)
-    http_thread.start()
-    port = httpd.server_address[1]
+    from fast_tffm_tpu_torch.serve.frontend import run_serve
+    metrics_path = os.path.join(WORK, "serve.metrics.jsonl")
+    port = free_port_block(1)
+    with env_vars(FM_METRICS_FILE=metrics_path, FM_SERVE_PORT=str(port)):
+        serve_cfg = apply_env_overrides(cfg)
     rng = np.random.default_rng(SEED + 2)
     sizes = [1, SERVE_MAX_BATCH] + [int(n) for n in
                                     rng.integers(1, SERVE_MAX_BATCH + 1, 46)]
@@ -1026,6 +1082,8 @@ def serve_phase(torch, cfg, lines, score_lines, device, card):
     results = [None] * len(spans)
     latencies = [None] * len(spans)
     n_clients = 8
+    out = {}
+    done = threading.Event()  # run_serve returned
 
     def client(k):
         for i in range(k, len(spans), n_clients):
@@ -1034,49 +1092,105 @@ def serve_phase(torch, cfg, lines, score_lines, device, card):
             results[i] = post(port, "\n".join(lines[lo:lo + n]) + "\n")
             latencies[i] = (time.perf_counter() - t) * 1e3
 
+    def drive():
+        """Wait until ready, send the requests and read the endpoints;
+        then SIGTERM this process (run_serve's handler drains)."""
+        try:
+            deadline = time.monotonic() + 300
+            health = None
+            while not done.is_set() and time.monotonic() < deadline:
+                try:
+                    health = healthz(port)
+                    if health["ready"]:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.05)
+            check(health is not None and health["ready"],
+                  f"serve not ready: {health}")
+            out["startup_s"] = time.perf_counter() - t0
+            out["warm_launches"] = fm_kernel.launches
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(n_clients)]
+            for th in threads:
+                th.start()
+            out["bad"] = post(port, lines[0] + "\n1 I1:x:y:z\n")
+            for th in threads:
+                th.join(timeout=300)
+                check(not th.is_alive(), "a serve client hung")
+            out["health"] = healthz(port)
+            out["metrics"] = get_text(port, "/metrics")
+        except BaseException as e:  # raised on the main thread below
+            out["error"] = e
+        finally:
+            if not done.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    # A SIGTERM landing before run_serve installs its handler (a failed
+    # startup) must not kill the script.
+    prev = signal.signal(signal.SIGTERM, lambda *_: None)
+    fm_kernel.launches = 0
+    t0 = time.perf_counter()
+    requester = threading.Thread(target=drive, name="smoke-serve-client",
+                                 daemon=True)
+    requester.start()
     try:
-        threads = [threading.Thread(target=client, args=(k,))
-                   for k in range(n_clients)]
-        for th in threads:
-            th.start()
-        bad_status, bad_body, _ = post(port,
-                                       lines[0] + "\n1 I1:x:y:z\n")
-        for th in threads:
-            th.join(timeout=300)
-            check(not th.is_alive(), "a serve client hung")
-        for (lo, n), (status, body, step) in zip(spans, results):
-            check(status == 200, f"serve answered {status}: {body[:200]}")
-            check(body == "".join(score_lines[lo:lo + n]).encode(),
-                  f"serve body for lines [{lo}, {lo + n}) differs from "
-                  "the predict file")
-            check(step == str(SERVE_STEP),
-                  f"X-FM-Step {step}, not the published {SERVE_STEP}")
-        check(bad_status == 400, f"malformed request answered {bad_status}")
-        health = healthz(port)
-        check(health["alive"] and health["ready"]
-              and health["requests"] == len(spans)
-              and health["served_step"] == SERVE_STEP
-              and health["flush_errors"] == 0, f"/healthz: {health}")
+        rc = run_serve(serve_cfg, device=device.type)
     finally:
-        httpd.shutdown()
-        http_thread.join(timeout=60)
-        httpd.server_close()
-        server.close()
+        done.set()
+        requester.join(timeout=600)
+        signal.signal(signal.SIGTERM, prev)
+    run_s = time.perf_counter() - t0
+    if "error" in out:
+        raise out["error"]
+    check(rc == 0, f"serve entry point returned {rc}")
+    for (lo, n), (status, body, step) in zip(spans, results):
+        check(status == 200, f"serve answered {status}: {body[:200]}")
+        check(body == "".join(score_lines[lo:lo + n]).encode(),
+              f"serve body for lines [{lo}, {lo + n}) differs from "
+              "the predict file")
+        check(step == str(SERVE_STEP),
+              f"X-FM-Step {step}, not the published {SERVE_STEP}")
+    bad_status = out["bad"][0]
+    check(bad_status == 400, f"malformed request answered {bad_status}")
+    health = out["health"]
+    check(health["alive"] and health["ready"]
+          and health["requests"] == len(spans)
+          and health["served_step"] == SERVE_STEP
+          and health["flush_errors"] == 0, f"/healthz: {health}")
+    m_status, m_type, m_body = out["metrics"]
+    prom = {ln.split()[0]: float(ln.split()[1])
+            for ln in m_body.splitlines() if ln and not ln.startswith("#")}
+    check(m_status == 200 and m_type.startswith("text/plain; version=0.0.4")
+          and prom.get("fm_serve_requests") == len(spans)
+          and prom.get("fm_serve_request_latency_ms_count") == len(spans),
+          f"GET /metrics: {m_status} {m_type}, fm_serve_requests "
+          f"{prom.get('fm_serve_requests')} for {len(spans)} requests")
+    stream = stream_summary(metrics_path)
+    check(stream["last_event"] == "run_end" and not stream["crashes"]
+          and stream["counters"].get("serve/requests") == len(spans),
+          f"serve stream after SIGTERM: {stream}")
     launches = fm_kernel.launches
+    warm_launches = out["warm_launches"]
     check(launches > warm_launches > 0,
           f"serve launches: {warm_launches} at warmup, {launches} after "
           "the requests")
     lat = sorted(latencies)
     row = {"phase": "serve", "card": card, "requests": len(spans),
            "clients": n_clients, "served_step": health["served_step"],
-           "lines": sum(sizes), "startup_seconds": startup_s,
+           "lines": sum(sizes), "startup_seconds": out["startup_s"],
+           "entry_seconds": run_s,
            "warmup_launches": warm_launches,
            "request_launches": launches - warm_launches,
            "launches": launches, "flushes": health["flushes"],
            "round_trip_ms_median": lat[len(lat) // 2],
            "round_trip_ms_max": lat[-1], "malformed_status": bad_status,
            "server_p50_ms": health["latency_p50_ms"],
-           "server_p99_ms": health["latency_p99_ms"]}
+           "server_p99_ms": health["latency_p99_ms"],
+           "metrics_requests": prom.get("fm_serve_requests"),
+           "metrics_lines": len(m_body.splitlines()),
+           "stream_requests": stream["counters"].get("serve/requests"),
+           "stream_last_event": stream["last_event"]}
     emit(row)
     return row
 
@@ -1143,6 +1257,23 @@ def read_train_log(path):
 
 
 KERNEL_NAMES = ("fm_score_kernel", "fm_score_bwd_kernel")
+
+# Run A's telemetry: the stream, spans, the watchdog, the pressure alarm
+# (the 2.28 GB of table and accumulator are ~2.7% of an 80 GB card, so
+# exactly one hbm_pressure event), and a profiler window of 3 steps
+# after step 5.
+RUN_A_TELEMETRY = """metrics_file = {wd}/run_a.metrics.jsonl
+metrics_flush_steps = 4
+trace_spans = true
+watchdog_stall_seconds = 120
+mem_pressure_fraction = 0.02
+profile_dir = {wd}/run_a_profile
+profile_start_step = 5
+profile_num_steps = 3
+"""
+TELEMETRY_STEPS = 30              # steps of each arm of the in-process
+TELEMETRY_ROUNDS = 4              # telemetry check, its rounds in turns
+PREFLIGHT_VOCAB = 1 << 32         # a plan far beyond the card (~584 GB)
 
 
 def step_kernel_ms(torch, step, names=KERNEL_NAMES):
@@ -1262,6 +1393,7 @@ def train_phase(torch, device, card, data):
     write_train_data), one epoch (run A) with a periodic save at step 8;
     then ``fmckpt`` over it, and predict of the newest step over the
     validation lines."""
+    import dataclasses
     import io
     import re
     import numpy as np
@@ -1277,17 +1409,19 @@ def train_phase(torch, device, card, data):
     # its margin over chance.
     bayes_auc = exact_auc(val_logits, val_labels)
     auc_floor = 0.5 + 0.5 * (bayes_auc - 0.5)
-    cfg_path = write_train_cfg(wd, 1)
+    cfg_path = write_train_cfg(wd, 1, train=RUN_A_TELEMETRY.format(wd=wd))
     cfg = load_config(cfg_path)
 
     fm_kernel.launches = 0
     fm_kernel.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
     with CheckpointTimes() as times:
         t0 = time.perf_counter()
         rc = cli(["train", cfg_path])
         train_s = time.perf_counter() - t0
         check(rc == 0, f"train entry point ({cfg_path}) returned {rc}")
     fwd_launches, bwd_launches = fm_kernel.launches, fm_kernel.bwd_launches
+    run_peak_bytes = torch.cuda.max_memory_allocated(device)
     with open(cfg.log_file) as fh:
         log = fh.read()
     plane = [int(n) for n in re.findall(
@@ -1312,6 +1446,9 @@ def train_phase(torch, device, card, data):
     check(len(aucs) == 1 and aucs[-1] > auc_floor,
           f"validation AUC {aucs} not above {auc_floor} (planted model's "
           f"AUC {bayes_auc})")
+    t0 = time.perf_counter()
+    run_a_telemetry = run_a_stream_checks(cfg, steps, run_peak_bytes, card)
+    run_a_telemetry["check_seconds"] = time.perf_counter() - t0
 
     # The checkpoint directory as the operator's tool shows it: the
     # final save at 16 writes the epoch override onto the periodic save.
@@ -1385,6 +1522,7 @@ def train_phase(torch, device, card, data):
            "checkpoint_commits": commits,
            "fmckpt_verify_full_seconds": verify_s,
            "host_data_plane_workers": plane,
+           "telemetry": run_a_telemetry,
            **resident,
            # Idle share of the card while the loop runs, from the
            # resident step time and the loop's rate, and over the train
@@ -1398,7 +1536,182 @@ def train_phase(torch, device, card, data):
                (None if busy_ms is None
                 else 1.0 - busy_ms / 1e3 * loop_eps / TRAIN_BATCH)}
     emit(row)
-    return row, fwd_rows, bwd_rows, cfg, val_lines
+    # The later phases over run A's steps write no stream of their own.
+    quiet = dataclasses.replace(
+        cfg, metrics_file="", trace_spans=False, watchdog_stall_seconds=0.0,
+        mem_pressure_fraction=0.0, profile_dir="")
+    return row, fwd_rows, bwd_rows, quiet, val_lines
+
+
+def run_a_stream_checks(cfg, steps, run_peak_bytes, card):
+    """Run A's telemetry: its stream's counters against the steps and
+    lines it trained, the checkpoint counters against its saves, its
+    spans within the loop's wall time, no stall, non-finite loss or crash
+    and a closing run_end, exactly one hbm_pressure event, the ledger's
+    table and accumulator bytes, the plan within 10% of the ledger, the
+    ledger under the card's peak allocation, and the profiler window's
+    kernel launches. Prints one line; returns its figures."""
+    from fast_tffm_tpu_torch.obs import memory as obs_memory
+    from fast_tffm_tpu_torch.obs.sink import read_events
+    from fast_tffm_tpu_torch.testing.telemetry import trace_kernel_counts
+    runs = []
+    for e in read_events(cfg.metrics_file):
+        if e["event"] == "run_start":
+            runs.append([])
+        runs[-1].append(e)
+    check(runs and runs[0][0]["meta"]["kind"] == "train",
+          f"run A's stream starts with {runs and runs[0][0]}")
+    events = runs[0]  # the predict of the trained model appends its own
+    metrics = [e for e in events if e["event"] == "metrics"]
+    c = metrics[-1]["counters"]
+    want = {"train/steps": steps, "train/examples": TRAIN_LINES,
+            "pipeline/examples": TRAIN_LINES + VAL_LINES,
+            "checkpoint/saves": len(SERVED_STEPS),
+            "train/checkpoints": len(SERVED_STEPS), "train/epochs": 1}
+    got = {k: c.get(k) for k in want}
+    check(got == want, f"run A's counters {got}, not {want}")
+    health = [e.get("status") for e in events if e["event"] == "health"]
+    crashes = [e for e in events if e["event"] == "crash"]
+    check(health == ["hbm_pressure"] and not crashes
+          and events[-1]["event"] == "run_end",
+          f"run A's health events {health}, {len(crashes)} crash events, "
+          f"last event {events[-1]['event']}")
+    pressure = next(e for e in events if e.get("status") == "hbm_pressure")
+    spans = {}
+    for e in events:
+        if e["event"] == "span" and e["name"] in ("train/step", "train/h2d"):
+            spans.setdefault(e["name"], []).append(e)
+    both = spans.get("train/step", []) + spans.get("train/h2d", [])
+    wall = (max(e["ts"] + e["dur"] for e in both)
+            - min(e["ts"] for e in both)) if both else 0.0
+    span_sum = sum(e["dur"] for e in both)
+    check([len(spans.get(n, [])) for n in ("train/step", "train/h2d")]
+          == [steps, steps] and span_sum <= wall,
+          f"run A's spans: {[len(v) for v in spans.values()]} for {steps} "
+          f"steps, {span_sum}s summed over {wall}s of loop wall time")
+    gauges = [m["gauges"] for m in metrics]
+    state = max(g.get("mem/table_bytes", 0) + g.get("mem/adagrad_acc_bytes",
+                                                    0) for g in gauges)
+    live = max(g.get("mem/live_bytes", 0) for g in gauges)
+    plan = obs_memory.plan(cfg, "train")["total_bytes"]
+    check(state == 2 * cfg.num_rows * cfg.row_dim * 4 == 2 * 1140850756,
+          f"the ledger's table + adagrad_acc: {state} bytes")
+    check(abs(plan - live) <= 0.10 * live,
+          f"plan {plan} bytes against the ledger's live {live}")
+    check(live <= run_peak_bytes,
+          f"the ledger's {live} bytes above the card's peak allocation "
+          f"{run_peak_bytes} over the run")
+    traces = os.listdir(cfg.profile_dir)
+    check(len(traces) == 1, f"profile_dir holds {traces}")
+    counts = trace_kernel_counts(os.path.join(cfg.profile_dir, traces[0]))
+    window = cfg.profile_num_steps
+    check(counts == dict.fromkeys(KERNEL_NAMES, window),
+          f"the profiler window's trace holds {counts} kernel events for "
+          f"{window} steps")
+    out = {"counters": got, "health": health, "spans": {
+        k: len(v) for k, v in spans.items()}, "span_seconds": span_sum,
+        "span_wall_seconds": wall, "ledger_state_bytes": state,
+        "ledger_live_bytes": live, "plan_bytes": plan,
+        "run_peak_allocated_bytes": run_peak_bytes,
+        "hbm_pressure": {k: pressure[k] for k in ("live_bytes",
+                                                  "capacity_bytes",
+                                                  "fraction")},
+        "profile_trace": traces[0], "profile_kernel_events": counts,
+        "metrics_events": len(metrics), "events": len(events)}
+    print(f"train telemetry: {card}; steps {got['train/steps']}, examples "
+          f"{got['train/examples']}, pipeline examples "
+          f"{got['pipeline/examples']}, saves {got['checkpoint/saves']}; "
+          f"spans {span_sum:.3f}s of {wall:.3f}s; one hbm_pressure at "
+          f"{pressure['fraction']}; ledger {state} B state, {live} B live, "
+          f"plan {plan} B, card peak {run_peak_bytes} B; profiler window "
+          f"{counts}", flush=True)
+    return out
+
+
+def telemetry_phase(torch, device, card, cfg):
+    """In process, on resident batches of run A's data: the same train
+    steps of config #2 with the run's telemetry off and on (their step ms
+    and spread, and their synchronizations, which must be equal); an
+    allocation beyond the card's free memory under ``oom_guard`` while
+    config #2's table and accumulator are held (``HbmExhaustedError``
+    naming them, the allocator usable after); and the capacity pre-flight
+    refusing a config whose plan exceeds the card, before any
+    allocation."""
+    import dataclasses
+    from fast_tffm_tpu_torch.data.pipeline import batch_iterator
+    from fast_tffm_tpu_torch.models import fm as port_fm
+    from fast_tffm_tpu_torch.obs import memory as obs_memory
+    from fast_tffm_tpu_torch.testing import telemetry as probe
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, mem_pressure_fraction=0.02)
+    batches = []
+    it = batch_iterator(cfg, cfg.train_files, training=True, epochs=1)
+    try:
+        for b in it:
+            batches.append(b)
+            if len(batches) == RESIDENT_BATCHES:
+                break
+    finally:
+        it.close()
+    wd = os.path.join(WORK, "telemetry")
+    os.makedirs(wd)
+    steps = probe.telemetry_steps(cfg, device, batches, TELEMETRY_STEPS,
+                                  rounds=TELEMETRY_ROUNDS, workdir=wd)
+    check(steps["off"]["syncs"] == steps["on"]["syncs"]
+          and len(set(steps["on"]["syncs"])) == 1,
+          f"synchronizations of {TELEMETRY_STEPS} steps: telemetry off "
+          f"{steps['off']['syncs']}, on {steps['on']['syncs']}")
+    steps_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    table = port_fm.init_table(cfg, device, gen)
+    acc = port_fm.init_accumulator(cfg, device)
+    obs_memory.bind_device(device)
+    obs_memory.LEDGER.register("table", table.nbytes)
+    obs_memory.LEDGER.register("adagrad_acc", acc.nbytes)
+    try:
+        oom = probe.oom_wrap(device)
+    finally:
+        obs_memory.LEDGER.release("table")
+        obs_memory.LEDGER.release("adagrad_acc")
+        del table, acc
+        torch.cuda.empty_cache()
+    check(oom["cause"] == "OutOfMemoryError" and oom["names_owners"]
+          and oom["owners"] == ["adagrad_acc", "table"]
+          and oom["allocator_usable"], f"oom_guard on the card: {oom}")
+    pre = probe.preflight_refusal(device, vocabulary_size=PREFLIGHT_VOCAB,
+                                  factor_num=FACTORS)
+    check(pre["refused"] and pre["verdict"] == "EXCEEDS"
+          and pre["allocated_after"] == pre["allocated_before"],
+          f"pre-flight on a {pre['plan_bytes']}-byte plan: {pre}")
+    row = {"phase": "telemetry", "card": card, "steps": TELEMETRY_STEPS,
+           "rounds": TELEMETRY_ROUNDS, "batch_size": TRAIN_BATCH,
+           "step_ms_off": steps["off"]["ms"],
+           "step_ms_on": steps["on"]["ms"],
+           "step_ms_median_off": steps["off"]["median_ms"],
+           "step_ms_median_on": steps["on"]["median_ms"],
+           "step_ms_spread_off": steps["off"]["spread_ms"],
+           "step_ms_spread_on": steps["on"]["spread_ms"],
+           "on_within_off_spread": (
+               min(steps["off"]["ms"]) <= steps["on"]["median_ms"]
+               <= max(steps["off"]["ms"])),
+           "syncs_off": steps["off"]["syncs"],
+           "syncs_on": steps["on"]["syncs"],
+           "sync_sites_off": steps["off"]["sync_sites"],
+           "sync_sites_on": steps["on"]["sync_sites"],
+           "unrecorded_syncs": [steps[a]["unrecorded_syncs"]
+                                for a in ("off", "on")],
+           "barrier_syncs": steps["barrier_syncs"],
+           "steps_seconds": steps_s, "oom": oom, "preflight": pre,
+           "seconds": time.perf_counter() - t0}
+    print(f"telemetry: {card}; {TELEMETRY_STEPS} steps x "
+          f"{TELEMETRY_ROUNDS} rounds, step ms off {steps['off']['ms']} "
+          f"on {steps['on']['ms']}; syncs off {steps['off']['syncs']} on "
+          f"{steps['on']['syncs']}, barrier {steps['barrier_syncs']}; "
+          f"oom_guard {oom['cause']} -> HbmExhaustedError naming "
+          f"{oom['owners']}; pre-flight refused {pre['plan_bytes']} B > "
+          f"{pre['capacity_bytes']} B; {row['seconds']:.2f}s", flush=True)
+    emit(row)
+    return row
 
 
 def reload_phase(torch, cfg, lines, device, card):
@@ -4832,9 +5145,13 @@ def kept(params, local_idx, vals):
 
 def capture_fwd(params, local_idx, vals):
     if captured and "bwd" not in captured[-1]:
-        ins = kept(params, local_idx, vals)
-        captured[-1].setdefault("first_fwd", ins)
-        captured[-1]["last_fwd"] = ins  # the step's, at its backward
+        if "first_fwd" not in captured[-1]:
+            # The session's first call as it ran: a raw-ids sweep's
+            # resident table whole, never a compacted copy.
+            captured[-1]["first_fwd"] = [
+                t.detach().clone() for t in (params, local_idx, vals)]
+        # The step's, at its backward.
+        captured[-1]["last_fwd"] = kept(params, local_idx, vals)
     return real_fwd(params, local_idx, vals)
 
 
@@ -4968,6 +5285,22 @@ def elastic_stop(h):
             proc.wait()
 
 
+def lease_files_left(cfg, survivor_log):
+    """The lease directory after a grow: generation 2's files, and a
+    ``worker-<i>.stacks`` forensic dump exactly when the survivor's
+    deadline guard abandoned a collective pending on the dead peer (a
+    kill that landed in a save's gather). Returns the listing."""
+    left = sorted(os.listdir(cfg.model_file + ".hb"))
+    stacks = [f for f in left if f.endswith(".stacks")]
+    abandoned = "abandoned for the elastic reform" in survivor_log
+    check([f for f in left if f not in stacks] == ELASTIC_LEASE_FILES
+          and bool(stacks) == abandoned,
+          f"the lease directory holds {left}, not generation 2's files"
+          f" (the survivor {'did' if abandoned else 'did not'} abandon a "
+          "collective)")
+    return left
+
+
 def elastic_finish(h, torch, device, card, train_row):
     """The elastic leg's verdict, from ``elastic_start``'s processes: the
     survivor names process 1, shrinks to generation 1 and trains alone,
@@ -5056,9 +5389,7 @@ def elastic_finish(h, torch, device, card, train_row):
           f"the elastic leg's final validation AUC: "
           f"{m.group(0) if m else None} (floor {train_row['auc_floor']})")
     auc = float(m.group(1))
-    left = sorted(os.listdir(cfg.model_file + ".hb"))
-    check(left == ELASTIC_LEASE_FILES,
-          f"the lease directory holds {left}, not generation 2's files")
+    left = lease_files_left(cfg, surv)
     for name, r in (("survivor", res[0]), ("joiner", res[1])):
         check(r["fm_score"] > 0 and r["fm_score_bwd"] > 0,
               f"the {name} launched fm_score {r['fm_score']} and "
@@ -5385,9 +5716,7 @@ def dstream_finish(h, torch, device, card, train_row):
           f"{m.group(0) if m else None} against run A's {run_a_auc} "
           f"(tolerance {DIST_AUC_TOL}) and the floor "
           f"{train_row['auc_floor']}")
-    left = sorted(os.listdir(cfg.model_file + ".hb"))
-    check(left == ELASTIC_LEASE_FILES,
-          f"the lease directory holds {left}, not generation 2's files")
+    left = lease_files_left(cfg, surv)
     check([s["num_shards"] for s in res[0]["sessions"]] == [2, 1, 2]
           and [s["num_shards"] for s in res[1]["sessions"]] == [2],
           f"sessions: survivor {res[0]['sessions']}, joiner "
@@ -5411,9 +5740,14 @@ def dstream_finish(h, torch, device, card, train_row):
     fwd_rows, bwd_rows = [], []
     lone = caps[0][1]
     check("first_fwd" in lone, "dstream_survivor_lone: no sweep captured")
+    resident = [t.to(device) for t in lone.pop("first_fwd")]
+    check(resident[0].shape[0] >= VOCAB + 1,
+          f"dstream_survivor_lone: the sweep read a {list(resident[0].shape)}"
+          " table, not the resident one")
     fwd_rows.append(fwd_kernel_row(
-        torch, *(t.to(device) for t in lone["first_fwd"]), None,
-        batch="dstream_survivor_lone_sweep"))
+        torch, *resident, None, batch="dstream_survivor_lone_sweep",
+        table_rows=int(resident[0].shape[0])))
+    del resident
     for tag, cap in (("dstream_survivor_grown", caps[0][2]),
                      ("dstream_joiner", caps[1][0])):
         check("fwd" in cap and "bwd" in cap and not cap["need_dx"],
@@ -5489,6 +5823,7 @@ def main(argv) -> int:
                              "DIR/chip_smoke.json")
     args = parser.parse_args(argv)
     out_dir = args.out
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5605,6 +5940,8 @@ def main(argv) -> int:
             train_phase(torch, device, smi, train_data)
         kernel_rows += fwd_train_rows
         bwd_rows += bwd_train_rows
+        # 6b. the telemetry's cost on the card, the OOM wrap, pre-flight
+        telemetry_row = telemetry_phase(torch, device, smi, train_cfg)
 
         # 7. hot reload, then the fleet over the same steps, 8. quarantine
         reload_row, reload_lines = reload_phase(torch, train_cfg, val_lines,
@@ -5783,6 +6120,13 @@ def main(argv) -> int:
         "host_to_card_GBps": r["host_to_card_GBps"],
         "card_to_host_GBps": r["card_to_host_GBps"]}
         for r in offload_rows]}
+    # The host's speed: the script's seconds beside run A's command's.
+    script_s = time.perf_counter() - t_script
+    print(f"script seconds {script_s:.1f}; run A's train command "
+          f"{train_row['entry_seconds']:.2f}s; telemetry checks: run A's "
+          f"stream {train_row['telemetry']['check_seconds']:.2f}s, the "
+          f"in-process phase {telemetry_row['seconds']:.2f}s; {smi}",
+          flush=True)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -5790,6 +6134,8 @@ def main(argv) -> int:
                        "kernel": kernel_rows,
                        "kernel_bwd": bwd_rows, "predict": predict_row,
                        "serve": serve_row, "train": train_row,
+                       "telemetry": telemetry_row,
+                       "script_seconds": script_s,
                        "reload": reload_row, "fleet": fleet_row,
                        "quarantine": quarantine_row,
                        "train_host": host_row,

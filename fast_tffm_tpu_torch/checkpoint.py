@@ -48,8 +48,12 @@ chief broadcast under the deadline guard: which step to restore
 (``_broadcast_int``), whether every rank loaded it (``_all_agree``),
 the epoch override and the sidecars, and whether a save writes.
 
-Not ported: the telemetry counters and ``health: ckpt_fallback`` event
-(ROADMAP.md A11).
+With a run's telemetry active (single process): ``checkpoint/save``
+and ``checkpoint/restore`` spans, the ``checkpoint/saves``,
+``checkpoint/fallbacks``, ``stream/publishes`` and
+``stream/publish_failures`` counters, and a quarantine's ``health:
+ckpt_fallback`` event with ``checkpoint/quarantined_steps``, as in the
+JAX package. The multi-process arm's counters wait for ROADMAP.md A11b.
 """
 
 from __future__ import annotations
@@ -69,6 +73,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fast_tffm_tpu_torch.obs.health import emit_ckpt_fallback
+from fast_tffm_tpu_torch.obs.telemetry import active as _tel
+from fast_tffm_tpu_torch.obs.trace import span
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy, retry_io
 
@@ -646,6 +653,14 @@ class CheckpointState:
         the step is written anew (``_write_step_files``: the old step
         leaves the digit namespace before the new sidecars land, so no
         instant pairs the old arrays with the new slot map)."""
+        with span("checkpoint/save", step=int(step), wait=wait):
+            self._save(step, table, acc, vocabulary_size, force, wait,
+                       epoch, rewrite_stale_metadata, stream_state,
+                       from_state, vocab_state)
+
+    def _save(self, step, table, acc, vocabulary_size, force, wait, epoch,
+              rewrite_stale_metadata, stream_state, from_state,
+              vocab_state) -> None:
         step = int(step)
         if self.mesh is not None:
             return self._save_sharded(step, table, acc, vocabulary_size,
@@ -690,6 +705,9 @@ class CheckpointState:
                 args=(meta, stream_state, vocab_state, arrays, replace),
                 name="fmt-ckpt-writer", daemon=True)
             self._writer.start()
+            tel = _tel()
+            if tel is not None:
+                tel.count("checkpoint/saves")
         if wait:
             self._join_writer()
 
@@ -1022,8 +1040,14 @@ class CheckpointState:
                 "publish of checkpoint step %d skipped: %s — the "
                 "previous published pointer stays in place", step,
                 reason)
+            tel = _tel()
+            if tel is not None:
+                tel.count("stream/publish_failures")
             return None
         path = write_published(self.directory, step)
+        tel = _tel()
+        if tel is not None:
+            tel.count("stream/publishes")
         get_logger().info(
             "published checkpoint step %d (%s-verified) -> %s", step,
             mode, path)
@@ -1078,6 +1102,7 @@ class CheckpointState:
                          f"{reason}\n")
         except OSError:
             pass
+        emit_ckpt_fallback(step, reason, dst)
         get_logger().warning(
             "checkpoint step %d failed integrity (%s); quarantined to %s "
             "— falling back to an older step", step, reason, dst)
@@ -1158,6 +1183,11 @@ class CheckpointState:
         ``[lo, hi)`` of the stored ``[ckpt_rows, D]`` layout; the chief
         picks, verifies and quarantines, and every rank loads the step
         the chief broadcast."""
+        with span("checkpoint/restore"):
+            return self._restore(step, template)
+
+    def _restore(self, step: Optional[int], template
+                 ) -> Optional[Dict[str, Any]]:
         self.wait_until_finished()
         if step is not None:
             self._check_format(step)
@@ -1184,7 +1214,8 @@ class CheckpointState:
         """Restore only the arrays ``template`` names (the JAX package's
         name): the offload predict path loads the table without the
         same-sized accumulator. ``restore`` with that template."""
-        return self.restore(step=step, template=template)
+        with span("checkpoint/restore", partial=True):
+            return self._restore(step, template)
 
     def _restore_newest_intact(self, template
                                ) -> Optional[Dict[str, Any]]:
@@ -1229,6 +1260,10 @@ class CheckpointState:
             restored, err = self._attempt_restore(cand, template)
             # A load's success is a per-rank fact: agree before branching.
             if self._all_agree(err is None):
+                if quarantined and self.chief:
+                    tel = _tel()
+                    if tel is not None:
+                        tel.count("checkpoint/fallbacks")
                 return self._apply_sidecars(cand, restored)
             if err is None:
                 err = RuntimeError(

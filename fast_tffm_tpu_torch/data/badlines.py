@@ -14,9 +14,9 @@ quarantine dedupe see the whole run:
 - the breaker trips when ``bad / total > max_bad_fraction`` and at least
   ``MIN_BAD_LINES_TO_TRIP`` lines are bad, naming the worst file.
 
-The JAX package's ``pipeline/bad_lines`` counter and its rate-limited
-``health: bad_input`` events are telemetry, left out until
-observability is ported (ROADMAP.md, queue A, item A11).
+With a run's telemetry active, each bad line counts
+``pipeline/bad_lines``, and ``health: bad_input`` events are emitted at
+the 1st, 2nd, 4th, 8th, ... bad line (the JAX package's rate limit).
 """
 
 from __future__ import annotations
@@ -71,6 +71,7 @@ class BadLineTracker:
         self._q_fh = None
         self._breaker: Optional[BadInputError] = None
         self._lock = threading.Lock()
+        self._next_emit = 1  # the bad count of the next bad_input event
 
     @classmethod
     def from_config(cls, cfg) -> Optional["BadLineTracker"]:
@@ -89,7 +90,10 @@ class BadLineTracker:
     def record(self, path: str, lineno: int, raw: str,
                error: str) -> None:
         """One bad line skipped: count, attribute, maybe quarantine,
-        check the breaker (which raises)."""
+        check the breaker (which raises); with telemetry active, count
+        it and maybe emit a ``health: bad_input`` event."""
+        from fast_tffm_tpu_torch.obs.telemetry import active
+        tel = active()
         with self._lock:
             if self._breaker is not None:
                 # The breaker trips once: every worker that reaches it
@@ -98,6 +102,20 @@ class BadLineTracker:
             self.total += 1
             self.bad += 1
             self.by_file[path] = self.by_file.get(path, 0) + 1
+            if tel is not None:
+                tel.count("pipeline/bad_lines")
+                if self.bad >= self._next_emit:
+                    while self._next_emit <= self.bad:
+                        self._next_emit *= 2
+                    tel.sink.emit("health", {
+                        "status": "bad_input",
+                        "policy": self.policy,
+                        "bad_lines": self.bad,
+                        "total_lines": self.total,
+                        "file": path,
+                        "lineno": lineno,
+                        "error": error[:200],
+                    })
             if (self.quarantine_file is not None
                     and (path, lineno) not in self._quarantined):
                 self._quarantined.add((path, lineno))

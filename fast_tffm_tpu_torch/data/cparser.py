@@ -15,9 +15,10 @@ entry point here raises ``RuntimeError`` with the compiler's output, and
 the pipeline lets it propagate instead of parsing in Python (the JAX
 package falls back to its Python parser; ROADMAP.md §C).
 
-The JAX package's parser telemetry hooks (``_tel()``: lines parsed,
-parse errors, bytes fed) are left out until observability is ported
-(ROADMAP.md, queue A, item A11).
+With a run's telemetry active, the parser counts what every pipeline
+path feeds it, as the JAX package's ``_tel()`` hooks do:
+``pipeline/lines_parsed`` and ``pipeline/parse_errors`` per block,
+``pipeline/bytes_fed`` for ``BatchBuilder``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,12 @@ _SYMBOLS = ("fm_abi_version", "fm_auto_threads", "fm_parse_block",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+def _tel():
+    """The active run telemetry (obs/), or None."""
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    return active()
 
 
 def library_path() -> str:
@@ -246,8 +253,13 @@ def parse_lines_fast(lines: Sequence[str], vocabulary_size: int,
         max_features_per_example, int(keep_empty), num_threads,
         ctypes.byref(n_ex), ctypes.byref(nnz),
         labels, poses, ids, vals, fields, errbuf, len(errbuf))
+    tel = _tel()
     if rc != 0:
+        if tel is not None:
+            tel.count("pipeline/parse_errors")
         raise ParseError(errbuf.value.decode("utf-8", "replace"))
+    if tel is not None:
+        tel.count("pipeline/lines_parsed", len(lines))
     b = n_ex.value
     z = nnz.value
     return ParsedBlock(labels=labels[:b].copy(), poses=poses[:b + 1].copy(),
@@ -363,8 +375,15 @@ class BatchBuilder:
                                   len(chunk) - offset,
                                   ctypes.byref(consumed), self._err,
                                   len(self._err))
+        tel = _tel()
         if rc < 0:
+            if tel is not None:
+                tel.count("pipeline/parse_errors")
             raise ParseError(self._err.value.decode("utf-8", "replace"))
+        if tel is not None:
+            # ``BatchBuilder`` forms no Python lines: bytes fed is
+            # its parse-volume counter.
+            tel.count("pipeline/bytes_fed", consumed.value)
         return rc == 1, consumed.value
 
     def finish(self):

@@ -34,8 +34,14 @@ the parallel plane), counted in
 dry.
 
 There is no Python fallback: when the C++ library cannot be built,
-``batch_iterator`` raises (data/cparser.py). Not ported yet: the
-pipeline telemetry (A11).
+``batch_iterator`` raises (data/cparser.py). With a run's telemetry
+active (obs/), ``batch_iterator`` times each built batch on the
+producing side (``pipeline/build`` span, ``RunTelemetry.pipeline_batch``
+counters), the build rings set ``pipeline/host_threads`` and
+``pipeline/ring_occupancy`` and time their workers, a spill counts
+``pipeline/spilled_batches``, and ``prefetch`` registers its window in
+the memory ledger (``prefetch_batches``, host-resident), as in the JAX
+package.
 
 ``vocab_mode = admit`` (vocab/table.py): ``batch_iterator`` and
 ``plain_batch_iterator`` take the run's ``vocab`` map, build every
@@ -66,6 +72,7 @@ import queue
 import random
 import re
 import threading
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,6 +80,9 @@ import numpy as np
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data import cparser
 from fast_tffm_tpu_torch.data.badlines import BadLineTracker
+from fast_tffm_tpu_torch.obs.memory import LEDGER
+from fast_tffm_tpu_torch.obs.telemetry import active
+from fast_tffm_tpu_torch.obs.trace import span
 from fast_tffm_tpu_torch.data.parser import (WHITESPACE, ParsedBlock,
                                              ParseError, parse_lines)
 from fast_tffm_tpu_torch.utils.retry import (RetryPolicy, open_with_retry,
@@ -106,6 +116,12 @@ class SpillStats:
         self.real_examples += num_real
         self.capacity += batch_size
         self.max_uniq = max(self.max_uniq, num_uniq)
+        if spilled:
+            # The one counting point for spills: the stream and the
+            # epoch log line cannot drift.
+            tel = active()
+            if tel is not None:
+                tel.count("pipeline/spilled_batches")
 
     @property
     def spill_fraction(self) -> float:
@@ -810,6 +826,12 @@ class _BuildRing:
         with self._lock:
             return seq in self._results
 
+    def occupancy(self) -> int:
+        """Finished results not yet taken (the ``pipeline/ring_occupancy``
+        gauge: full = consumer-bound, empty = the build workers lag)."""
+        with self._lock:
+            return len(self._results)
+
     def wait(self, seq: int) -> tuple:
         """Block until ``seq``'s result is ready and take it: ("ok",
         value) or ("error", exception). Raises when the pool itself is
@@ -856,8 +878,16 @@ class _BuildRing:
                     if self._stop:
                         return
                     seq, payload = self._tasks.popleft()
+                tel = active()
                 try:
-                    res = ("ok", self._work(state, payload))
+                    if tel is None:
+                        res = ("ok", self._work(state, payload))
+                    else:
+                        t0 = time.perf_counter()
+                        with span("pipeline/build_worker"):
+                            res = ("ok", self._work(state, payload))
+                        tel.count("pipeline/worker_build_seconds",
+                                  time.perf_counter() - t0)
                 except BaseException as e:  # delivered at wait(seq)
                     res = ("error", e)
                 with self._lock:
@@ -1023,6 +1053,9 @@ def _parallel_fast_batch_iterator(cfg: FmConfig, files: List[str], B: int,
     file_seed = cfg.seed if seed is None else seed
     ring = _BuildRing(workers, depth=2 * workers, work=_fast_group_work,
                       make_state=lambda: _FastWorkerState(make_builder))
+    tel = active()
+    if tel is not None:
+        tel.set("pipeline/host_threads", workers)
     try:
         for epoch in range(n_epochs):
             scanner = _GroupScanner(
@@ -1041,6 +1074,8 @@ def _parallel_fast_batch_iterator(cfg: FmConfig, files: List[str], B: int,
                 if not order:
                     break
                 kind, payload = ring.wait(order.popleft())
+                if tel is not None:
+                    tel.set("pipeline/ring_occupancy", ring.occupancy())
                 if kind == "error":
                     if isinstance(payload, ParseError):
                         raise _attach_stream_source(
@@ -1138,16 +1173,32 @@ def gil_bound_iteration(cfg: FmConfig, weight_files: Sequence[str] = (),
     return keep_empty and not _fast_path_eligible(cfg, weight_files)
 
 
-def _remapped(vocab, it: Iterator[DeviceBatch]) -> Iterator[DeviceBatch]:
+def _remapped(vocab, it: Iterator[DeviceBatch],
+              pad_id: Optional[int] = None) -> Iterator[DeviceBatch]:
     """``it``'s batches through ``vocab.remap`` (None: ``it`` as it
     is); closing this generator closes ``it``, so its build pool is
-    joined at once."""
-    if vocab is None:
+    joined at once. Given ``pad_id`` and with a run's telemetry active,
+    each batch's build (the remap included) is a ``pipeline/build`` span
+    and feeds ``pipeline_batch``, timed here on the producing side."""
+    tel = active() if pad_id is not None else None
+    if vocab is None and tel is None:
         yield from it
         return
     try:
-        for batch in it:
-            yield vocab.remap(batch)
+        while True:
+            t0 = time.perf_counter()
+            with span("pipeline/build"):
+                batch = next(it, None)
+            if batch is None:
+                return
+            if vocab is not None:
+                # Before pipeline_batch: the padding counters must see
+                # the physical pad_id the remap writes.
+                batch = vocab.remap(batch)
+            if tel is not None:
+                tel.pipeline_batch(batch, pad_id,
+                                   build_seconds=time.perf_counter() - t0)
+            yield batch
     finally:
         it.close()
 
@@ -1177,7 +1228,8 @@ def batch_iterator(cfg: FmConfig, files: Sequence[str],
         shard_index=shard_index, num_shards=num_shards, epochs=epochs,
         batch_size=batch_size, seed=seed, keep_empty=keep_empty,
         fixed_shape=fixed_shape, uniq_bucket=uniq_bucket, stats=stats,
-        raw_ids=raw_ids, bad_lines=bad_lines, file_marks=file_marks))
+        raw_ids=raw_ids, bad_lines=bad_lines, file_marks=file_marks),
+        cfg.pad_id)
 
 
 def _batch_iterator_impl(cfg: FmConfig, files: Sequence[str],
@@ -1341,14 +1393,20 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
     if tracker is not None and workers > 1:
         pool = _BuildRing(workers, depth=2 * workers,
                           work=lambda _state, chunk: build(chunk))
+        tel = active()
+        if tel is not None:
+            tel.set("pipeline/host_threads", workers)
 
     def pool_drain(limit: int) -> Iterator[DeviceBatch]:
         """Yield finished pool batches in submit order: every finished
         head, plus (blocking) enough to keep at most ``limit`` in flight
         (0 = drain everything)."""
+        tel = active()
         while pool_order and (len(pool_order) > limit
                               or pool.has(pool_order[0])):
             kind, val = pool.wait(pool_order.popleft())
+            if tel is not None:
+                tel.set("pipeline/ring_occupancy", pool.occupancy())
             if kind == "error":
                 raise val
             if val is not None:
@@ -1651,6 +1709,7 @@ def prefetch(iterator: Iterator[DeviceBatch], depth: int = 2,
             put(sentinel)
 
     threading.Thread(target=worker, name="prefetch", daemon=True).start()
+    ledgered = False
     try:
         while True:
             item = q.get()
@@ -1658,6 +1717,17 @@ def prefetch(iterator: Iterator[DeviceBatch], depth: int = 2,
                 if errbox:
                     raise errbox[0]
                 return
+            if not ledgered:
+                # The prefetch window's standing footprint (queue depth
+                # and the batch in hand), sized once from the first
+                # batch: host numpy until the wire places it.
+                ledgered = True
+                nb = sum(getattr(v, "nbytes", 0)
+                         for v in getattr(item, "__dict__", {}).values())
+                if nb:
+                    LEDGER.register("prefetch_batches",
+                                    (max(depth, 1) + 1) * nb, host=True)
             yield item
     finally:
         stop.set()
+        LEDGER.release("prefetch_batches")

@@ -49,8 +49,12 @@ sealed byte is consumed; until then the source reports IDLE.
 batch to physical rows before it joins the ready deque, as the epoch
 pipeline does.
 
-Not ported yet: the stream telemetry counters and gauges (ROADMAP.md
-A11).
+With a run's telemetry active (one process), the tracker counts
+``stream/files_discovered``, ``files_sealed``, ``deleted_files`` and
+``truncated_files``, the source feeds ``pipeline_batch`` for every
+emitted batch and sets ``pipeline/host_threads``, and an idle poll beats
+the watchdog and sets ``stream/watermark_lag_seconds``, as in the JAX
+package. The lockstep arm's telemetry waits for ROADMAP.md A11b.
 """
 
 from __future__ import annotations
@@ -176,8 +180,29 @@ class StreamTracker:
         self._by_path: Dict[str, int] = {}
         self.stop_seen = False
         self._last_fs_poll: Optional[float] = None
+        # When released data first waited unconsumed (the watermark lag
+        # gauge's origin; None: caught up).
+        self._newest_unconsumed_since: Optional[float] = None
         if watermark:
             self._restore(watermark)
+
+    def watermark_lag_seconds(self) -> float:
+        """Seconds released data has waited unconsumed (0 when caught
+        up): the ``stream/watermark_lag_seconds`` gauge, coarse by
+        design (poll granularity)."""
+        if self._newest_unconsumed_since is None:
+            return 0.0
+        return max(0.0, self._clock() - self._newest_unconsumed_since)
+
+    @staticmethod
+    def _tel():
+        from fast_tffm_tpu_torch.obs.telemetry import active
+        return active()
+
+    def _count(self, name: str, n: float = 1.0) -> None:
+        tel = self._tel()
+        if tel is not None:
+            tel.count(name, n)
 
     def _restore(self, payload: dict) -> None:
         for rec in payload.get("files", ()):
@@ -265,6 +290,7 @@ class StreamTracker:
         for p in new:
             self._by_path[p] = len(self.files)
             self.files.append(_FileState(p))
+            self._count("stream/files_discovered")
             self._log.info("stream: discovered shard %s (ledger index "
                            "%d)", p, self._by_path[p])
         if stop and not self.stop_seen:
@@ -295,6 +321,8 @@ class StreamTracker:
                 break  # bounded round: the backlog continues next poll
             if not fs.eof:
                 break  # strict order: don't read past an open head
+        if out and self._newest_unconsumed_since is None:
+            self._newest_unconsumed_since = self._clock()
         return out
 
     def _mark_dead(self, fs: _FileState, why: str,
@@ -302,6 +330,8 @@ class StreamTracker:
         fs.dead = True
         fs.tail = b""
         fs.end = fs.released
+        self._count("stream/truncated_files" if quarantine
+                    else "stream/deleted_files")
         self._log.warning("stream: %s: %s; sealing at byte %d and "
                           "skipping the rest", fs.path, why,
                           fs.released)
@@ -381,6 +411,7 @@ class StreamTracker:
                                   op="stream_stat").st_size
             except OSError:
                 fs.end = st.st_size
+            self._count("stream/files_sealed")
             self._log.info("stream: sealed %s at %d bytes", fs.path,
                            fs.end)
         at_end = (fs.sealed and fs.end is not None
@@ -546,7 +577,15 @@ class StreamSource:
         for batch in self._emitter.emit_drain(out, spilled):
             batch = self._remap(batch)
             batch.stream_pos = self._snapshot()
+            self._tel_batch(batch)
             self._ready.append(batch)
+
+    def _tel_batch(self, batch) -> None:
+        """Feed one emitted batch to the pipeline counters (after the
+        remap: the padding counters read the physical pad_id)."""
+        tel = StreamTracker._tel()
+        if tel is not None:
+            tel.pipeline_batch(batch, self.cfg.pad_id)
 
     def _note_file_start(self, fi: int) -> None:
         if not self._spans or self._spans[-1][1] != fi:
@@ -637,6 +676,9 @@ class StreamSource:
         # (self._pos): groups are cut ahead of their build, and a
         # batch's watermark must never include a later group's lines.
         self._cut_pos: Dict[int, Tuple[int, int]] = dict(self._pos)
+        tel = StreamTracker._tel()
+        if tel is not None:
+            tel.set("pipeline/host_threads", self._workers)
 
     def _scan_feed(self, fi: int, data: bytes) -> None:
         self._buf = self._buf[self._buf_pos:] + data
@@ -779,6 +821,7 @@ class StreamSource:
             self.stats.count(out_batch.num_real, self.B, False,
                              num_uniq=pl._num_uniq(out_batch.uniq_ids,
                                                    self.cfg.pad_id))
+            self._tel_batch(out_batch)
             self._ready.append(out_batch)
         if final:
             while self._pending:
@@ -822,6 +865,11 @@ class StreamSource:
             self._pump()
             if self._ready or self._flushed:
                 continue
+            tel = StreamTracker._tel()
+            if tel is not None:
+                tel.heartbeat()
+                tel.set("stream/watermark_lag_seconds",
+                        self.tracker.watermark_lag_seconds())
             time.sleep(min(self.tracker.poll_seconds, 0.2))
 
     def close(self) -> None:

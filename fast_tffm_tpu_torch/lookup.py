@@ -57,6 +57,7 @@ reads them.
 
 from __future__ import annotations
 
+import os
 import resource
 from typing import Optional, Tuple
 
@@ -64,6 +65,8 @@ import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.obs.memory import (FAKE_CAPACITY_ENV,
+                                            device_memory_stats, table_bytes)
 from fast_tffm_tpu_torch.ops import offload_kernel
 from fast_tffm_tpu_torch.ops.offload_kernel import (offload_adagrad,
                                                     offload_gather)
@@ -110,7 +113,7 @@ def _stored_layout(t: torch.Tensor, rows: int, dim: int,
     storage = t.untyped_storage()
     if (t.storage_offset() == 0 and t.shape[1] == dim and t.shape[0] <= rows
             and t.stride() == (dim, 1)
-            and storage.nbytes() == rows * dim * 4):
+            and storage.nbytes() == table_bytes(rows=rows, dim=dim)):
         return torch.empty(0, dtype=torch.float32).set_(storage, 0,
                                                         (rows, dim))
     raise ValueError(f"{what} shape {tuple(t.shape)} != {(rows, dim)}")
@@ -422,15 +425,15 @@ def memory_report() -> dict:
                     peak = int(ln.split()[1]) // 1024
     except OSError:
         pass
-    out = {"host_rss_mb": rss, "host_peak_rss_mb": peak,
-           "device_in_use_mb": None, "device_peak_mb": None,
-           "device_limit_mb": None}
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        stats = torch.cuda.memory_stats()
-        for key, name in (("device_in_use_mb", "allocated_bytes.all.current"),
-                          ("device_peak_mb", "allocated_bytes.all.peak")):
-            if name in stats:
-                out[key] = stats[name] >> 20
-        out["device_limit_mb"] = (torch.cuda.get_device_properties(
-            torch.cuda.current_device()).total_memory >> 20)
+    out = {"host_rss_mb": rss, "host_peak_rss_mb": peak}
+    # Through the one memory seam (obs/memory.device_memory_stats), and
+    # only once this process has touched the card.
+    stats = None
+    if os.environ.get(FAKE_CAPACITY_ENV) or (torch.cuda.is_available()
+                                             and torch.cuda.is_initialized()):
+        stats = device_memory_stats()
+    for key, name in (("device_in_use_mb", "bytes_in_use"),
+                      ("device_peak_mb", "peak_bytes_in_use"),
+                      ("device_limit_mb", "bytes_limit")):
+        out[key] = (stats[name] >> 20 if stats and name in stats else None)
     return out

@@ -11,8 +11,9 @@ the same host score chunks the validation AUC consumes
 device fetch of their own.
 
 The train loop logs each sweep and each hold with the JAX package's
-lines; the telemetry gauges, counters and ``health: gate_held`` events
-of ``emit_quality`` / ``emit_gate_held`` wait for ROADMAP.md A11.
+lines, and with a run's telemetry on, ``emit_quality`` lands the sweep's
+gauges and counters and ``emit_gate_held`` a hold's ``health:
+gate_held`` event (copies of the JAX package's).
 """
 
 from __future__ import annotations
@@ -151,3 +152,39 @@ class PublishGate:
         the drop check for good)."""
         if auc is not None and np.isfinite(auc):
             self.baseline = float(auc)
+
+
+def emit_gate_held(tel, decision: Dict[str, Any]) -> None:
+    """A hold's evidence: a ``health: gate_held`` event and the
+    ``quality/gate_held`` counter, flushed to disk at once. No-op
+    without telemetry."""
+    if tel is None:
+        return
+    tel.count("quality/gate_held")
+    tel.sink.emit("health", {
+        "status": "gate_held",
+        "step": int(decision.get("step", -1)),
+        "auc": decision.get("auc"),
+        "baseline": decision.get("baseline"),
+        "reasons": list(decision.get("reasons") or []),
+    })
+    tel.sink.flush()
+
+
+def emit_quality(tel, step: int, auc: float, stats: QualityStats,
+                 n_examples: int, eval_seconds: float) -> None:
+    """The sweep's gauges, counters and one scalar, all host floats
+    computed from the already-fetched score chunks. Sets
+    ``validation/auc`` too: the sweep is the stream's validation."""
+    if tel is None:
+        return
+    tel.count("quality/evals")
+    tel.count("quality/eval_seconds", float(eval_seconds))
+    tel.count("quality/examples", float(n_examples))
+    tel.set("quality/auc", float(auc))
+    tel.set("validation/auc", float(auc))
+    if stats.loss is not None:
+        tel.set("quality/loss", float(stats.loss))
+    if stats.calibration is not None:
+        tel.set("quality/calibration", float(stats.calibration))
+    tel.add_scalar("quality/auc", int(step), float(auc))

@@ -47,8 +47,9 @@ and the chief commits the final membership (``commit-<g>.json``); a
 reform's chief sweeps superseded generations (``sweep_lease_dir``).
 
 The staleness, deadline and rendezvous math is clock-injectable, so
-tests run it on fake clocks. The protocol trace waits for ROADMAP.md
-A11.
+tests run it on fake clocks. The protocol trace and the health
+events (``worker_lost``, ``elastic_recovered``, ``join_refused``) wait
+for ROADMAP.md A11b.
 """
 
 from __future__ import annotations
@@ -623,7 +624,7 @@ def emit_join_refused(generation: int, slot, reason: str) -> None:
     into a generation it was never planned into, a commit that left it
     out), logged at once: the refused process idles outside the
     cluster. The JAX package's ``health: join_refused`` event waits for
-    ROADMAP.md A11."""
+    ROADMAP.md A11b."""
     get_logger().warning(
         "join refused: generation %d, worker slot %d: %s", int(generation),
         int(slot) if slot is not None else -1, str(reason)[:200])

@@ -34,6 +34,11 @@ chief's ``PartMerger`` merges them into the one ``.score`` file per
 input, one line per input line, blank lines included. ``lookup = host``
 and ``vocab_mode = admit`` are single-process here, as in the JAX
 package.
+
+Telemetry (``metrics_file``; obs/), one process: the sweep's counters,
+``predict_file`` events, spans, the ledger's ``table`` and the crash
+event, as in the JAX package; the ``dist_train`` sweep logs the keys as
+ignored (ROADMAP.md A11b).
 """
 
 from __future__ import annotations
@@ -56,6 +61,9 @@ from fast_tffm_tpu_torch.lookup import make_score_backend
 from fast_tffm_tpu_torch.metrics import sigmoid
 from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
                                            sharded_score_body)
+from fast_tffm_tpu_torch.obs.memory import LEDGER, bind_device
+from fast_tffm_tpu_torch.obs.telemetry import (active, make_telemetry,
+                                               pop_active, push_active)
 from fast_tffm_tpu_torch.parallel import distributed as dist_mod
 from fast_tffm_tpu_torch.parallel.liveness import (HeartbeatLease,
                                                    WorkerLostError,
@@ -133,9 +141,35 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
                     "restriction)")
         rank, size = dist_mod.init_from_cluster(cfg, job_name,
                                                 task_index or 0)
-    log_ignored_keys(cfg, logger)
+    log_ignored_keys(cfg, logger, telemetry_off=size > 1)
     if size > 1:
         return _predict_cluster(cfg, table, device, logger, rank, size)
+    # The run's telemetry (metrics_file; obs/): the sink's lifecycle
+    # spans the whole predict, so a crash mid-sweep still flushes.
+    tel = make_telemetry(cfg, "predict", device=device)
+    bind_device(device)
+    tel_prev = push_active(tel)
+    try:
+        return _predict_single(cfg, table, device, logger)
+    except BaseException as e:
+        if tel is not None:
+            try:
+                tel.record_crash(e)
+            except Exception:  # noqa: BLE001 - never mask the error
+                logger.exception("crash event emission failed")
+        raise
+    finally:
+        if tel is not None:
+            try:
+                tel.close()
+            except Exception:  # noqa: BLE001 - never mask the error
+                logger.exception("metrics sink close failed")
+        pop_active(tel_prev)
+
+
+def _predict_single(cfg: FmConfig, table: Optional[torch.Tensor],
+                    device: torch.device, logger) -> List[str]:
+    """The single-process predict: restore, then one sweep."""
     admit = cfg.vocab_mode == "admit"
     if admit and table is not None:
         raise ValueError(
@@ -172,12 +206,18 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
 
 def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
                   scorer: CompiledScorer, logger, vocab=None) -> List[str]:
+    tel = active()
+    if table is not None:
+        # The sweep's resident table in the memory ledger (host
+        # metadata, no fetch); released when the sweep ends.
+        LEDGER.register("table", int(table.nbytes))
     os.makedirs(cfg.score_path, exist_ok=True)
     written: List[str] = []
     # The inner close() raises a deferred write error on the clean path;
     # the finally's close flushes without masking an error in flight.
     writer = ScoreWriter(logger)
     t0 = time.perf_counter()
+    emitted = [0]  # examples cut so far (on_file runs on one thread)
 
     def on_file(path: str, raw: np.ndarray) -> None:
         # On the fetch worker mid-sweep: a vectorized transform and a
@@ -185,6 +225,16 @@ def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
         out_path = _score_out_path(cfg, path)
         writer.submit(out_path, scorer.transform(raw))
         written.append(out_path)
+        emitted[0] += len(raw)
+        if tel is not None:
+            # Files overlap in the sweep: seconds and rate are the
+            # sweep's so far, at this file's cut.
+            dt = time.perf_counter() - t0
+            tel.sink.emit("predict_file",
+                          {"path": path, "examples": len(raw),
+                           "seconds": dt,
+                           "examples_per_sec":
+                               emitted[0] / dt if dt > 0 else 0.0})
 
     try:
         n_examples = score_sweep(cfg, table, expand_files(cfg.predict_files),
@@ -192,7 +242,14 @@ def _predict_body(cfg: FmConfig, table: Optional[torch.Tensor],
         writer.close()
     finally:
         writer.close(raise_error=False)
+        LEDGER.release("table")
     seconds = time.perf_counter() - t0
+    if tel is not None:
+        tel.count("predict/seconds", seconds)
+        tel.set("predict/examples_per_sec",
+                n_examples / seconds if seconds > 0 else 0.0)
+        # One barrier for the sweep (its scores are on the host).
+        tel.barrier_flush(step=len(written))
     logger.info("predict sweep: %d files, %d examples, %.0f examples/s",
                 len(written), n_examples,
                 n_examples / seconds if seconds > 0 else 0.0)

@@ -62,6 +62,9 @@ from fast_tffm_tpu_torch.models.fm import (ModelSpec, make_batch_scorer,
                                            packed_rows_score_body,
                                            packed_score_body,
                                            ships_raw_batches)
+from fast_tffm_tpu_torch.obs.memory import oom_guard
+from fast_tffm_tpu_torch.obs.telemetry import active
+from fast_tffm_tpu_torch.obs.trace import span
 from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
 from fast_tffm_tpu_torch.wire import (NARROW_VALUE_DTYPE, WireEncoder,
                                       resolve_wire)
@@ -93,15 +96,19 @@ class CompiledScorer:
 
     def score_batch(self, table: Optional[torch.Tensor],
                     batch: DeviceBatch) -> torch.Tensor:
-        """Raw [B] scores, left on the device (callers fetch them)."""
-        wb = self.encoder.encode_score(batch)
-        args = self.encoder.device_put(wb, self.device)
-        if not wb.packed:
-            return self._score(table, args)
-        if self.backend is not None:
-            gathered = self.backend.gather(wb.host_uniq)
-            return packed_rows_score_body(self.spec, wb.L, gathered, **args)
-        return packed_score_body(self.spec, wb.L, table, **args)
+        """Raw [B] scores, left on the device (callers fetch them). The
+        one dispatch of predict, evaluate and serving, under
+        ``oom_guard``: an out-of-memory error re-raises with the ledger."""
+        with oom_guard("score/dispatch"):
+            wb = self.encoder.encode_score(batch)
+            args = self.encoder.device_put(wb, self.device)
+            if not wb.packed:
+                return self._score(table, args)
+            if self.backend is not None:
+                gathered = self.backend.gather(wb.host_uniq)
+                return packed_rows_score_body(self.spec, wb.L, gathered,
+                                              **args)
+            return packed_score_body(self.spec, wb.L, table, **args)
 
     def score_packed_shape(self, table: torch.Tensor, B: int, L: int,
                            P: int) -> torch.Tensor:
@@ -166,14 +173,20 @@ class ScoreWriter:
             if dead:
                 continue  # keep unblocking producers; write no more
             out_path, vals, marker = job
+            tel = active()
             try:
-                with open(out_path, "w") as fh:
-                    fh.write(format_scores(vals))
-                if marker is not None:
-                    # Only once the file is complete and closed: the
-                    # chief's merge keys on the marker.
-                    with open(marker, "w"):
-                        pass
+                t0 = time.perf_counter()
+                with span("predict/write", path=os.path.basename(out_path)):
+                    with open(out_path, "w") as fh:
+                        fh.write(format_scores(vals))
+                    if marker is not None:
+                        # Only once the file is complete and closed: the
+                        # chief's merge keys on the marker.
+                        with open(marker, "w"):
+                            pass
+                if tel is not None:
+                    tel.count("predict/write_seconds",
+                              time.perf_counter() - t0)
                 self._logger.info("wrote %d scores to %s", len(vals),
                                   out_path)
             except BaseException as e:  # raised by submit() / close()
@@ -272,6 +285,10 @@ class ScoreDemux:
                 f"has {len(starts)} entries)")
 
 
+# Bounds of the predict/fetch_depth histogram (the JAX package's).
+DEPTH_BUCKETS = tuple(2 ** i for i in range(11))
+
+
 def score_sweep(cfg: FmConfig, table: Optional[torch.Tensor],
                 files: Sequence[str],
                 on_file: Callable[[str, np.ndarray], None],
@@ -289,19 +306,34 @@ def score_sweep(cfg: FmConfig, table: Optional[torch.Tensor],
     marks = FileMarks()
     demux = ScoreDemux(marks, on_file)
     fetcher = ChunkedFetcher(lambda s, num_real: demux.consume(s[:num_real]))
+    files = list(files)
+    tel = active()
+    if tel is not None:
+        tel.set("wire/packed", 1.0 if scorer.wire.packed else 0.0)
+        tel.set("wire/narrow", 1.0 if scorer.wire.narrow else 0.0)
     n_examples = 0
     try:
-        it = batch_iterator(cfg, list(files), training=False, epochs=1,
-                            keep_empty=True, raw_ids=scorer.raw,
-                            file_marks=marks, vocab=vocab)
-        with torch.no_grad():
-            for batch in prefetch(it, depth=cfg.prefetch_depth,
-                                  gil_bound=gil_bound_iteration(
-                                      cfg, keep_empty=True)):
-                fetcher.add(scorer.score_batch(table, batch),
-                            batch.num_real)
-                n_examples += batch.num_real
-        fetcher.flush()
+        with span("predict/sweep", files=len(files)):
+            it = batch_iterator(cfg, files, training=False, epochs=1,
+                                keep_empty=True, raw_ids=scorer.raw,
+                                file_marks=marks, vocab=vocab)
+            with torch.no_grad():
+                for batch in prefetch(it, depth=cfg.prefetch_depth,
+                                      gil_bound=gil_bound_iteration(
+                                          cfg, keep_empty=True)):
+                    fetcher.add(scorer.score_batch(table, batch),
+                                batch.num_real)
+                    n_examples += batch.num_real
+                    if tel is not None:
+                        tel.count("predict/batches")
+                        tel.count("predict/examples", batch.num_real)
+                        # The output-order buffer's depth: the D2H
+                        # backlog.
+                        tel.observe("predict/fetch_depth",
+                                    fetcher.pending_depth,
+                                    bounds=DEPTH_BUCKETS)
+                        tel.heartbeat()
+            fetcher.flush()
         # Every score is on the host and consumed: cut the tail files.
         demux.finalize()
     finally:

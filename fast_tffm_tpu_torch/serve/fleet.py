@@ -39,7 +39,8 @@ without ``--device cpu`` exits non-zero, and the supervisor logs the
 exit and restarts it under the backoff. The fleet's gauges and counters
 (``fleet/*``, ``proxy/*``) live on a ``MetricsRegistry`` that ``stats``
 reads; the metrics stream, its per-replica shards and fmstat's FLEET
-section wait for ROADMAP.md A11.
+section wait for ROADMAP.md A11b (the telemetry keys are logged as
+ignored here, and each replica's server writes no stream).
 """
 
 from __future__ import annotations
@@ -320,7 +321,7 @@ class FleetSupervisor:
             raise ValueError(f"device must be cuda or cpu, got {device!r}")
         self.cfg = cfg
         self._logger = logger or get_logger(log_file=cfg.log_file or None)
-        log_ignored_keys(cfg, self._logger)
+        log_ignored_keys(cfg, self._logger, telemetry_off=True)
         self._reg = MetricsRegistry()
         canary_on = cfg.serve_canary_fraction > 0 or cfg.serve_canary_shadow
         n = cfg.serve_replicas

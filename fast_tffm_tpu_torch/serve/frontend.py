@@ -21,6 +21,8 @@ port's counterpart of ``fast_tffm_tpu/serve/frontend.py``.
                      steps, reloads and reload failures, queue depth,
                      request counters, latency p50/p99, uptime, the
                      device and the kernel that scores.
+    GET  /metrics    the server's registry as Prometheus text
+                     (version 0.0.4; obs/prom.py).
 
 The served step follows the ``published`` pointer (``fmckpt publish``):
 the ScorerServer's reload thread hot-swaps each newly published step,
@@ -37,6 +39,7 @@ import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from fast_tffm_tpu_torch.data.parser import ParseError
+from fast_tffm_tpu_torch.obs.prom import PROM_CONTENT_TYPE
 from fast_tffm_tpu_torch.scoring import format_scores
 
 # Per-request scoring budget: far above any healthy flush, but bounded,
@@ -106,8 +109,13 @@ class _Handler(BaseHTTPRequestHandler):
                     "text/plain", extra={"X-FM-Step": str(res.step)})
 
     def do_GET(self) -> None:  # noqa: N802 - http.server contract
+        if self.path == "/metrics":
+            body = self.server.fm_server.metrics_text()
+            self._reply(200, body.encode("utf-8"), PROM_CONTENT_TYPE)
+            return
         if self.path != "/healthz":
-            self._reply(404, b"unknown path; GET /healthz\n", "text/plain")
+            self._reply(404, b"unknown path; GET /healthz or /metrics\n",
+                        "text/plain")
             return
         stats = self.server.fm_server.stats()
         self._reply(200, (json.dumps(stats) + "\n").encode("utf-8"),
@@ -119,6 +127,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 class ScoreHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
+    # The listen backlog: socketserver's default of 5 resets the
+    # connections of a burst of concurrent clients on a loaded host.
+    request_queue_size = 128
 
     def __init__(self, fm_server, host: str, port: int):
         self.fm_server = fm_server
@@ -132,13 +143,14 @@ def make_http_server(fm_server, port: int,
     return ScoreHTTPServer(fm_server, host, port)
 
 
-def run_serve(cfg, device=None) -> int:
+def run_serve(cfg, device=None, telemetry: bool = True) -> int:
     """The ``serve <cfg>`` entry point (and each fleet replica's): load
     the published checkpoint step, bind the HTTP front end while the
     shape ladder warms in the background (``/healthz`` answers alive,
     not ready, until it is warm), serve (and hot-reload newly published
     steps) until SIGTERM/SIGINT, then drain and close. Returns a process
-    exit code."""
+    exit code. ``telemetry=False`` (a fleet replica): no metrics stream,
+    the telemetry keys logged as ignored."""
     import signal
     import threading
     from fast_tffm_tpu_torch.serve.server import ScorerServer
@@ -159,7 +171,7 @@ def run_serve(cfg, device=None) -> int:
     t = None
     try:
         server = ScorerServer(cfg, logger=logger, device=device,
-                              warmup="background")
+                              warmup="background", telemetry=telemetry)
         if not stop.is_set():
             httpd = make_http_server(server, cfg.serve_port,
                                      host=cfg.serve_host)
@@ -168,7 +180,7 @@ def run_serve(cfg, device=None) -> int:
             t.start()
             host, port = httpd.server_address[:2]
             logger.info("serving on http://%s:%d (POST /score, GET "
-                        "/healthz)", host, port)
+                        "/healthz, GET /metrics)", host, port)
             stop.wait()
     finally:
         for s, h in prev.items():

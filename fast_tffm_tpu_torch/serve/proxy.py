@@ -36,7 +36,7 @@ Routing, in order of precedence:
 
 Load shedding: beyond ``serve_proxy_max_inflight`` proxied requests in
 flight the proxy answers 503 with ``Retry-After`` at once. The proxy's
-``GET /metrics`` waits for ROADMAP.md A11; its counters are on the
+``GET /metrics`` waits for ROADMAP.md A11b; its counters are on the
 supervisor's registry (``FleetSupervisor.stats``).
 """
 

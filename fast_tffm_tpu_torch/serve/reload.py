@@ -24,8 +24,10 @@ together.
 Failure posture: a garbled or unreadable pointer reads as "nothing new"
 and heals on the next poll; a step that fails verification or restore
 (or, in admit mode, carries no readable vocab sidecar) counts a
-``serve/reload_failures`` and the previous triple keeps serving.
-The memory-ledger gauges wait for ROADMAP.md A11.
+``serve/reload_failures`` and the previous triple keeps serving. Every
+tick beats the server's watchdog (an idle server is not stalled) and,
+where the card reports a capacity, sets ``serve/reload_headroom_bytes``
+(capacity less the ledger's live bytes).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import random
 import threading
 
 from fast_tffm_tpu_torch.checkpoint import read_pointer
+from fast_tffm_tpu_torch.obs.memory import LEDGER, device_capacity_bytes
 
 
 class ReloadWatcher:
@@ -85,6 +88,11 @@ class ReloadWatcher:
         """One tick: read the pointer, record what it says, reload when
         it moved, unless an external coordinator owns reloads. Returns
         True when a reload was attempted."""
+        self._server.idle_beat()
+        cap = device_capacity_bytes()
+        if cap:
+            self._server._reg.set("serve/reload_headroom_bytes",
+                                  float(cap - LEDGER.live_bytes()))
         step = read_pointer(self._server.directory,
                             self._server.cfg.serve_pointer)
         if step is None:

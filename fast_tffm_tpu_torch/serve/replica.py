@@ -33,7 +33,8 @@ def main(argv=None) -> int:
     from fast_tffm_tpu_torch.config import apply_env_overrides, load_config
     from fast_tffm_tpu_torch.serve.frontend import run_serve
     cfg = apply_env_overrides(load_config(argv[0]))
-    return run_serve(cfg, device=device)
+    # The fleet's per-replica metrics shards wait for ROADMAP.md A11b.
+    return run_serve(cfg, device=device, telemetry=False)
 
 
 if __name__ == "__main__":

@@ -56,8 +56,18 @@ fails the reload whole and the previous triple keeps serving. The
 its serving process refuses it: offload-scale tables are scored by
 batch predict.
 
-Not ported yet: telemetry, SLO gauges and the capacity pre-flight
-(ROADMAP.md A11).
+Telemetry (``metrics_file``, ``FM_METRICS_FILE`` for ``serve``): the
+server keeps its own handle, never the process-global one, so a batch
+predict in the same process writes its own stream. The registry behind
+``/healthz`` is the stream's (a bare one when metrics are off), and
+``metrics_text`` renders it for ``GET /metrics`` (obs/prom.py). The SLO
+spec is stamped as ``slo/*`` gauges; the ``serve/flush``,
+``serve/reload`` and ``serve/warmup`` spans, the ``serve/ready``,
+``served_step``, ``published_step`` and ``reload_peak_bytes`` gauges,
+the memory ledger's ``serve_table`` (and ``serve_reload_table`` while a
+reload holds both) and the capacity pre-flight are the JAX package's. A
+fleet replica's server (``telemetry=False``) writes no stream: the
+fleet's shards are ROADMAP.md A11b.
 """
 
 from __future__ import annotations
@@ -78,7 +88,13 @@ from fast_tffm_tpu_torch.data.parser import ParsedBlock, parse_lines
 from fast_tffm_tpu_torch.data.pipeline import (_ladder_fit, make_device_batch,
                                                require_bounded_examples)
 from fast_tffm_tpu_torch.models.fm import resolved_kernel
+from fast_tffm_tpu_torch.obs import memory as obs_memory
+from fast_tffm_tpu_torch.obs.memory import LEDGER, oom_guard
+from fast_tffm_tpu_torch.obs.prom import prometheus_text
 from fast_tffm_tpu_torch.obs.registry import MetricsRegistry
+from fast_tffm_tpu_torch.obs.slo import SloSpec
+from fast_tffm_tpu_torch.obs.telemetry import make_telemetry
+from fast_tffm_tpu_torch.obs.trace import span
 from fast_tffm_tpu_torch.ops import fm_kernel
 from fast_tffm_tpu_torch.scoring import CompiledScorer
 from fast_tffm_tpu_torch.serve.reload import ReloadWatcher
@@ -193,10 +209,12 @@ class ScorerServer:
     thread (tests drive ``reload_step`` directly). ``warmup`` is
     ``"sync"`` (the constructor returns warm) or ``"background"`` (it
     returns once the step is loaded; ``ready`` stays false until the
-    ladder is warm)."""
+    ladder is warm). ``telemetry=False`` (a fleet replica) writes no
+    metrics stream and logs the telemetry keys as ignored."""
 
     def __init__(self, cfg: FmConfig, logger=None, device=None,
-                 watch: bool = True, warmup: str = "sync"):
+                 watch: bool = True, warmup: str = "sync",
+                 telemetry: bool = True):
         if warmup not in ("sync", "background"):
             raise ValueError(f"warmup must be sync or background, got "
                              f"{warmup!r}")
@@ -210,12 +228,35 @@ class ScorerServer:
         require_bounded_examples(cfg, "online serving")
         self.cfg = cfg
         self.device = resolve_device(device)
+        obs_memory.bind_device(self.device)
+        # The plan includes the reload's old+new transient: a table that
+        # fits alone but cannot hot-reload is refused at startup.
+        obs_memory.preflight_capacity(cfg, "serve")
         self._logger = logger or get_logger(log_file=cfg.log_file or None)
-        log_ignored_keys(cfg, self._logger)
-        self._reg = MetricsRegistry()
+        log_ignored_keys(cfg, self._logger, telemetry_off=not telemetry)
+        self._tel = (make_telemetry(cfg, "serve", device=self.device)
+                     if telemetry else None)
+        self._reg = (self._tel.registry if self._tel is not None
+                     else MetricsRegistry())
+        try:
+            self._start(cfg, watch, warmup)
+        except BaseException:
+            # A failed startup closes the stream it opened and leaves
+            # the ledger.
+            if self._tel is not None:
+                self._tel.close()
+            LEDGER.release("serve_table")
+            raise
+
+    def _start(self, cfg: FmConfig, watch: bool, warmup: str) -> None:
+        SloSpec.from_config(cfg).emit_gauges(self._reg)
         # Raw-ids flushes (no U axis), flat arrays on the serve ladder.
         self._scorer = CompiledScorer(cfg, self.device, dedup="device",
                                       serve_ladder=True)
+        self._reg.set("wire/packed",
+                      1.0 if self._scorer.wire.packed else 0.0)
+        self._reg.set("wire/narrow",
+                      1.0 if self._scorer.wire.narrow else 0.0)
         # Admit mode parses into the hashed id space; each flush remaps
         # through the slot map it captured with its table.
         self._admit = cfg.vocab_mode == "admit"
@@ -240,6 +281,7 @@ class ScorerServer:
         # The warmup thread and the dispatcher share the scorer and its
         # wire encoder: one scores at a time.
         self._score_lock = threading.Lock()
+        self._reg.set("serve/ready", 0.0)
         # The published pointer IS the serving contract: an unpublished
         # directory is an operator error, not a wait.
         step = read_pointer(self.directory, cfg.serve_pointer)
@@ -268,7 +310,7 @@ class ScorerServer:
             self._warmup_thread.start()
         else:
             self._warmup()
-            self._warmed.set()
+            self._mark_warmed()
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
                                             name="fmt-serve-dispatch",
                                             daemon=True)
@@ -309,22 +351,53 @@ class ScorerServer:
         table is read. In-flight flushes keep the triple they captured,
         so the old table lives until they drain."""
         from fast_tffm_tpu_torch.predict import load_table
+        # The reload transient: old and new tables are both held until
+        # the swap. A reload that would exceed the card is refused here
+        # (the counted-failure path: the old triple keeps serving).
+        old_bytes = LEDGER.owners().get("serve_table", 0)
+        new_bytes = obs_memory.table_bytes(self.cfg)
+        if old_bytes:
+            cap = obs_memory.device_capacity_bytes()
+            if cap and LEDGER.live_bytes() + new_bytes > cap:
+                raise RuntimeError(
+                    f"hot reload of step {step} refused: old+new tables "
+                    f"would exceed device capacity "
+                    f"({LEDGER.live_bytes() + new_bytes:,} > {cap:,} "
+                    f"bytes)\n{obs_memory.render_ledger()}")
+            LEDGER.register("serve_reload_table", new_bytes)
         vmap = None
-        if self._admit:
-            vmap = load_vocab_map(self.cfg, self.directory, step)
-        else:
-            refuse_fixed_mode_admit_step(self.cfg, self.directory, step)
-        table = load_table(self.cfg, self.device, step=step)
+        try:
+            if self._admit:
+                vmap = load_vocab_map(self.cfg, self.directory, step)
+            else:
+                refuse_fixed_mode_admit_step(self.cfg, self.directory,
+                                             step)
+            with oom_guard("serve/reload"):
+                table = load_table(self.cfg, self.device, step=step)
+        finally:
+            LEDGER.release("serve_reload_table")
         with self._table_lock:
             self._table = table
             self._vocab_map = vmap
             self._served_step = int(step)
+        LEDGER.register("serve_table", int(table.nbytes))
+        self._reg.set("serve/reload_peak_bytes",
+                      float(old_bytes + int(table.nbytes)))
+        self._reg.set("serve/served_step", float(step))
         if vmap is not None:
             self._reg.set("serve/vocab_live_rows", float(vmap.live_rows))
 
+    def idle_beat(self) -> None:
+        """Watchdog liveness of a traffic-idle server (the reload poll
+        ticks it): no request is not a stall."""
+        if self._tel is not None:
+            self._tel.heartbeat()
+
     def note_published(self, step: int) -> None:
-        """The pointer value last seen (``/healthz`` published_step)."""
+        """The pointer value last seen (``/healthz`` published_step, the
+        ``serve/published_step`` gauge)."""
         self._published_step = int(step)
+        self._reg.set("serve/published_step", float(step))
 
     def reload_step(self, step: int) -> bool:
         """Hot-swap to a newly published step; False (and a counted
@@ -332,8 +405,10 @@ class ScorerServer:
         previous table keeps serving and the next poll retries. The
         server reports ``ready: false`` while it loads."""
         self._reloading.set()
+        self._reg.set("serve/ready", 0.0)
         try:
-            self._load_step(step)
+            with span("serve/reload", step=int(step)):
+                self._load_step(step)
         except Exception as e:  # noqa: BLE001 - keep serving old state
             self._reg.count("serve/reload_failures")
             self._logger.warning(
@@ -343,6 +418,7 @@ class ScorerServer:
             return False
         finally:
             self._reloading.clear()
+            self._reg.set("serve/ready", 1.0 if self.is_ready() else 0.0)
         self._reg.count("serve/reloads")
         self._logger.info("hot-reloaded published checkpoint step %d",
                           step)
@@ -469,19 +545,21 @@ class ScorerServer:
                 table = self._table
                 vmap = self._vocab_map
                 step = self._served_step
-            batch = make_device_batch(block, self._build_cfg,
-                                      batch_size=rung)
-            if vmap is not None:
-                batch = vmap.remap(batch)
-            t_dev = time.perf_counter()
-            reg.observe("serve/pad_ms", (t_dev - t0) * 1000.0,
-                        bounds=LATENCY_BUCKETS_MS)
-            with self._score_lock:
-                raw = self._scorer.score_batch(table, batch)[:n]
-                raw = raw.cpu().numpy()
-            reg.observe("serve/device_ms",
-                        (time.perf_counter() - t_dev) * 1000.0,
-                        bounds=LATENCY_BUCKETS_MS)
+            with span("serve/flush", examples=n, rung=rung):
+                batch = make_device_batch(block, self._build_cfg,
+                                          batch_size=rung)
+                if vmap is not None:
+                    batch = vmap.remap(batch)
+                t_dev = time.perf_counter()
+                reg.observe("serve/pad_ms", (t_dev - t0) * 1000.0,
+                            bounds=LATENCY_BUCKETS_MS)
+                with self._score_lock:
+                    raw = self._scorer.score_batch(table, batch)[:n]
+                    raw = raw.cpu().numpy()
+                reg.observe("serve/device_ms",
+                            (time.perf_counter() - t_dev) * 1000.0,
+                            bounds=LATENCY_BUCKETS_MS)
+            t_reply = time.perf_counter()
             vals = self._scorer.transform(raw)
             reg.count("serve/flushes")
             reg.count("serve/examples", n)
@@ -495,6 +573,9 @@ class ScorerServer:
                 reg.observe("serve/request_latency_ms",
                             (done - p.t0) * 1000.0,
                             bounds=LATENCY_BUCKETS_MS)
+            reg.observe("serve/reply_ms",
+                        (time.perf_counter() - t_reply) * 1000.0,
+                        bounds=LATENCY_BUCKETS_MS)
         except BaseException as e:  # noqa: BLE001 - per-window failure
             # The window's callers get the error; the server keeps
             # serving (the next window may be fine).
@@ -506,6 +587,14 @@ class ScorerServer:
         # Single writer: only the dispatcher thread counts flushes;
         # close() reads it after join().
         self._flushes += 1
+        if self._tel is not None:
+            try:
+                self._tel.heartbeat()
+                self._tel.maybe_flush(self._flushes)
+            except Exception:  # noqa: BLE001 - a failed metrics write
+                # must cost telemetry, never the dispatcher thread.
+                self._logger.exception(
+                    "serve telemetry flush failed; continuing")
 
     # -- warmup / teardown ----------------------------------------------
 
@@ -519,32 +608,45 @@ class ScorerServer:
         with self._table_lock:
             table = self._table
             vmap = self._vocab_map
-        for B in self._b_ladder:
-            for L in self._l_rungs:
-                if self._closed:
-                    return
-                ids = np.arange(L, dtype=np.int64) % cfg.vocabulary_size
-                block = ParsedBlock(
-                    labels=np.zeros(1, dtype=np.float32),
-                    poses=np.asarray([0, L], dtype=np.int32),
-                    ids=ids.astype(np.int32),
-                    vals=np.ones(L, dtype=np.float32),
-                    fields=(np.zeros(L, dtype=np.int32)
-                            if cfg.model_type == "ffm" else None))
-                batch = make_device_batch(block, cfg, batch_size=B)
-                if vmap is not None:
-                    batch = vmap.remap(batch)
-                with self._score_lock:
-                    self._scorer.score_batch(table, batch).cpu()
-                    if self._scorer.wire.packed:
-                        for P in flat_rungs(B, L):
-                            self._scorer.score_packed_shape(
-                                table, B, L, P).cpu()
+        with span("serve/warmup",
+                  rungs=len(self._b_ladder) * len(self._l_rungs)):
+            for B in self._b_ladder:
+                for L in self._l_rungs:
+                    if self._closed:
+                        return
+                    self._warm_shape(table, vmap, cfg, B, L)
+        self._reg.set("serve/compiled_shapes",
+                      float(len(self._b_ladder) * len(self._l_rungs)))
         self._logger.info(
             "warmed %d serve shapes (B rungs %s x L rungs %s, wire %s) "
             "in %.1fs", len(self._b_ladder) * len(self._l_rungs),
             list(self._b_ladder), list(self._l_rungs),
             self._scorer.wire.describe(), time.monotonic() - t0)
+
+    def _warm_shape(self, table, vmap, cfg: FmConfig, B: int, L: int
+                    ) -> None:
+        """Score one all-real [B, L] batch (and its flat rungs on the
+        packed wire)."""
+        ids = np.arange(L, dtype=np.int64) % cfg.vocabulary_size
+        block = ParsedBlock(
+            labels=np.zeros(1, dtype=np.float32),
+            poses=np.asarray([0, L], dtype=np.int32),
+            ids=ids.astype(np.int32),
+            vals=np.ones(L, dtype=np.float32),
+            fields=(np.zeros(L, dtype=np.int32)
+                    if cfg.model_type == "ffm" else None))
+        batch = make_device_batch(block, cfg, batch_size=B)
+        if vmap is not None:
+            batch = vmap.remap(batch)
+        with self._score_lock:
+            self._scorer.score_batch(table, batch).cpu()
+            if self._scorer.wire.packed:
+                for P in flat_rungs(B, L):
+                    self._scorer.score_packed_shape(table, B, L, P).cpu()
+
+    def _mark_warmed(self) -> None:
+        self._warmed.set()
+        self._reg.set("serve/ready", 1.0 if self.is_ready() else 0.0)
 
     def _warmup_bg(self) -> None:
         """The background warmup thread: warm the ladder, then flip
@@ -558,7 +660,7 @@ class ScorerServer:
                 "serve warmup failed; the server stays not ready")
             return
         if not self._closed:
-            self._warmed.set()
+            self._mark_warmed()
 
     def is_ready(self) -> bool:
         """The proxy-facing readiness bit: warmed, not mid-reload, not
@@ -603,10 +705,16 @@ class ScorerServer:
             "uptime_seconds": time.time() - self._start_time,
         }
 
+    def metrics_text(self) -> str:
+        """The ``GET /metrics`` body: this server's registry in the
+        Prometheus text format (obs/prom.py), the snapshot /healthz
+        reads."""
+        return prometheus_text(self._reg.snapshot())
+
     def close(self) -> None:
         """Drain and stop: no new submissions, every queued request
-        flushed, the warmup, dispatcher and reload threads joined.
-        Idempotent."""
+        flushed, the warmup, dispatcher and reload threads joined, the
+        stream closed with ``run_end``. Idempotent."""
         with self._submit_lock:
             if self._closed:
                 return
@@ -619,5 +727,9 @@ class ScorerServer:
         if self._warmup_thread is not None:
             self._warmup_thread.join()
         self._dispatcher.join()
+        if self._tel is not None:
+            self._tel.close(step=self._flushes)
+        for owner in ("serve_table", "serve_reload_table", "wire_buffers"):
+            LEDGER.release(owner)
         self._logger.info("scorer server closed after %d flushes",
                           self._flushes)

@@ -115,13 +115,26 @@ reforms the grown cluster, and the joiner (``train(join=True)``,
 session resumes at the restored step's merged watermark, its files
 owned anew under the new membership.
 
-The observability keys are accepted, ignored and logged
-(utils/ignored.py: ROADMAP.md A11); admit mode and ``lookup = host``
-across processes are refused as in the JAX package.
+Telemetry (``metrics_file``; obs/), on one process, at the JAX
+package's sites and under its names: the JSONL stream with its counters,
+gauges, histograms and spans (``trace_spans``), the watchdog
+(``watchdog_stall_seconds``), ``crash`` and ``health`` events, the memory
+ledger's owners and ``hbm_pressure`` (``mem_pressure_fraction``), the
+capacity pre-flight, the SLO gauges, TensorBoard summaries
+(``save_summaries_steps``; utils/summaries.py) and the profiler window
+(``profile_dir``: ``torch.profiler``, a Chrome trace). The step's
+telemetry reads no device value: the loss scalar is buffered on the
+device and fetched with the log lines at the barrier. The ``dist_train``
+arms log these keys as ignored (utils/ignored.py: ROADMAP.md A11b);
+admit mode and ``lookup = host`` across processes are refused as in the
+JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import signal
 import time
 from typing import Dict, Optional, Tuple
@@ -159,7 +172,14 @@ from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
                                            sharded_score_body,
                                            sharded_train_step_body,
                                            train_step_body)
-from fast_tffm_tpu_torch.obs.quality import PublishGate, QualityStats
+from fast_tffm_tpu_torch.obs import memory as obs_memory
+from fast_tffm_tpu_torch.obs.memory import LEDGER, oom_guard, table_bytes
+from fast_tffm_tpu_torch.obs.quality import (PublishGate, QualityStats,
+                                             emit_gate_held, emit_quality)
+from fast_tffm_tpu_torch.obs.slo import SloSpec
+from fast_tffm_tpu_torch.obs.telemetry import (active, make_telemetry,
+                                               pop_active, push_active)
+from fast_tffm_tpu_torch.obs.trace import span
 from fast_tffm_tpu_torch.parallel import distributed as dist_mod
 from fast_tffm_tpu_torch.parallel import liveness as lv
 from fast_tffm_tpu_torch.parallel.liveness import (HeartbeatLease,
@@ -172,10 +192,11 @@ from fast_tffm_tpu_torch.parallel.sharded import (ProcessMesh,
                                                   make_mesh, place_table)
 from fast_tffm_tpu_torch.scoring import CompiledScorer
 from fast_tffm_tpu_torch.utils.device import indexed, resolve_device
-from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher
+from fast_tffm_tpu_torch.utils.fetch import ChunkedFetcher, fetch_floats
 from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
 from fast_tffm_tpu_torch.utils.logging import get_logger
 from fast_tffm_tpu_torch.utils.retry import RetryPolicy
+from fast_tffm_tpu_torch.utils.summaries import make_summaries
 from fast_tffm_tpu_torch.utils.timing import StepTimer
 from fast_tffm_tpu_torch.vocab.table import VocabRuntime, reset_table_rows
 from fast_tffm_tpu_torch.wire import WireEncoder, resolve_wire
@@ -275,6 +296,7 @@ def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
             collect.update(scores[:m], labels[:m], weights[:m])
 
     fetcher = ChunkedFetcher(consume)
+    tel = active()
     try:
         with torch.no_grad():
             for batch in prefetch(
@@ -288,6 +310,10 @@ def evaluate(cfg: FmConfig, table: Optional[torch.Tensor], files,
                             (batch.labels, batch.num_real, batch.weights))
                 n += batch.num_real
                 n_batches += 1
+                if tel is not None:
+                    # A long sweep can outlast the watchdog's budget:
+                    # scored batches are progress.
+                    tel.heartbeat()
                 if max_batches and n_batches >= max_batches:
                     break
         fetcher.flush()
@@ -370,8 +396,19 @@ class _Stepper:
                  table: Optional[torch.Tensor], acc: Optional[torch.Tensor],
                  step: int, logger, lookup=None,
                  vocab: Optional[VocabRuntime] = None,
-                 mesh: Optional[ProcessMesh] = None):
+                 mesh: Optional[ProcessMesh] = None, tel=None,
+                 summaries=None, profiler: Optional["_ProfileWindow"] = None):
         self.cfg, self.spec, self.encoder = cfg, spec, encoder
+        # The run's telemetry (None: off), TensorBoard summaries and
+        # profiler window; ``flush_hook`` runs before each metrics flush
+        # (the stream loop's gauges).
+        self.tel, self.summaries, self.profiler = tel, summaries, profiler
+        self.flush_hook = None
+        # Step anatomy: the step id rides the h2d span.
+        self._anatomy = tel is not None and tel.anatomy
+        # Wall time of the previous step's bookkeeping: the step-seconds
+        # samples are dispatch-loop time, never a device sync.
+        self.t_prev = time.perf_counter()
         self.device, self.logger = device, logger
         self.table, self.acc = table, acc
         # Multi-process: this rank's row shards of a ProcessMesh.
@@ -397,21 +434,38 @@ class _Stepper:
             # so it never scatters into rows the barrier evicted, reset
             # or reassigned (one integer compare when nothing moved).
             batch = self.vocab.ensure_current(batch)
+        tel = self.tel
         wb = self.encoder.encode_train(batch)
-        args = self.encoder.device_put(wb, self.device)
-        if self.mesh is not None:
-            # The row exchange all-gathers the ids on the host.
-            args["uniq_ids"] = wb.args["uniq_ids"]
-            self.table, self.acc, self.loss, _ = sharded_train_step_body(
-                self.spec, self.mesh, self.table, self.acc, **args)
-        elif self._offload_step is not None:
-            self.loss, _ = self._offload_step(**args)
-        elif wb.packed:
-            self.table, self.acc, self.loss, _ = packed_train_step_body(
-                self.spec, wb.L, self.table, self.acc, **args)
-        else:
-            self.table, self.acc, self.loss, _ = train_step_body(
-                self.spec, self.table, self.acc, **args)
+        # The plain single-device path stages its batch (the wire's
+        # double buffer); the offload and lockstep paths ship theirs
+        # inside the step, as in the JAX package.
+        staged = self.mesh is None and self.lookup is None
+        ids = ({"step": self.global_step + 1} if self._anatomy else {})
+        t_h2d = time.perf_counter()
+        with span("train/h2d", bytes=wb.wire_bytes, **ids) if staged \
+                else contextlib.nullcontext():
+            args = self.encoder.device_put(wb, self.device)
+        if staged and tel is not None:
+            tel.count("train/h2d_seconds", time.perf_counter() - t_h2d)
+        prof = self.profiler
+        with span("train/step", step=self.global_step + 1), \
+                oom_guard("train/step"), \
+                (prof.annotate() if prof is not None
+                 else contextlib.nullcontext()):
+            if self.mesh is not None:
+                # The row exchange all-gathers the ids on the host.
+                args["uniq_ids"] = wb.args["uniq_ids"]
+                self.table, self.acc, self.loss, _ = \
+                    sharded_train_step_body(self.spec, self.mesh,
+                                            self.table, self.acc, **args)
+            elif self._offload_step is not None:
+                self.loss, _ = self._offload_step(**args)
+            elif wb.packed:
+                self.table, self.acc, self.loss, _ = packed_train_step_body(
+                    self.spec, wb.L, self.table, self.acc, **args)
+            else:
+                self.table, self.acc, self.loss, _ = train_step_body(
+                    self.spec, self.table, self.acc, **args)
         if self.vocab is not None:
             # Adopt-on-step, as the watermark: only stepped batches feed
             # the sketch, so a saved payload describes the trained
@@ -425,12 +479,42 @@ class _Stepper:
         # examples times the ranks), as the JAX package logs it.
         self.timer.tick(batch.num_real * (self.mesh.size if self.mesh
                                           else 1))
+        step = self.global_step
+        if tel is not None:
+            now = time.perf_counter()
+            tel.train_step(now - self.t_prev, batch.num_real,
+                           wb.wire_bytes, wb.logical_bytes)
+            self.t_prev = now
+            tel.heartbeat(step)
+        if prof is not None:
+            prof.tick(step)
         log_steps = self.cfg.log_steps
-        if log_steps and self.global_step % log_steps == 0:
-            self._log_buffer.append((self.global_step, epoch, self.loss,
-                                     self.timer.consume_window_rate()))
+        log_due = bool(log_steps) and step % log_steps == 0
+        sums = self.summaries
+        sum_due = (sums is not None
+                   and step % self.cfg.save_summaries_steps == 0)
+        tel_due = tel is not None and tel.flush_due(step)
+        # One windowed-rate read a step: the log line, the summary and
+        # the gauge share it.
+        eps = (self.timer.consume_window_rate()
+               if (log_due or sum_due or tel_due) else None)
+        if log_due:
+            self._log_buffer.append((step, epoch, self.loss, eps))
             if len(self._log_buffer) >= LOG_BUFFER_MAX:
                 self.flush_log()
+        if sum_due:
+            sums.add("train/loss", step, self.loss)
+            sums.add("train/examples_per_sec", step, eps)
+        if tel_due:
+            # The loss stays on the device: the sink fetches it with the
+            # rest of its buffer at the next barrier.
+            tel.add_scalar("train/loss", step, self.loss)
+            tel.set("train/examples_per_sec_window", eps)
+            tel.set("train/examples_per_sec_total",
+                    self.timer.total_examples_per_sec)
+            if self.flush_hook is not None:
+                self.flush_hook()
+            tel.maybe_flush(step)
 
     def save(self, ckpt: CheckpointState, wait: bool = False,
              **kwargs) -> None:
@@ -447,6 +531,33 @@ class _Stepper:
                   vocab_state=(None if self.vocab is None
                                else self.vocab.state_payload()),
                   **kwargs)
+
+    def timed_save(self, ckpt: CheckpointState, **kwargs) -> None:
+        """A periodic save, its pause counted (``train/checkpoints``,
+        ``train/checkpoint_pause_seconds``) and kept out of the next
+        step's step-seconds sample."""
+        t0 = time.perf_counter()
+        self.save(ckpt, **kwargs)
+        dt = time.perf_counter() - t0
+        if self.tel is not None:
+            self.tel.count("train/checkpoint_pause_seconds", dt)
+            self.tel.count("train/checkpoints")
+        self.t_prev += dt
+
+    def epoch_barrier(self) -> None:
+        """The epoch barrier's telemetry: the summaries written, then
+        ``train/epochs`` counted and the stream's barrier flush (the one
+        fetch of the buffered device scalars)."""
+        tel = self.tel
+        if self.summaries is not None:
+            t0 = time.perf_counter()
+            self.summaries.flush()
+            if tel is not None:
+                tel.count("train/summary_pause_seconds",
+                          time.perf_counter() - t0)
+        if tel is not None:
+            tel.count("train/epochs")
+            tel.barrier_flush(self.global_step)
 
     def vocab_reset(self, rows: np.ndarray) -> None:
         """The eviction hook: cold-start ``rows`` of the device tensors
@@ -489,13 +600,75 @@ class _Stepper:
         """One fetch for every buffered loss line."""
         if not self._log_buffer:
             return
-        values = torch.stack([b[2] for b in self._log_buffer]
-                             ).cpu().tolist()
+        values = fetch_floats([b[2] for b in self._log_buffer])
         for (s, ep, _, eps), val in zip(self._log_buffer, values):
             self.loss_val = val
             self.logger.info("step %d epoch %d loss %.6f examples/sec %.0f",
                              s, ep, val, eps)
         self._log_buffer.clear()
+
+
+class _ProfileWindow:
+    """The profiler window (``profile_dir``): ``torch.profiler`` with CPU
+    and, on the card, CUDA activity over this run's steps
+    ``(profile_start_step, profile_start_step + profile_num_steps]``
+    (counted from the restored step), written as a Chrome trace into
+    ``profile_dir``. A window that recorded no kernel on the card is
+    logged as an error: the trace then holds host events only."""
+
+    def __init__(self, cfg: FmConfig, device: torch.device,
+                 run_start_step: int, logger):
+        self.cfg, self.device, self.logger = cfg, device, logger
+        self.run_start = run_start_step
+        self._prof = None
+        self._first = 0
+
+    def tick(self, step: int) -> None:
+        """After ``step``: open the window after step ``start``, close
+        it after step ``start + num`` (as the JAX package's
+        ``profile_tick``)."""
+        start, num = self.cfg.profile_start_step, self.cfg.profile_num_steps
+        rel = step - self.run_start
+        if self._prof is None and start <= rel < start + num:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._first = step + 1
+        elif self._prof is not None and rel >= start + num:
+            self.stop(step)
+
+    def annotate(self):
+        """A ``train_step`` range while the window is open (free when
+        it is not)."""
+        if self._prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function("train_step")
+
+    def stop(self, step: int) -> None:
+        """Close an open window: wait for the card, export the trace."""
+        prof, self._prof = self._prof, None
+        if prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"train_steps_{self._first}-{step}.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        self.logger.info("profiler trace written to %s (steps %d-%d, %d "
+                         "CUDA kernel events)", path, self._first, step,
+                         kernels)
+        if self.device.type == "cuda" and not kernels:
+            self.logger.error(
+                "profiler window recorded no CUDA kernel event (CUPTI "
+                "unavailable?): %s holds host events only", path)
 
 
 class _Publisher:
@@ -538,19 +711,21 @@ class _Publisher:
                 "" if self.gate.baseline is None
                 else f", restored baseline {self.gate.baseline:.6f}")
 
-    def publish(self, step: int, decision: Optional[dict]) -> None:
+    def publish(self, step: int, decision: Optional[dict]) -> bool:
         """Repoint ``published`` at the settled ``step`` and advance and
         persist the drop baseline once the publish landed: the one
         baseline write of interval and exit publishes. Only the chief
         verifies, repoints and writes; the other ranks take its verify
-        as passed (as the JAX package does)."""
+        as passed (as the JAX package does). Returns whether it
+        landed."""
         if self.ckpt.publish_step(step) is None and self.ckpt.chief:
-            return
+            return False
         if self.gate is None or decision is None:
-            return
+            return True
         self.gate.note_published(decision.get("auc"))
         if self.gate.baseline is not None and self.ckpt.chief:
             write_gate_baseline(self.ckpt.directory, self.gate.baseline)
+        return True
 
     def decide(self, st: "_Stepper", uniq_bucket: int = 0,
                preempt=None) -> Optional[dict]:
@@ -565,12 +740,19 @@ class _Publisher:
         step = st.global_step
         stats = QualityStats(cfg.loss_type)
         t_q = time.perf_counter()
-        auc, n = st.evaluate(cfg.validation_files,
-                             max_batches=cfg.validation_max_batches or None,
-                             weight_files=cfg.validation_weight_files,
-                             bad_lines=self.bad_tracker, collect=stats,
-                             uniq_bucket=uniq_bucket, preempt=preempt)
+        with span("quality/eval", step=step):
+            auc, n = st.evaluate(cfg.validation_files,
+                                 max_batches=cfg.validation_max_batches
+                                 or None,
+                                 weight_files=cfg.validation_weight_files,
+                                 bad_lines=self.bad_tracker, collect=stats,
+                                 uniq_bucket=uniq_bucket, preempt=preempt)
         dt_q = time.perf_counter() - t_q
+        tel = st.tel
+        if self.ckpt.chief:
+            emit_quality(tel, step, float(auc), stats, n, dt_q)
+        if tel is not None:
+            tel.heartbeat()  # a long sweep is progress, not a stall
         if self.ckpt.chief:
             self.logger.info(
                 "publish quality eval at step %d: AUC %.6f, loss %s, "
@@ -588,6 +770,8 @@ class _Publisher:
         # n is job-wide already (the sweep's merge).
         decision["examples"] = int(n)
         if decision["held"]:
+            if self.ckpt.chief:
+                emit_gate_held(tel, decision)
             self.logger.warning(
                 "publish GATE HELD at step %d: %s — the published "
                 "pointer stays on the last passing step", step,
@@ -695,6 +879,17 @@ def train(cfg: FmConfig, device=None,
         shard_index, num_shards = dist_mod.init_from_cluster(
             cfg, job_name, task_index or 0)
         members = list(range(num_shards))
+    # The run's telemetry (metrics_file; obs/): one process. The
+    # dist_train arms log its keys as ignored (ROADMAP.md A11b).
+    cluster = join or num_shards > 1
+    tel = None if cluster else make_telemetry(cfg, "train", device=device)
+    if tel is not None:
+        logger.info("writing run metrics to %s (flush every %s steps)",
+                    tel.sink.path, tel.flush_steps or "epoch")
+        # The SLO spec rides the stream as slo/* gauges.
+        SloSpec.from_config(cfg).emit_gauges(tel)
+    obs_memory.bind_device(device)
+    tel_prev = push_active(tel)
     # One run-scoped tracker (None under bad_line_policy = error): its
     # breaker and quarantine dedupe span every epoch and every reform.
     bad_tracker = BadLineTracker.from_config(cfg)
@@ -702,6 +897,9 @@ def train(cfg: FmConfig, device=None,
     guarded = False
     lost = False
     try:
+        # Refuse a config whose predicted resident bytes exceed the
+        # card, with the planner's breakdown (no-op on the CPU).
+        obs_memory.preflight_capacity(cfg, "train")
         if lease is None and num_shards > 1 and cfg.heartbeat_seconds > 0:
             lease = HeartbeatLease(
                 lease_dir(cfg), process_index=shard_index,
@@ -718,7 +916,7 @@ def train(cfg: FmConfig, device=None,
             try:
                 return _train_session(cfg, device, init_state, logger,
                                       shard_index, num_shards, members,
-                                      bad_tracker, grow_ctx)
+                                      bad_tracker, grow_ctx, tel, cluster)
             except ClusterGrowth as g:
                 # Every member raises it off the chief's broadcast plan at
                 # the same barrier.
@@ -784,6 +982,11 @@ def train(cfg: FmConfig, device=None,
                                            cfg.collective_timeout_seconds,
                                            recover=cfg.elastic != "off")
                 guarded = True
+    except BaseException as e:
+        # What the session did not record itself (setup, the
+        # pre-flight refusal).
+        _record_crash(tel, logger, e)
+        raise
     finally:
         if lease is not None:
             lease.stop()
@@ -793,13 +996,32 @@ def train(cfg: FmConfig, device=None,
             dist_mod.shutdown()
         if bad_tracker is not None:
             bad_tracker.close()
+        if tel is not None:
+            try:
+                tel.close()
+            except Exception:  # noqa: BLE001 - never mask the run's error
+                logger.exception("metrics sink close failed")
+        pop_active(tel_prev)
+
+
+def _record_crash(tel, logger, e: BaseException, step: int = -1) -> None:
+    """The stream's crash event, once per exception (the session records
+    its own with the step; ``train`` records the rest)."""
+    if tel is None or getattr(e, "_fm_crash_recorded", False):
+        return
+    try:
+        tel.record_crash(e, step)
+        e._fm_crash_recorded = True
+    except Exception:  # noqa: BLE001 - never mask the run's error
+        logger.exception("crash event emission failed")
 
 
 def _train_session(cfg: FmConfig, device: torch.device,
                    init_state: Optional[Tuple[torch.Tensor, torch.Tensor]],
                    logger, shard_index: int, num_shards: int,
                    members, bad_tracker: Optional[BadLineTracker],
-                   grow_ctx: Optional[_GrowContext]) -> torch.Tensor:
+                   grow_ctx: Optional[_GrowContext],
+                   tel=None, cluster: bool = False) -> torch.Tensor:
     """One training session against the current membership: restore,
     the epoch (or stream) loop, the final save and the export.
     ``num_shards`` > 1: the multi-process arm, as rank ``shard_index``
@@ -808,7 +1030,9 @@ def _train_session(cfg: FmConfig, device: torch.device,
     ``WorkerLostError`` out of a collective whose peer died and
     ``ClusterGrowth`` out of an epoch boundary or a stream's publish
     settle where ``grow_ctx`` plans an admission; everything made here
-    is torn down here, so ``train`` can re-enter."""
+    is torn down here, so ``train`` can re-enter. ``tel``: the run's
+    telemetry (one process), which outlives the session; ``cluster``:
+    the run joined a cluster, whose arms write no telemetry yet."""
     multi = num_shards > 1
     spec = ModelSpec.from_config(cfg, num_processes=num_shards)
     offload = cfg.lookup == "host"
@@ -822,7 +1046,8 @@ def _train_session(cfg: FmConfig, device: torch.device,
     # validation files (it switches the quality sweep on there).
     log_ignored_keys(cfg, logger, in_effect=(
         ("slo_min_auc",) if stream_mode and cfg.validation_files
-        and cfg.publish_interval_seconds > 0 else ()))
+        and cfg.publish_interval_seconds > 0 else ()),
+        telemetry_off=cluster)
     mesh = None
     uniq_bucket = val_bucket = 0
     if multi:
@@ -874,6 +1099,8 @@ def _train_session(cfg: FmConfig, device: torch.device,
                            verify=cfg.ckpt_verify,
                            adagrad_init=cfg.adagrad_init, mesh=mesh)
     prev_handlers = {}
+    st = summaries = profiler = None
+    global_step = 0
     try:
         restored = ckpt.restore(template=checkpoint_template(cfg))
         global_step = 0
@@ -902,6 +1129,16 @@ def _train_session(cfg: FmConfig, device: torch.device,
         else:
             table, acc = _initial_state(cfg, device, restored, init_state,
                                         ckpt.directory)
+        # The memory ledger's owners (obs/memory.py): bytes from the
+        # tensors' metadata, no fetch; the offload state is host-resident.
+        # Released in this session's finally.
+        if offload:
+            nbytes = table_bytes(rows=lk.rows, dim=lk.dim)
+            LEDGER.register("offload_table", nbytes, host=True)
+            LEDGER.register("offload_acc", nbytes, host=True)
+        else:
+            LEDGER.register("table", table.nbytes)
+            LEDGER.register("adagrad_acc", acc.nbytes)
         # The offload step gathers by the host's uniq ids, and the
         # lockstep exchanges the padded rows: padded-wide.
         wire = resolve_wire(cfg, backend=lk, multi_process=multi,
@@ -910,6 +1147,9 @@ def _train_session(cfg: FmConfig, device: torch.device,
         logger.info("wire format: %s%s", wire.describe(),
                     " (flat CSR, unpacked on the device)" if wire.packed
                     else "")
+        if tel is not None:
+            tel.set("wire/packed", 1.0 if wire.packed else 0.0)
+            tel.set("wire/narrow", 1.0 if wire.narrow else 0.0)
         restored_step = global_step
         start_epoch = resume_start_epoch(restored_epoch, cfg.epoch_num)
         if start_epoch:
@@ -929,8 +1169,19 @@ def _train_session(cfg: FmConfig, device: torch.device,
             except ValueError:  # not the main thread
                 pass
 
+        if cfg.save_summaries_steps and not cluster:
+            summaries = make_summaries(cfg)
+            if summaries is not None:
+                logger.info("writing TensorBoard summaries every %d steps "
+                            "to %s", cfg.save_summaries_steps,
+                            summaries.logdir)
+        if cfg.profile_dir and not cluster:
+            # Counted from this run's first step: a resumed run would
+            # otherwise skip past the window.
+            profiler = _ProfileWindow(cfg, device, global_step, logger)
         st = _Stepper(cfg, spec, encoder, device, table, acc, global_step,
-                      logger, lookup=lk, vocab=vocab, mesh=mesh)
+                      logger, lookup=lk, vocab=vocab, mesh=mesh, tel=tel,
+                      summaries=summaries, profiler=profiler)
         if fresh_over_restore:
             # Every row, the cold row 0 included, still holds the lost
             # mapping's trained weights: cold-start them all, so no id
@@ -968,9 +1219,14 @@ def _train_session(cfg: FmConfig, device: torch.device,
                           gil_bound=gil_bound_iteration(cfg,
                                                         cfg.weight_files))
             t_loop = time.perf_counter()
+            st.t_prev = t_loop  # validation and pauses stay out of it
             try:
                 while True:
+                    t_in = time.perf_counter()
                     batch = next(it, None)
+                    if tel is not None:
+                        tel.count("train/input_wait_seconds",
+                                  time.perf_counter() - t_in)
                     if mesh is not None:
                         # Lockstep: byte-range shards give ranks batch
                         # counts that differ, and every step is a
@@ -994,6 +1250,11 @@ def _train_session(cfg: FmConfig, device: torch.device,
                         stopping = True
                         logger.info(
                             "preemption signalled; saving and exiting")
+                        if tel is not None:
+                            tel.sink.emit("health", {
+                                "status": "preempted",
+                                "step": st.global_step, "epoch": epoch,
+                                "signals": [int(x) for x in preempted]})
                         break
                     st.step(batch, epoch)
                     last_val = None  # the table moved
@@ -1003,7 +1264,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
                         # save returns, so the next step may update the
                         # table in place; the write runs behind it (an
                         # offload save writes the state itself and waits).
-                        st.save(ckpt, epoch=completed_epochs)
+                        st.timed_save(ckpt, epoch=completed_epochs)
                         last_periodic_save = (st.global_step,
                                               completed_epochs)
             finally:
@@ -1025,6 +1286,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
                         "to recover effective batch size", uniq_bucket,
                         100 * epoch_stats.spill_fraction)
             if stopping:  # a preemption-cut epoch is NOT completed
+                st.epoch_barrier()
                 break
             if mesh is not None and epoch + 1 < cfg.epoch_num:
                 # The job-wide spill counts decide the next epoch's
@@ -1043,18 +1305,28 @@ def _train_session(cfg: FmConfig, device: torch.device,
             st.vocab_barrier(f"epoch {epoch}")
             completed_epochs = epoch + 1
             if cfg.validation_files:
-                auc, n = st.evaluate(cfg.validation_files,
-                                     max_batches=cfg.validation_max_batches
-                                     or None,
-                                     weight_files=cfg.validation_weight_files,
-                                     bad_lines=bad_tracker,
-                                     uniq_bucket=val_bucket,
-                                     **({"preempt": lambda: bool(preempted)}
-                                        if mesh is not None else {}))
+                t_val = time.perf_counter()
+                with span("train/validation", epoch=epoch):
+                    auc, n = st.evaluate(
+                        cfg.validation_files,
+                        max_batches=cfg.validation_max_batches or None,
+                        weight_files=cfg.validation_weight_files,
+                        bad_lines=bad_tracker, uniq_bucket=val_bucket,
+                        **({"preempt": lambda: bool(preempted)}
+                           if mesh is not None else {}))
                 last_val = (auc, n)
                 if ckpt.chief:
                     logger.info("epoch %d validation AUC %.6f over %d "
                                 "examples", epoch, auc, n)
+                if summaries is not None:
+                    summaries.add("validation/auc", st.global_step, auc)
+                if tel is not None:
+                    tel.count("train/validation_seconds",
+                              time.perf_counter() - t_val)
+                    tel.set("validation/auc", auc)
+                    tel.add_scalar("validation/auc", st.global_step,
+                                   float(auc))
+            st.epoch_barrier()
             if (grow_ctx is not None
                     and completed_epochs < cfg.epoch_num):
                 # The epoch boundary is the grow barrier: every member
@@ -1108,6 +1380,9 @@ def _train_session(cfg: FmConfig, device: torch.device,
                                  bad_lines=bad_tracker)
             logger.info("final validation AUC %.6f over %d examples",
                         auc, n)
+            if tel is not None:
+                tel.set("validation/auc", auc)
+                tel.add_scalar("validation/auc", global_step, float(auc))
         if mesh is not None:
             t_exp = _chief_finalize(cfg, st, mesh, logger, last_val,
                                     val_bucket, bad_tracker)
@@ -1134,12 +1409,52 @@ def _train_session(cfg: FmConfig, device: torch.device,
                     "examples/sec", global_step, st.loss_val,
                     st.timer.total_examples_per_sec)
         return table
+    except BaseException as e:
+        # A WorkerLostError may be recovered and a ClusterGrowth is a
+        # planned exit: neither is a crash of the run.
+        if not isinstance(e, (WorkerLostError, ClusterGrowth)):
+            _record_crash(tel, logger, e,
+                          st.global_step if st is not None else global_step)
+        raise
     finally:
+        for owner in ("table", "adagrad_acc", "offload_table", "offload_acc",
+                      "wire_buffers", "prefetch_batches"):
+            LEDGER.release(owner)
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
         # Every exit path settles the in-flight save: an exception
         # between saves must not leave a write half done.
         ckpt.close()
+        _close_session_telemetry(st, summaries, profiler, tel, logger)
+
+
+def _close_session_telemetry(st: Optional[_Stepper], summaries, profiler,
+                             tel, logger) -> None:
+    """The session's sinks on every exit path, each isolated so that one
+    broken writer cannot starve the others or mask the run's error: the
+    buffered loss lines, the summaries, the metrics barrier (the stream
+    itself stays open across an elastic re-entry) and the profiler
+    window, if still open."""
+    if st is not None:
+        try:
+            st.flush_log()
+        except Exception:  # noqa: BLE001
+            logger.exception("deferred loss-log flush failed")
+    if summaries is not None:
+        try:
+            summaries.close()
+        except Exception:  # noqa: BLE001
+            logger.exception("summary writer close failed")
+    if tel is not None:
+        try:
+            tel.barrier_flush(st.global_step if st is not None else -1)
+        except Exception:  # noqa: BLE001
+            logger.exception("metrics barrier flush failed")
+    if profiler is not None:
+        try:
+            profiler.stop(st.global_step if st is not None else -1)
+        except Exception:  # noqa: BLE001
+            logger.exception("profiler stop failed")
 
 
 def _stale_epoch(last_periodic_save, restored, restored_step: int,
@@ -1334,8 +1649,12 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
                           vocab=st.vocab, fixed_shape=mesh is not None,
                           uniq_bucket=u_bucket)
     gate = publisher.gate
+    tel = st.tel
     publish_every = float(cfg.publish_interval_seconds)
     last_publish = [time.monotonic()]
+    last_publish_ok = [last_publish[0]]  # the last publish that landed
+    if tel is not None:
+        tel.set("stream/publish_interval_seconds", publish_every)
     # While the last gate decision HELD, the retention-pressure trigger
     # is disarmed (a republish would hold the same state again); the
     # interval keeps re-checking at the publish cadence.
@@ -1358,6 +1677,17 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
                 and ckpt.published_at_risk(
                     margin=2 if gate is not None else 1))
 
+    def stream_gauges() -> None:
+        if tel is None:
+            return
+        tel.set("stream/watermark_lag_seconds",
+                tracker.watermark_lag_seconds())
+        if publish_every > 0:
+            tel.set("stream/last_publish_age_seconds",
+                    time.monotonic() - last_publish_ok[0])
+
+    st.flush_hook = stream_gauges
+
     def stream_save(wait: bool) -> None:
         # The watermark passed here is the one adopted at this step: the
         # snapshot is taken now, and later steps update the table in
@@ -1365,28 +1695,39 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
         st.save(ckpt, wait=wait, epoch=0,
                 stream_state=_stream_state(state["watermark"], mesh))
         state["last_save"] = (st.global_step, 0)
+        if tel is not None:
+            tel.count("train/checkpoints")
 
     def do_publish() -> None:
         """Sweep and gate, then save, verify and repoint ``published``.
         A HELD decision skips the save too: held ticks must not mint
         steps that retention could use to lap the published one."""
         st.flush_log()
-        # The publish settle is a barrier point, before the sweep: the
-        # published (table, slot map, step) triple is post-barrier, and
-        # the sweep measures exactly what a pass would publish.
-        st.vocab_barrier(f"publish step {st.global_step}")
-        decision = publisher.decide(st, uniq_bucket=val_bucket,
-                                    preempt=sweep_preempt)
-        gate_holding[0] = bool(decision and decision.get("held"))
-        if not gate_holding[0]:
-            risk_pause_logged[0] = False
-        if decision is None or not decision.get("held"):
-            # A publish on the step of the last periodic save rewrites
-            # that step's sidecars (the barrier may have moved the slot
-            # map), as a forced save does in the JAX package.
-            stream_save(wait=True)
-            publisher.publish(st.global_step, decision)
+        t_pub = time.perf_counter()
+        with span("checkpoint/publish", step=st.global_step):
+            # The publish settle is a barrier point, before the sweep:
+            # the published (table, slot map, step) triple is
+            # post-barrier, and the sweep measures exactly what a pass
+            # would publish.
+            st.vocab_barrier(f"publish step {st.global_step}")
+            decision = publisher.decide(st, uniq_bucket=val_bucket,
+                                        preempt=sweep_preempt)
+            gate_holding[0] = bool(decision and decision.get("held"))
+            if not gate_holding[0]:
+                risk_pause_logged[0] = False
+            if decision is None or not decision.get("held"):
+                # A publish on the step of the last periodic save
+                # rewrites that step's sidecars (the barrier may have
+                # moved the slot map), as a forced save does in the JAX
+                # package.
+                stream_save(wait=True)
+                if publisher.publish(st.global_step, decision):
+                    last_publish_ok[0] = time.monotonic()
+            if tel is not None:
+                tel.count("train/checkpoint_pause_seconds",
+                          time.perf_counter() - t_pub)
         last_publish[0] = time.monotonic()
+        stream_gauges()
         if grow_ctx is not None and not gate_holding[0]:
             # The publish settle is the grow barrier: the save above is
             # durable with the merged watermark, so a joiner's restore
@@ -1420,12 +1761,20 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
             return
         # Gated runs save synchronously: the retention arithmetic above
         # counts COMMITTED steps, and an in-flight step is not one yet.
+        t_ck = time.perf_counter()
         stream_save(wait=gate is not None)
+        dt = time.perf_counter() - t_ck
+        if tel is not None:
+            tel.count("train/checkpoint_pause_seconds", dt)
+        st.t_prev += dt
 
     def emit_preempted() -> None:
         state["stopping"] = True
         logger.info("preemption signalled; saving the stream position "
                     "and exiting")
+        if tel is not None:
+            tel.sink.emit("health", {"status": "preempted",
+                                     "step": st.global_step, "epoch": 0})
 
     t_loop = time.perf_counter()
     try:
@@ -1468,6 +1817,9 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
                         break
                     if batch is IDLE:
                         st.flush_log()
+                        if tel is not None:
+                            tel.heartbeat()
+                        stream_gauges()
                     else:
                         step_once(batch)
                     if publish_due():
@@ -1477,6 +1829,7 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
     finally:
         source.close()
         st.loop_seconds += time.perf_counter() - t_loop
+    stream_gauges()  # the exit snapshot carries the final lag and age
     st.flush_log()
     if bad_tracker is not None and bad_tracker.bad:
         logger.info("bad-line policy through the stream run: %s",
@@ -1506,7 +1859,9 @@ def _exit_publish(publisher: _Publisher, st: _Stepper, stopping: bool,
         st, uniq_bucket=val_bucket,
         preempt=(lambda: bool(preempted)) if st.mesh is not None else None)
     if decision is None or not decision.get("held"):
-        publisher.publish(st.global_step, decision)
+        if publisher.publish(st.global_step, decision) and \
+                st.tel is not None:
+            st.tel.set("stream/last_publish_age_seconds", 0.0)
     return decision
 
 

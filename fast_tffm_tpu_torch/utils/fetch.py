@@ -9,13 +9,19 @@ non-blocking copy into a pinned buffer, behind a CUDA event, and hands
 the chunk to one worker thread, which waits for the event and runs the
 consumer on the host arrays, in add order, while the caller goes on
 launching the next chunk's work. Tensors on the CPU take the same path
-without the copy.
+without the copy. With a run's telemetry active, each chunk is a
+``fetch/bulk`` span and adds to ``fetch/d2h_seconds``, on the worker.
+
+``fetch_floats`` is the one fetch of the buffered scalars (the metrics
+sink's barrier, the TensorBoard summaries): device tensors stacked per
+device and copied in one ``.cpu()`` each.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +54,14 @@ class ChunkedFetcher:
         self._err: List[BaseException] = []
         self._abandon = threading.Event()
 
+    @property
+    def pending_depth(self) -> int:
+        """Entries held back for in-order delivery (the pending list and
+        any full chunk queued behind the worker): the predict sweep's
+        ``predict/fetch_depth`` histogram, a host-side read."""
+        q = self._queue
+        return len(self._pending) + (q.qsize() * self._chunk if q else 0)
+
     def add(self, tensor: torch.Tensor, meta: Any = None) -> None:
         if self._err:
             self.flush()  # raises the worker's error
@@ -75,17 +89,27 @@ class ChunkedFetcher:
                 return
             if self._err or self._abandon.is_set():
                 continue  # drain without work after an error or close()
-            host, event, lengths, metas = item
             try:
-                if event is not None:
-                    event.synchronize()
-                arr = host.numpy()
-                off = 0
-                for n, meta in zip(lengths, metas):
-                    self._consume(arr[off:off + n], meta)
-                    off += n
+                self._fetch_and_consume(item)
             except BaseException as e:  # re-raised by add() / flush()
                 self._err.append(e)
+
+    def _fetch_and_consume(self, item) -> None:
+        from fast_tffm_tpu_torch.obs.telemetry import active
+        from fast_tffm_tpu_torch.obs.trace import span
+        host, event, lengths, metas = item
+        tel = active()
+        t0 = time.perf_counter()
+        with span("fetch/bulk", n=len(lengths)):
+            if event is not None:
+                event.synchronize()
+            arr = host.numpy()
+            off = 0
+            for n, meta in zip(lengths, metas):
+                self._consume(arr[off:off + n], meta)
+                off += n
+        if tel is not None:
+            tel.count("fetch/d2h_seconds", time.perf_counter() - t0)
 
     def _join(self) -> None:
         if self._worker is not None:
@@ -128,3 +152,23 @@ def _stage(batch: List[Tuple[torch.Tensor, Any]]):
     event = torch.cuda.Event()
     event.record()
     return host, event, lengths, metas
+
+
+def fetch_floats(values) -> List[float]:
+    """``values`` (tensors of one element, or host numbers) as Python
+    floats, in order: the tensors of each device stacked and copied to
+    the host in one ``.cpu()``, so N buffered device scalars cost one
+    transfer, not N."""
+    out: List[Optional[float]] = [None] * len(values)
+    groups: dict = {}
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            groups.setdefault((v.device, v.dtype), []).append(i)
+        else:
+            out[i] = float(v)
+    for idx in groups.values():
+        host = torch.stack([values[i].detach().reshape(())
+                            for i in idx]).cpu().double().tolist()
+        for i, val in zip(idx, host):
+            out[i] = val
+    return out

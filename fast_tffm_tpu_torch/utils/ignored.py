@@ -6,7 +6,10 @@ config file serves both. A key whose subsystem is not ported yet must
 not pass in silence: each entry point (``train``, ``predict``,
 ``serve``, the fleet supervisor) logs every key of ``IGNORED_KEYS``
 that is set away from its default, naming the item, unless the caller
-says the key takes effect there (``in_effect``). ``kernel`` is logged
+says the key takes effect there (``in_effect``). The run-telemetry keys
+(``TELEMETRY_KEYS``) take effect on one process and are logged by the
+entry points that do not write a stream yet: the ``dist_train`` arms and
+the fleet supervisor. ``kernel`` is logged
 with a message of its own when set to ``xla`` or ``pallas``: no item
 will port it, since the port has one route per model (a 2nd-order FM
 runs the CUDA kernels on the card and their plain versions on the CPU;
@@ -18,38 +21,38 @@ from __future__ import annotations
 
 from fast_tffm_tpu_torch.config import FmConfig
 
-# (key, ROADMAP.md queue A item, what the item ports).
+# (key, ROADMAP.md queue A item, what the item ports): ignored by every
+# entry point.
 IGNORED_KEYS = (
-    ("metrics_file", "A11", "observability"),
-    ("metrics_flush_steps", "A11", "observability"),
-    ("trace_spans", "A11", "observability"),
-    ("save_summaries_steps", "A11", "observability"),
-    ("profile_dir", "A11", "observability"),
-    ("profile_start_step", "A11", "observability"),
-    ("profile_num_steps", "A11", "observability"),
-    ("watchdog_stall_seconds", "A11", "observability"),
-    ("mem_pressure_fraction", "A11", "observability"),
-    ("anatomy", "A11", "observability"),
-    ("protocol_trace", "A11", "observability"),
-    ("slo_publish_staleness_seconds", "A11", "observability"),
-    ("slo_p99_ms", "A11", "observability"),
-    ("slo_max_bad_fraction", "A11", "observability"),
-    # In a stream run with validation files that publishes, slo_min_auc
-    # does take effect: under publish_quality_eval = auto it switches
-    # the publish quality sweep on (train passes it in ``in_effect``).
-    ("slo_min_auc", "A11",
-     "the SLO verdict (slo_min_auc only switches the publish quality "
-     "sweep on, under publish_quality_eval = auto, in a stream run with "
-     "validation files that publishes)"),
+    ("protocol_trace", "A11b",
+     "protocol tracing of the multi-process collectives"),
 )
 
+# The run-telemetry keys: in effect in single-process train, predict and
+# serve (obs/); ignored by the dist_train arms and the fleet supervisor
+# (``telemetry_off``) until their telemetry is ported. In a stream run
+# with validation files that publishes, slo_min_auc also switches the
+# publish quality sweep on (under publish_quality_eval = auto), across
+# ranks too (train passes it in ``in_effect`` there).
+TELEMETRY_KEYS = tuple(
+    (key, "A11b", "the run telemetry of dist_train and the serving fleet's "
+     "supervisor")
+    for key in ("metrics_file", "metrics_flush_steps", "trace_spans",
+                "save_summaries_steps", "profile_dir", "profile_start_step",
+                "profile_num_steps", "watchdog_stall_seconds",
+                "mem_pressure_fraction", "anatomy",
+                "slo_publish_staleness_seconds", "slo_p99_ms",
+                "slo_max_bad_fraction", "slo_min_auc"))
 
-def ignored_keys_set(cfg: FmConfig):
+
+def ignored_keys_set(cfg: FmConfig, telemetry_off: bool = False):
     """``(key, value, item, what)`` for each ignored key that ``cfg``
-    sets away from its default, in ``IGNORED_KEYS`` order."""
+    sets away from its default, in ``TELEMETRY_KEYS`` (when
+    ``telemetry_off``) then ``IGNORED_KEYS`` order."""
     defaults = FmConfig()
+    keys = (TELEMETRY_KEYS if telemetry_off else ()) + IGNORED_KEYS
     return [(key, getattr(cfg, key), item, what)
-            for key, item, what in IGNORED_KEYS
+            for key, item, what in keys
             if getattr(cfg, key) != getattr(defaults, key)]
 
 
@@ -69,14 +72,16 @@ def kernel_key_message(cfg: FmConfig):
             "PyTorch versions on the CPU; FFM and order > 2 run torch ops")
 
 
-def log_ignored_keys(cfg: FmConfig, logger, in_effect=()) -> None:
+def log_ignored_keys(cfg: FmConfig, logger, in_effect=(),
+                     telemetry_off: bool = False) -> None:
     """One log line per ignored key ``cfg`` sets, naming its item, and
-    the ``kernel`` line; the keys in ``in_effect`` take effect in the
-    caller's run and are not logged."""
+    the ``kernel`` line; ``telemetry_off`` (the dist_train arms, the
+    fleet supervisor) adds the telemetry keys. The keys in ``in_effect``
+    take effect in the caller's run and are not logged."""
     msg = kernel_key_message(cfg)
     if msg is not None:
         logger.info("%s", msg)
-    for key, value, item, what in ignored_keys_set(cfg):
+    for key, value, item, what in ignored_keys_set(cfg, telemetry_off):
         if key in in_effect:
             continue
         logger.info(

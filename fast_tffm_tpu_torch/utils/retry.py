@@ -1,7 +1,8 @@
 """Transient-IO retry with exponential backoff — a copy of
 ``RetryPolicy``, ``retry_io`` and ``open_with_retry`` from
-``fast_tffm_tpu/utils/retry.py``
-(its telemetry counters and trace span wait for ROADMAP.md A11).
+``fast_tffm_tpu/utils/retry.py``, with its telemetry: each retry counts
+``io/retries``, ``io/retries/<op>`` and ``io/retry_sleep_seconds`` and
+its backoff is an ``io/retry`` span.
 
 The checkpoint restore path and the input pipeline wrap their file
 reads in ``retry_io`` (``open_with_retry`` for opens):
@@ -20,6 +21,9 @@ import dataclasses
 import random
 import time
 from typing import Callable, Optional, TypeVar
+
+from fast_tffm_tpu_torch.obs.telemetry import active
+from fast_tffm_tpu_torch.obs.trace import span
 
 T = TypeVar("T")
 
@@ -71,8 +75,15 @@ def retry_io(fn: Callable[..., T], *args,
                 raise
             delay = p.backoff_seconds * (2 ** attempt) * (
                 0.5 + rng.random())
-            if delay > 0:
-                sleep(delay)
+            tel = active()
+            if tel is not None:
+                tel.count("io/retries")
+                tel.count(f"io/retries/{op}")
+                tel.count("io/retry_sleep_seconds", delay)
+            with span("io/retry", op=op, attempt=attempt,
+                      error=f"{type(e).__name__}: {e}"[:200]):
+                if delay > 0:
+                    sleep(delay)
             attempt += 1
 
 

@@ -39,11 +39,12 @@ to ``adagrad_init`` on the tensors' own device, on the current stream,
 in one launch each; the offload backends call it on their CPU state.
 The JAX package pads its index set to 4,096-row chunks with the pad
 row, which already holds those values: the port writes only the rows
-it is given, with the same result. The JAX package's ``_tel()`` counters
-(``vocab/ids``, ``cold_ids``, ``candidates_dropped``, ``admitted_rows``,
-``evicted_rows``, ``live_rows``, ``sketch_fill``) wait for ROADMAP.md
-A11, the port's telemetry; ``count_telemetry`` stays, since it also
-decides whether a raw-ids remap extracts ``vocab_obs``.
+it is given, with the same result. With a run's telemetry active the
+JAX package's counters and gauges land in its stream: ``vocab/ids`` and
+``cold_ids`` at a batch's first remap (training maps only:
+``count_telemetry``), ``candidates_dropped`` at observation, and
+``admitted_rows``, ``evicted_rows``, ``live_rows`` and ``sketch_fill``
+at each barrier.
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from fast_tffm_tpu_torch.vocab.sketch import HASH_SPACE, CountMinSketch
+
+
+def _tel():
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    return active()
+
 
 # The shared cold row: physical row 0 is RESERVED in admit mode —
 # every unadmitted id gathers/trains through it, so the "millions of
@@ -205,6 +212,7 @@ class VocabMap:
         new arrays) together with the map generation, so
         ``ensure_current`` can redo the mapping if a barrier moves the
         slot map while the batch sits in a prefetch queue."""
+        fresh = getattr(batch, "vocab_gen", None) is None
         # Generation captured BEFORE any _frozen read: a barrier
         # refreeze landing mid-remap then leaves the batch stamped
         # with the OLD generation, so ensure_current forces a (cheap,
@@ -234,6 +242,7 @@ class VocabMap:
             batch.uniq_ids = new_uniq
             batch.local_idx = inv[batch.local_idx]
             obs = v64[real]  # unique by the host-dedup contract
+            n_cold = n_miss
         else:
             # Raw-ids batch (dedup = device / the serving path):
             # local_idx holds hashed ids directly; map cellwise — the
@@ -243,14 +252,26 @@ class VocabMap:
             # counters), so inference-side maps — the serving flush is
             # a latency-SLO hot path — skip it entirely.
             batch.vocab_src = (None, batch.local_idx)
+            n_cold = 0
             if self.count_telemetry:
                 obs = np.unique(batch.local_idx).astype(np.int64)
                 obs = obs[obs != HASH_SPACE]
+                if _tel() is not None:
+                    _rows, ohit = self._lookup_core(obs)
+                    n_cold = int(len(obs) - ohit.sum())
             else:
                 obs = None
             batch.local_idx = self.lookup(batch.local_idx)
         batch.vocab_obs = obs
         batch.vocab_gen = gen
+        # Counted once per batch, at its first remap (an ensure_current
+        # redo must not double the cold-hit rate), and only for training
+        # maps.
+        if fresh and self.count_telemetry and obs is not None:
+            tel = _tel()
+            if tel is not None and len(obs):
+                tel.count("vocab/ids", len(obs))
+                tel.count("vocab/cold_ids", n_cold)
         return batch
 
     def ensure_current(self, batch):
@@ -379,6 +400,9 @@ class VocabRuntime(VocabMap):
         dropped = hot[room:] if room < len(hot) else hot[:0]
         hot = hot[:max(room, 0)]
         if len(dropped):
+            tel = _tel()
+            if tel is not None:
+                tel.count("vocab/candidates_dropped", len(dropped))
             # Dropped ids join the membership set too — dropped ONCE
             # per interval — but only while the set itself stays
             # bounded: on an adversarial stream whose over-threshold
@@ -468,6 +492,12 @@ class VocabRuntime(VocabMap):
             reset_rows(np.asarray(sorted(freed), np.int32))
         self.total_admitted += admitted
         self.total_evicted += evicted
+        tel = _tel()
+        if tel is not None:
+            tel.count("vocab/admitted_rows", admitted)
+            tel.count("vocab/evicted_rows", evicted)
+            tel.set("vocab/live_rows", len(self._slots))
+            tel.set("vocab/sketch_fill", self.sketch.fill_fraction())
         return {"admitted": admitted, "evicted": evicted,
                 "live": len(self._slots), "free": len(self._free)}
 

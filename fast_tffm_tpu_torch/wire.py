@@ -27,21 +27,24 @@ layout): the offload train step (lookup.py) and the multi-process
 lockstep (``dist_train``, whose row exchange ships the padded host-deduped
 batch) run padded-wide with a warning; the port has no in-process mesh.
 An offload scorer's encoder (``host_uniq``) withholds a packed batch's
-uniq ids for the backend's gather (``WireBatch.host_uniq``). The memory
-ledger's ``wire_buffers`` entry waits for A11.
+uniq ids for the backend's gather (``WireBatch.host_uniq``). Each
+``device_put`` upserts the memory ledger's ``wire_buffers`` entry (two
+batches' wire bytes: the one in flight and the one a step reads).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.pipeline import DeviceBatch
+from fast_tffm_tpu_torch.obs.memory import LEDGER
+from fast_tffm_tpu_torch.obs.telemetry import batch_payload_bytes
 
 # Narrow-mode wire dtype for values and weights: a 10-bit mantissa, for
 # near-unit libsvm values and example weights, upcast to f32 on the
@@ -78,18 +81,6 @@ def rect_fraction_rungs(B: int, L: int):
 def flat_rungs(B: int, L: int):
     """Every flat rung a [B, L] serve flush can encode to."""
     return rect_fraction_rungs(B, L)
-
-
-def batch_payload_bytes(args: Dict[str, Any]) -> int:
-    """Bytes of the arrays about to be shipped for one batch (None
-    entries ship nothing): the encoder's output, never the padded
-    layout, so h2d_bytes counts what crosses the wall."""
-    n = 0
-    for v in args.values():
-        nb = getattr(v, "nbytes", None)
-        if nb is not None:
-            n += nb
-    return int(n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,6 +246,7 @@ class WireEncoder:
         each tensor is marked as used there so that its memory is not
         handed to the next copy while a step still reads it."""
         device = torch.device(device)
+        LEDGER.register("wire_buffers", 2 * wb.wire_bytes)
         if device.type != "cuda":
             return {k: v.to(device) for k, v in wb.args.items()}
         compute = torch.cuda.current_stream(device)

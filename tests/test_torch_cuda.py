@@ -83,6 +83,14 @@ Tolerances:
   first periodic save's; the survivor reforms alone, finishes at the
   exactly-once step, and its table equals a single-process resume of the
   same step on the CPU at the step's rtol 1e-4 / atol 1e-6.
+- the run telemetry: ``device_memory_stats`` reads the allocator's
+  current and peak bytes and the card's total memory; ``oom_guard`` turns
+  a real out-of-memory allocation into ``HbmExhaustedError`` naming the
+  ledger's owners, and the allocator serves the next allocation; the same
+  train steps make equal numbers of synchronizations with the telemetry
+  on and off (sync debug mode), the barrier one more; a profiler window
+  of a train run on the card holds one ``fm_score`` and one
+  ``fm_score_bwd`` kernel event per step of the window.
 """
 
 import numpy as np
@@ -1234,3 +1242,86 @@ def test_two_rank_shrink_on_the_card(card, tmp_path):
     np.testing.assert_allclose(final["table"].numpy(),
                                want[:single.num_rows].numpy(), rtol=1e-4,
                                atol=1e-6)
+
+
+def test_device_memory_stats_on_the_card(card):
+    from fast_tffm_tpu_torch.obs import memory as mem
+    mem.bind_device(card)
+    try:
+        x = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+        stats = mem.device_memory_stats()
+        assert set(stats) == {"bytes_in_use", "peak_bytes_in_use",
+                              "bytes_limit"}
+        assert stats["bytes_limit"] == \
+            torch.cuda.get_device_properties(card).total_memory
+        assert stats["bytes_in_use"] == torch.cuda.memory_allocated(card)
+        assert stats["bytes_in_use"] >= x.numel()
+        assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+        assert mem.device_capacity_bytes() == stats["bytes_limit"]
+        mem.bind_device("cpu")
+        assert mem.device_memory_stats() is None
+    finally:
+        mem.bind_device(None)
+
+
+def test_oom_guard_on_a_real_oom(card):
+    from fast_tffm_tpu_torch.obs import memory as mem
+    from fast_tffm_tpu_torch.testing.telemetry import oom_wrap
+    mem.bind_device(card)
+    mem.LEDGER.register("table", 1 << 30)
+    mem.LEDGER.register("adagrad_acc", 1 << 30)
+    try:
+        got = oom_wrap(card)
+    finally:
+        mem.LEDGER.reset()
+        mem.bind_device(None)
+    assert got["cause"] == "OutOfMemoryError" and got["names_owners"]
+    assert got["first_line"].startswith(
+        "device out of memory at smoke/oversized_alloc")
+    assert got["allocator_usable"]
+
+
+def test_telemetry_adds_no_synchronization_to_a_step(card, tmp_path):
+    from fast_tffm_tpu_torch.data.pipeline import make_device_batch
+    from fast_tffm_tpu_torch.data.parser import ParsedBlock
+    from fast_tffm_tpu_torch.testing.telemetry import telemetry_steps
+    cfg = FmConfig(vocabulary_size=1 << 16, factor_num=16, batch_size=1024,
+                   learning_rate=0.1, log_steps=1, dedup="device",
+                   mem_pressure_fraction=0.5)
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(4):
+        n = rng.integers(1, 33, size=cfg.batch_size)
+        poses = np.concatenate([[0], np.cumsum(n)]).astype(np.int32)
+        block = ParsedBlock(
+            labels=(rng.random(cfg.batch_size) < 0.3).astype(np.float32),
+            poses=poses,
+            ids=rng.integers(0, cfg.vocabulary_size,
+                             size=poses[-1]).astype(np.int32),
+            vals=rng.random(poses[-1]).astype(np.float32), fields=None)
+        batches.append(make_device_batch(block, cfg, batch_size=cfg.batch_size))
+    got = telemetry_steps(cfg, card, batches, steps=12, rounds=2,
+                          workdir=str(tmp_path))
+    assert got["off"]["syncs"] == got["on"]["syncs"], got
+    assert len(set(got["on"]["syncs"])) == 1, got
+    assert got["barrier_syncs"] >= 1
+
+
+def test_profiler_window_holds_the_kernels(card, tmp_path):
+    import dataclasses
+    import os
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.testing.telemetry import trace_kernel_counts
+    from fast_tffm_tpu_torch.train import train
+    cfg = load_config("sample.cfg")
+    cfg = dataclasses.replace(
+        cfg, model_file=str(tmp_path / "m" / "fm"), log_file="",
+        train_files=tuple(os.path.abspath(f) for f in cfg.train_files),
+        validation_files=(), epoch_num=1, batch_size=64,
+        profile_dir=str(tmp_path / "prof"), profile_start_step=5,
+        profile_num_steps=3, metrics_file=str(tmp_path / "m.jsonl"))
+    train(cfg, device=card)
+    (trace,) = os.listdir(cfg.profile_dir)
+    assert trace == "train_steps_6-8.trace.json"
+    counts = trace_kernel_counts(os.path.join(cfg.profile_dir, trace))
+    assert counts == {"fm_score_kernel": 3, "fm_score_bwd_kernel": 3}

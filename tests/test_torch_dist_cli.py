@@ -66,6 +66,7 @@ save_steps = 7
 max_features_per_example = 64
 bucket_ladder = 8,16,32,64
 host_threads = 1
+metrics_file = auto
 [Predict]
 predict_files = {wd}/predict.txt
 score_path = {wd}/score
@@ -159,6 +160,19 @@ def test_two_workers_train_in_lockstep(dist_run):
     n = [int(re.search(r"(\d+) local examples", lg).group(1))
          for lg in (log0, log1)]
     assert sum(n) == 2 * 2000
+
+
+def test_dist_arms_log_the_telemetry_keys_as_ignored(dist_run):
+    # The multi-process arms write no stream yet (ROADMAP.md A11b): the
+    # keys are logged as ignored by every rank of train and predict.
+    wd, _, train_logs, predict_logs, _ = dist_run
+    for log in train_logs + predict_logs:
+        assert ("metrics_file = 'auto' is accepted and ignored: the run "
+                "telemetry of dist_train and the serving fleet's supervisor "
+                "is not ported") in log
+        assert "(ROADMAP.md, queue A, item A11b)" in log
+    assert not os.path.exists(os.path.join(wd, "model",
+                                           "fm.metrics.jsonl"))
 
 
 def test_auc_matches_a_single_process_run(dist_run, tmp_path):

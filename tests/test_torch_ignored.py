@@ -1,7 +1,9 @@
 """Config keys the port accepts and ignores (utils/ignored.py): each entry
 point — ``train``, ``predict``, ``serve`` — logs every such key set away
 from its default, naming the ROADMAP.md item that brings it, and the
-keys it refuses still raise."""
+keys it refuses still raise. The run-telemetry keys take effect on one
+process (train, predict and serve write the stream) and are logged as
+ignored by the fleet supervisor and a fleet replica's server."""
 
 import dataclasses
 import logging
@@ -18,16 +20,18 @@ from fast_tffm_tpu_torch.serve.fleet import FleetSupervisor
 from fast_tffm_tpu_torch.serve.server import ScorerServer
 from fast_tffm_tpu_torch.tools import fmckpt
 from fast_tffm_tpu_torch.train import train
-from fast_tffm_tpu_torch.utils.ignored import (IGNORED_KEYS,
+from fast_tffm_tpu_torch.obs.sink import read_events
+from fast_tffm_tpu_torch.utils.ignored import (IGNORED_KEYS, TELEMETRY_KEYS,
                                                ignored_keys_set)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Set away from the default: two observability keys and the SLO key,
-# whose verdict waits for A11 (outside a publishing stream run with
-# validation files, slo_min_auc has no effect at all).
-SET = dict(anatomy=False, metrics_file="auto", slo_min_auc=0.6)
+# Set away from the default: two telemetry keys, an SLO key (all three in
+# effect on one process) and protocol_trace, which waits for A11b
+# everywhere.
+SET = dict(anatomy=False, metrics_file="auto", slo_min_auc=0.6,
+           protocol_trace=True)
 
 
 @pytest.fixture
@@ -47,17 +51,32 @@ def port_log(caplog):
             h.close()
 
 
-def _assert_logged(caplog):
+def _assert_logged(caplog, telemetry_off=False):
+    """protocol_trace is logged everywhere; the telemetry keys only where
+    ``telemetry_off`` (the fleet supervisor, a replica's server)."""
     text = caplog.text
-    assert ("anatomy = False is accepted and ignored: observability is "
-            "not ported") in text
-    assert "metrics_file = 'auto' is accepted and ignored" in text
-    assert ("slo_min_auc = 0.6 is accepted and ignored: the SLO verdict "
-            "(slo_min_auc only switches the publish quality sweep on, "
-            "under publish_quality_eval = auto, in a stream run with "
-            "validation files that publishes) is not ported") in text
-    assert text.count("(ROADMAP.md, queue A, item A11)") == 3
+    assert ("protocol_trace = True is accepted and ignored: protocol "
+            "tracing of the multi-process collectives is not ported") in text
+    telemetry = ("anatomy = False is accepted and ignored: the run "
+                 "telemetry of dist_train and the serving fleet's "
+                 "supervisor is not ported",
+                 "metrics_file = 'auto' is accepted and ignored",
+                 "slo_min_auc = 0.6 is accepted and ignored")
+    for line in telemetry:
+        assert (line in text) == telemetry_off, line
+    assert text.count("(ROADMAP.md, queue A, item A11b)") == (
+        4 if telemetry_off else 1)
     assert "item A13" not in text
+
+
+def _assert_stream(path):
+    """A run's stream: run_start first, run_end last, the slo_min_auc
+    gauge stamped."""
+    events = list(read_events(path))
+    assert events[0]["event"] == "run_start"
+    assert events[-1]["event"] == "run_end"
+    gauges = [e["gauges"] for e in events if e["event"] == "metrics"]
+    assert gauges and gauges[-1]["slo/min_auc"] == 0.6
 
 
 def _cfg(wd, **kw):
@@ -78,23 +97,29 @@ def _published(wd, **kw):
     return cfg
 
 
-@pytest.mark.parametrize("key,item,what", IGNORED_KEYS)
+@pytest.mark.parametrize("key,item,what", TELEMETRY_KEYS + IGNORED_KEYS)
 def test_every_ignored_key_is_a_config_key(key, item, what):
     defaults = FmConfig()
-    assert hasattr(defaults, key) and item == "A11" and what
+    assert hasattr(defaults, key) and item == "A11b" and what
     assert ignored_keys_set(defaults) == []
+    assert ignored_keys_set(defaults, telemetry_off=True) == []
 
 
 def test_ignored_keys_set_lists_keys_away_from_default():
     got = ignored_keys_set(FmConfig(**SET))
     assert [(k, v, item) for k, v, item, _ in got] == [
-        ("metrics_file", "auto", "A11"), ("anatomy", False, "A11"),
-        ("slo_min_auc", 0.6, "A11")]
+        ("protocol_trace", True, "A11b")]
+    got = ignored_keys_set(FmConfig(**SET), telemetry_off=True)
+    assert [(k, v, item) for k, v, item, _ in got] == [
+        ("metrics_file", "auto", "A11b"), ("anatomy", False, "A11b"),
+        ("slo_min_auc", 0.6, "A11b"), ("protocol_trace", True, "A11b")]
 
 
 def test_train_logs_ignored_keys(tmp_path, port_log):
-    train(_cfg(str(tmp_path), **SET), device="cpu")
+    cfg = _cfg(str(tmp_path), **SET)
+    train(cfg, device="cpu")
     _assert_logged(port_log)
+    _assert_stream(cfg.model_file + ".metrics.jsonl")
     # A refusal that stays: admit mode across processes.
     with pytest.raises(ValueError, match="vocab_mode = admit is "
                                          "single-process"):
@@ -109,6 +134,8 @@ def test_predict_logs_ignored_keys(tmp_path, port_log):
     (path,) = predict(cfg, device="cpu")
     assert os.path.getsize(path) > 0
     _assert_logged(port_log)
+    assert list(read_events(cfg.model_file + ".metrics.jsonl"))[-1][
+        "event"] == "run_end"
     # lookup = host predicts too, and logs the same ignored keys.
     port_log.clear()
     (path,) = predict(dataclasses.replace(cfg, lookup="host"),
@@ -126,16 +153,21 @@ def test_serve_logs_ignored_keys(tmp_path, port_log):
     finally:
         server.close()
     _assert_logged(port_log)
-    # A fleet replica's server (external reloads) logs them the same.
+    _assert_stream(cfg.model_file + ".metrics.jsonl")
+    # A fleet replica's server (external reloads, no stream of its own)
+    # logs the telemetry keys as ignored too.
     port_log.clear()
+    os.remove(cfg.model_file + ".metrics.jsonl")
     replica_cfg = dataclasses.replace(cfg, serve_reload_mode="external",
                                       serve_port=7170, serve_replicas=3)
-    server = ScorerServer(replica_cfg, device="cpu", watch=False)
+    server = ScorerServer(replica_cfg, device="cpu", watch=False,
+                          telemetry=False)
     try:
         assert server.score_lines(["1 3:1"], timeout=30).step == 2
     finally:
         server.close()
-    _assert_logged(port_log)
+    _assert_logged(port_log, telemetry_off=True)
+    assert not os.path.exists(cfg.model_file + ".metrics.jsonl")
 
 
 def test_fleet_supervisor_logs_ignored_keys(tmp_path, port_log):
@@ -145,7 +177,7 @@ def test_fleet_supervisor_logs_ignored_keys(tmp_path, port_log):
     assert [r.port for r in sup.replicas] == [7170, 7171]
     assert sup.replicas[0].command()[-2:] == ["--device", "cpu"]
     sup.stop()  # never started: nothing to drain
-    _assert_logged(port_log)
+    _assert_logged(port_log, telemetry_off=True)
 
 
 KERNEL_LINE = ("has no effect in fast_tffm_tpu_torch and no ROADMAP.md item "

@@ -86,7 +86,16 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.parallel",
                  "fast_tffm_tpu_torch.parallel.distributed",
                  "fast_tffm_tpu_torch.parallel.liveness",
-                 "fast_tffm_tpu_torch.parallel.sharded"):
+                 "fast_tffm_tpu_torch.parallel.sharded",
+                 "fast_tffm_tpu_torch.obs.sink",
+                 "fast_tffm_tpu_torch.obs.telemetry",
+                 "fast_tffm_tpu_torch.obs.trace",
+                 "fast_tffm_tpu_torch.obs.health",
+                 "fast_tffm_tpu_torch.obs.memory",
+                 "fast_tffm_tpu_torch.obs.slo",
+                 "fast_tffm_tpu_torch.obs.prom",
+                 "fast_tffm_tpu_torch.utils.summaries",
+                 "fast_tffm_tpu_torch.testing.telemetry"):
         assert name in out["imported"]
 
 
@@ -122,5 +131,5 @@ def test_port_thread_names_carry_their_own_prefix():
             "fmt-serve-warmup", "fmt-fleet-health", "fmt-fleet-reload",
             "fmt-proxy-http", "fmt-proxy-shadow", "fmt-heartbeat",
             "fmt-part-merger", "fmt-ckpt-writer",
-            "fmt-join-ticket"} <= threads
+            "fmt-join-ticket", "fmt-watchdog"} <= threads
     assert [n for n in threads if n.startswith("fm-")] == []

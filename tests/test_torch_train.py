@@ -453,11 +453,15 @@ def test_dist_train_argv_raises(tmp_path, capsys):
 
 
 def test_observability_knobs_are_logged_as_ignored(tmp_path):
+    # The telemetry keys take effect on one process; protocol_trace
+    # (the multi-process collectives' trace) is still ignored.
     path = _write_cfg(str(tmp_path))
     cfg = dataclasses.replace(load_config(path), epoch_num=1,
-                              trace_spans=True, validation_files=())
+                              trace_spans=True, protocol_trace=True,
+                              validation_files=())
     train(cfg, device="cpu")
     with open(cfg.log_file) as fh:
         text = fh.read()
-    assert "trace_spans = True is accepted and ignored" in text
-    assert "item A11" in text
+    assert "protocol_trace = True is accepted and ignored" in text
+    assert "trace_spans = True is accepted and ignored" not in text
+    assert "item A11b" in text
