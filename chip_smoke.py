@@ -1890,7 +1890,12 @@ def fleet_phase(train_cfg_path, lines, expected, serve_row, card):
     first; client threads post blocks of validation lines through the
     proxy; replica 1 is SIGKILLed mid-burst and must respawn; step 16 is
     published under load and reloaded replica by replica. Every response
-    a 200 whose body equals the predict lines of its step."""
+    a 200 whose body equals the predict lines of its step. The fleet
+    writes its telemetry (``metrics_file``): the supervisor's stream,
+    flushed on each edge of the ready count, reads ``FLEET DEGRADED (2/3
+    ready)`` in a snapshot taken across the kill and ``OK`` once drained,
+    with the death counted once; each replica writes ``.r<i>``; the
+    proxy answers ``GET /metrics``."""
     import signal
     import numpy as np
     from fast_tffm_tpu_torch.config import load_config
@@ -1901,9 +1906,14 @@ def fleet_phase(train_cfg_path, lines, expected, serve_row, card):
     base = free_port_block(FLEET_REPLICAS + 1)
     proxy_port = base + FLEET_REPLICAS
     cfg_path = os.path.join(os.path.dirname(train_cfg_path), "fleet.cfg")
+    metrics = os.path.join(os.path.dirname(train_cfg_path),
+                           "fleet.metrics.jsonl")
     with open(train_cfg_path) as fh:
         text = fh.read()
-    check("serve_port = 0\n" in text, "the train config has no [Serve]")
+    check("serve_port = 0\n" in text and text.count("\n[Predict]") == 1,
+          "the train config has no [Serve] or no [Predict]")
+    text = text.replace("\n[Predict]", f"metrics_file = {metrics}\n\n"
+                        "[Predict]")
     with open(cfg_path, "w") as fh:
         fh.write(text.replace("serve_port = 0\n", f"""serve_port = {base}
 serve_proxy_port = {proxy_port}
@@ -1959,6 +1969,7 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
             return len(ready_s) == FLEET_REPLICAS
 
         wait_for(all_ready, f"{FLEET_REPLICAS} ready replicas")
+        prom = get_text(proxy_port, "/metrics")
         first = [r.probe(timeout=30) for r in sup.replicas]
         for i, h in enumerate(first):
             check(h is not None and h["device"] == "cuda:0"
@@ -1974,6 +1985,13 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
         old_pid = victim.pid()
         t_kill = time.perf_counter()
         os.kill(old_pid, signal.SIGKILL)
+        degraded = f"FLEET DEGRADED ({FLEET_REPLICAS - 1}/{FLEET_REPLICAS} " \
+            "ready)"
+        wait_for(lambda: fleet_verdict(metrics) == degraded,
+                 "the supervisor's flushed snapshot of the degraded fleet")
+        t_degraded = time.perf_counter() - t_kill
+        degraded_copy = metrics + ".degraded"
+        shutil.copyfile(metrics, degraded_copy)
         wait_for(lambda: victim.pid() != old_pid, "the respawn")
         respawn_s = time.perf_counter() - t_kill
         wait_for(lambda: victim.row.is_ready()
@@ -2004,6 +2022,13 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
             check(not th.is_alive(), "a fleet client hung")
         stop_sampling.set()
         sampler.join(timeout=FLEET_TIMEOUT)
+        # The stream closes on the health loop's last tick, which may
+        # have caught the stagger's last replica mid-reload after the
+        # probes above saw it back: drain once that loop counts the whole
+        # fleet ready again.
+        wait_for(lambda: sup.stats().get("fleet/ready") == FLEET_REPLICAS,
+                 f"the supervisor's count of {FLEET_REPLICAS} ready "
+                 "replicas after the reload")
         final = [r.probe(timeout=30) for r in sup.replicas]
         stats = sup.stats()
         pids = sup.pids()
@@ -2014,6 +2039,20 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
             th.join(timeout=FLEET_TIMEOUT)
         sup.stop()
     check(all(r.exited() for r in sup.replicas), "a replica outlived stop")
+    # The fleet's telemetry, read by the port's readers.
+    snap = read_shards([degraded_copy], degraded, "the fleet's snapshot "
+                       "across the kill")
+    final_stream = read_shards([metrics], "OK", "the fleet's final stream")
+    check(final_stream["counters"].get("fleet/deaths") == 1
+          and final_stream["counters"].get("fleet/restarts", 0) >= 1,
+          f"the fleet stream's counters {final_stream['counters']}")
+    check(all(os.path.isfile(f"{metrics}.r{i}")
+              for i in range(FLEET_REPLICAS)),
+          f"replica streams: {sorted(os.listdir(os.path.dirname(metrics)))}")
+    status, ctype, body = prom
+    check(status == 200 and ctype.startswith("text/plain; version=0.0.4")
+          and f"fm_fleet_replicas {FLEET_REPLICAS}" in body,
+          f"the proxy's GET /metrics: {status} {ctype} {body[:200]}")
     leaked = [t.name for t in threading.enumerate() if t.is_alive()
               and t.name.startswith(("fmt-fleet", "fmt-proxy"))]
     check(not leaked, f"fleet threads left after the drain: {leaked}")
@@ -2076,9 +2115,32 @@ serve_restart_backoff_seconds = {FLEET_RESTART_BACKOFF_SECONDS}
            "replica_launches": [h["kernel_launches"] for h in final],
            # The replicas' fm_score launches, from their /healthz at the
            # end (replica 1's killed process took its count with it).
-           "launches": sum(h["kernel_launches"] for h in final)}
+           "launches": sum(h["kernel_launches"] for h in final),
+           "telemetry": {"degraded_verdict": snap["verdict"],
+                         "kill_to_degraded_snapshot_seconds": t_degraded,
+                         "final_verdict": final_stream["verdict"],
+                         "stream_deaths":
+                             final_stream["counters"]["fleet/deaths"],
+                         "replica_streams": FLEET_REPLICAS,
+                         "proxy_metrics_status": status}}
+    print(f"fleet telemetry: {card}; the supervisor's snapshot "
+          f"{t_degraded:.2f}s after the kill reads {snap['verdict']}, the "
+          f"drained stream {final_stream['verdict']} with "
+          f"{final_stream['counters']['fleet/deaths']:g} death; "
+          f"{FLEET_REPLICAS} replica streams; proxy GET /metrics {status}",
+          flush=True)
     emit(row)
     return row
+
+
+def fleet_verdict(path):
+    """The health verdict of the supervisor's stream as it stands (the
+    port's reader; the stream may be mid-write)."""
+    from fast_tffm_tpu_torch.obs import attribution
+    if not os.path.isfile(path):
+        return None
+    return attribution.health_verdict(
+        attribution.summarize([path]))["verdict"]
 
 
 def healthz_status(port):
@@ -4463,6 +4525,8 @@ DIST_STEP_SEED = SEED + 30        # the step check's starting table
 DIST_LOSS_RTOL = 1e-5             # 2-rank step vs one process: the loss
 DIST_STATE_RTOL = 1e-4            # ... and the table and accumulator rows
 DIST_STATE_ATOL = 1e-6
+DIST_SYNC_STEPS = 4               # steps an arm and round of the step
+#                                   check's telemetry off/on sync count
 
 # One rank of a dist command in a subprocess: the entry point ``python -m
 # fast_tffm_tpu_torch`` calls, with both kernels' launch counts written
@@ -4490,7 +4554,10 @@ sys.exit(rc)
 # first step are captured as the step gave them: the global [W·U, D] row
 # block, ``local_idx`` offset by rank·U, vals and g. Writes the batches,
 # losses, the rows the steps touched in this rank's shard, whether every
-# other row kept its starting value, and the launch counts to ``out``.
+# other row kept its starting value, and the launch counts to ``out``;
+# then the lockstep step's synchronizations with the run's telemetry off
+# and on (``testing.telemetry.dist_telemetry_steps``: ``sync_steps``
+# steps of each arm over the two batches, in turns).
 DIST_STEP_RANK = r"""
 import sys
 import numpy as np
@@ -4503,8 +4570,9 @@ from fast_tffm_tpu_torch.ops import fm_kernel
 from fast_tffm_tpu_torch.parallel.distributed import init_from_cluster
 from fast_tffm_tpu_torch.parallel.sharded import (init_sharded_state,
                                                   make_mesh)
-out_path, cfg_path, train_path, rank, seed = sys.argv[1:6]
-rank, seed = int(rank), int(seed)
+from fast_tffm_tpu_torch.testing.telemetry import dist_telemetry_steps
+out_path, cfg_path, train_path, rank, seed, sync_steps = sys.argv[1:7]
+rank, seed, sync_steps = int(rank), int(seed), int(sync_steps)
 cfg = load_config(cfg_path)
 world = len(cfg.worker_hosts)
 init_from_cluster(cfg, "worker", rank)
@@ -4573,6 +4641,9 @@ out["rest_unchanged"] = bool(torch.equal(table[rest], table0[rest])) and \
 out["fwd"] = [t.cpu() for t in captured["fwd"]]
 out["bwd"] = [t.cpu() for t in captured["bwd"]]
 out["need_dx"] = captured["need_dx"]
+del table, acc, table0, captured
+out["telemetry"] = dist_telemetry_steps(cfg, mesh, dev, [first, final],
+                                        steps=sync_steps)
 torch.save(out, out_path)
 torch.distributed.destroy_process_group()
 """
@@ -4602,13 +4673,15 @@ def write_even_shards(src, dst, ranks):
     return n
 
 
-def write_dist_cfg(wd, data_wd, tag, epochs, save_steps, port, name=None):
+def write_dist_cfg(wd, data_wd, tag, epochs, save_steps, port, name=None,
+                   metrics=None):
     """A config #2 train config for a 2-rank ``dist_train`` over the
     train lines as ``write_even_shards`` wrote them into ``wd`` and
     ``data_wd``'s validation lines, its rendezvous on ``port`` (free,
     below the ephemeral range). ``batch_size`` is a rank's: the global batch,
     the ranks' batches together, is the train phase's 8,192, so the
-    epoch takes run A's 16 steps and its AUC compares."""
+    epoch takes run A's 16 steps and its AUC compares. ``metrics``: the
+    run's telemetry into that ``metrics_file`` (``DIST_TELEMETRY``)."""
     hosts = ",".join(f"localhost:{port - 1000 + i}"
                      for i in range(DIST_WORKERS))
     path = os.path.join(wd, name or f"dist_{tag}.cfg")
@@ -4627,6 +4700,7 @@ learning_rate = {TRAIN_LR}
 loss_type = logistic
 log_steps = 1
 save_steps = {save_steps}
+{DIST_TELEMETRY.format(path=metrics) if metrics else ''}
 [Predict]
 predict_files = {os.path.join(data_wd, 'val.txt')}
 score_path = {os.path.join(wd, 'score_' + tag)}
@@ -4637,6 +4711,62 @@ collective_timeout_seconds = {DIST_COLLECTIVE_TIMEOUT}
 cluster_connect_timeout_seconds = 120
 """)
     return path
+
+
+# The multi-process legs' telemetry: each worker's shard of the stream
+# (flushed every step, so a killed rank's shard holds every step it
+# took), spans and the protocol trace.
+DIST_TELEMETRY = """metrics_file = {path}
+metrics_flush_steps = 1
+trace_spans = true
+protocol_trace = true"""
+
+
+def read_shards(shards, verdict, what, collectives=False, anatomy=False):
+    """The port's readers over a run's stream shards, in process (the
+    card's machine has no JAX): ``tools/fmstat.py`` exits 0 with health
+    ``verdict``, as ``obs.attribution`` reads it;
+    ``tools/fmtrace.py --collectives`` finds one sequence on every rank
+    (exit 0); ``--anatomy --json`` gives each rank an efficiency in
+    (0, 1]. Returns the summary's counters and health events and those
+    figures."""
+    import contextlib
+    import io
+    from fast_tffm_tpu_torch.obs import attribution
+    from fast_tffm_tpu_torch.tools import fmstat, fmtrace
+
+    def run(main, argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    for path in shards:
+        check(os.path.isfile(path), f"{what}: no stream {path}")
+    rc, text, _ = run(fmstat.main, list(shards))
+    summary = attribution.summarize(list(shards))
+    got = attribution.health_verdict(summary)["verdict"]
+    check(rc == 0 and got == verdict and f"health: {verdict}" in text,
+          f"{what}: fmstat exited {rc} with health {got!r}, not {verdict!r}")
+    res = {"verdict": got, "counters": summary["counters"],
+           "health_events": summary["health_events"]}
+    if collectives:
+        rc, _, err = run(fmtrace.main, ["--collectives"] + list(shards))
+        check(rc == 0, f"{what}: fmtrace --collectives exited {rc}: {err}")
+        res["collectives"] = err.strip()
+    if anatomy:
+        rc, text, err = run(fmtrace.main,
+                            ["--anatomy", "--json"] + list(shards))
+        rep = json.loads(text) if rc == 0 else {}
+        eff = {int(k): v["efficiency"]
+               for k, v in rep.get("ranks", {}).items()}
+        check(rc == 0 and len(eff) == len(shards)
+              and all(0.0 < e <= 1.0 for e in eff.values()),
+              f"{what}: fmtrace --anatomy exited {rc}, efficiency {eff}: "
+              f"{(text or err)[:300]}")
+        res["anatomy"] = {"efficiency": eff, "verdict": rep["verdict"],
+                          "matched_barriers": rep["matched_barriers"]}
+    return res
 
 
 def start_dist(wd, mode, cfg_path, tag):
@@ -4669,7 +4799,7 @@ def start_step_check(wd, data_wd, port):
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", DIST_STEP_RANK, outs[-1], cfg_path,
                  os.path.join(data_wd, "train.txt"), str(i),
-                 str(DIST_STEP_SEED)], cwd=ROOT,
+                 str(DIST_STEP_SEED), str(DIST_SYNC_STEPS)], cwd=ROOT,
                 env=dict(os.environ, PYTHONPATH=ROOT), stdout=fh,
                 stderr=subprocess.STDOUT))
     return procs, logs, outs, cfg_path
@@ -4783,6 +4913,17 @@ def dist_step_check(h, torch, device):
     touched = sum(len(rr["ids"]) for rr in res)
     del table, acc
     torch.cuda.empty_cache()
+    # The lockstep step makes as many synchronizations with the run's
+    # telemetry on (spans, step anatomy, the protocol trace) as off.
+    tele = [rr["telemetry"] for rr in res]
+    for r, t in enumerate(tele):
+        check(t["on"]["syncs"] == t["off"]["syncs"]
+              and t["collectives_traced"] > 0,
+              f"rank {r}'s lockstep step: synchronizations with the "
+              f"telemetry off {t['off']['syncs']} "
+              f"({t['off'].get('sync_sites')}), on {t['on']['syncs']} "
+              f"({t['on'].get('sync_sites')}), {t['collectives_traced']} "
+              "collectives traced")
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
     fwd_rows, bwd_rows = [], []
@@ -4802,7 +4943,14 @@ def dist_step_check(h, torch, device):
            "touched_rows": touched,
            "step_check_seconds": time.perf_counter() - t0,
            "step_fm_score_launches": [rr["launches"][0] for rr in res],
-           "step_fm_score_bwd_launches": [rr["launches"][1] for rr in res]}
+           "step_fm_score_bwd_launches": [rr["launches"][1] for rr in res],
+           "telemetry_sync_check": [
+               {"rank": r, "steps": DIST_SYNC_STEPS,
+                "syncs_off": t["off"]["syncs"], "syncs_on": t["on"]["syncs"],
+                "sync_sites": t["on"]["sync_sites"],
+                "step_ms_off": t["off"]["ms"], "step_ms_on": t["on"]["ms"],
+                "collectives_traced": t["collectives_traced"]}
+               for r, t in enumerate(tele)]}
     print(f"dist step check: 2-rank step vs single-process step on the "
           f"global batch, loss err {loss_err:.3g}, rows err {state_err:.3g} "
           f"over {touched} touched rows; unpadded split: lines "
@@ -4810,6 +4958,13 @@ def dist_step_check(h, torch, device):
           f"{row['batches_per_rank_unpadded']}, the last global step "
           f"weighs {weights[-1]:g} of {weights[0]:g} and takes a full "
           f"step", flush=True)
+    print(f"dist step telemetry: the lockstep step ({DIST_SYNC_STEPS} steps "
+          f"an arm and round) makes "
+          f"{[t['off']['syncs'] for t in tele]} synchronizations with the "
+          f"telemetry off and {[t['on']['syncs'] for t in tele]} on, rank by "
+          f"rank (sites {tele[0]['on']['sync_sites']}); step ms off "
+          f"{[t['off']['median_ms'] for t in tele]}, on "
+          f"{[t['on']['median_ms'] for t in tele]}", flush=True)
     return row, fwd_rows, bwd_rows
 
 
@@ -4899,12 +5054,15 @@ def dist_start(data):
     # run starts with run A, and the predict starts while run A's chief
     # still holds its port.
     port = free_port_block(4)
+    h["metrics"] = [os.path.join(wd, f"{kind}.metrics.jsonl")
+                    for kind in ("train", "predict")]
     h["cfg_path"] = write_dist_cfg(wd, data_wd, "a", 1, DIST_SAVE_STEPS,
-                                   port)
+                                   port, metrics=h["metrics"][0])
     h["cfg"] = load_config(h["cfg_path"])
     kill_cfg = write_dist_cfg(wd, data_wd, "kill", 3, 0, port + 1)
     h["predict_cfg"] = write_dist_cfg(wd, data_wd, "a", 1, DIST_SAVE_STEPS,
-                                      port + 2, name="dist_a_predict.cfg")
+                                      port + 2, name="dist_a_predict.cfg",
+                                      metrics=h["metrics"][1])
     h["train_a"] = start_dist(wd, "train", h["cfg_path"], "a")
     h["kill"] = start_dist(wd, "train", kill_cfg, "kill")
     h["step"] = start_step_check(wd, data_wd, port + 3)
@@ -4998,6 +5156,42 @@ def dist_finish(h, torch, device, card, train_row):
         step_row, fwd_rows, bwd_rows = dist_step_check(h, torch, device)
     finally:
         dist_stop(h)
+    # The ranks' telemetry (a shard each), read by the port's readers:
+    # the train shards' examples are the epoch's, the predict shards' the
+    # validation lines', one collective sequence on both ranks, and the
+    # step anatomy aligned on the lockstep's barrier spans.
+    t1 = time.perf_counter()
+    shards = [[m, m + ".p1"] for m in h["metrics"]]
+    tele = {"train": read_shards(shards[0], "OK", "the dist train's streams",
+                                 collectives=True, anatomy=True),
+            "predict": read_shards(shards[1], "OK",
+                                   "the dist predict's streams",
+                                   collectives=True)}
+    check(tele["train"]["counters"].get("train/examples") == TRAIN_LINES
+          and tele["predict"]["counters"].get("predict/examples")
+          == VAL_LINES,
+          f"the shards' train/examples "
+          f"{tele['train']['counters'].get('train/examples')} (want "
+          f"{TRAIN_LINES}), predict/examples "
+          f"{tele['predict']['counters'].get('predict/examples')} (want "
+          f"{VAL_LINES})")
+    anat = tele["train"]["anatomy"]
+    tele_row = {"verdicts": [tele[k]["verdict"] for k in tele],
+                "train_examples": tele["train"]["counters"]["train/examples"],
+                "predict_examples":
+                    tele["predict"]["counters"]["predict/examples"],
+                "collectives": [tele[k]["collectives"] for k in tele],
+                "anatomy": anat, "readers_seconds": time.perf_counter() - t1}
+    print(f"dist anatomy: {anat['verdict']}", flush=True)
+    print(f"dist telemetry: {card}; train shards {tele_row['verdicts'][0]}, "
+          f"train/examples {tele_row['train_examples']} (the epoch's "
+          f"{TRAIN_LINES}); predict shards {tele_row['verdicts'][1]}, "
+          f"predict/examples {tele_row['predict_examples']}; "
+          f"{tele_row['collectives'][0]} (train), "
+          f"{tele_row['collectives'][1]} (predict); anatomy over "
+          f"{anat['matched_barriers']} barriers, efficiency "
+          f"{anat['efficiency']}; read in "
+          f"{tele_row['readers_seconds']:.2f}s", flush=True)
     for i, text in enumerate(logs):
         check(f"multi-process training: rank {i} of {DIST_WORKERS} on "
               f"cuda:0" in text, f"worker {i}'s log names no cuda:0")
@@ -5078,7 +5272,8 @@ def dist_finish(h, torch, device, card, train_row):
            "predict_fm_score_launches": [p["fm_score"] for p in plaunches],
            "kill_exit_code": rc0, "kill_detect_seconds": detect_s,
            "kill_budget_seconds": budget,
-           "kill_message": lost.group(0)[:200], **step_row}
+           "kill_message": lost.group(0)[:200], "telemetry": tele_row,
+           **step_row}
     print(f"dist: {DIST_WORKERS} workers on cuda:0 (gloo), "
           f"{row['seconds']:.1f}s for the phase, {row['visible_seconds']:.1f}s"
           f" of it after the phases it ran beside (correctness run, not a "
@@ -5239,7 +5434,8 @@ def elastic_start(dist_wd):
                     os.path.join(wd, "train_even.txt"))
     port = free_port_block(4)
     cfg_path = write_dist_cfg(wd, os.path.join(WORK, "train"), "elastic",
-                              ELASTIC_EPOCHS, ELASTIC_SAVE_STEPS, port)
+                              ELASTIC_EPOCHS, ELASTIC_SAVE_STEPS, port,
+                              metrics=os.path.join(wd, "metrics.jsonl"))
     with open(cfg_path, "a") as fh:
         fh.write("elastic = grow\njoin_timeout_seconds = 600\n")
     h = {"wd": wd, "cfg_path": cfg_path, "cfg": load_config(cfg_path),
@@ -5390,6 +5586,7 @@ def elastic_finish(h, torch, device, card, train_row):
           f"{m.group(0) if m else None} (floor {train_row['auc_floor']})")
     auc = float(m.group(1))
     left = lease_files_left(cfg, surv)
+    tele = elastic_telemetry(cfg, "the elastic leg")
     for name, r in (("survivor", res[0]), ("joiner", res[1])):
         check(r["fm_score"] > 0 and r["fm_score_bwd"] > 0,
               f"the {name} launched fm_score {r['fm_score']} and "
@@ -5456,7 +5653,7 @@ def elastic_finish(h, torch, device, card, train_row):
            "fm_score_launches": [res[0]["fm_score"], res[1]["fm_score"]],
            "fm_score_bwd_launches": [res[0]["fm_score_bwd"],
                                      res[1]["fm_score_bwd"]],
-           "launches": launches, "lease_files": left}
+           "launches": launches, "lease_files": left, "telemetry": tele}
     print(f"dist elastic: {card}; kill to detection "
           f"{row['kill_to_detection_seconds']:.2f}s, detection to recovery "
           f"{row['detection_to_recovery_seconds']:.2f}s, restores "
@@ -5467,9 +5664,40 @@ def elastic_finish(h, torch, device, card, train_row):
           f"(fm_score, fm_score_bwd) survivor {launches['survivor']}, "
           f"joiner {launches['joiner']}; {seconds:.1f}s for the leg, "
           f"{row['visible_seconds']:.1f}s of it after the phase it ran "
-          f"beside", flush=True)
+          f"beside; telemetry: {tele['verdict']}, {tele['worker_lost']} "
+          f"worker_lost naming process 1, recoveries {tele['recoveries']}",
+          flush=True)
     emit(row)
     return row, fwd_rows, bwd_rows
+
+
+def elastic_telemetry(cfg, what):
+    """An elastic leg's streams after a kill, a shrink and a grow: the
+    chief's (``cfg.metrics_file``) holds ``health: worker_lost`` naming
+    process 1 alone (``cluster/workers_lost`` 1) and an
+    ``elastic_recovered`` of kind ``shrink`` then one of kind ``grow``;
+    the port's fmstat reads the chief's and worker 1's shard (the killed
+    rank's run, then the joiner's) as ``RECOVERED (gen 2, 2 workers)``.
+    Returns the figures with the counters."""
+    from fast_tffm_tpu_torch.obs.sink import read_events
+    chief = [e for e in read_events(cfg.metrics_file) if e["event"] ==
+             "health"]
+    lost = [e for e in chief if e.get("status") == "worker_lost"]
+    named = sorted({p["process_index"] for e in lost for p in e["lost"]})
+    kinds = [e["kind"] for e in chief
+             if e.get("status") == "elastic_recovered"]
+    check(lost and named == [1] and kinds == ["shrink", "grow"],
+          f"{what}: the chief's stream holds {len(lost)} worker_lost "
+          f"naming {named} and recoveries {kinds}")
+    res = read_shards([cfg.metrics_file, cfg.metrics_file + ".p1"],
+                      "RECOVERED (gen 2, 2 workers)", what)
+    check(res["counters"].get("cluster/workers_lost") == 1
+          and res["counters"].get("cluster/elastic_recoveries") == 2,
+          f"{what}: cluster counters {res['counters']}")
+    return {"verdict": res["verdict"], "worker_lost": len(lost),
+            "worker_lost_labels": [e["label"] for e in lost],
+            "recoveries": kinds,
+            "train_examples": res["counters"].get("train/examples")}
 
 
 DSTREAM_SHARDS = 4                # of 32,768 lines: 8 batches of a rank's
@@ -5506,6 +5734,7 @@ learning_rate = {TRAIN_LR}
 loss_type = logistic
 log_steps = 1
 save_steps = 0
+{DIST_TELEMETRY.format(path=os.path.join(wd, 'metrics.jsonl'))}
 [Cluster]
 worker_hosts = {hosts}
 heartbeat_seconds = {DIST_HEARTBEAT_SECONDS}
@@ -5717,6 +5946,13 @@ def dstream_finish(h, torch, device, card, train_row):
           f"(tolerance {DIST_AUC_TOL}) and the floor "
           f"{train_row['auc_floor']}")
     left = lease_files_left(cfg, surv)
+    # Exactly once by the telemetry too: train/examples summed over the
+    # chief's stream, the killed rank's and the joiner's (one .p1) is
+    # every line written.
+    tele = elastic_telemetry(cfg, "the dist stream leg")
+    check(tele["train_examples"] == DSTREAM_SHARDS * h["shard_lines"],
+          f"the dist stream leg's shards count {tele['train_examples']} "
+          f"train/examples, not {DSTREAM_SHARDS * h['shard_lines']}")
     check([s["num_shards"] for s in res[0]["sessions"]] == [2, 1, 2]
           and [s["num_shards"] for s in res[1]["sessions"]] == [2],
           f"sessions: survivor {res[0]['sessions']}, joiner "
@@ -5793,7 +6029,7 @@ def dstream_finish(h, torch, device, card, train_row):
            "fm_score_launches": [res[0]["fm_score"], res[1]["fm_score"]],
            "fm_score_bwd_launches": [res[0]["fm_score_bwd"],
                                      res[1]["fm_score_bwd"]],
-           "launches": launches, "lease_files": left}
+           "launches": launches, "lease_files": left, "telemetry": tele}
     sweep_s = [x for _, x in sweeps] or [float("nan")]
     save_s = [x for _, x in saves] or [float("nan")]
     print(f"dist stream: {card}; kill to detection "
@@ -5809,7 +6045,8 @@ def dstream_finish(h, torch, device, card, train_row):
           f"(fm_score, fm_score_bwd) survivor {launches['survivor']}, "
           f"joiner {launches['joiner']}; {seconds:.1f}s for the leg, "
           f"{row['visible_seconds']:.1f}s of it after the phases it ran "
-          f"beside", flush=True)
+          f"beside; telemetry: {tele['verdict']}, train/examples "
+          f"{tele['train_examples']} over the 3 runs' shards", flush=True)
     emit(row)
     return row, fwd_rows, bwd_rows
 

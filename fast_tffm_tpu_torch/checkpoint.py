@@ -48,12 +48,15 @@ chief broadcast under the deadline guard: which step to restore
 (``_broadcast_int``), whether every rank loaded it (``_all_agree``),
 the epoch override and the sidecars, and whether a save writes.
 
-With a run's telemetry active (single process): ``checkpoint/save``
-and ``checkpoint/restore`` spans, the ``checkpoint/saves``,
+With a run's telemetry active: ``checkpoint/save`` and
+``checkpoint/restore`` spans, the ``checkpoint/saves``,
 ``checkpoint/fallbacks``, ``stream/publishes`` and
 ``stream/publish_failures`` counters, and a quarantine's ``health:
 ckpt_fallback`` event with ``checkpoint/quarantined_steps``, as in the
-JAX package. The multi-process arm's counters wait for ROADMAP.md A11b.
+JAX package. Across processes each rank counts into its own shard: the
+chief's gather of the shards and its merged watermark run inside its
+``checkpoint/save`` span, and every broadcast and gather is a
+``collective`` event of the protocol trace (parallel/liveness.py).
 """
 
 from __future__ import annotations
@@ -764,6 +767,11 @@ class CheckpointState:
                     args=(meta, stream_state, None, self._buffers, False),
                     name="fmt-ckpt-writer", daemon=True)
                 self._writer.start()
+                # The chief alone counts a save that writes (the shards
+                # merge by sum), as in the JAX package.
+                tel = _tel()
+                if tel is not None:
+                    tel.count("checkpoint/saves")
         if wait:
             ok, err = True, None
             if self.chief:

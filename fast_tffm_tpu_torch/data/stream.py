@@ -49,12 +49,15 @@ sealed byte is consumed; until then the source reports IDLE.
 batch to physical rows before it joins the ready deque, as the epoch
 pipeline does.
 
-With a run's telemetry active (one process), the tracker counts
+With a run's telemetry active, the tracker counts
 ``stream/files_discovered``, ``files_sealed``, ``deleted_files`` and
 ``truncated_files``, the source feeds ``pipeline_batch`` for every
 emitted batch and sets ``pipeline/host_threads``, and an idle poll beats
 the watchdog and sets ``stream/watermark_lag_seconds``, as in the JAX
-package. The lockstep arm's telemetry waits for ROADMAP.md A11b.
+package. In lockstep each rank counts into its own shard: the chief
+counts the discoveries it broadcasts, each rank the batches of its own
+files, and the discovery broadcast and the watermark exchange are
+``collective`` events of the protocol trace.
 """
 
 from __future__ import annotations

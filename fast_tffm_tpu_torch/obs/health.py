@@ -11,8 +11,11 @@ injectable and ``check()`` callable, so the logic is tested under a
 fake clock.
 
 ``emit_ckpt_fallback`` is the checkpoint walk-back's event.
-``emit_worker_lost`` and ``emit_elastic_recovery`` are the multi-process
-arms' events, which this package does not emit yet (ROADMAP.md A11b).
+``emit_worker_lost`` (parallel/liveness.py: the monitor tick, a failed
+collective, the deadline and the elastic abandon) and
+``emit_elastic_recovery`` (train.py, at each shrink and grow) are the
+multi-process arms' events; each flushes, so a survivor's evidence is on
+disk before it reforms.
 """
 
 from __future__ import annotations

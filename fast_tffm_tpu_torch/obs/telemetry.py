@@ -9,8 +9,13 @@ checkpoint writer, the fetcher) calls ``active()`` and does nothing when
 no run is active, so the off cost at every site is one module-global
 read and no signature grows a telemetry parameter.
 
-Process p > 0 writes ``<metrics_file>.p<p>``; in this package only a
-single process writes (process 0, ``metrics_file`` itself). On the card
+Across processes every worker writes its own shard: the chief
+``metrics_file`` itself, worker p > 0 ``<metrics_file>.p<p>``, keyed by
+the worker's original index, so one worker writes one file across every
+elastic re-rank (and a ``--join`` process appends to the shard of the
+slot it takes); the readers merge the shards (``tools/fmstat.py``).
+A fleet's supervisor writes ``metrics_file`` and replica i
+``<metrics_file>.r<i>`` (serve/fleet.py). On the card
 ``run_meta``'s ``backend`` is ``"gpu"`` (the JAX package's name for an
 NVIDIA backend), ``"cpu"`` otherwise.
 """
@@ -380,7 +385,9 @@ def resolve_metrics_path(cfg,
     convention (<model_file>.tb/, <model_file>.ckpt/):
     <model_file>.metrics.jsonl. Non-chief processes get a .p<i> shard
     suffix so P workers never interleave writes in one file.
-    ``process_index`` defaults to 0, the single process."""
+    ``process_index`` (default 0, the single process) is the worker's
+    original index, which stays the same across elastic re-ranks, so
+    one worker writes one shard for the whole run."""
     path = getattr(cfg, "metrics_file", "") or ""
     if not path:
         return None

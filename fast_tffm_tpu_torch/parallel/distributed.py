@@ -73,6 +73,33 @@ def coordinator_address(cfg: FmConfig, generation: int = 0,
     return f"{host}:{8476 + int(generation)}"
 
 
+def _emit_bringup_failed(address: str, process_id: int, attempts: int,
+                         timeout_seconds: float,
+                         last_error: Optional[Exception]) -> None:
+    """``health: cluster_bringup_failed`` and ``cluster/bringup_failures``
+    on the active stream, flushed before the caller raises: a job that
+    never formed leaves its post-mortem (which process gave up on which
+    rendezvous) in the stream. No-op without an active run."""
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    tel = active()
+    if tel is None:
+        return
+    try:
+        tel.count("cluster/bringup_failures")
+        tel.sink.emit("health", {
+            "status": "cluster_bringup_failed",
+            "coordinator": address,
+            "process_index": int(process_id),
+            "attempts": int(attempts),
+            "timeout_seconds": float(timeout_seconds),
+            "error": f"{type(last_error).__name__}: "
+                     f"{str(last_error)[:300]}",
+        })
+        tel.sink.flush()
+    except Exception:  # noqa: BLE001 - never mask the bring-up error
+        pass
+
+
 def initialize_with_retry(initialize: Callable[..., None], address: str,
                           num_processes: int, process_id: int,
                           timeout_seconds: float,
@@ -97,6 +124,8 @@ def initialize_with_retry(initialize: Callable[..., None], address: str,
                 "rendezvous at %s in %d attempt(s) within %gs: %s",
                 process_id, address, attempts, timeout_seconds,
                 f"{type(last_error).__name__}: {last_error}")
+            _emit_bringup_failed(address, process_id, attempts,
+                                 timeout_seconds, last_error)
             raise RuntimeError(
                 f"process {process_id} failed to join the "
                 f"torch.distributed cluster: the rendezvous at {address} "

@@ -47,9 +47,19 @@ and the chief commits the final membership (``commit-<g>.json``); a
 reform's chief sweeps superseded generations (``sweep_lease_dir``).
 
 The staleness, deadline and rendezvous math is clock-injectable, so
-tests run it on fake clocks. The protocol trace and the health
-events (``worker_lost``, ``elastic_recovered``, ``join_refused``) wait
-for ROADMAP.md A11b.
+tests run it on fake clocks.
+
+With a run's telemetry active (obs/), every diagnosis lands on the
+stream as the JAX package writes it, flushed at once: ``health:
+worker_lost`` from the monitor tick, the failed collective's conversion,
+the deadline's escalation and the elastic abandon
+(``cluster/workers_lost`` counts each process once), ``health:
+collective_slow``, and ``health: join_refused`` with
+``cluster/joins_refused``. The protocol trace (``protocol_trace``,
+``FM_PROTOCOL_TRACE`` or ``enable_protocol_trace``) writes one
+``collective`` event per collective as it is issued: a sequence number,
+the label and the op, which ``tools/fmtrace.py --collectives`` compares
+across the ranks.
 """
 
 from __future__ import annotations
@@ -194,6 +204,12 @@ class HeartbeatLease:
                         pid=int(rec.get("pid", -1)),
                         age_seconds=max(0.0, now - float(rec["time"])))
 
+    def age(self) -> Optional[float]:
+        """Seconds since our own lease last reached disk (the stream's
+        ``worker/heartbeat_age_seconds``); None before the first
+        renewal."""
+        return self.peer_info(self.process_index).age_seconds
+
     def stale_peers(self, now: Optional[float] = None) -> List[PeerInfo]:
         """Members other than us whose lease is older than
         ``stale_after``, or missing: the diagnosis the guard names."""
@@ -253,14 +269,19 @@ class HeartbeatLease:
 
     # -- renew / monitor thread -----------------------------------------
     def check_peers(self) -> List[PeerInfo]:
-        """One monitor tick: a ``worker lost`` warning for every member
-        newly gone stale (one per staleness episode; a peer whose lease
-        resumes re-arms). Returns the newly lost peers."""
+        """One monitor tick: a ``worker lost`` warning and a ``health:
+        worker_lost`` event for every member whose lease newly went stale
+        (one per staleness episode; a peer whose lease resumes re-arms).
+        Returns the newly lost peers."""
         if self.read(self.process_index) is None:
             # Our own lease, renewed this tick, is unreadable: the
             # directory is broken, not the peers; skip the tick.
             return []
-        stale = self.stale_peers()
+        # A lease on disk gone stale: a peer that exits cleanly removes
+        # its lease (``stop``), and a member that finishes its run a
+        # moment before this one is not a lost worker. (The guard still
+        # names a peer without a lease when a collective fails.)
+        stale = [i for i in self.stale_peers() if i.age_seconds is not None]
         stale_ids = {i.process_index for i in stale}
         fresh = [i for i in stale
                  if i.process_index not in self._reported_lost]
@@ -269,6 +290,7 @@ class HeartbeatLease:
             self._reported_lost.add(info.process_index)
             get_logger().warning("worker lost (heartbeat monitor): %s",
                                  info.describe())
+            _emit_worker_lost([info], label="heartbeat_monitor")
         return fresh
 
     def start(self) -> "HeartbeatLease":
@@ -622,12 +644,25 @@ def sweep_lease_dir(directory: str, generation: int, members: Sequence[int],
 def emit_join_refused(generation: int, slot, reason: str) -> None:
     """The refusal of a joiner the rendezvous turned away (an announce
     into a generation it was never planned into, a commit that left it
-    out), logged at once: the refused process idles outside the
-    cluster. The JAX package's ``health: join_refused`` event waits for
-    ROADMAP.md A11b."""
+    out): logged, and a ``health: join_refused`` event with
+    ``cluster/joins_refused`` on the active stream, flushed at once (the
+    refused process idles outside the cluster, so the evidence must not
+    wait for a barrier)."""
     get_logger().warning(
         "join refused: generation %d, worker slot %d: %s", int(generation),
         int(slot) if slot is not None else -1, str(reason)[:200])
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    tel = active()
+    if tel is None:
+        return
+    tel.count("cluster/joins_refused")
+    tel.sink.emit("health", {
+        "status": "join_refused",
+        "generation": int(generation),
+        "slot": int(slot) if slot is not None else -1,
+        "reason": str(reason)[:200],
+    })
+    tel.sink.flush()
 
 
 @dataclasses.dataclass
@@ -689,7 +724,63 @@ def current_guard() -> Optional[_GuardState]:
     return _GUARD
 
 
+# --- protocol tracing ------------------------------------------------------
+
+_PROTOCOL_TRACE: Optional[bool] = None  # enable_protocol_trace override
+_PROTOCOL_ENV: Optional[bool] = None    # cached FM_PROTOCOL_TRACE parse
+_PROTOCOL_SEQ = 0
+_PROTOCOL_LOCK = threading.Lock()
+
+
+def protocol_trace_enabled() -> bool:
+    """Whether every collective also writes a ``collective`` event (a
+    sequence number, the label and the op). Three switches, in this
+    order: ``enable_protocol_trace()``, the ``FM_PROTOCOL_TRACE``
+    environment variable, and the active run's ``protocol_trace`` key.
+    The ranks' streams then hold one sequence each, which ``fmtrace
+    --collectives`` requires to be identical."""
+    if _PROTOCOL_TRACE is not None:
+        return _PROTOCOL_TRACE
+    global _PROTOCOL_ENV
+    if _PROTOCOL_ENV is None:
+        with _PROTOCOL_LOCK:
+            raw = os.environ.get("FM_PROTOCOL_TRACE", "")
+            _PROTOCOL_ENV = raw.strip().lower() not in ("", "0", "false",
+                                                        "no")
+    if _PROTOCOL_ENV:
+        return True
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    tel = active()
+    return tel is not None and getattr(tel, "protocol_trace", False)
+
+
+def enable_protocol_trace(on: bool = True) -> None:
+    """Force the protocol trace on or off for this process."""
+    global _PROTOCOL_TRACE
+    _PROTOCOL_TRACE = bool(on)
+
+
+def _trace_protocol_op(label: str, op: str) -> None:
+    """One ``collective`` event, written before the collective is issued
+    (so a hung one shows as the stream's last entry), its sequence
+    number taken here: at issue, never at completion. A sink failure
+    never stops the run."""
+    global _PROTOCOL_SEQ
+    try:
+        from fast_tffm_tpu_torch.obs.telemetry import active
+        tel = active()
+        if tel is None:
+            return
+        with _PROTOCOL_LOCK:
+            _PROTOCOL_SEQ += 1
+            seq = _PROTOCOL_SEQ
+        tel.sink.emit("collective", {"seq": seq, "label": label, "op": op})
+    except Exception:  # noqa: BLE001 - tracing must never kill a run
+        pass
+
+
 def guarded_collective(fn: Callable, *args, label: str = "collective",
+                       collective: bool = True, op: Optional[str] = None,
                        **kwargs):
     """Run a blocking collective under the process's deadline guard.
     Without a guard (one process) this is a plain call. Armed: the call
@@ -697,7 +788,16 @@ def guarded_collective(fn: Callable, *args, label: str = "collective",
     raise is re-raised, except when the lease table shows dead peers —
     then a ``WorkerLostError`` naming them, with the original error as
     its cause; a call still blocked past ``collective_timeout_seconds``
-    with stale peers is escalated by the monitor thread."""
+    with stale peers is escalated by the monitor thread.
+
+    With the protocol trace on, a ``collective`` event (``op``, default
+    ``fn``'s name) is written first. ``collective=False`` marks a
+    guarded wait that is not a collective (a local device-to-host
+    wait, which may run a different number of times on each rank): it
+    is guarded but not traced."""
+    if collective and protocol_trace_enabled():
+        _trace_protocol_op(label, op or getattr(fn, "__name__",
+                                                type(fn).__name__))
     state = _GUARD
     if state is None:
         return fn(*args, **kwargs)
@@ -715,8 +815,8 @@ def guarded_collective(fn: Callable, *args, label: str = "collective",
         state.warned_slow = False
 
 
-def guarded_work(start: Callable[[], object], label: str = "collective"
-                 ) -> None:
+def guarded_work(start: Callable[[], object], label: str = "collective",
+                 op: str = "collective") -> None:
     """Run an asynchronous collective under the process's deadline
     guard: ``start()`` issues it (``async_op=True``) and returns its
     work, which this thread waits on in slices of
@@ -724,14 +824,16 @@ def guarded_work(start: Callable[[], object], label: str = "collective"
     elastic guard (``recover``), a collective still pending past
     ``collective_timeout_seconds`` while the lease names stale peers is
     abandoned: logged, kept in ``abandoned_work``, and a
-    ``WorkerLostError`` raised for the elastic loop."""
+    ``WorkerLostError`` raised for the elastic loop. ``op`` names the
+    collective in the protocol trace, which numbers it here, as it is
+    issued."""
     state = _GUARD
-    if state is None:
-        start().wait()
-        return
 
     def wait() -> None:
         work = start()
+        if state is None:
+            work.wait()
+            return
         state.polling = True
         try:
             while True:
@@ -750,7 +852,7 @@ def guarded_work(start: Callable[[], object], label: str = "collective"
                     _abandon_if_lost(state, label, work)
         finally:
             state.polling = False
-    guarded_collective(wait, label=label)
+    guarded_collective(wait, label=label, op=op)
 
 
 def _abandon_if_lost(state: _GuardState, label: str, work) -> None:
@@ -765,6 +867,8 @@ def _abandon_if_lost(state: _GuardState, label: str, work) -> None:
     lost = state.lease.stale_peers() if state.lease is not None else []
     if not lost:
         return
+    _emit_worker_lost(lost, label=label,
+                      timeout_seconds=state.timeout_seconds)
     _dump_stacks(state.lease, label)
     _ABANDONED.append((label, work))
     who = "; ".join(i.describe() for i in lost)
@@ -818,9 +922,12 @@ def check_deadline(state: Optional[_GuardState] = None,
                 "collective slow: '%s' waited %.1fs, past "
                 "collective_timeout_seconds=%gs, with every peer still "
                 "heartbeating", label, waited, state.timeout_seconds)
+            _emit_collective_slow(label, waited, state.timeout_seconds)
         return "slow"
     if snap is not None and state.recover and state.polling:
         return "abandoning"
+    _emit_worker_lost(lost, label=label,
+                      timeout_seconds=state.timeout_seconds)
     _dump_stacks(lease, label)
     who = "; ".join(i.describe() for i in lost)
     message = (f"WorkerLostError: '{label}' exceeded "
@@ -834,6 +941,13 @@ def check_deadline(state: Optional[_GuardState] = None,
 
 def _default_escalate(message: str) -> None:
     get_logger().critical(message)
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    tel = active()
+    if tel is not None:
+        try:
+            tel.sink.flush()
+        except Exception:  # noqa: BLE001 - nothing left to do with a
+            pass           # broken sink on the way out
     for h in get_logger().handlers:
         try:
             h.flush()
@@ -887,9 +1001,41 @@ def _convert_if_peers_lost(lease: Optional[HeartbeatLease], label: str,
     who = "; ".join(i.describe() for i in lost)
     get_logger().error("worker lost during '%s': %s (%s: %s)", label, who,
                        type(cause).__name__, str(cause)[:200])
+    _emit_worker_lost(lost, label=label, error=f"{type(cause).__name__}: "
+                      f"{str(cause)[:200]}")
     raise WorkerLostError(
         f"collective '{label}' failed and the liveness table names "
         f"dead peers: {who}", lost=lost) from cause
+
+
+def _emit_worker_lost(lost: Sequence[PeerInfo], label: str,
+                      timeout_seconds: Optional[float] = None,
+                      error: Optional[str] = None) -> None:
+    """The ``health: worker_lost`` event on the active stream, flushed
+    (obs/health.py); a sink failure never masks the diagnosis."""
+    try:
+        from fast_tffm_tpu_torch.obs.health import emit_worker_lost
+        emit_worker_lost(lost, label=label, timeout_seconds=timeout_seconds,
+                         error=error)
+    except Exception:  # noqa: BLE001 - the diagnosis goes on without it
+        get_logger().exception("worker_lost event emission failed")
+
+
+def _emit_collective_slow(label: str, waited: float,
+                          timeout_seconds: float) -> None:
+    """The one-shot ``health: collective_slow`` event: past the deadline
+    with every peer heartbeating (a slow cluster, not a shrunken one)."""
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    tel = active()
+    if tel is None:
+        return
+    tel.sink.emit("health", {
+        "status": "collective_slow",
+        "label": str(label),
+        "waited_seconds": round(float(waited), 3),
+        "timeout_seconds": float(timeout_seconds),
+    })
+    tel.sink.flush()
 
 
 def _dump_stacks(lease: Optional[HeartbeatLease], label: str) -> None:

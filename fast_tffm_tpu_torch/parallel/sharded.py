@@ -87,7 +87,8 @@ class ProcessMesh:
         import torch.distributed as dist
         t = torch.as_tensor(np.ascontiguousarray(arr))
         out = [torch.empty_like(t) for _ in range(self.size)]
-        guarded_work(lambda: dist.all_gather(out, t, async_op=True), label)
+        guarded_work(lambda: dist.all_gather(out, t, async_op=True), label,
+                     "all_gather")
         return torch.stack(out).numpy()
 
     def broadcast_object(self, obj, label: str):
@@ -98,11 +99,12 @@ class ProcessMesh:
         import torch.distributed as dist
         blob = pickle.dumps(obj) if self.rank == 0 else b""
         n = torch.tensor([len(blob)], dtype=torch.int64)
-        guarded_work(lambda: dist.broadcast(n, src=0, async_op=True), label)
+        guarded_work(lambda: dist.broadcast(n, src=0, async_op=True), label,
+                     "broadcast")
         buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8)
                if self.rank == 0 else torch.empty(int(n), dtype=torch.uint8))
         guarded_work(lambda: dist.broadcast(buf, src=0, async_op=True),
-                     label)
+                     label, "broadcast")
         return obj if self.rank == 0 else pickle.loads(buf.numpy().tobytes())
 
     def barrier(self, label: str) -> None:
@@ -112,7 +114,8 @@ class ProcessMesh:
     def all_reduce_(self, t: torch.Tensor, label: str) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place (on the card or the CPU)."""
         import torch.distributed as dist
-        guarded_work(lambda: dist.all_reduce(t, async_op=True), label)
+        guarded_work(lambda: dist.all_reduce(t, async_op=True), label,
+                     "all_reduce")
         return t
 
     def gather_to_chief(self, t: torch.Tensor, label: str
@@ -123,7 +126,7 @@ class ProcessMesh:
         out = ([torch.empty_like(t) for _ in range(self.size)]
                if self.rank == 0 else None)
         guarded_work(lambda: dist.gather(t, out, dst=0, async_op=True),
-                     label)
+                     label, "gather")
         return out
 
     # -- the row exchange ------------------------------------------------------
@@ -258,41 +261,101 @@ def lockstep_score_batches(cfg: FmConfig, it: Iterator, mesh: ProcessMesh,
     filler after. A flag on any rank ends the sweep on every rank at
     that window, before any of its programs; a window in which every
     rank is dry ends it. Each window's scores are fetched after its
-    programs, one copy to the host."""
+    programs, one copy to the host.
+
+    With a run's telemetry active, each rank counts its own windows
+    into its stream, under the JAX package's names: the spans
+    ``lockstep/window_fill``, ``lockstep/allgather`` (a barrier span:
+    fmtrace --anatomy aligns the ranks' clocks on it),
+    ``lockstep/score_dispatch`` and ``lockstep/score_fetch`` (the copy
+    to the host that was there already: the telemetry adds no wait for
+    the card), and the counters ``lockstep/windows``, ``programs``,
+    ``real_batches``, ``filler_batches``, ``preempted_windows``,
+    ``examples`` and the ``*_seconds`` of each phase."""
+    import time as _time
+
     from fast_tffm_tpu_torch.data.pipeline import empty_batch
+    from fast_tffm_tpu_torch.obs.memory import LEDGER
+    from fast_tffm_tpu_torch.obs.telemetry import active
+    from fast_tffm_tpu_torch.obs.trace import anatomy_on, span
+    tel = active()
+    # The window id: every rank counts windows in the same order (the
+    # all-gather is the barrier), so one id names one window everywhere.
+    ids = {"wid": -1} if anatomy_on() else None
     n_real = 0
     filler = None
     while True:
         window = []
-        while len(window) < LOCKSTEP_WINDOW:
-            if max_batches and n_real + len(window) >= max_batches:
-                break
-            b = next(it, None)
-            if b is None:
-                break
-            window.append(b)
+        if ids is not None:
+            ids["wid"] += 1
+        wid = ids or {}
+        t_fill = _time.perf_counter()
+        with span("lockstep/window_fill", **wid):
+            while len(window) < LOCKSTEP_WINDOW:
+                if max_batches and n_real + len(window) >= max_batches:
+                    break
+                b = next(it, None)
+                if b is None:
+                    break
+                window.append(b)
         stop = 1 if (preempt is not None and preempt()) else 0
-        flags = mesh.all_gather_host(
-            np.asarray([len(window), stop], np.int64),
-            "lockstep/window_fill").reshape(-1, 2)
+        t_ag = _time.perf_counter()
+        with span("lockstep/allgather", window=len(window), **wid):
+            flags = mesh.all_gather_host(
+                np.asarray([len(window), stop], np.int64),
+                "lockstep/window_fill").reshape(-1, 2)
+        if tel is not None:
+            tel.count("lockstep/allgather_seconds",
+                      _time.perf_counter() - t_ag)
         if flags[:, 1].any():
+            if tel is not None:
+                tel.count("lockstep/preempted_windows")
+            LEDGER.release("lockstep_window")
             return
         rounds = int(flags[:, 0].max())
+        if tel is not None:
+            tel.heartbeat()  # a completed collective is progress
+            if rounds:
+                # Programs this round = the window's maximum over the
+                # ranks = real + filler: the three counters cross-check.
+                tel.count("lockstep/windows")
+                tel.count("lockstep/programs", rounds)
+                tel.count("lockstep/real_batches", len(window))
+                tel.count("lockstep/filler_batches", rounds - len(window))
+                tel.count("lockstep/window_fill_seconds",
+                          _time.perf_counter() - t_fill)
         if rounds == 0:
+            LEDGER.release("lockstep_window")
             return
         scores = []
-        for i in range(rounds):
-            if i < len(window):
-                batch = window[i]
-            else:
-                if filler is None:
-                    filler = empty_batch(cfg, uniq_bucket=uniq_bucket)
-                batch = filler
-            s = score_fn(table, batch)
-            if i < len(window):
-                scores.append(s)
+        t_disp = _time.perf_counter()
+        with span("lockstep/score_dispatch", batches=rounds, **wid):
+            for i in range(rounds):
+                if i < len(window):
+                    batch = window[i]
+                else:
+                    if filler is None:
+                        filler = empty_batch(cfg, uniq_bucket=uniq_bucket)
+                    batch = filler
+                s = score_fn(table, batch)
+                if i < len(window):
+                    scores.append(s)
         n_real += len(window)
+        if tel is not None:
+            tel.count("lockstep/dispatch_seconds",
+                      _time.perf_counter() - t_disp)
+            tel.count("lockstep/examples",
+                      sum(b.num_real for b in window))
         if scores:
-            host = torch.stack(scores).cpu().numpy()
+            # The window's score vectors held on the device until the
+            # fetch (tensor metadata, no read).
+            LEDGER.register("lockstep_window",
+                            sum(int(s.nbytes) for s in scores))
+            t_fetch = _time.perf_counter()
+            with span("lockstep/score_fetch", batches=len(scores), **wid):
+                host = torch.stack(scores).cpu().numpy()
+            if tel is not None:
+                tel.count("lockstep/fetch_seconds",
+                          _time.perf_counter() - t_fetch)
             for batch, local in zip(window, host):
                 yield batch, local

@@ -35,10 +35,14 @@ input, one line per input line, blank lines included. ``lookup = host``
 and ``vocab_mode = admit`` are single-process here, as in the JAX
 package.
 
-Telemetry (``metrics_file``; obs/), one process: the sweep's counters,
+Telemetry (``metrics_file``; obs/): the sweep's counters,
 ``predict_file`` events, spans, the ledger's ``table`` and the crash
-event, as in the JAX package; the ``dist_train`` sweep logs the keys as
-ignored (ROADMAP.md A11b).
+event, as in the JAX package. In the ``dist_train`` sweep each rank
+writes its own shard (the chief ``<metrics_file>``, rank i
+``<metrics_file>.p<i>``), made once the cluster has formed: its
+lockstep spans and counters (parallel/sharded.py), a ``predict/sweep``
+span, ``predict/examples`` and a ``predict_file`` event per file
+carrying the rank, and the rank's own ``predict/seconds`` and rate.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
 from fast_tffm_tpu_torch.obs.memory import LEDGER, bind_device
 from fast_tffm_tpu_torch.obs.telemetry import (active, make_telemetry,
                                                pop_active, push_active)
+from fast_tffm_tpu_torch.obs.trace import span
 from fast_tffm_tpu_torch.parallel import distributed as dist_mod
 from fast_tffm_tpu_torch.parallel.liveness import (HeartbeatLease,
                                                    WorkerLostError,
@@ -141,17 +146,27 @@ def predict(cfg: FmConfig, table: Optional[torch.Tensor] = None,
                     "restriction)")
         rank, size = dist_mod.init_from_cluster(cfg, job_name,
                                                 task_index or 0)
-    log_ignored_keys(cfg, logger, telemetry_off=size > 1)
-    if size > 1:
-        return _predict_cluster(cfg, table, device, logger, rank, size)
-    # The run's telemetry (metrics_file; obs/): the sink's lifecycle
-    # spans the whole predict, so a crash mid-sweep still flushes.
-    tel = make_telemetry(cfg, "predict", device=device)
+    log_ignored_keys(cfg, logger)
+    # The run's telemetry (metrics_file; obs/), made once the cluster has
+    # formed, keyed by the rank: the sink's lifecycle spans the whole
+    # predict, so a crash mid-sweep still flushes.
+    cluster = job_name is not None
+    tel = make_telemetry(cfg, "predict",
+                         process_index=rank if cluster else None,
+                         process_count=size if cluster else None,
+                         device=device)
     bind_device(device)
     tel_prev = push_active(tel)
     try:
+        if size > 1:
+            return _predict_cluster(cfg, table, device, logger, rank, size)
         return _predict_single(cfg, table, device, logger)
     except BaseException as e:
+        if isinstance(e, WorkerLostError) and tel is not None:
+            # The buffered device scalars come from collectives that will
+            # never complete on a dead cluster: dropped, as in the JAX
+            # package.
+            tel.sink.discard_scalars()
         if tel is not None:
             try:
                 tel.record_crash(e)
@@ -269,6 +284,10 @@ def _predict_cluster(cfg: FmConfig, table: Optional[torch.Tensor],
                                members=range(size),
                                heartbeat_seconds=cfg.heartbeat_seconds
                                ).start()
+    tel = active()
+    if tel is not None:
+        # The per-worker liveness gauges ride every flush.
+        tel.lease = lease
     guard_prev = install_guard(lease, cfg.collective_timeout_seconds)
     try:
         return _predict_multiprocess(cfg, table, device, logger,
@@ -278,6 +297,8 @@ def _predict_cluster(cfg: FmConfig, table: Optional[torch.Tensor],
         logger.error("WorkerLostError: %s", e)
         raise
     finally:
+        if tel is not None:
+            tel.lease = None
         if lease is not None:
             lease.stop()
         restore_guard(guard_prev)
@@ -332,6 +353,7 @@ def _predict_multiprocess(cfg: FmConfig, table: Optional[torch.Tensor],
     mesh.barrier("predict/clean_barrier")
     writer = ScoreWriter(logger)
     merger = PartMerger(out_paths, P, logger) if p == 0 else None
+    tel = active()
     t0 = time.perf_counter()
     n_local = 0
 
@@ -339,6 +361,11 @@ def _predict_multiprocess(cfg: FmConfig, table: Optional[torch.Tensor],
         vals = sigmoid(raw) if cfg.loss_type == "logistic" else raw
         part = f"{_score_out_path(cfg, path)}.part{p}"
         writer.submit(part, vals, marker=f"{part}.done")
+        if tel is not None:
+            tel.count("predict/examples", len(raw))
+            tel.sink.emit("predict_file",
+                          {"path": path, "examples": len(raw),
+                           "process_index": p})
 
     def score_fn(table, batch):
         args = batch_args(batch, device)
@@ -348,11 +375,13 @@ def _predict_multiprocess(cfg: FmConfig, table: Optional[torch.Tensor],
 
     demux = ScoreDemux(marks, on_file)
     try:
-        with torch.no_grad():
+        with torch.no_grad(), span("predict/sweep", files=len(files)):
             for batch, local in lockstep_score_batches(cfg, it, mesh,
                                                        score_fn, table, ub):
                 demux.consume(local[:batch.num_real])
                 n_local += batch.num_real
+                if tel is not None:
+                    tel.heartbeat()  # lockstep progress feeds the watchdog
         demux.finalize()
         writer.close()  # every part and marker of this rank is on disk
         mesh.barrier("predict/parts_barrier")
@@ -365,6 +394,13 @@ def _predict_multiprocess(cfg: FmConfig, table: Optional[torch.Tensor],
         if merger is not None:
             merger.stop()
     seconds = time.perf_counter() - t0
+    if tel is not None:
+        # This rank's own rate; fmstat over every shard sums examples
+        # and seconds.
+        tel.count("predict/seconds", seconds)
+        tel.set("predict/examples_per_sec",
+                n_local / seconds if seconds > 0 else 0.0)
+        tel.barrier_flush(step=len(out_paths))
     logger.info("predict sweep (rank %d of %d): %d files, %d local "
                 "examples, %.0f examples/s", p, P, len(out_paths), n_local,
                 n_local / seconds if seconds > 0 else 0.0)

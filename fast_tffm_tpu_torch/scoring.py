@@ -417,7 +417,8 @@ class PartMerger:
         n = 0
         # Bounded chunks: a whole part read at once would hold a
         # multi-GB string on the chief for a billion-line predict.
-        with open(out_path, "wb") as out_fh:
+        with span("predict/merge", path=os.path.basename(out_path)), \
+                open(out_path, "wb") as out_fh:
             for i in range(self._P):
                 with open(f"{out_path}.part{i}", "rb") as fh:
                     while True:

@@ -37,10 +37,15 @@ Each child binds the card itself unless ``device`` is ``"cpu"``: one
 CUDA context and one copy of the table each. A child without a card and
 without ``--device cpu`` exits non-zero, and the supervisor logs the
 exit and restarts it under the backoff. The fleet's gauges and counters
-(``fleet/*``, ``proxy/*``) live on a ``MetricsRegistry`` that ``stats``
-reads; the metrics stream, its per-replica shards and fmstat's FLEET
-section wait for ROADMAP.md A11b (the telemetry keys are logged as
-ignored here, and each replica's server writes no stream).
+(``fleet/*``, ``proxy/*``) live on the registry that ``stats`` reads.
+With ``metrics_file`` set it is the supervisor's own stream's
+(``make_telemetry(cfg, "fleet")``): the per-replica gauges
+``fleet/replica<i>_alive``, ``_ready``, ``_step`` and ``_queue_depth``,
+flushed at once on every change of the ready count (so a snapshot taken
+mid-incident shows the gap: fmstat's ``FLEET DEGRADED (k/N ready)``)
+and after each staggered reload, a heartbeat every health poll, and
+``run_end`` at ``stop``. Each replica writes its own stream,
+``<metrics_file>.r<i>``, named for it in ``FM_METRICS_FILE``.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from typing import Callable, List, Optional
 
 from fast_tffm_tpu_torch.checkpoint import read_pointer, read_published
 from fast_tffm_tpu_torch.obs.registry import MetricsRegistry
+from fast_tffm_tpu_torch.obs.telemetry import make_telemetry
 from fast_tffm_tpu_torch.parallel.distributed import ephemeral_port_range
 from fast_tffm_tpu_torch.serve.proxy import FleetView, Replica, ScoreProxy
 from fast_tffm_tpu_torch.utils.ignored import log_ignored_keys
@@ -157,6 +163,12 @@ class ReplicaProc:
         env["FM_SERVE_RELOAD_MODE"] = "external"
         if self.canary:
             env["FM_SERVE_POINTER"] = "canary"
+        if self.cfg.metrics_file:
+            # The replica's own stream, beside the supervisor's.
+            base = self.cfg.metrics_file
+            if base == "auto":
+                base = self.cfg.model_file + ".metrics.jsonl"
+            env["FM_METRICS_FILE"] = f"{base}.r{self.index}"
         # The package must import wherever the child starts.
         import fast_tffm_tpu_torch
         root = os.path.dirname(os.path.dirname(
@@ -321,8 +333,11 @@ class FleetSupervisor:
             raise ValueError(f"device must be cuda or cpu, got {device!r}")
         self.cfg = cfg
         self._logger = logger or get_logger(log_file=cfg.log_file or None)
-        log_ignored_keys(cfg, self._logger, telemetry_off=True)
-        self._reg = MetricsRegistry()
+        log_ignored_keys(cfg, self._logger)
+        # The supervisor's stream (None: metrics off, a bare registry).
+        self._tel = make_telemetry(cfg, "fleet", device=device)
+        self._reg = (self._tel.registry if self._tel is not None
+                     else MetricsRegistry())
         canary_on = cfg.serve_canary_fraction > 0 or cfg.serve_canary_shadow
         n = cfg.serve_replicas
         self.replicas: List[ReplicaProc] = [
@@ -342,6 +357,7 @@ class FleetSupervisor:
         self.directory = os.path.abspath(cfg.model_file) + ".ckpt"
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
+        self._polls = 0
         self._last_ready = -1
         # An outgoing connection (the proxy's, a probe's) can take a port
         # of this range as its own; its TIME_WAIT then holds the port
@@ -404,6 +420,11 @@ class FleetSupervisor:
             t.join()
         self.proxy.shutdown()
         self._drain_children()
+        if self._tel is not None:
+            try:
+                self._tel.close(step=self._polls)
+            except Exception:  # noqa: BLE001 - the drain is done
+                self._logger.exception("metrics sink close failed")
         self._logger.info("fleet: drained %d replicas; supervisor down",
                           len(self.replicas))
 
@@ -415,6 +436,11 @@ class FleetSupervisor:
 
     def pids(self) -> List[Optional[int]]:
         return [r.pid() for r in self.replicas]
+
+    def flush_metrics(self) -> None:
+        """A metrics event now (no-op without a stream)."""
+        if self._tel is not None:
+            self._tel.barrier_flush(self._polls)
 
     def stats(self) -> dict:
         """The fleet's counters and gauges (``fleet/*``, ``proxy/*``)
@@ -488,11 +514,17 @@ class FleetSupervisor:
                               1.0 if row["ready"] else 0.0)
             self._reg.set("fleet/alive", float(alive))
             self._reg.set("fleet/ready", float(ready))
+            self._polls += 1
+            if self._tel is not None:
+                self._tel.heartbeat()
             if ready != self._last_ready:
                 if self._last_ready >= 0:
                     self._logger.info("fleet: ready count %d -> %d (of %d)",
                                       self._last_ready, ready, total)
                 self._last_ready = ready
+                # On every edge of the ready count, so a snapshot taken
+                # mid-incident sees the gap.
+                self.flush_metrics()
 
     # -- reload loop (staggered) ----------------------------------------
 
@@ -539,6 +571,7 @@ class FleetSupervisor:
         def _after(_h, ok):
             self._reg.count("fleet/reloads" if ok
                             else "fleet/reload_failures")
+            self.flush_metrics()
 
         staggered_reload(primaries, step, reloaded=_after,
                          logger=self._logger)

@@ -143,14 +143,13 @@ def make_http_server(fm_server, port: int,
     return ScoreHTTPServer(fm_server, host, port)
 
 
-def run_serve(cfg, device=None, telemetry: bool = True) -> int:
+def run_serve(cfg, device=None) -> int:
     """The ``serve <cfg>`` entry point (and each fleet replica's): load
     the published checkpoint step, bind the HTTP front end while the
     shape ladder warms in the background (``/healthz`` answers alive,
     not ready, until it is warm), serve (and hot-reload newly published
     steps) until SIGTERM/SIGINT, then drain and close. Returns a process
-    exit code. ``telemetry=False`` (a fleet replica): no metrics stream,
-    the telemetry keys logged as ignored."""
+    exit code."""
     import signal
     import threading
     from fast_tffm_tpu_torch.serve.server import ScorerServer
@@ -171,7 +170,7 @@ def run_serve(cfg, device=None, telemetry: bool = True) -> int:
     t = None
     try:
         server = ScorerServer(cfg, logger=logger, device=device,
-                              warmup="background", telemetry=telemetry)
+                              warmup="background")
         if not stop.is_set():
             httpd = make_http_server(server, cfg.serve_port,
                                      host=cfg.serve_host)

@@ -35,9 +35,11 @@ Routing, in order of precedence:
   none ready, a ready canary still scores.
 
 Load shedding: beyond ``serve_proxy_max_inflight`` proxied requests in
-flight the proxy answers 503 with ``Retry-After`` at once. The proxy's
-``GET /metrics`` waits for ROADMAP.md A11b; its counters are on the
-supervisor's registry (``FleetSupervisor.stats``).
+flight the proxy answers 503 with ``Retry-After`` at once. ``GET
+/metrics`` answers the proxy's registry (its routed, retried and shed
+counters, and the supervisor's ``fleet/*`` gauges when the supervisor
+hands it its own) in Prometheus text (obs/prom.py), as the JAX
+package's proxy does.
 """
 
 from __future__ import annotations
@@ -176,10 +178,18 @@ class _ProxyHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self) -> None:  # noqa: N802 - http.server contract
-        if self.path != "/healthz":
-            self._reply(404, b"unknown path; GET /healthz\n", "text/plain")
+        proxy = self.server.proxy
+        if self.path == "/metrics":
+            from fast_tffm_tpu_torch.obs.prom import (PROM_CONTENT_TYPE,
+                                                      prometheus_text)
+            body = prometheus_text(proxy.registry.snapshot())
+            self._reply(200, body.encode("utf-8"), PROM_CONTENT_TYPE)
             return
-        alive, ready, total, rows = self.server.proxy.view.counts()
+        if self.path != "/healthz":
+            self._reply(404, b"unknown path; GET /healthz or /metrics\n",
+                        "text/plain")
+            return
+        alive, ready, total, rows = proxy.view.counts()
         payload = {"status": "ok" if ready else "degraded",
                    "replicas": total, "alive": alive, "ready": ready,
                    "per_replica": rows}

@@ -7,10 +7,13 @@ the config file it is given, applies the ``FM_<KNOB>`` overrides the
 supervisor set for it (its ``serve_port``, ``serve_reload_mode =
 external``, ``serve_pointer = canary`` on the canary replica), and runs
 the single-process serve entry point, whose drain on SIGTERM the
-supervisor's terminate-and-reap relies on. There is no compile cache to
-set up: each replica loads the content-hashed kernel library that
-``ops/build.py`` built, and replicas building it at once on a cold
-build directory each compile to a private name and rename.
+supervisor's terminate-and-reap relies on. With the config's
+``metrics_file`` set, the supervisor names the replica's own stream in
+``FM_METRICS_FILE`` (``<metrics_file>.r<i>``), which its server writes.
+There is no compile cache to set up: each replica loads the
+content-hashed kernel library that ``ops/build.py`` built, and replicas
+building it at once on a cold build directory each compile to a private
+name and rename.
 """
 
 from __future__ import annotations
@@ -33,8 +36,7 @@ def main(argv=None) -> int:
     from fast_tffm_tpu_torch.config import apply_env_overrides, load_config
     from fast_tffm_tpu_torch.serve.frontend import run_serve
     cfg = apply_env_overrides(load_config(argv[0]))
-    # The fleet's per-replica metrics shards wait for ROADMAP.md A11b.
-    return run_serve(cfg, device=device, telemetry=False)
+    return run_serve(cfg, device=device)
 
 
 if __name__ == "__main__":

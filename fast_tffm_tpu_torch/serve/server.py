@@ -66,8 +66,8 @@ spec is stamped as ``slo/*`` gauges; the ``serve/flush``,
 ``served_step``, ``published_step`` and ``reload_peak_bytes`` gauges,
 the memory ledger's ``serve_table`` (and ``serve_reload_table`` while a
 reload holds both) and the capacity pre-flight are the JAX package's. A
-fleet replica's server (``telemetry=False``) writes no stream: the
-fleet's shards are ROADMAP.md A11b.
+fleet replica's server writes the shard its supervisor names in
+``FM_METRICS_FILE`` (``<metrics_file>.r<i>``, serve/fleet.py).
 """
 
 from __future__ import annotations
@@ -209,12 +209,10 @@ class ScorerServer:
     thread (tests drive ``reload_step`` directly). ``warmup`` is
     ``"sync"`` (the constructor returns warm) or ``"background"`` (it
     returns once the step is loaded; ``ready`` stays false until the
-    ladder is warm). ``telemetry=False`` (a fleet replica) writes no
-    metrics stream and logs the telemetry keys as ignored."""
+    ladder is warm)."""
 
     def __init__(self, cfg: FmConfig, logger=None, device=None,
-                 watch: bool = True, warmup: str = "sync",
-                 telemetry: bool = True):
+                 watch: bool = True, warmup: str = "sync"):
         if warmup not in ("sync", "background"):
             raise ValueError(f"warmup must be sync or background, got "
                              f"{warmup!r}")
@@ -233,9 +231,8 @@ class ScorerServer:
         # fits alone but cannot hot-reload is refused at startup.
         obs_memory.preflight_capacity(cfg, "serve")
         self._logger = logger or get_logger(log_file=cfg.log_file or None)
-        log_ignored_keys(cfg, self._logger, telemetry_off=not telemetry)
-        self._tel = (make_telemetry(cfg, "serve", device=self.device)
-                     if telemetry else None)
+        log_ignored_keys(cfg, self._logger)
+        self._tel = make_telemetry(cfg, "serve", device=self.device)
         self._reg = (self._tel.registry if self._tel is not None
                      else MetricsRegistry())
         try:

@@ -1,6 +1,7 @@
 """Card checks of the run telemetry, shared by ``chip_smoke.py`` and the
 ``cuda`` tests: the synchronizations a train step makes with the
-telemetry on and off, the out-of-memory wrap on a real allocation
+telemetry on and off (one process, and a rank's lockstep step), the
+out-of-memory wrap on a real allocation
 failure, the capacity pre-flight's refusal, and the kernels a profiler
 window's trace holds.
 
@@ -118,6 +119,77 @@ def telemetry_steps(cfg: FmConfig, device: torch.device, batches: Sequence,
         ms = out[arm]["ms"]
         out[arm]["median_ms"] = sorted(ms)[len(ms) // 2]
         out[arm]["spread_ms"] = max(ms) - min(ms)
+    return out
+
+
+def dist_telemetry_steps(cfg: FmConfig, mesh, device: torch.device,
+                         batches: Sequence, steps: int, rounds: int = 2,
+                         workdir: str = None) -> Dict[str, object]:
+    """A rank's lockstep train step (``train.step_flags``, the flags
+    all-gather under its barrier span, then ``train._Stepper.step`` with
+    the row exchange) of a ``dist_train`` job on ``mesh``, ``steps``
+    steps over ``batches`` (this rank's fixed-shape host batches,
+    cycled) from this rank's ``init_sharded_state`` shard, with the run's
+    telemetry off and on (``metrics_flush_steps = 4``, spans, step
+    anatomy and the protocol trace), in ``rounds`` rounds taken in turns
+    after one unrecorded round of each. Every rank must call it alike
+    (the steps are collectives). Per arm: the synchronizations each
+    round's steps made (``sync_sites``) with their call sites, and each
+    round's median step ms (CUDA events)."""
+    from fast_tffm_tpu_torch.obs.sink import read_events
+    from fast_tffm_tpu_torch.parallel.sharded import init_sharded_state
+    from fast_tffm_tpu_torch.train import _Stepper, step_flags
+    spec = ModelSpec.from_config(cfg, num_processes=mesh.size)
+    encoder = WireEncoder(resolve_wire(cfg, multi_process=True, train=True),
+                          pad_id=cfg.pad_id)
+    logger = get_logger()
+    workdir = workdir or tempfile.mkdtemp(prefix="dist-telemetry-steps-")
+    out = {"off": {"ms": [], "syncs": []}, "on": {"ms": [], "syncs": []}}
+    for r in range(-1, rounds):
+        for arm in (("on", "off") if r % 2 else ("off", "on")):
+            tel = None
+            if arm == "on":
+                tel = RunTelemetry(
+                    os.path.join(workdir, f"rank{mesh.rank}-{r}.jsonl"), {},
+                    flush_steps=4, trace_spans=True, protocol_trace=True,
+                    anatomy=True)
+            table, acc = init_sharded_state(cfg, mesh, cfg.seed, device)
+            st = _Stepper(cfg, spec, encoder, device, table, acc, 0, logger,
+                          mesh=mesh, tel=tel)
+            with activate(tel):
+                for b in batches:
+                    step_flags(st, "train/step_flags", [0, 0])
+                    st.step(b, 0)
+                torch.cuda.synchronize(device)
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(steps + 1)]
+
+                def run():
+                    events[0].record()
+                    for i in range(steps):
+                        step_flags(st, "train/step_flags", [0, 0])
+                        st.step(batches[i % len(batches)], 0)
+                        events[i + 1].record()
+
+                _, sites = sync_sites(run)
+                torch.cuda.synchronize(device)
+                ms = sorted(events[i].elapsed_time(events[i + 1])
+                            for i in range(steps))
+                if tel is not None:
+                    tel.close()
+                    out["collectives_traced"] = sum(
+                        1 for e in read_events(tel.sink.path)
+                        if e["event"] == "collective")
+            del st, table, acc
+            if r < 0:
+                continue
+            out[arm]["ms"].append(ms[len(ms) // 2])
+            out[arm]["syncs"].append(len(sites))
+            out[arm].setdefault("sync_sites", sorted(set(sites)))
+    obs_memory.LEDGER.release("wire_buffers")
+    for arm in ("off", "on"):
+        ms = out[arm]["ms"]
+        out[arm]["median_ms"] = sorted(ms)[len(ms) // 2]
     return out
 
 

@@ -124,10 +124,16 @@ capacity pre-flight, the SLO gauges, TensorBoard summaries
 (``save_summaries_steps``; utils/summaries.py) and the profiler window
 (``profile_dir``: ``torch.profiler``, a Chrome trace). The step's
 telemetry reads no device value: the loss scalar is buffered on the
-device and fetched with the log lines at the barrier. The ``dist_train``
-arms log these keys as ignored (utils/ignored.py: ROADMAP.md A11b);
-admit mode and ``lookup = host`` across processes are refused as in the
-JAX package.
+device and fetched with the log lines at the barrier. Across processes
+each worker writes its own shard for the whole run, keyed by its
+original worker index (the chief ``<metrics_file>``, worker i
+``<metrics_file>.p<i>``; a ``--join`` process appends to the shard of
+the slot it takes), with ``health: worker_lost`` and
+``elastic_recovered`` at each reform, the lockstep's ``train/h2d``,
+``train/step``, ``train/step_flags`` (``stream/step_flags``) spans, and
+``train/examples`` counting the worker's own examples, so the shards
+sum to the job's. Admit mode and ``lookup = host`` across processes are
+refused as in the JAX package.
 """
 
 from __future__ import annotations
@@ -173,6 +179,7 @@ from fast_tffm_tpu_torch.models.fm import (ModelSpec, batch_args,
                                            sharded_train_step_body,
                                            train_step_body)
 from fast_tffm_tpu_torch.obs import memory as obs_memory
+from fast_tffm_tpu_torch.obs.health import emit_elastic_recovery
 from fast_tffm_tpu_torch.obs.memory import LEDGER, oom_guard, table_bytes
 from fast_tffm_tpu_torch.obs.quality import (PublishGate, QualityStats,
                                              emit_gate_held, emit_quality)
@@ -436,10 +443,11 @@ class _Stepper:
             batch = self.vocab.ensure_current(batch)
         tel = self.tel
         wb = self.encoder.encode_train(batch)
-        # The plain single-device path stages its batch (the wire's
-        # double buffer); the offload and lockstep paths ship theirs
-        # inside the step, as in the JAX package.
-        staged = self.mesh is None and self.lookup is None
+        # The single-device path stages its batch (the wire's double
+        # buffer) and the lockstep path places its rank's arrays; the
+        # offload path ships its rows inside the step, as in the JAX
+        # package.
+        staged = self.lookup is None
         ids = ({"step": self.global_step + 1} if self._anatomy else {})
         t_h2d = time.perf_counter()
         with span("train/h2d", bytes=wb.wire_bytes, **ids) if staged \
@@ -453,11 +461,17 @@ class _Stepper:
                 (prof.annotate() if prof is not None
                  else contextlib.nullcontext()):
             if self.mesh is not None:
-                # The row exchange all-gathers the ids on the host.
+                # The row exchange all-gathers the ids on the host. The
+                # dispatch seconds are the host's time in the call (the
+                # collectives' waits included), never a device sync.
                 args["uniq_ids"] = wb.args["uniq_ids"]
+                t_disp = time.perf_counter()
                 self.table, self.acc, self.loss, _ = \
                     sharded_train_step_body(self.spec, self.mesh,
                                             self.table, self.acc, **args)
+                if tel is not None:
+                    tel.count("train/dispatch_seconds",
+                              time.perf_counter() - t_disp)
             elif self._offload_step is not None:
                 self.loss, _ = self._offload_step(**args)
             elif wb.packed:
@@ -863,6 +877,7 @@ def train(cfg: FmConfig, device=None,
     logger = get_logger(log_file=cfg.log_file or None)
     shard_index, num_shards, generation, members = 0, 1, 0, None
     lease = None
+    join_info = None
     if join:
         if cfg.elastic != "grow":
             raise ValueError(
@@ -873,16 +888,21 @@ def train(cfg: FmConfig, device=None,
             raise ValueError(
                 "train --join replaces the dist_train role argv: the worker "
                 "slot is assigned by the running cluster, not the launcher")
-        lease, shard_index, num_shards, members, generation, _ = \
-            dist_mod.join_rendezvous(cfg, logger)
-    elif job_name is not None:
-        shard_index, num_shards = dist_mod.init_from_cluster(
-            cfg, job_name, task_index or 0)
-        members = list(range(num_shards))
-    # The run's telemetry (metrics_file; obs/): one process. The
-    # dist_train arms log its keys as ignored (ROADMAP.md A11b).
-    cluster = join or num_shards > 1
-    tel = None if cluster else make_telemetry(cfg, "train", device=device)
+        # Admission before the telemetry: the shard is keyed by the
+        # worker slot the cluster assigns here.
+        join_info = dist_mod.join_rendezvous(cfg, logger)
+    # The run's telemetry (metrics_file; obs/), made before the cluster
+    # forms, so a bring-up failure lands in the stream, and kept across
+    # every reform. A worker writes one shard for the whole run, keyed
+    # by its original index (the launcher's task index, or the slot a
+    # joiner was admitted into), as the JAX package keys it.
+    cluster = join or job_name is not None
+    tel = make_telemetry(
+        cfg, "train",
+        process_index=((join_info[5] if join_info else task_index or 0)
+                       if cluster else None),
+        process_count=max(len(cfg.worker_hosts), 1) if cluster else None,
+        device=device)
     if tel is not None:
         logger.info("writing run metrics to %s (flush every %s steps)",
                     tel.sink.path, tel.flush_steps or "epoch")
@@ -900,11 +920,25 @@ def train(cfg: FmConfig, device=None,
         # Refuse a config whose predicted resident bytes exceed the
         # card, with the planner's breakdown (no-op on the CPU).
         obs_memory.preflight_capacity(cfg, "train")
+        if join_info is not None:
+            lease, shard_index, num_shards, members, generation, _ = \
+                join_info
+        elif job_name is not None:
+            shard_index, num_shards = dist_mod.init_from_cluster(
+                cfg, job_name, task_index or 0)
+            members = list(range(num_shards))
+        if tel is not None and cluster:
+            # The meta was stamped before the join; every later event
+            # carries the cluster's size.
+            tel.sink.meta.update(process_count=num_shards)
         if lease is None and num_shards > 1 and cfg.heartbeat_seconds > 0:
             lease = HeartbeatLease(
                 lease_dir(cfg), process_index=shard_index,
                 members=range(num_shards),
                 heartbeat_seconds=cfg.heartbeat_seconds).start()
+        if tel is not None:
+            # The per-worker liveness gauges ride every flush.
+            tel.lease = lease
         if num_shards > 1:
             guard_prev = install_guard(lease,
                                        cfg.collective_timeout_seconds,
@@ -916,7 +950,7 @@ def train(cfg: FmConfig, device=None,
             try:
                 return _train_session(cfg, device, init_state, logger,
                                       shard_index, num_shards, members,
-                                      bad_tracker, grow_ctx, tel, cluster)
+                                      bad_tracker, grow_ctx, tel)
             except ClusterGrowth as g:
                 # Every member raises it off the chief's broadcast plan at
                 # the same barrier.
@@ -939,11 +973,14 @@ def train(cfg: FmConfig, device=None,
                                                   g.plan, logger)
                 grow_ctx.adopt(members, generation)
                 incumbents = {int(i) for i in g.plan["incumbents"]}
+                joined = sorted(set(members) - incumbents)
+                emit_elastic_recovery(
+                    generation, members, lost=[], joined=joined,
+                    capacity=grow_ctx.capacity, kind="grow")
                 logger.info(
                     "elastic recovery complete: %d member(s) (admitted %s), "
                     "input shards re-balanced, resuming from the last "
-                    "verified checkpoint", num_shards,
-                    sorted(set(members) - incumbents) or "nobody")
+                    "verified checkpoint", num_shards, joined or "nobody")
             except WorkerLostError as e:
                 if (cfg.elastic == "off" or num_shards <= 1
                         or lease is None):
@@ -955,12 +992,16 @@ def train(cfg: FmConfig, device=None,
                 generation += 1
                 logger.warning("worker lost (%s); elastic shrink recovery, "
                                "cluster generation %d", e, generation)
+                lost_ids = sorted({i.process_index for i in e.lost})
                 if guarded:
                     restore_guard(guard_prev)
                     guarded = False
                 shard_index, num_shards, members = \
                     dist_mod.reform_shrunken_cluster(cfg, lease, generation,
                                                      logger)
+                emit_elastic_recovery(
+                    generation, members, lost_ids,
+                    capacity=max(len(cfg.worker_hosts), 1))
                 if grow_ctx is not None:
                     grow_ctx.adopt(members, generation)
                 logger.info(
@@ -974,6 +1015,8 @@ def train(cfg: FmConfig, device=None,
                     # barrier's ticket scan read beside it).
                     lease.stop()
                     lease = None
+                    if tel is not None:
+                        tel.lease = None
             # The state a reformed session starts from is the verified
             # checkpoint's (or, before any save, a fresh draw).
             init_state = None
@@ -1021,7 +1064,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
                    logger, shard_index: int, num_shards: int,
                    members, bad_tracker: Optional[BadLineTracker],
                    grow_ctx: Optional[_GrowContext],
-                   tel=None, cluster: bool = False) -> torch.Tensor:
+                   tel=None) -> torch.Tensor:
     """One training session against the current membership: restore,
     the epoch (or stream) loop, the final save and the export.
     ``num_shards`` > 1: the multi-process arm, as rank ``shard_index``
@@ -1031,8 +1074,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
     ``ClusterGrowth`` out of an epoch boundary or a stream's publish
     settle where ``grow_ctx`` plans an admission; everything made here
     is torn down here, so ``train`` can re-enter. ``tel``: the run's
-    telemetry (one process), which outlives the session; ``cluster``:
-    the run joined a cluster, whose arms write no telemetry yet."""
+    telemetry (this worker's shard), which outlives the session."""
     multi = num_shards > 1
     spec = ModelSpec.from_config(cfg, num_processes=num_shards)
     offload = cfg.lookup == "host"
@@ -1042,12 +1084,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
             "(lookup.init_host_state) or restores it; init_state is a "
             "lookup = device start")
     stream_mode = cfg.run_mode == "stream"
-    # slo_min_auc takes effect in a publishing stream run with
-    # validation files (it switches the quality sweep on there).
-    log_ignored_keys(cfg, logger, in_effect=(
-        ("slo_min_auc",) if stream_mode and cfg.validation_files
-        and cfg.publish_interval_seconds > 0 else ()),
-        telemetry_off=cluster)
+    log_ignored_keys(cfg, logger)
     mesh = None
     uniq_bucket = val_bucket = 0
     if multi:
@@ -1101,6 +1138,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
     prev_handlers = {}
     st = summaries = profiler = None
     global_step = 0
+    worker_lost = False
     try:
         restored = ckpt.restore(template=checkpoint_template(cfg))
         global_step = 0
@@ -1169,13 +1207,15 @@ def _train_session(cfg: FmConfig, device: torch.device,
             except ValueError:  # not the main thread
                 pass
 
-        if cfg.save_summaries_steps and not cluster:
+        # TensorBoard and the profiler window: the chief alone, as in
+        # the JAX package.
+        if cfg.save_summaries_steps and shard_index == 0:
             summaries = make_summaries(cfg)
             if summaries is not None:
                 logger.info("writing TensorBoard summaries every %d steps "
                             "to %s", cfg.save_summaries_steps,
                             summaries.logdir)
-        if cfg.profile_dir and not cluster:
+        if cfg.profile_dir and shard_index == 0:
             # Counted from this run's first step: a resumed run would
             # otherwise skip past the window.
             profiler = _ProfileWindow(cfg, device, global_step, logger)
@@ -1234,9 +1274,8 @@ def _train_session(cfg: FmConfig, device: torch.device,
                         # exhaustion and preemption and a dry rank
                         # steps all-padding filler (zero weight: zero
                         # loss and gradient) until every rank is dry.
-                        flags = mesh.all_gather_host(
-                            np.asarray([batch is None, bool(preempted)],
-                                       np.int32), "train/step_flags")
+                        flags = step_flags(st, "train/step_flags",
+                                           [batch is None, bool(preempted)])
                         if flags[:, 1].any():
                             preempted.append(signal.SIGTERM)
                         elif flags[:, 0].all():
@@ -1412,6 +1451,7 @@ def _train_session(cfg: FmConfig, device: torch.device,
     except BaseException as e:
         # A WorkerLostError may be recovered and a ClusterGrowth is a
         # planned exit: neither is a crash of the run.
+        worker_lost = isinstance(e, WorkerLostError)
         if not isinstance(e, (WorkerLostError, ClusterGrowth)):
             _record_crash(tel, logger, e,
                           st.global_step if st is not None else global_step)
@@ -1425,16 +1465,34 @@ def _train_session(cfg: FmConfig, device: torch.device,
         # Every exit path settles the in-flight save: an exception
         # between saves must not leave a write half done.
         ckpt.close()
-        _close_session_telemetry(st, summaries, profiler, tel, logger)
+        _close_session_telemetry(st, summaries, profiler, tel, logger,
+                                 worker_lost=worker_lost)
+
+
+def step_flags(st: _Stepper, label: str, flags) -> np.ndarray:
+    """The lockstep's per-step all-gather of this rank's ``flags``
+    (``[size, len(flags)]``), under ``label``: the step's rank barrier.
+    Its span (the next step's id the cross-rank join key when step
+    anatomy is on) and ``train/step_flags_seconds`` are the anatomy's
+    flags wait; neither reads a device value."""
+    ids = {"step": st.global_step + 1} if st._anatomy else {}
+    t0 = time.perf_counter()
+    with span(label, **ids):
+        out = st.mesh.all_gather_host(np.asarray(flags, np.int32), label)
+    if st.tel is not None:
+        st.tel.count("train/step_flags_seconds", time.perf_counter() - t0)
+    return out
 
 
 def _close_session_telemetry(st: Optional[_Stepper], summaries, profiler,
-                             tel, logger) -> None:
+                             tel, logger, worker_lost: bool = False) -> None:
     """The session's sinks on every exit path, each isolated so that one
     broken writer cannot starve the others or mask the run's error: the
     buffered loss lines, the summaries, the metrics barrier (the stream
     itself stays open across an elastic re-entry) and the profiler
-    window, if still open."""
+    window, if still open. After a lost worker the metrics barrier is
+    host-only, as in the JAX package: the buffered device scalars are
+    dropped (``cluster/scalars_dropped``) and the host events flushed."""
     if st is not None:
         try:
             st.flush_log()
@@ -1447,7 +1505,13 @@ def _close_session_telemetry(st: Optional[_Stepper], summaries, profiler,
             logger.exception("summary writer close failed")
     if tel is not None:
         try:
-            tel.barrier_flush(st.global_step if st is not None else -1)
+            if worker_lost:
+                dropped = tel.sink.discard_scalars()
+                if dropped:
+                    tel.count("cluster/scalars_dropped", dropped)
+                tel.sink.flush()
+            else:
+                tel.barrier_flush(st.global_step if st is not None else -1)
         except Exception:  # noqa: BLE001
             logger.exception("metrics barrier flush failed")
     if profiler is not None:
@@ -1782,10 +1846,9 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
             while True:
                 b = source.next_batch()
                 has = b is not IDLE and b is not DONE
-                flags = mesh.all_gather_host(
-                    np.asarray([has, bool(preempted), b is DONE,
-                                publish_due()], np.int32),
-                    "stream/step_flags")
+                flags = step_flags(st, "stream/step_flags",
+                                   [has, bool(preempted), b is DONE,
+                                    publish_due()])
                 if flags[:, 1].any():
                     emit_preempted()
                     break
@@ -1796,6 +1859,9 @@ def _run_stream(cfg: FmConfig, st: _Stepper, ckpt: CheckpointState,
                               empty_batch(cfg, uniq_bucket=u_bucket))
                 else:
                     st.flush_log()
+                    if tel is not None:
+                        tel.heartbeat()
+                    stream_gauges()
                     time.sleep(min(cfg.stream_poll_seconds, 0.5))
                 if flags[0, 3]:  # the chief's clock
                     do_publish()

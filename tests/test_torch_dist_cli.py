@@ -163,16 +163,27 @@ def test_two_workers_train_in_lockstep(dist_run):
 
 
 def test_dist_arms_log_the_telemetry_keys_as_ignored(dist_run):
-    # The multi-process arms write no stream yet (ROADMAP.md A11b): the
-    # keys are logged as ignored by every rank of train and predict.
+    # The multi-process arms write their streams: no rank logs a key as
+    # ignored, each writes its own shard (the chief the file itself,
+    # worker 1 its .p1), a train segment then a predict segment, and the
+    # shards' train/examples sum to every line of both epochs.
+    from fast_tffm_tpu_torch.obs.sink import read_events
     wd, _, train_logs, predict_logs, _ = dist_run
     for log in train_logs + predict_logs:
-        assert ("metrics_file = 'auto' is accepted and ignored: the run "
-                "telemetry of dist_train and the serving fleet's supervisor "
-                "is not ported") in log
-        assert "(ROADMAP.md, queue A, item A11b)" in log
-    assert not os.path.exists(os.path.join(wd, "model",
-                                           "fm.metrics.jsonl"))
+        assert "is accepted and ignored" not in log
+    base = os.path.join(wd, "model", "fm.metrics.jsonl")
+    examples = 0
+    for i, path in enumerate((base, base + ".p1")):
+        events = list(read_events(path))
+        starts = [e for e in events if e["event"] == "run_start"]
+        assert [e["meta"]["kind"] for e in starts] == ["train", "predict"]
+        assert {(e["meta"]["process_index"], e["meta"]["process_count"])
+                for e in starts} == {(i, 2)}
+        assert [e["event"] for e in events].count("run_end") == 2
+        train_seg = events[:events.index(starts[1])]
+        last = [e for e in train_seg if e["event"] == "metrics"][-1]
+        examples += last["counters"]["train/examples"]
+    assert examples == 2 * 2000
 
 
 def test_auc_matches_a_single_process_run(dist_run, tmp_path):

@@ -658,3 +658,19 @@ def test_rendezvous_port_in_the_ephemeral_range_warns(port_log,
                 cfg, port_dist.coordinator_address(cfg, g, cfg.worker_hosts),
                 2, 0)
     assert seen == [32767, 32768, 32769]
+
+
+def test_check_peers_passes_over_a_cleanly_removed_lease(tmp_path,
+                                                         port_log):
+    """A member that exits cleanly removes its lease (``stop``); the
+    monitor tick names only peers whose lease went stale on disk, so a
+    peer finishing its run a moment first writes no ``worker lost``."""
+    clock = FakeClock()
+    me = _lease(port_lv, tmp_path, clock)
+    peer = _lease(port_lv, tmp_path, clock, 1)
+    me.renew()
+    peer.renew()
+    peer.stop()  # removes its lease file
+    assert me.check_peers() == []
+    assert _ids(me.stale_peers()) == [1]  # the guard still names it
+    assert not [m for m in port_log if m.startswith("worker lost")]

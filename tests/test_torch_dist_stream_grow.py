@@ -21,6 +21,13 @@ Ledger owners alternate 0, 1, 0, 1.
   only the final generation's files.
 - ``elastic = shrink``: the survivor of the same kill finishes shards 2
   and 3 alone, every line exactly once.
+
+The killed runs write their telemetry (``metrics_file``, a flush every
+step): ``train/examples`` summed over the chief's stream, the dead
+worker's shard and the joiner's (appended to the same ``.p1``) equals
+every line written, as the JAX scenario checks, and the port's fmstat
+and the JAX package's both read the healed run as ``RECOVERED (gen 2, 2
+workers)``, the shrunken one as ``DEGRADED (1 worker lost)``.
 """
 
 import os
@@ -30,9 +37,13 @@ import sys
 
 import torch
 
+from fast_tffm_tpu.obs import attribution as jax_attribution
 from fast_tffm_tpu_torch.checkpoint import (CheckpointState, read_watermark)
 from fast_tffm_tpu_torch.config import load_config
+from fast_tffm_tpu_torch.obs import attribution
+from fast_tffm_tpu_torch.tools import fmstat
 from fast_tffm_tpu_torch.train import checkpoint_template
+from tools import fmstat as jax_fmstat
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_dist_ranks as ranks  # noqa: E402
@@ -60,8 +71,9 @@ def _stage(wd, cfg, procs, i):
 def _run(wd, elastic, kill, join):
     """Shards 0-1, then (``kill``) SIGKILL worker 1 and wait for the
     survivor's recovery and (``join``) a joiner's admission, then shards
-    2-3 and STOP. Returns the config, the exit codes and the logs."""
-    cfg_path = ranks.write_stream_run(wd, elastic=elastic)
+    2-3 and STOP. Returns the config, the exit codes and the logs. A
+    killed run writes its telemetry."""
+    cfg_path = ranks.write_stream_run(wd, elastic=elastic, metrics=kill)
     cfg = load_config(cfg_path)
     argv = ["train", cfg_path, "--device", "cpu"]
     procs = {f"w{i}": ranks.spawn_cli(wd, f"w{i}", "none",
@@ -108,7 +120,30 @@ def _assert_exactly_once(cfg):
     return final
 
 
-def test_kill_then_grow_equals_the_uninterrupted_control(tmp_path):
+def _assert_streams(cfg, verdict, capsys):
+    """Every line trained once by the shards' ``train/examples``, the
+    survivor's ``worker_lost`` naming process 1, and ``verdict`` from
+    both packages' readers, the port's fmstat printing as the JAX one."""
+    shards = [cfg.metrics_file, cfg.metrics_file + ".p1"]
+    summary = attribution.summarize(shards)
+    assert summary["counters"]["train/examples"] == \
+        4 * ranks.STREAM_SHARD_LINES
+    lost = [h for h in summary["health_events"]
+            if h.get("status") == "worker_lost"]
+    assert lost and all([p["process_index"] for p in h["lost"]] == [1]
+                        for h in lost), lost
+    assert attribution.health_verdict(summary)["verdict"] == verdict
+    assert jax_attribution.health_verdict(jax_attribution.summarize(
+        shards))["verdict"] == verdict
+    capsys.readouterr()
+    assert fmstat.main(shards) == 0
+    port = capsys.readouterr().out
+    assert jax_fmstat.main(shards) == 0
+    assert capsys.readouterr().out == port
+    assert f"health: {verdict}" in port
+
+
+def test_kill_then_grow_equals_the_uninterrupted_control(tmp_path, capsys):
     cfg, rcs, logs = _run(str(tmp_path / "healed"), "grow", kill=True,
                           join=True)
     tails = ranks.log_tails(logs)
@@ -137,6 +172,7 @@ def test_kill_then_grow_equals_the_uninterrupted_control(tmp_path):
             for t in (out0, outj)]
     assert done == [str(4 * STEPS)] * 2
     healed = _assert_exactly_once(cfg)
+    _assert_streams(cfg, "RECOVERED (gen 2, 2 workers)", capsys)
     assert sorted(os.listdir(cfg.model_file + ".hb")) == [
         "commit-2.json", "grow-2.json", "reform-2-0", "reform-2-1"]
     ccfg, crcs, clogs = _run(str(tmp_path / "control"), "grow", kill=False,
@@ -148,7 +184,7 @@ def test_kill_then_grow_equals_the_uninterrupted_control(tmp_path):
             k, float((healed[k] - control[k]).abs().max()))
 
 
-def test_shrink_survivor_finishes_every_shard_alone(tmp_path):
+def test_shrink_survivor_finishes_every_shard_alone(tmp_path, capsys):
     cfg, rcs, logs = _run(str(tmp_path), "shrink", kill=True, join=False)
     tails = ranks.log_tails(logs)
     assert rcs == {"w0": 0, "w1": -9}, (rcs, tails)
@@ -162,3 +198,4 @@ def test_shrink_survivor_finishes_every_shard_alone(tmp_path):
     assert re.search(r"stream input: %d batches, %d examples" % (
         2 * STEPS, 2 * ranks.STREAM_SHARD_LINES), out0), tails
     _assert_exactly_once(cfg)
+    _assert_streams(cfg, "DEGRADED (1 worker lost)", capsys)

@@ -95,7 +95,12 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.obs.slo",
                  "fast_tffm_tpu_torch.obs.prom",
                  "fast_tffm_tpu_torch.utils.summaries",
-                 "fast_tffm_tpu_torch.testing.telemetry"):
+                 "fast_tffm_tpu_torch.testing.telemetry",
+                 "fast_tffm_tpu_torch.obs.attribution",
+                 "fast_tffm_tpu_torch.obs.anatomy",
+                 "fast_tffm_tpu_torch.tools.fmstat",
+                 "fast_tffm_tpu_torch.tools.fmtrace",
+                 "fast_tffm_tpu_torch.tools.streams"):
         assert name in out["imported"]
 
 

@@ -5,10 +5,10 @@ through the JAX package's ``train``, ``predict`` and one ``ScorerServer``
 ``metrics_file``; the stream run mode and admit mode as well. Both
 streams hold the same event kinds, the same counter, gauge and histogram
 names (histograms with the same bucket bounds), the same spans and the
-same counts of input and steps; the JAX package's own readers
-(``read_events``, ``attribution.summarize`` / ``health_verdict``,
-``tools.fmstat``) read the port's stream with the verdict they give the
-JAX one. Then the health events a port run writes: a NaN loss, a crash
+same counts of input and steps; the port's readers
+(``obs/attribution.py``, ``tools/fmstat.py``) read the port's stream
+with the verdict they give the JAX one, and in one case the JAX
+package's own ``tools.fmstat`` reads it too, with the same output. Then the health events a port run writes: a NaN loss, a crash
 mid-epoch, a checkpoint walk-back."""
 
 import dataclasses
@@ -21,16 +21,17 @@ import numpy as np
 import pytest
 import torch
 
-from fast_tffm_tpu.obs import attribution
 from fast_tffm_tpu.obs.sink import read_events as jax_read_events
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.models import convert
+from fast_tffm_tpu_torch.obs import attribution
 from fast_tffm_tpu_torch.obs.sink import read_events
 from fast_tffm_tpu_torch.predict import predict
 from fast_tffm_tpu_torch.serve.server import ScorerServer
 from fast_tffm_tpu_torch.tools import fmckpt
+from fast_tffm_tpu_torch.tools.fmstat import main as fmstat_main
 from fast_tffm_tpu_torch.train import train
-from tools.fmstat import main as fmstat_main
+from tools.fmstat import main as jax_fmstat_main
 
 torch.set_num_threads(1)
 
@@ -299,6 +300,14 @@ def test_the_reference_reads_the_ports_stream(runs, leg, which, tmp_path,
     assert fmstat_main([ppath, "--json"]) == 0
     out = capsys.readouterr().out
     assert "health" in out.lower()
+    if (leg, which) == ("epochs", "train"):
+        # The JAX package's own reader gives the port's stream the same
+        # table and verdict.
+        for argv in ([ppath], [ppath, "--json"]):
+            assert fmstat_main(argv) == 0
+            port = capsys.readouterr().out
+            assert jax_fmstat_main(argv) == 0
+            assert capsys.readouterr().out == port
 
 
 def _small_cfg(tmp_path, **kw):

@@ -453,15 +453,19 @@ def test_dist_train_argv_raises(tmp_path, capsys):
 
 
 def test_observability_knobs_are_logged_as_ignored(tmp_path):
-    # The telemetry keys take effect on one process; protocol_trace
-    # (the multi-process collectives' trace) is still ignored.
+    # Every observability key takes effect, protocol_trace included: no
+    # key is logged as ignored, and a single process posts no collective,
+    # so its traced stream holds spans and no collective event.
+    from fast_tffm_tpu_torch.obs.sink import read_events
     path = _write_cfg(str(tmp_path))
     cfg = dataclasses.replace(load_config(path), epoch_num=1,
                               trace_spans=True, protocol_trace=True,
-                              validation_files=())
+                              metrics_file="auto", validation_files=())
     train(cfg, device="cpu")
     with open(cfg.log_file) as fh:
         text = fh.read()
-    assert "protocol_trace = True is accepted and ignored" in text
-    assert "trace_spans = True is accepted and ignored" not in text
-    assert "item A11b" in text
+    assert "is accepted and ignored" not in text
+    assert "item A11b" not in text
+    kinds = [e["event"] for e in read_events(cfg.model_file
+                                             + ".metrics.jsonl")]
+    assert "span" in kinds and "collective" not in kinds

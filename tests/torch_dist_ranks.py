@@ -226,7 +226,7 @@ max_features_per_example = 32
 bucket_ladder = 8,16,32
 uniq_bucket = {uniq_bucket}
 host_threads = 1
-[Cluster]
+{metrics}[Cluster]
 worker_hosts = {hosts}
 heartbeat_seconds = 1.0
 collective_timeout_seconds = {collective_timeout}
@@ -256,10 +256,13 @@ def stream_shard_lines(i: int, n: int = STREAM_SHARD_LINES) -> list:
 def write_stream_run(wd: str, elastic: str = "off", min_auc: float = 0.5,
                      save_steps: int = 4, uniq_bucket: int = 256,
                      validation: str = "", val_batches: int = 8,
-                     collective_timeout: float = 60) -> str:
+                     collective_timeout: float = 60,
+                     metrics: bool = False) -> str:
     """A 2-worker stream config over ``<wd>/stream`` (created empty);
     ``validation`` defaults to data/sample_test.txt, swept
-    ``val_batches`` batches a rank (0: all of it). Returns its path."""
+    ``val_batches`` batches a rank (0: all of it); ``metrics``: each
+    worker writes its stream shard of ``<wd>/m.jsonl``, flushed every
+    step. Returns its path."""
     os.makedirs(os.path.join(wd, "stream"), exist_ok=True)
     path = os.path.join(wd, "stream.cfg")
     with open(path, "w") as fh:
@@ -267,6 +270,9 @@ def write_stream_run(wd: str, elastic: str = "off", min_auc: float = 0.5,
             wd=wd, elastic=elastic, min_auc=min_auc, save_steps=save_steps,
             uniq_bucket=uniq_bucket, val_batches=val_batches,
             collective_timeout=collective_timeout,
+            metrics=("metrics_file = {}\nmetrics_flush_steps = 1\n"
+                     .format(os.path.join(wd, "m.jsonl")) if metrics
+                     else ""),
             validation=validation or os.path.join(REPO, "data",
                                                   "sample_test.txt"),
             hosts=worker_hosts(free_port(), 2)))
