@@ -14,7 +14,10 @@ on the packed wire, and config #2's model in the stream run mode, and
 config #5's width with the table offloaded to the host, and config #2's
 model in vocabulary admit mode, and config #2's model trained and
 predicted by two ranks over a row-sharded table (``dist_train``), in
-epochs and as a stream, both across a kill and a join:
+epochs and as a stream, both across a kill and a join; and BASELINE
+config #1 at its published width (2nd-order FM, k = 8, hashed ids into
+2^22, L = 48) on the port's own synthesized Criteo-like data, held to
+the port's independent NumPy trainer:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: the three kernel libraries, one nvcc each, and the C++ parser
@@ -48,6 +51,27 @@ epochs and as a stream, both across a kill and a join:
    requests of 1-256 lines whose bodies must equal the predict file's
    lines byte for byte and carry the published step in ``X-FM-Step``,
    one malformed request (400), /healthz;
+   config1: BASELINE config #1's AUC parity. Its host side starts after
+   the pipeline phase in a process of its own and runs beside phases
+   3-5: ``data/synth.write_dataset`` at seed 17 (131,072 train and
+   32,768 test lines, cut from 1,000,000 / 100,000), the port's C++
+   block parse of both files, and ``synth.numpy_fm_train_predict`` (the
+   independent NumPy SGD-FM) on them. After phase 5, ``python -m
+   fast_tffm_tpu_torch train`` then ``predict`` (in process) at config
+   #1's settings (tools/criteo_bench.py: k = 8, 2^22 hashed rows, L =
+   48, lr 0.05, lambdas 1e-6, init range 0.01, logistic loss, 2 epochs,
+   no shuffle) with B = 1,024 (cut from 8,192: at this depth 8,192
+   leaves 32 steps, where the oracle reaches only ~0.59), the oracle at
+   the same B. The score file's test AUC must lie within 0.015 of the
+   oracle's, the oracle's reach 0.80, the card's stay below the Bayes
+   ceiling of the generator's logits; fm_score launches on every train
+   step and predict batch, fm_score_bwd on every step; both kernels
+   against their plain versions on the first train step's captured
+   inputs at (1,024, 48, 8) (the forward bit for bit, the backward at
+   the row sums' tolerance and equal across launches). Its line: the
+   AUCs, the ceiling, the host side's seconds (generate, parse,
+   oracle), the train and predict commands' and the .npz export's
+   seconds, the loop's examples/s and the launches;
 6. train: ``python -m fast_tffm_tpu_torch train`` (in process), one
    epoch (run A) with ``save_steps = 8`` over 131,072 lines whose labels
    come from a planted logistic model, validating on 16,384 more: it
@@ -6051,6 +6075,308 @@ def dstream_finish(h, torch, device, card, train_row):
     return row, fwd_rows, bwd_rows
 
 
+CONFIG1_TRAIN_LINES = 131072      # of config #1's 1,000,000
+CONFIG1_TEST_LINES = 32768        # of its 100,000
+CONFIG1_SEED = 17                 # tools/criteo_bench.py's default
+CONFIG1_VOCAB = 1 << 22           # hashed, a [2^22+1, 9] table
+CONFIG1_FACTORS = 8
+CONFIG1_L = 48                    # max_features_per_example = bucket_ladder
+CONFIG1_BATCH = 1024              # of 8,192: 256 steps, not 32, at this depth
+CONFIG1_EPOCHS = 2
+CONFIG1_LR = 0.05
+CONFIG1_LAMBDA = 1e-6             # factor_lambda = bias_lambda
+CONFIG1_AUC_TOL = 0.015           # tests/test_criteo_like.py's parity bound
+CONFIG1_ORACLE_FLOOR = 0.80
+CONFIG1_HOST_TIMEOUT = 600        # seconds for the host side's process
+
+# The config1 leg's host side, in a process of its own so that it runs
+# beside the card-bound phases: the port's synth draws the train and
+# test files (data.json marks them written), parses them with the
+# port's C++ block parse and trains the independent NumPy SGD-FM on
+# them (oracle.json, oracle.npy).
+CONFIG1_HOST = r"""
+import json, os, sys, time
+import numpy as np
+from fast_tffm_tpu_torch.data import synth
+from fast_tffm_tpu_torch.metrics import exact_auc
+a = json.loads(sys.argv[1])
+wd = a["wd"]
+
+
+def dump(name, obj):
+    tmp = os.path.join(wd, name + ".tmp")
+    with open(tmp, "w") as fh:
+        json.dump(obj, fh)
+    os.replace(tmp, os.path.join(wd, name))
+
+
+train, test = os.path.join(wd, "train.txt"), os.path.join(wd, "test.txt")
+t0 = time.perf_counter()
+meta = synth.write_dataset(train, test, a["n_train"], a["n_test"],
+                           seed=a["seed"])
+dump("data.json", dict(meta, generate_seconds=time.perf_counter() - t0))
+t0 = time.perf_counter()
+tr = synth.parse_file_blocks(train, a["vocab"], a["batch"])
+te = synth.parse_file_blocks(test, a["vocab"], a["batch"])
+parse_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+scores = synth.numpy_fm_train_predict(
+    tr, te, a["vocab"], k=a["k"], lr=a["lr"], epochs=a["epochs"],
+    factor_lambda=a["lam"], bias_lambda=a["lam"], L=a["L"])
+oracle_s = time.perf_counter() - t0
+labels = np.concatenate([b.labels for b in te])
+np.save(os.path.join(wd, "oracle.npy"), scores)
+dump("oracle.json", {"parse_seconds": parse_s, "oracle_seconds": oracle_s,
+                     "oracle_auc": exact_auc(scores, labels),
+                     "test_examples": int(len(labels))})
+"""
+
+
+def config1_start():
+    """Start the config1 leg's host side (``CONFIG1_HOST``: the data,
+    its parse and the NumPy oracle) in a process of its own; returns the
+    handle ``config1_phase`` waits on."""
+    wd = os.path.join(WORK, "config1")
+    os.makedirs(wd)
+    out = open(os.path.join(wd, "host.out"), "w")
+    args = {"wd": wd, "n_train": CONFIG1_TRAIN_LINES,
+            "n_test": CONFIG1_TEST_LINES, "seed": CONFIG1_SEED,
+            "vocab": CONFIG1_VOCAB, "k": CONFIG1_FACTORS, "lr": CONFIG1_LR,
+            "lam": CONFIG1_LAMBDA, "epochs": CONFIG1_EPOCHS,
+            "batch": CONFIG1_BATCH, "L": CONFIG1_L}
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CONFIG1_HOST, json.dumps(args)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+        stderr=subprocess.STDOUT)
+    return {"wd": wd, "proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def config1_stop(h):
+    """Stop the host side's process (a no-op once finished)."""
+    if h is None:
+        return
+    if h["proc"].poll() is None:
+        h["proc"].kill()
+    h["proc"].wait()
+    h["out"].close()
+
+
+def config1_wait(h, name):
+    """``name``'s JSON from the host side, once written."""
+    path = os.path.join(h["wd"], name)
+    deadline = time.monotonic() + CONFIG1_HOST_TIMEOUT
+    while not os.path.exists(path):
+        if h["proc"].poll() is not None and not os.path.exists(path):
+            with open(os.path.join(h["wd"], "host.out")) as fh:
+                tail = fh.read()[-2000:]
+            raise SmokeFailure(f"the config1 host side exited "
+                               f"{h['proc'].returncode} before {name}: "
+                               f"{tail}")
+        check(time.monotonic() < deadline, f"timed out waiting for {name}")
+        time.sleep(0.1)
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def config1_phase(torch, device, card, h):
+    """BASELINE config #1's AUC parity on the card: ``python -m
+    fast_tffm_tpu_torch train`` then ``predict`` (in process) at its
+    published width and settings (tools/criteo_bench.py: order-2 FM, k
+    = 8, hashed ids into 2^22, L = 48, lr 0.05, lambdas 1e-6, init range
+    0.01, logistic loss, 2 epochs, no shuffle) on the port's synth draws
+    at seed 17, against the port's NumPy SGD-FM oracle trained on the
+    same parsed blocks at the same B, k, lr, lambdas and epochs
+    (``config1_start``'s process). Cut to size: 131,072 train / 32,768
+    test lines instead of 1,000,000 / 100,000, and B = 1,024 instead of
+    8,192 (at this depth 8,192 leaves 32 steps, where the oracle reaches
+    only ~0.59). The card's test AUC must lie within 0.015 of the
+    oracle's (the reference's bound), the oracle's reach 0.80, the
+    card's stay below the generator's Bayes ceiling; fm_score launches
+    every train step and predict batch, fm_score_bwd every step; both
+    kernels against their plain versions on the first train step's
+    captured inputs at (1,024, 48, 8). Returns (row, forward kernel
+    rows, backward kernel rows)."""
+    import numpy as np
+    from fast_tffm_tpu_torch import train as train_mod
+    from fast_tffm_tpu_torch.__main__ import main as cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.metrics import exact_auc
+    from fast_tffm_tpu_torch.ops import fm_kernel
+    t_leg = time.perf_counter()
+    wd = h["wd"]
+    data = config1_wait(h, "data.json")
+    wait_data_s = time.perf_counter() - t_leg
+    train, test = os.path.join(wd, "train.txt"), os.path.join(wd, "test.txt")
+    cfg_path = os.path.join(wd, "config1.cfg")
+    with open(cfg_path, "w") as fh:
+        fh.write(f"""[General]
+vocabulary_size = {CONFIG1_VOCAB}
+hash_feature_id = True
+factor_num = {CONFIG1_FACTORS}
+model_file = {os.path.join(wd, 'model', 'ck')}
+log_file = {os.path.join(wd, 'ck.log')}
+
+[Train]
+train_files = {train}
+epoch_num = {CONFIG1_EPOCHS}
+batch_size = {CONFIG1_BATCH}
+learning_rate = {CONFIG1_LR}
+factor_lambda = {CONFIG1_LAMBDA}
+bias_lambda = {CONFIG1_LAMBDA}
+init_value_range = 0.01
+loss_type = logistic
+max_features_per_example = {CONFIG1_L}
+bucket_ladder = {CONFIG1_L}
+shuffle = False
+log_steps = 1
+
+[Predict]
+predict_files = {test}
+score_path = {os.path.join(wd, 'score')}
+""")
+    cfg = load_config(cfg_path)
+    captured, export_s = {}, []
+    bwd, save_npz = fm_kernel.fm_batch_scores_bwd, train_mod.save_npz
+
+    def capture_bwd(params, local_idx, vals, g, need_dx):
+        if not captured:  # the first train step's kernel inputs
+            captured.update(params=params.detach().clone(),
+                            local=local_idx.clone(), vals=vals.clone(),
+                            g=g.clone())
+        return bwd(params, local_idx, vals, g, need_dx)
+
+    def timed_npz(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return save_npz(*args, **kwargs)
+        finally:
+            export_s.append(time.perf_counter() - t0)
+
+    fm_kernel.fm_batch_scores_bwd, train_mod.save_npz = capture_bwd, timed_npz
+    try:
+        fm_kernel.launches = 0
+        fm_kernel.bwd_launches = 0
+        t0 = time.perf_counter()
+        rc = cli(["train", cfg_path])
+        train_s = time.perf_counter() - t0
+        fwd_launches, bwd_launches = (fm_kernel.launches,
+                                      fm_kernel.bwd_launches)
+    finally:
+        fm_kernel.fm_batch_scores_bwd, train_mod.save_npz = bwd, save_npz
+    check(rc == 0, f"config1 train returned {rc}")
+    losses, rates, _, done = read_train_log(cfg.log_file)
+    steps = CONFIG1_EPOCHS * -(-CONFIG1_TRAIN_LINES // CONFIG1_BATCH)
+    check([n for n, _ in done] == [steps],
+          f"config1 train ended at steps {done}, not {steps}")
+    check(fwd_launches == steps and bwd_launches == steps,
+          f"config1 train launched fm_score {fwd_launches} and "
+          f"fm_score_bwd {bwd_launches} times for {steps} steps")
+    check(len(rates) == steps and sorted(losses) == [0, 1]
+          and np.mean(losses[1]) < np.mean(losses[0]),
+          f"config1 epoch losses did not fall: {len(rates)} rates, "
+          f"{ {e: float(np.mean(v)) for e, v in losses.items()} }")
+    check(len(export_s) == 1 and os.path.isfile(cfg.model_file + ".npz"),
+          f"config1 train exported {len(export_s)} .npz files")
+    loop_eps = steps * CONFIG1_BATCH / sum(CONFIG1_BATCH / r for r in rates)
+
+    fm_kernel.launches = 0
+    t0 = time.perf_counter()
+    rc = cli(["predict", cfg_path])
+    predict_s = time.perf_counter() - t0
+    predict_launches = fm_kernel.launches
+    check(rc == 0, f"config1 predict returned {rc}")
+    test_batches = -(-CONFIG1_TEST_LINES // CONFIG1_BATCH)
+    check(predict_launches == test_batches,
+          f"config1 predict launched fm_score {predict_launches} times "
+          f"for {test_batches} batches")
+    with open(os.path.join(cfg.score_path, "test.txt.score")) as fh:
+        scores = np.array([float(x) for x in fh.read().split()])
+    labels = np.loadtxt(test, usecols=0)
+    check(scores.shape == (CONFIG1_TEST_LINES,)
+          and np.isfinite(scores).all(),
+          f"{scores.shape} config1 scores for {CONFIG1_TEST_LINES} lines")
+    card_auc = exact_auc(scores, labels)
+
+    t0 = time.perf_counter()
+    oracle = config1_wait(h, "oracle.json")
+    wait_oracle_s = time.perf_counter() - t0
+    h["proc"].wait(timeout=60)
+    check(h["proc"].returncode == 0,
+          f"the config1 host side exited {h['proc'].returncode}")
+    oracle_auc = oracle["oracle_auc"]
+    check(oracle["test_examples"] == CONFIG1_TEST_LINES,
+          f"the oracle scored {oracle['test_examples']} test lines")
+    check(oracle_auc >= CONFIG1_ORACLE_FLOOR,
+          f"the oracle's AUC {oracle_auc} is below {CONFIG1_ORACLE_FLOOR}")
+    check(abs(card_auc - oracle_auc) < CONFIG1_AUC_TOL,
+          f"config1 AUC on the card {card_auc} vs the oracle's "
+          f"{oracle_auc}: not within {CONFIG1_AUC_TOL}")
+    check(card_auc < data["bayes_auc"],
+          f"config1 AUC {card_auc} not below the Bayes ceiling "
+          f"{data['bayes_auc']}")
+
+    # Both kernels against their plain versions on the first train
+    # step's inputs: the forward with L2 warm, as in the step; the
+    # backward flushed, need_dx off (the step never asks for dvals).
+    check(bool(captured), "no train step's kernel inputs were captured")
+    params, local = captured["params"], captured["local"]
+    vals, g = captured["vals"], captured["g"]
+    check(tuple(local.shape) == (CONFIG1_BATCH, CONFIG1_L)
+          and params.shape[1] == CONFIG1_FACTORS + 1,
+          f"the captured batch is {tuple(local.shape)} over "
+          f"{tuple(params.shape)} rows")
+    fwd_rows = [fwd_kernel_row(torch, params, local, vals, None,
+                               batch="config1_train")]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    bwd_rows = bwd_kernel_rows(torch, params, local, vals, g, flush,
+                               need_dx_cases=(False,),
+                               batch="config1_train")
+    del flush, captured, params, local, vals, g
+    shutil.rmtree(os.path.join(wd, "model"))
+    torch.cuda.empty_cache()
+    row = {"phase": "config1", "card": card,
+           "train_lines": CONFIG1_TRAIN_LINES,
+           "test_lines": CONFIG1_TEST_LINES, "seed": CONFIG1_SEED,
+           # The draws at a seed follow numpy's version (its samplers).
+           "numpy": np.__version__,
+           "vocabulary_size": CONFIG1_VOCAB, "factor_num": CONFIG1_FACTORS,
+           "L": CONFIG1_L, "batch_size": CONFIG1_BATCH,
+           "epochs": CONFIG1_EPOCHS, "steps": steps,
+           "test_auc": card_auc, "oracle_auc": oracle_auc,
+           "auc_gap": card_auc - oracle_auc, "bayes_auc": data["bayes_auc"],
+           "positive_rate_test": data["positive_rate_test"],
+           "epoch_mean_loss": [float(np.mean(losses[e])) for e in (0, 1)],
+           "generate_seconds": data["generate_seconds"],
+           "parse_seconds": oracle["parse_seconds"],
+           "oracle_seconds": oracle["oracle_seconds"],
+           "host_side_seconds": time.perf_counter() - h["t0"],
+           "wait_for_data_seconds": wait_data_s,
+           "wait_for_oracle_seconds": wait_oracle_s,
+           "train_entry_seconds": train_s,
+           "predict_entry_seconds": predict_s,
+           "export_seconds": export_s[0],
+           "examples_per_s_loop": loop_eps,
+           "examples_per_s_train_log": [e for _, e in done],
+           "fm_score_launches": fwd_launches,
+           "fm_score_bwd_launches": bwd_launches,
+           "predict_launches": predict_launches,
+           "leg_seconds": time.perf_counter() - t_leg}
+    print(f"config1: {card}; test AUC {card_auc:.6f} on the card, oracle "
+          f"{oracle_auc:.6f} (gap {card_auc - oracle_auc:+.6f}, bound "
+          f"{CONFIG1_AUC_TOL}), Bayes ceiling {data['bayes_auc']:.6f}; "
+          f"generate {data['generate_seconds']:.2f}s, parse "
+          f"{oracle['parse_seconds']:.2f}s, oracle "
+          f"{oracle['oracle_seconds']:.2f}s (beside the card's phases); "
+          f"train {train_s:.2f}s (export {export_s[0]:.2f}s), predict "
+          f"{predict_s:.2f}s, loop {loop_eps:.0f} examples/s; launches "
+          f"fm_score {fwd_launches} + {predict_launches}, fm_score_bwd "
+          f"{bwd_launches}; {row['leg_seconds']:.1f}s for the leg",
+          flush=True)
+    emit(row)
+    return row, fwd_rows, bwd_rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(
@@ -6109,7 +6435,7 @@ def main(argv) -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    dist = elastic = dstream = offload = None
+    dist = elastic = dstream = offload = config1 = None
     free = shutil.disk_usage(WORK).free
     print(f"free bytes under {WORK}: {free}", flush=True)
     check(free >= MIN_FREE_BYTES, f"{free} bytes free under {WORK}; the "
@@ -6120,6 +6446,8 @@ def main(argv) -> int:
         pipeline_row = pipeline_phase(
             load_config(write_train_cfg(train_data[0], TRAIN_EPOCHS)),
             parser_s, smi)
+        # config #1's data and oracle (host) go on beside phases 3-5b
+        config1 = config1_start()
 
         cfg_path = os.path.join(WORK, "smoke.cfg")
         write_cfg(cfg_path)
@@ -6171,6 +6499,11 @@ def main(argv) -> int:
                                                   score_lines, device, smi)
         del lines, score_lines, table_cpu
         shutil.rmtree(os.path.dirname(cfg.model_file))  # disk for phase 6
+        # 5c. config #1: train -> predict on the card against the oracle
+        config1_row, fwd_config1_rows, bwd_config1_rows = config1_phase(
+            torch, device, smi, config1)
+        kernel_rows += fwd_config1_rows
+        bwd_rows += bwd_config1_rows
 
         # 6. train
         train_row, fwd_train_rows, bwd_train_rows, train_cfg, val_lines = \
@@ -6254,6 +6587,7 @@ def main(argv) -> int:
         elastic_stop(elastic)
         dstream_stop(dstream)
         offload_stop(offload)
+        config1_stop(config1)
         shutil.rmtree(WORK, ignore_errors=True)
 
     head = next(r for r in kernel_rows if r["batch"] == "uniform" and
@@ -6283,7 +6617,9 @@ def main(argv) -> int:
                      + sum(dist_row["fm_score_launches"])
                      + sum(dist_row["predict_fm_score_launches"])
                      + sum(elastic_row["fm_score_launches"])
-                     + sum(dstream_row["fm_score_launches"])),
+                     + sum(dstream_row["fm_score_launches"])
+                     + config1_row["fm_score_launches"]
+                     + config1_row["predict_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -6309,7 +6645,9 @@ def main(argv) -> int:
         "dist_train_launches": dist_row["fm_score_launches"],
         "dist_predict_launches": dist_row["predict_fm_score_launches"],
         "dist_elastic_launches": elastic_row["fm_score_launches"],
-        "dist_stream_launches": dstream_row["fm_score_launches"]}, {
+        "dist_stream_launches": dstream_row["fm_score_launches"],
+        "config1_train_launches": config1_row["fm_score_launches"],
+        "config1_predict_launches": config1_row["predict_launches"]}, {
         "name": "fm_score_bwd", "route": "cuda",
         "source": "fast_tffm_tpu_torch/csrc/fm_score_bwd.cu",
         "replaces": "fast_tffm_tpu/ops/pallas_fm.py:75",
@@ -6321,7 +6659,8 @@ def main(argv) -> int:
                      + admit_row["fm_score_bwd_launches"]
                      + sum(dist_row["fm_score_bwd_launches"])
                      + sum(elastic_row["fm_score_bwd_launches"])
-                     + sum(dstream_row["fm_score_bwd_launches"])),
+                     + sum(dstream_row["fm_score_bwd_launches"])
+                     + config1_row["fm_score_bwd_launches"]),
         "train_launches": train_row["fm_score_bwd_launches"],
         "train_host_launches": host_row["fm_score_bwd_launches"],
         "train_packed_launches": packed_train_row["fm_score_bwd_launches"],
@@ -6331,6 +6670,7 @@ def main(argv) -> int:
         "dist_train_launches": dist_row["fm_score_bwd_launches"],
         "dist_elastic_launches": elastic_row["fm_score_bwd_launches"],
         "dist_stream_launches": dstream_row["fm_score_bwd_launches"],
+        "config1_train_launches": config1_row["fm_score_bwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"],
         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
@@ -6362,8 +6702,8 @@ def main(argv) -> int:
     print(f"script seconds {script_s:.1f}; run A's train command "
           f"{train_row['entry_seconds']:.2f}s; telemetry checks: run A's "
           f"stream {train_row['telemetry']['check_seconds']:.2f}s, the "
-          f"in-process phase {telemetry_row['seconds']:.2f}s; {smi}",
-          flush=True)
+          f"in-process phase {telemetry_row['seconds']:.2f}s; config1 leg "
+          f"{config1_row['leg_seconds']:.2f}s; {smi}", flush=True)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -6383,6 +6723,7 @@ def main(argv) -> int:
                        "admit": admit_row, "dist": dist_row,
                        "dist_elastic": elastic_row,
                        "dist_stream": dstream_row,
+                       "config1": config1_row,
                        "kernel_offload": offload_rows, **kernels}, fh,
                       indent=1)
     emit(kernels)

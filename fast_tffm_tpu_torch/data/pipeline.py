@@ -1341,10 +1341,13 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
 
     def parse_chunk(chunk, precounted: int = 0):
         """One chunk of (line, weight, source) -> (surviving chunk,
-        block, weights). ``precounted``: the chunk's first this-many
-        items went through the tracker already (a spill's requeued
-        tail), so they neither count nor record again."""
+        block, weights, tally). ``tally`` is what the chunk owes the
+        tracker, (good lines, [(path, lineno, raw, error)]), for
+        ``account``. ``precounted``: the chunk's first this-many items
+        went through the tracker already (a spill's requeued tail), so
+        they neither count nor record again."""
         lines = [c[0] for c in chunk]
+        tally = None
         if tracker is None:
             try:
                 block = _parse_block(lines, cfg, keep_empty)
@@ -1355,15 +1358,25 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
             bads: List[Tuple[int, str, str]] = []
             block = _salvage_block(lines, cfg, keep_empty, bads)
             fresh = [b for b in bads if b[0] >= precounted]
-            tracker.count_ok(len(lines) - precounted - len(fresh))
-            for i, raw, msg in fresh:
-                path, lineno = chunk[i][2]
-                tracker.record(path, lineno, raw, _strip_line_prefix(msg))
+            tally = (len(lines) - precounted - len(fresh),
+                     [(*chunk[i][2], raw, _strip_line_prefix(msg))
+                      for i, raw, msg in fresh])
             if bads and not keep_empty:
                 badset = {i for i, _, _ in bads}
                 chunk = [c for i, c in enumerate(chunk) if i not in badset]
         return chunk, block, np.array([c[1] for c in chunk],
-                                      dtype=np.float32)
+                                      dtype=np.float32), tally
+
+    def account(tally) -> None:
+        """Feed one chunk's tally to the tracker (whose breaker may
+        raise). Chunks are accounted in stream order on every route,
+        so the breaker trips at the same line, naming the same worst
+        file, whatever the worker count."""
+        if tally is not None:
+            n_ok, bads = tally
+            tracker.count_ok(n_ok)
+            for path, lineno, raw, msg in bads:
+                tracker.record(path, lineno, raw, msg)
 
     def batch_of(block, w) -> DeviceBatch:
         return make_device_batch(block, cfg, B, weights=w, raw_ids=raw_ids,
@@ -1371,11 +1384,11 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
                                  fixed_shape=fixed_shape,
                                  uniq_bucket=uniq_bucket)
 
-    def build(chunk) -> Optional[DeviceBatch]:
-        _, block, w = parse_chunk(chunk)
+    def build(chunk) -> Tuple[Optional[DeviceBatch], object]:
+        _, block, w, tally = parse_chunk(chunk)
         if tracker is not None and block.batch_size == 0:
-            return None  # every line of the chunk was bad
-        return batch_of(block, w)
+            return None, tally  # every line of the chunk was bad
+        return batch_of(block, w), tally
 
     def counted(batch: DeviceBatch, spilled: bool) -> DeviceBatch:
         if stats is not None:
@@ -1385,9 +1398,11 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
 
     # The tolerant generic path fans out: a bad line drops from the
     # parsed block and never shifts the B-line chunk boundaries, so each
-    # chunk is an independent task. The run-scoped tracker is locked, so
-    # the breaker and the quarantine dedupe stay global; only the order
-    # of quarantine records may interleave across workers.
+    # chunk is an independent task. The workers leave the tracker alone:
+    # the consumer accounts each chunk's tally in submit order, so the
+    # breaker, its message and the quarantine records follow the input
+    # alone (the JAX package records from its workers, in no fixed
+    # order).
     pool: Optional[_BuildRing] = None
     pool_order: collections.deque = collections.deque()
     if tracker is not None and workers > 1:
@@ -1409,8 +1424,10 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
                 tel.set("pipeline/ring_occupancy", pool.occupancy())
             if kind == "error":
                 raise val
-            if val is not None:
-                yield counted(val, False)
+            batch, tally = val
+            account(tally)
+            if batch is not None:
+                yield counted(batch, False)
 
     file_seed = cfg.seed if seed is None else seed
     try:
@@ -1431,7 +1448,9 @@ def _generic_batch_iterator(cfg: FmConfig, files: List[str],
                         pool_order.append(pool.submit(chunk))
                         yield from pool_drain(pool.depth)
                         continue
-                    chunk, block, w = parse_chunk(chunk, precounted=k)
+                    chunk, block, w, tally = parse_chunk(chunk,
+                                                         precounted=k)
+                    account(tally)
                     if tracker is not None and block.batch_size == 0:
                         continue  # every line of the chunk was bad
                     try:

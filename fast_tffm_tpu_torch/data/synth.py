@@ -1,0 +1,454 @@
+"""Synthesized Criteo-Kaggle-like CTR data with known ground truth, and
+the independent NumPy SGD-FM and FFM trainers — a copy of
+``fast_tffm_tpu/data/synth.py`` that imports numpy and the port only
+(the same seed writes the same bytes; ``tests/test_torch_synth.py``).
+
+BASELINE config #1 names the Criteo-Kaggle 1M-row libsvm sample and the
+tracked metric is "examples/sec/chip + test-AUC", but no real dataset
+ships with the repo. This module synthesizes data with the
+distributional properties that make Criteo hard — and, unlike the real
+thing, a KNOWN generative model, so measured AUC can be compared
+against an independent oracle trained on the same draws
+(``tests/test_torch_criteo_like.py`` on the CPU, ``chip_smoke.py``'s
+``config1`` leg on the card):
+
+- 26 categorical fields with mixed vocabulary sizes (tens to ~100k) and
+  Zipf-skewed id frequencies (head ids dominate, a long rare tail);
+- 13 numeric fields, log-normal counts written as ``I<j>:<log1p value>``;
+- labels ~ Bernoulli(sigmoid(logit)) where the logit is a real FM-style
+  model: per-id main effects + low-rank pairwise interactions between
+  selected field pairs + linear numeric effects. The positive rate is
+  CTR-like but seed-dependent (the head ids' drawn effects shift the
+  mean logit; observed ~6-25% across seeds) — callers that need a
+  specific rate must check write_dataset's returned metadata;
+- tokens are strings (``C<f>=v<id>``), exercising the murmur hashing
+  path mod a 2^20 space with realistic collision rates.
+
+Everything is drawn from one seeded Generator, so train/test splits and
+reruns are deterministic. The trainers share only the parsed CSR arrays
+with the port (its C++ block parse, ``parse_file_blocks``); there is no
+Python fallback: a failed parser build raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, List, Tuple
+
+import numpy as np
+
+from fast_tffm_tpu_torch.metrics import exact_auc
+
+# 26 categorical fields, vocab sizes spanning the Criteo spread (a few
+# categories to ~100k); indices are the C14-C39-style fields.
+CAT_VOCABS: Tuple[int, ...] = (
+    40, 500, 90000, 30000, 200, 15, 10000, 400, 3, 25000,
+    4000, 80000, 3000, 25, 8000, 60000, 10, 4000, 1500, 4,
+    50000, 12, 14, 30000, 60, 20000)
+NUM_FIELDS = 13          # numeric I1..I13
+ZIPF_A = 1.35            # id popularity skew
+PAIR_RANK = 4            # latent dim of ground-truth pair interactions
+N_PAIRS = 30             # interacting field pairs
+
+
+@dataclasses.dataclass
+class GroundTruth:
+    """The generative model: enough to recompute any example's logit."""
+    main: List[np.ndarray]          # per field: [vocab_f] effects
+    pair_u: dict                    # (f, g) -> ([vocab_f, R], [vocab_g, R])
+    num_w: np.ndarray               # [NUM_FIELDS] numeric coefficients
+    bias: float
+
+
+def make_ground_truth(seed: int = 0) -> GroundTruth:
+    rng = np.random.default_rng(seed)
+    main = [rng.normal(0.0, 0.45, size=v) for v in CAT_VOCABS]
+    pairs = {}
+    n_fields = len(CAT_VOCABS)
+    chosen = set()
+    while len(chosen) < N_PAIRS:
+        f, g = sorted(rng.choice(n_fields, size=2, replace=False))
+        chosen.add((int(f), int(g)))
+    for f, g in chosen:
+        pairs[(f, g)] = (
+            rng.normal(0.0, 0.35, size=(CAT_VOCABS[f], PAIR_RANK)),
+            rng.normal(0.0, 0.35, size=(CAT_VOCABS[g], PAIR_RANK)))
+    num_w = rng.normal(0.0, 0.25, size=NUM_FIELDS)
+    # Centers the logit in CTR territory; the realized positive rate
+    # still moves with the seed's head-id effect draws (see module doc).
+    return GroundTruth(main=main, pair_u=pairs, num_w=num_w, bias=-1.9)
+
+
+def _draw_ids(rng: np.random.Generator, n: int) -> np.ndarray:
+    """[n, 26] Zipf-skewed categorical ids (head-heavy, long tail)."""
+    cols = []
+    for v in CAT_VOCABS:
+        z = rng.zipf(ZIPF_A, size=n)
+        cols.append((z - 1) % v)
+    return np.stack(cols, axis=1)
+
+
+def logits_for(gt: GroundTruth, cat_ids: np.ndarray,
+               num_z: np.ndarray) -> np.ndarray:
+    """Ground-truth logit for drawn examples ([n, 26] ids, [n, 13]
+    transformed numerics)."""
+    logit = np.full(len(cat_ids), gt.bias)
+    for f in range(len(CAT_VOCABS)):
+        logit += gt.main[f][cat_ids[:, f]]
+    for (f, g), (u, v) in gt.pair_u.items():
+        logit += np.einsum("nr,nr->n", u[cat_ids[:, f]], v[cat_ids[:, g]])
+    logit += num_z @ gt.num_w
+    return logit
+
+
+def generate(n: int, seed: int, gt: GroundTruth
+             ) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """n libsvm lines + the labels + the true logits (for headroom
+    measurement: AUC of the true logit is the Bayes ceiling)."""
+    rng = np.random.default_rng(seed)
+    cat_ids = _draw_ids(rng, n)
+    counts = rng.lognormal(mean=1.0, sigma=1.2, size=(n, NUM_FIELDS))
+    num_z = np.round(np.log1p(counts), 3)
+    logit = logits_for(gt, cat_ids, num_z)
+    labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int32)
+    # ~8% of numeric fields are missing (dropped token), like Criteo
+    miss = rng.random((n, NUM_FIELDS)) < 0.08
+    lines = []
+    for i in range(n):
+        parts = [str(labels[i])]
+        parts += [f"I{j}:{num_z[i, j]}" for j in range(NUM_FIELDS)
+                  if not miss[i, j]]
+        parts += [f"C{f}=v{cat_ids[i, f]}" for f in range(len(CAT_VOCABS))]
+        lines.append(" ".join(parts))
+    # Headroom ceiling = the OBSERVED-information logit: the dropped
+    # numeric tokens contributed to the label-generating logit but are
+    # absent from the written files, so a ceiling computed from the
+    # full logit would overstate what any model trained on the files
+    # can reach (part of the gap would be irreducible information
+    # loss, not trainer underperformance). Labels keep the full logit —
+    # the data itself is byte-identical to before.
+    obs_logit = logit - np.where(miss, num_z, 0.0) @ gt.num_w
+    return lines, labels, obs_logit
+
+
+def write_dataset(path_train: str, path_test: str, n_train: int,
+                  n_test: int, seed: int = 0) -> dict:
+    """Write train/test files; returns metadata incl. the Bayes-ceiling
+    AUC of the true logits on the test split."""
+    gt = make_ground_truth(seed)
+    train_lines, train_y, _ = generate(n_train, seed + 1, gt)
+    test_lines, test_y, test_logit = generate(n_test, seed + 2, gt)
+    with open(path_train, "w") as fh:
+        fh.write("\n".join(train_lines) + "\n")
+    with open(path_test, "w") as fh:
+        fh.write("\n".join(test_lines) + "\n")
+    return {
+        "n_train": n_train, "n_test": n_test,
+        "positive_rate_train": float(train_y.mean()),
+        "positive_rate_test": float(test_y.mean()),
+        "bayes_auc": exact_auc(test_logit, test_y),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Independent NumPy SGD-FM oracle: hand-derived gradients, numpy-only
+# training loop. Shares ONLY the parsed CSR arrays with the port
+# (parser parity is separately tested); the model, backward pass,
+# and update rule are written from the math in SURVEY §3.5, not from
+# models/fm.py, so agreement is evidence, not tautology.
+# ---------------------------------------------------------------------------
+
+
+def _pad_batches(blocks, L: int, pad_id: int
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Padded slots point at the dead row ``pad_id`` (== vocab, the
+    documented invariant): id 0 is a live hashed row and must not
+    collect padding's reg/accumulator updates."""
+    for block in blocks:
+        n = block.batch_size
+        ids = np.full((n, L), pad_id, np.int64)
+        x = np.zeros((n, L), np.float64)
+        sizes = block.sizes
+        rows = np.repeat(np.arange(n), sizes)
+        cols = np.arange(len(rows)) - np.repeat(block.poses[:-1], sizes)
+        ids[rows, cols] = block.ids
+        x[rows, cols] = block.vals
+        yield ids, x, block.labels.astype(np.float64)
+
+
+def _fm_forward(z: np.ndarray, order: int):
+    """Interaction value per (example, factor dim) and its dz gradient.
+
+    order 2: e2 = (e1² - p2)/2,            d e2/dz_l = e1 - z_l
+    order 3: adds e3 = (e1³ - 3·e1·p2 + 2·p3)/6,
+             d e3/dz_l = e2 − z_l·(e1 − z_l)   (the ANOVA identity:
+             the degree-3 kernel's partial is the degree-2 kernel over
+             the OTHER slots) — matching ops/interaction._anova_terms'
+             "degrees 2..order" definition.
+    Returns (inter [B, k], dz [B, L, k])."""
+    e1 = z.sum(axis=1)                                  # [B, k]
+    p2 = np.square(z).sum(axis=1)
+    e2 = 0.5 * (np.square(e1) - p2)
+    inter = e2.copy()
+    dz = e1[:, None, :] - z                             # [B, L, k]
+    if order == 3:
+        p3 = (z ** 3).sum(axis=1)
+        inter += (e1 ** 3 - 3.0 * e1 * p2 + 2.0 * p3) / 6.0
+        dz = dz + (e2[:, None, :] - z * (e1[:, None, :] - z))
+    elif order != 2:
+        raise ValueError(f"oracle supports order 2 or 3, got {order}")
+    return inter, dz
+
+
+def numpy_fm_train_predict(train_blocks, test_blocks, vocab: int, k: int,
+                           lr: float, epochs: int, factor_lambda: float,
+                           bias_lambda: float, init_range: float = 0.01,
+                           adagrad_init: float = 0.1, seed: int = 7,
+                           L: int = 48, order: int = 2) -> np.ndarray:
+    """Train an order-2 (or order-3 ANOVA, BASELINE config #4) FM with
+    minibatch Adagrad in pure NumPy and return raw test scores. Padded
+    id slots point at the dead row ``vocab`` with x=0. Backward (per
+    example, g = dloss/dscore):
+        dw[l] = g x_l ;  dv[l, f] = g x_l · (d inter_f / d z_{l,f})
+    with the interaction/gradient pair in _fm_forward.
+    """
+    rng = np.random.default_rng(seed)
+    W = rng.uniform(-init_range, init_range, size=(vocab + 1, k + 1))
+    W[-1] = 0.0
+    acc = np.full((vocab + 1, k + 1), adagrad_init)
+
+    for _ in range(epochs):
+        for ids, x, y in _pad_batches(train_blocks, L, vocab):
+            B = len(y)
+            rows = W[ids]                                   # [B, L, k+1]
+            v, w = rows[..., :k], rows[..., k]
+            z = v * x[..., None]                            # [B, L, k]
+            inter, dz = _fm_forward(z, order)
+            score = (w * x).sum(axis=1) + inter.sum(axis=1)
+            p = 1.0 / (1.0 + np.exp(-score))
+            g = (p - y) / B                                 # [B]
+            dv = g[:, None, None] * x[..., None] * dz
+            dw = g[:, None] * x
+            grad = np.concatenate([dv, dw[..., None]], axis=2)
+            # Sparse accumulation onto the batch's unique rows (the
+            # vocab-sized dense buffer would dominate at 2^22 rows),
+            # plus batch-active L2 on those rows (SURVEY §3.5).
+            uniq, inv = np.unique(ids, return_inverse=True)
+            grows = np.zeros((len(uniq), k + 1))
+            np.add.at(grows, inv.ravel(), grad.reshape(-1, k + 1))
+            grows[:, :k] += 2.0 * factor_lambda * W[uniq, :k]
+            grows[:, k] += 2.0 * bias_lambda * W[uniq, k]
+            acc[uniq] += np.square(grows)
+            W[uniq] -= lr * grows / np.sqrt(acc[uniq])
+            W[-1] = 0.0  # dead pad row stays dead
+
+    scores = []
+    for ids, x, _ in _pad_batches(test_blocks, L, vocab):
+        rows = W[ids]
+        v, w = rows[..., :k], rows[..., k]
+        z = v * x[..., None]
+        inter, _ = _fm_forward(z, order)
+        scores.append((w * x).sum(axis=1) + inter.sum(axis=1))
+    return np.concatenate(scores)
+
+
+# ---------------------------------------------------------------------------
+# Field-aware (FFM) twin: Avazu-like data with a KNOWN field-aware
+# generative model, plus an independent NumPy FFM-SGD oracle — the
+# config-#3 analogue of the FM pair above. One categorical id per field
+# per example (Avazu's shape), ids offset into disjoint per-field ranges
+# of one vocabulary space (the framework's single-table FFM layout).
+# ---------------------------------------------------------------------------
+
+FFM_FIELDS: Tuple[int, ...] = (40, 3000, 25000, 15, 400, 9000, 3,
+                               1200, 60000, 25, 5000, 150)
+# Cumulative per-field offsets keep ids disjoint in ONE compact vocab
+# (Σ field vocabs ~104k rows) instead of fixed power-of-two strides
+# whose table would be ~87% dead rows — the framework and the oracle
+# both size their tables from ffm_vocab_size().
+FFM_FIELD_OFFSETS: Tuple[int, ...] = tuple(
+    int(x) for x in np.concatenate([[0], np.cumsum(FFM_FIELDS)[:-1]]))
+FFM_PAIR_RANK = 3
+FFM_N_PAIRS = 20
+
+
+def ffm_vocab_size() -> int:
+    return int(sum(FFM_FIELDS))
+
+
+def _make_ffm_truth(seed: int):
+    rng = np.random.default_rng(seed)
+    F = len(FFM_FIELDS)
+    main = [rng.normal(0.0, 0.4, size=v) for v in FFM_FIELDS]
+    chosen = set()
+    while len(chosen) < FFM_N_PAIRS:
+        f, g = sorted(rng.choice(F, size=2, replace=False))
+        chosen.add((int(f), int(g)))
+    pairs = {(f, g): (rng.normal(0.0, 0.4, size=(FFM_FIELDS[f],
+                                                 FFM_PAIR_RANK)),
+                      rng.normal(0.0, 0.4, size=(FFM_FIELDS[g],
+                                                 FFM_PAIR_RANK)))
+             for f, g in chosen}
+    return main, pairs
+
+
+def _ffm_generate(n: int, seed: int, truth):
+    main, pairs = truth
+    rng = np.random.default_rng(seed)
+    F = len(FFM_FIELDS)
+    ids = np.stack([(rng.zipf(ZIPF_A, size=n) - 1) % v
+                    for v in FFM_FIELDS], axis=1)       # [n, F]
+    logit = np.full(n, -1.2)
+    for f in range(F):
+        logit += main[f][ids[:, f]]
+    for (f, g), (u, v) in pairs.items():
+        logit += np.einsum("nr,nr->n", u[ids[:, f]], v[ids[:, g]])
+    labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(
+        np.int32)
+    lines = [" ".join([str(labels[i])]
+                      + [f"{f}:{FFM_FIELD_OFFSETS[f] + ids[i, f]}"
+                         for f in range(F)])
+             for i in range(n)]
+    return lines, labels, logit, ids
+
+
+def write_ffm_dataset(path_train: str, path_test: str, n_train: int,
+                      n_test: int, seed: int = 0) -> dict:
+    """Write field-aware train/test files (`f:id` tokens, one id per
+    field); returns metadata incl. the Bayes-ceiling AUC."""
+    truth = _make_ffm_truth(seed)
+    train_lines, train_y, _, _ = _ffm_generate(n_train, seed + 1, truth)
+    test_lines, test_y, test_logit, _ = _ffm_generate(n_test, seed + 2,
+                                                      truth)
+    with open(path_train, "w") as fh:
+        fh.write("\n".join(train_lines) + "\n")
+    with open(path_test, "w") as fh:
+        fh.write("\n".join(test_lines) + "\n")
+    return {"n_train": n_train, "n_test": n_test,
+            "positive_rate_train": float(train_y.mean()),
+            "positive_rate_test": float(test_y.mean()),
+            "bayes_auc": exact_auc(test_logit, test_y)}
+
+
+def parse_ffm_file(path: str, batch_size: int):
+    """[B, F] global-id batches + labels, parsed directly from `f:id`
+    lines — the oracle's OWN reader (independence from the framework's
+    parser; golden parity for that parser is tested separately)."""
+    F = len(FFM_FIELDS)
+    batches = []
+    ids_buf, y_buf = [], []
+    with open(path) as fh:
+        for lineno, line in enumerate(fh, 1):
+            toks = line.split()
+            if not toks:
+                continue
+            y_buf.append(float(toks[0]))
+            row = np.full(F, -1, np.int64)  # -1 = field unseen: a
+            # truncated or duplicated line must fail loudly here, not
+            # silently train the oracle on different data than the
+            # framework parser sees (which would void parity)
+            for t in toks[1:]:
+                f, i = t.split(":")
+                f = int(f)
+                if row[f] >= 0:
+                    raise ValueError(
+                        f"{path}:{lineno}: field {f} appears twice")
+                row[f] = int(i)
+            if (row < 0).any():
+                raise ValueError(
+                    f"{path}:{lineno}: expected one token per field "
+                    f"(fields {np.flatnonzero(row < 0).tolist()} "
+                    "missing)")
+            ids_buf.append(row)
+            if len(ids_buf) == batch_size:
+                batches.append((np.stack(ids_buf),
+                                np.asarray(y_buf)))
+                ids_buf, y_buf = [], []
+    if ids_buf:
+        batches.append((np.stack(ids_buf), np.asarray(y_buf)))
+    return batches
+
+
+def numpy_ffm_train_predict(train_batches, test_batches, vocab: int,
+                            k: int, lr: float, epochs: int,
+                            factor_lambda: float, bias_lambda: float,
+                            init_range: float = 0.01,
+                            adagrad_init: float = 0.1,
+                            seed: int = 7) -> np.ndarray:
+    """Independent field-aware FM oracle, hand-derived gradients.
+
+    Row layout [vocab+1, F*k + 1]: v[id, g*k:(g+1)*k] is id's latent
+    toward TARGET field g, last column the linear weight (the
+    framework's documented FFM layout, but the math here is written
+    from the FFM definition, not from ops/interaction.py):
+        score = Σ_f w[id_f] + Σ_{f<g} <v[id_f,:,g], v[id_g,:,f]>
+        d score / d v[id_f, :, g] = v[id_g, :, f]   (and symmetric)
+        d score / d w[id_f]      = 1
+    Minibatch mean logistic gradient + batch-active L2 + Adagrad —
+    the same update semantics as numpy_fm_train_predict.
+    """
+    F = len(FFM_FIELDS)
+    D = F * k + 1
+    rng = np.random.default_rng(seed)
+    W = rng.uniform(-init_range, init_range, size=(vocab + 1, D))
+    acc = np.full((vocab + 1, D), adagrad_init)
+
+    def batch_scores(ids, Wm):
+        rows = Wm[ids]                              # [B, F, D]
+        v = rows[..., :F * k].reshape(len(ids), F, F, k)
+        score = rows[..., -1].sum(axis=1)
+        for f in range(F):
+            for g in range(f + 1, F):
+                score += (v[:, f, g] * v[:, g, f]).sum(axis=1)
+        return score, v
+
+    for _ in range(epochs):
+        for ids, y in train_batches:
+            B = len(y)
+            score, v = batch_scores(ids, W)
+            p = 1.0 / (1.0 + np.exp(-score))
+            gl = (p - y) / B                        # [B]
+            grad = np.zeros((B, F, D))
+            for f in range(F):
+                for g in range(F):
+                    if f == g:
+                        continue
+                    # d score/d v[id_f, :, g] = v[id_g, :, f]
+                    grad[:, f, g * k:(g + 1) * k] = (
+                        gl[:, None] * v[:, g, f])
+                grad[:, f, -1] = gl
+            uniq, inv = np.unique(ids, return_inverse=True)
+            grows = np.zeros((len(uniq), D))
+            np.add.at(grows, inv.ravel(), grad.reshape(-1, D))
+            grows[:, :F * k] += 2.0 * factor_lambda * W[uniq, :F * k]
+            grows[:, -1] += 2.0 * bias_lambda * W[uniq, -1]
+            acc[uniq] += np.square(grows)
+            W[uniq] -= lr * grows / np.sqrt(acc[uniq])
+
+    out = []
+    for ids, _ in test_batches:
+        out.append(batch_scores(ids, W)[0])
+    return np.concatenate(out)
+
+
+def parse_file_blocks(path: str, vocab: int, batch_size: int):
+    """Parse a libsvm file into CSR blocks via the port's C++ block
+    parse (held to the JAX package's parser by its tests) — the shared
+    input both trainers consume. No fallback: it raises if the C++
+    parser cannot be built or loaded."""
+    from fast_tffm_tpu_torch.config import FmConfig
+    from fast_tffm_tpu_torch.data.pipeline import _parse_block
+    cfg = FmConfig(vocabulary_size=vocab, hash_feature_id=True,
+                   max_features_per_example=48)
+    out = []
+    with open(path) as fh:
+        buf = []
+        for line in fh:
+            if line.strip():
+                buf.append(line)
+            if len(buf) == batch_size:
+                out.append(_parse_block(buf, cfg))
+                buf = []
+        if buf:
+            out.append(_parse_block(buf, cfg))
+    return out

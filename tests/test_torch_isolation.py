@@ -100,7 +100,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "fast_tffm_tpu_torch.obs.anatomy",
                  "fast_tffm_tpu_torch.tools.fmstat",
                  "fast_tffm_tpu_torch.tools.fmtrace",
-                 "fast_tffm_tpu_torch.tools.streams"):
+                 "fast_tffm_tpu_torch.tools.streams",
+                 "fast_tffm_tpu_torch.data.synth",
+                 "fast_tffm_tpu_torch.models.oracle"):
         assert name in out["imported"]
 
 
