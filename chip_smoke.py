@@ -191,7 +191,10 @@ the port's independent NumPy trainer:
    exact, write-back within rtol 1e-6), with device and event ms, bytes
    over the host link each way and in device memory, and the bound at
    the host link's rate each way, measured by 64 MiB pinned copies to
-   and from the card; and both FM kernels against their plain versions
+   and from the card; the offload diagnosis (``offload_diagnosis``:
+   both kernels on the batch's ids and on as many ids inside one 2 MiB
+   span, and a gather of the accumulator's rows, with L2 flushed); and
+   both FM kernels against their plain versions
    on that batch with the control run's table (K = 8, Zipf-skewed
    host-deduped rows); then, on the pinned backend, ``reset_rows``
    straight after a step over a set holding the batch's hottest row:
@@ -3529,7 +3532,51 @@ def offload_kernel_rows(torch, lk, spec, batch, device, card):
                     else max(errs)})
     for row in out:
         emit(row)
+    offload_diagnosis(torch, lk, ids, grad, lr, flush, card)
     return out
+
+
+def offload_diagnosis(torch, lk, ids, grad, lr, flush, card):
+    """What bounds the offload kernels, on pinned backend ``lk``'s state,
+    a batch's ``ids`` (U host-deduped rows) and ``grad``: event ms of one
+    launch alone, L2 flushed before each (event_ms), of
+    (a) the gather of the batch's table rows;
+    (b) the same gather of U ids inside one 2 MiB span of the table,
+        spaced so that no two rows share a 32-byte sector: as many
+        requests over the link, on 513 pages of 4 KiB where (a) touches
+        about U;
+    (c) the write-back (it loads each accumulator element, then stores
+        both rows) on the batch's ids, and (c_span) on the span's;
+    (e) the gather of the batch's accumulator rows alone;
+    each in a forward and a reverse round. The write-back's runs move the
+    rows they touch, so this runs after every check of the state."""
+    import numpy as np
+    from fast_tffm_tpu_torch.ops import offload_kernel as ok
+    U, D, R = int(ids.shape[0]), lk.dim, lk.table.shape[0]
+    span = 2 << 20
+    stride = max(128, span // U)  # bytes between span rows
+    first = (R // 2) * D * 4 // span * span // (D * 4) + 1
+    span_ids = torch.from_numpy(
+        (first + np.arange(U, dtype=np.int64) * stride // (D * 4))
+        .astype(np.int32)).to(ids.device)
+    rows = ok.offload_gather(lk.table, ids)
+    span_rows = ok.offload_gather(lk.table, span_ids)
+    arms = [
+        ("a_gather", lambda: ok.offload_gather(lk.table, ids)),
+        ("b_gather_span", lambda: ok.offload_gather(lk.table, span_ids)),
+        ("c_writeback", lambda: ok.offload_adagrad(
+            lk.table, lk.acc, ids, rows, grad, lr)),
+        ("c_writeback_span", lambda: ok.offload_adagrad(
+            lk.table, lk.acc, span_ids, span_rows, grad, lr)),
+        ("e_gather_acc", lambda: ok.offload_gather(lk.acc, ids))]
+    got = {name: [] for name, _ in arms}
+    for order in (arms, arms[::-1]):
+        for name, run in order:
+            got[name].append(event_ms(torch, Launch(run), flush))
+    row = {"phase": "offload_diagnosis", "card": card, "U": U, "D": D,
+           "rows": R, "span_bytes": stride * U, "event_ms": got}
+    emit(row)
+    return row
 
 
 def offload_reset_check(torch, np, lu, spec, cfg, pinned, host, batches):

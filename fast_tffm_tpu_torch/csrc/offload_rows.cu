@@ -35,14 +35,40 @@
 // An id outside [0, n_rows): the gather writes NaN for its row, so the
 // scores that read it are NaN; the write-back skips it.
 //
-// What bounds them: the host link. The gather moves U*D*4 bytes over it
-// (and U*4 + U*D*4 in device memory); the write-back U*D*4 in and 2*U*D*4
-// out. The arithmetic is a few flops per element. Design: one thread per
-// element, consecutive threads on consecutive columns of a row, so a warp's
-// accesses to one row form one host-link request; rows lie at random
-// places, so a warp of D = 9 rows touches about four of them. A first
-// version: right and simple. What would make it faster (whole rows per
-// request, overlapping the gather with the previous step) is later work.
+// What bounds them on the H100: the card's translation of the state's
+// 4 KiB host pages, not the link's bytes. A batch's rows lie at random
+// places of a 3.6 GB table, one row a page, so a launch pays a translation
+// for about every row of each array it touches. chip_smoke.py's offload
+// diagnosis (U = 16,384, D = 9, 10^8 rows, L2 flushed, CUDA events; NVIDIA
+// H100 80GB HBM3 at 700 W): a gather of the table's rows takes 0.29-0.41
+// ms, but 0.074-0.09 ms when as many rows, no two in one 32-byte sector,
+// lie in one 2 MiB span (513 pages); this write-back 0.91-1.01 ms, but
+// 0.11-0.17 ms in the span. The link would move the bytes in 0.011 and
+// 0.022 ms (0.59 MB to the card; 0.59 MB to it and 1.18 MB back, full
+// duplex).
+//
+// Why the write-back reads the accumulator itself. The JAX step gathers
+// the accumulator's rows with the table's before its forward and only
+// stores at its end. Ported so (a gather of both arrays in one launch and
+// a write-back that stores only), a step touches each row's pages four
+// times (table and accumulator, read and written) where this order touches
+// them three times (the table read; the accumulator read and stored by one
+// thread; the table stored): with that pair a c5_offload_train step kept
+// the card busy 1.67-1.68 ms, with these two kernels 1.43-1.48 ms
+// (bench_torch; PERF.md). A store-only write-back alone was no faster
+// than this one, so reads waiting behind posted writes are not what
+// limits it. The read and the store of an accumulator element stay in one
+// thread, so no other launch orders them.
+//
+// Design: a thread takes kPer elements a block's width apart (a warp's
+// lanes on neighbouring words of three or four rows) and starts every load
+// of them, from the state and from the card, before its first store. One,
+// two, four or eight elements a thread, or 4-byte cp.async into shared
+// memory, all took the same time to within 2%: every request of the
+// launch is in flight at once either way, and the translations are served
+// at their own rate. Fewer pages a step is what would help: table and
+// accumulator rows side by side in one page, or 2 MiB pages (PERF.md,
+// ROADMAP.md).
 //
 // Entry points are plain C and return cudaGetLastError() after the launch
 // (0 = launched), on the caller's stream and device, without synchronising.
@@ -55,19 +81,37 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 32;  // 32 blocks an SM, then stride
+constexpr int kPer = 4;                       // elements a thread
+
+// Element e of a [U, D] block lies in the state at row ids[e / D]: its
+// offset there, or -1 for an id outside [0, n_rows).
+__device__ __forceinline__ long long state_offset(
+    const int32_t* __restrict__ ids, long long e, int D, long long n_rows) {
+  const long long u = e / D;
+  const long long r = ids[u];
+  return (r >= 0 && r < n_rows) ? r * D + (e - u * D) : -1;
+}
 
 __global__ void offload_gather_kernel(const float* __restrict__ table,
                                       const int32_t* __restrict__ ids,
                                       float* __restrict__ out,
                                       long long n_rows, int D,
                                       long long total) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long u = e / D;
-    const long long c = e - u * D;
-    const long long r = ids[u];
-    out[e] = (r >= 0 && r < n_rows) ? table[r * D + c] : NAN;
+  const long long span = static_cast<long long>(blockDim.x) * kPer;
+  for (long long base = blockIdx.x * span + threadIdx.x; base < total;
+       base += gridDim.x * span) {
+    float v[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const long long e = base + static_cast<long long>(k) * blockDim.x;
+      const long long h = e < total ? state_offset(ids, e, D, n_rows) : -1;
+      v[k] = h >= 0 ? table[h] : NAN;
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const long long e = base + static_cast<long long>(k) * blockDim.x;
+      if (e < total) out[e] = v[k];
+    }
   }
 }
 
@@ -78,23 +122,36 @@ __global__ void offload_adagrad_kernel(float* __restrict__ table,
                                        const float* __restrict__ grad,
                                        float lr, long long n_rows, int D,
                                        long long total) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long u = e / D;
-    const long long c = e - u * D;
-    const long long r = ids[u];
-    if (r < 0 || r >= n_rows) continue;
-    const long long h = r * D + c;
-    const float g = grad[e];
-    const float a = __fadd_rn(acc[h], __fmul_rn(g, g));
-    acc[h] = a;
-    table[h] = __fsub_rn(rows[e], __fmul_rn(__fmul_rn(lr, g), rsqrtf(a)));
+  const long long span = static_cast<long long>(blockDim.x) * kPer;
+  for (long long base = blockIdx.x * span + threadIdx.x; base < total;
+       base += gridDim.x * span) {
+    long long h[kPer];
+    float a[kPer], g[kPer], r[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const long long e = base + static_cast<long long>(k) * blockDim.x;
+      h[k] = e < total ? state_offset(ids, e, D, n_rows) : -1;
+      a[k] = g[k] = r[k] = 0.0f;
+      if (h[k] >= 0) {
+        a[k] = acc[h[k]];
+        g[k] = grad[e];
+        r[k] = rows[e];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (h[k] < 0) continue;
+      const float an = __fadd_rn(a[k], __fmul_rn(g[k], g[k]));
+      acc[h[k]] = an;
+      table[h[k]] = __fsub_rn(r[k],
+                              __fmul_rn(__fmul_rn(lr, g[k]), rsqrtf(an)));
+    }
   }
 }
 
 int grid_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long per_block = static_cast<long long>(kThreads) * kPer;
+  const long long blocks = (total + per_block - 1) / per_block;
   return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 

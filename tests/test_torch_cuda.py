@@ -44,9 +44,10 @@ Tolerances:
   against the CPU at the step's rtol 1e-4 / atol 1e-6, both kernels
   launched once a step, and the same watermark.
 - ``lookup = host`` (csrc/offload_rows.cu on registered host memory):
-  the gather equal to its plain version to the bit; the Adagrad
-  write-back (``rsqrtf`` on the card, ``torch.rsqrt`` = 1/sqrt in the
-  CPU plain version) at rtol 1e-6 / atol 1e-7; an offload train of
+  the gather equal to its plain version to the bit (NaN rows for an id
+  outside the state); the Adagrad write-back (``rsqrtf`` on the card,
+  ``torch.rsqrt`` = 1/sqrt in the CPU plain version) at rtol 1e-6 /
+  atol 1e-7, at D 1, 9, 17 and U 1, 31, 16,384; an offload train of
   sample.cfg on the card against the CPU at the step's rtol 1e-4 /
   atol 1e-6, all four kernels launched every step; the card's peak
   allocated bytes at the batch blocks while a 151 MB table trains.
@@ -718,24 +719,35 @@ def _offload_case(seed, R=5000, D=9, U=700, pads=37):
     return [torch.from_numpy(a) for a in (table, acc, ids, grad)]
 
 
-def test_offload_kernels_match_plain_versions_on_registered_memory(card):
-    """offload_gather copies: equal to the plain version to the bit.
-    offload_adagrad (rsqrtf on the card, 1/sqrt in the CPU plain
-    version): rtol 1e-6 / atol 1e-7; the pad row stays 0."""
+@pytest.mark.parametrize("U,D", [(700, 9), (1, 1), (31, 1), (16384, 1),
+                                 (1, 9), (31, 9), (16384, 9), (1, 17),
+                                 (31, 17), (16384, 17)])
+def test_offload_kernels_match_plain_versions_on_registered_memory(card, U,
+                                                                   D):
+    """offload_gather copies: equal to the plain version to the bit, an
+    id outside [0, R) NaN in its row. offload_adagrad (rsqrtf on the
+    card, 1/sqrt in the CPU plain version): rtol 1e-6 / atol 1e-7, the
+    id outside skipped, the pad row still 0. Each launch counted once."""
     from fast_tffm_tpu_torch.ops import offload_kernel as ok
-    table, acc, ids, grad = _offload_case(21)
+    R = max(2 * U, 5000)
+    table, acc, ids, grad = _offload_case(U + D, R=R, D=D, U=U,
+                                          pads=min(37, U // 8))
     ok.register_host(table, card)
     ok.register_host(acc, card)
     assert ok.is_page_locked(table) and ok.is_page_locked(acc)
     assert ok.registered_bytes() >= 2 * table.numel() * 4
     g0, a0 = ok.gather_launches, ok.adagrad_launches
-    rows = ok.offload_gather(table, ids.to(card))
+    bad = torch.cat([ids, torch.tensor([R], dtype=torch.int32)]).to(card)
+    rows = ok.offload_gather(table, bad)
     torch.cuda.synchronize()
     assert rows.is_cuda and ok.gather_launches == g0 + 1
-    assert torch.equal(rows.cpu(), ok.offload_gather_plain(table, ids))
+    want_rows = ok.offload_gather_plain(table, ids)
+    assert torch.equal(rows[:-1].cpu(), want_rows)
+    assert rows[-1].isnan().all()
     want_t, want_a = table.clone(), acc.clone()
-    ok.offload_adagrad_plain(want_t, want_a, ids, rows.cpu(), grad, 0.1)
-    ok.offload_adagrad(table, acc, ids.to(card), rows, grad.to(card), 0.1)
+    ok.offload_adagrad_plain(want_t, want_a, ids, want_rows, grad, 0.1)
+    grad_b = torch.cat([grad, torch.full((1, D), 0.5)]).to(card)
+    ok.offload_adagrad(table, acc, bad, rows, grad_b, 0.1)
     torch.cuda.synchronize()
     assert ok.adagrad_launches == a0 + 1
     np.testing.assert_allclose(acc.numpy(), want_a.numpy(), rtol=1e-6,

@@ -14,7 +14,8 @@ package's lookup.py and numpy, on the CPU.
   rtol 1e-4 / atol 1e-6, the bound the CPU tests hold the train step to.
 - The kernels' plain versions against numpy: the gather exactly, the
   write-back at rtol 1e-6 (rsqrt against 1/sqrt), with pad slots that
-  repeat the pad row.
+  repeat the pad row, and against the JAX fused step's arithmetic
+  (``acc_rows + square(grad)``, ``rows - lr*grad*rsqrt(new_acc)``).
 - Backends built without a device ask for the card, as the entry
   points do.
 - The chunked host init: equal to ``models/fm.init_table`` from the same
@@ -25,6 +26,7 @@ package's lookup.py and numpy, on the CPU.
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -259,8 +261,12 @@ def test_offload_train_step_matches_jax(tmp_path, model, port_cls):
     assert not lk.state()[0][cfg.pad_id].any()
 
 
-@pytest.mark.parametrize("R,D,U,pads", [(64, 5, 20, 4), (5000, 9, 700, 37),
-                                        (300, 17, 1, 0)])
+@pytest.mark.parametrize("R,D,U,pads", [
+    (64, 5, 20, 4), (5000, 9, 700, 37), (300, 17, 1, 0),
+    # the card test's D 1, 9, 17 x U 1, 31, 16,384 (a step's U)
+    (64, 1, 1, 0), (64, 1, 31, 3), (40000, 1, 16384, 37), (64, 9, 1, 0),
+    (64, 9, 31, 3), (40000, 9, 16384, 37), (64, 17, 31, 3),
+    (40000, 17, 16384, 37)])
 def test_plain_versions_match_numpy(R, D, U, pads):
     rng = np.random.default_rng(R + D)
     table = rng.uniform(-0.1, 0.1, (R, D)).astype(np.float32)
@@ -282,6 +288,14 @@ def test_plain_versions_match_numpy(R, D, U, pads):
     np.testing.assert_allclose(a.numpy(), want_a, rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(t.numpy(), want_t, rtol=1e-6, atol=1e-7)
     assert not t[-1].any()
+    # The JAX package's fused step arithmetic on the same rows.
+    jax_acc = jnp.asarray(acc[ids]) + jnp.square(jnp.asarray(grad))
+    jax_rows = (jnp.asarray(table[ids])
+                - 0.05 * jnp.asarray(grad) * jax.lax.rsqrt(jax_acc))
+    np.testing.assert_allclose(a.numpy()[ids], np.asarray(jax_acc),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(t.numpy()[ids], np.asarray(jax_rows),
+                               rtol=1e-6, atol=1e-7)
 
 
 def test_wrappers_refuse_mixed_devices_and_bad_shapes():
